@@ -45,7 +45,7 @@ def setup_seamount(nx: int = 64, ny: int = 64, nz: int = 64,
 
 
 def initial_velocities(nx: int, ny: int, nz: int, dtype=torch.float64,
-                       device="cpu"):
+                       device="cuda"):
     """u = v = 0, w = -1 except the bottom face
     (mg_testseamount.f90:119-123)."""
     u = torch.zeros((nz, ny + 2, nx + 1), dtype=dtype, device=device)

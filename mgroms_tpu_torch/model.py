@@ -34,7 +34,7 @@ class NHModel:
     equation on a terrain-following ocean grid, on one torch device."""
 
     def __init__(self, nx: int, ny: int, nz: int,
-                 cfg: Optional[SolverConfig] = None, device="cpu",
+                 cfg: Optional[SolverConfig] = None, device="cuda",
                  verbose: bool = False):
         self.cfg = cfg or SolverConfig()
         check_supported(self.cfg)

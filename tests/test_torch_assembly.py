@@ -98,4 +98,4 @@ def test_unported_options_raise():
                dict(cycles_per_check=2), dict(device_loop=True),
                dict(use_pallas=True), dict(fused_bands_bf16=True)):
         with pytest.raises(NotImplementedError):
-            NHModel(16, 16, 16, cfg=TConfig(**kw))
+            NHModel(16, 16, 16, cfg=TConfig(**kw), device="cpu")

@@ -112,10 +112,10 @@ def test_seamount16_solve_runs_the_kernels(cuda):
     assert all(v > 0 for v in kt.LAUNCHES.values()), kt.LAUNCHES
     assert info.res <= 1e-11
     # the same solve on the CPU (plain versions) gives the same history
-    mc = NHModel(n, n, n, cfg=SolverConfig())
+    mc = NHModel(n, n, n, cfg=SolverConfig(), device="cpu")
     mc.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
                     theta_b=c.theta_b, theta_s=c.theta_s)
-    _, _, _, pc, ic = mc.solve(*initial_velocities(n, n, n), tol=1e-11,
-                               maxiter=12)
+    _, _, _, pc, ic = mc.solve(*initial_velocities(n, n, n, device="cpu"),
+                               tol=1e-11, maxiter=12)
     np.testing.assert_allclose(info.history, ic.history, rtol=1e-6,
                                atol=1e-15)

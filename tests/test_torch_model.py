@@ -31,7 +31,7 @@ TOL, MAXITER = 1e-11, 12
 
 
 def _port(n, cfg=None):
-    m = NHModel(n, n, n, cfg=cfg or SolverConfig())
+    m = NHModel(n, n, n, cfg=cfg or SolverConfig(), device="cpu")
     c = setup_seamount(n, n, n)
     m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
                    theta_b=c.theta_b, theta_s=c.theta_s)
@@ -53,12 +53,20 @@ def jax_run():
                 div0=float(np.abs(np.asarray(m.rhs(u, v, w))).max()))
 
 
+def test_entry_points_default_to_the_card():
+    """NHModel and initial_velocities run on the card unless the caller
+    asks for the CPU (checked on the signatures: nothing is built)."""
+    import inspect
+    for fn in (NHModel.__init__, initial_velocities):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_seamount32_history_matches_golden():
     with open(os.path.join(GOLDEN_DIR, "seamount32_history.json")) as f:
         gold = json.load(f)
     nx, ny, nz = gold["grid"]
     m = _port(nx)
-    u, v, w = initial_velocities(nx, ny, nz)
+    u, v, w = initial_velocities(nx, ny, nz, device="cpu")
     kt.reset_launches()
     p, info = m.pressure_solve(m.rhs(u, v, w), tol=1e-12, maxiter=30)
     assert info.niter == gold["niter"]
@@ -71,7 +79,7 @@ def test_seamount32_history_matches_golden():
 
 def test_solve_matches_jax(jax_run):
     m = _port(N)
-    u, v, w = initial_velocities(N, N, N)
+    u, v, w = initial_velocities(N, N, N, device="cpu")
     uc, vc, wc, p, info = m.solve(u, v, w, tol=TOL, maxiter=MAXITER)
     assert info.niter == jax_run["info"].niter
     np.testing.assert_allclose(np.array(info.history),
@@ -102,9 +110,9 @@ def test_solve_on_jax_assembled_operators(jax_run):
                                         "rblocks")}, pk.real_matrix)
              for lev, pk in enumerate(jpacks)]
     assert any(pk is not None for pk in packs)
-    m = NHModel(N, N, N, cfg=SolverConfig())
+    m = NHModel(N, N, N, cfg=SolverConfig(), device="cpu")
     m.use_operators(ops, metrics, packs=packs)
-    u, v, w = initial_velocities(N, N, N)
+    u, v, w = initial_velocities(N, N, N, device="cpu")
     p, info = m.pressure_solve(m.rhs(u, v, w), tol=TOL, maxiter=MAXITER)
     assert info.niter == jax_run["info"].niter
     np.testing.assert_allclose(np.array(info.history),
