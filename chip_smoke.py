@@ -5,9 +5,17 @@
 Phases (any failed check raises, so the exit code is non-zero):
 
 1. Build the CUDA kernels from mgroms_tpu_torch/csrc/ and hold each one to
-   its plain torch version on the card, in float32 at the CUC level-0 quad
-   shape (64, 512, 512) and at a ragged shape, plus K1 once in float64;
-   time each against its plain version (CUDA events, median of 20).
+   its plain torch version on the card, with the max ulp printed:
+   K1-K3 in float32 at the CUC level-0 quad shape (64, 512, 512) and at a
+   ragged shape, plus K1 once in float64; K5 at the CUC level-0 shape
+   (64, 1024, 1024), at a ragged shape and once in float64; K6 in its
+   one-launch form with 40 sweeps at the coarsest levels of CUC
+   (2, 32, 32) and seamount (4, 4, 4), at a ragged (3, 5, 7) and once in
+   float64, and in its per-colour-step form with 3 sweeps at (64, 64, 64)
+   and at the CUC level-0 shape.  Time each against its plain version
+   (CUDA events, median of 20) beside its bound: the larger of its bytes (each input read once, each
+   output written once) over 3.35 TB/s and its operations over the
+   float32 peak of 67 TFLOP/s.
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -19,14 +27,28 @@ Phases (any failed check raises, so the exit code is non-zero):
    F-cycles, interior max|div| cut >= 100x, whole-grid ratio <= 2.5e-2
    (its wall-ring remnant grows with resolution, see below), every kernel
    launched (counted in this run only).
+5. Seamount 64^3 with use_pallas=True: K6 on the coarsest level, one
+   launch per call.
+6. CUC 1024^2 x 64 with use_pallas=True: the same.
+7. CUC 1024^2 x 64 with use_pallas=True, compact=False: every level in
+   full layout, K6 does all relaxation (one launch per call on the
+   coarsest level, one per colour step above) and K5 the residual on the
+   levels at least 256 wide; K1-K3 are not launched.
 
-Phases 2 and 4 also trace one F-cycle with torch.profiler (device
+Phases 5-7 run in float32 and hold their history to the matching default
+phase's (2 or 4) within rel 1e-6 (1e-3 with compact=False, whose sums
+round in another order), reach <= 1e-4 within the same cycle limits, meet
+the same max|div| limits, and launch every kernel of their path.
+
+Phases 2 and 4-7 also trace one F-cycle with torch.profiler (device
 activity only): device ops, device busy time against the same traced
 step's wall time (the idle share), and the top device ops.
 
-The line before last is a JSON object with each kernel's launches in
-phase 4, its error against the plain version and both times; the last
-line is {"ok": true, "device": {...}}.
+The line before last is a JSON object with, for each kernel, its launches
+in the phase that is its path (4 for K1-K3, 6 for K6's one-launch form, 7
+for K5 and K6's per-colour-step form), its error against the plain
+version, both times and its bound; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,19 +67,61 @@ import torch
 from mgroms_tpu_torch import NHModel, SolverConfig
 from mgroms_tpu_torch.cases.cuc import setup_cuc_synthetic
 from mgroms_tpu_torch.cases.seamount import initial_velocities, setup_seamount
+from mgroms_tpu_torch.bc import extend_h1
 from mgroms_tpu_torch.ops import relax_compact as rc
 from mgroms_tpu_torch.ops.kernels import _build
+from mgroms_tpu_torch.ops.kernels import relax_fused as kf
 from mgroms_tpu_torch.ops.kernels import relax_tiled as kt
+from mgroms_tpu_torch.ops.kernels import stencil_tiled as ks
 from mgroms_tpu_torch.solver import solve_init, solve_step
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "mgroms_tpu_torch/csrc/relax_tiled.cu"
-REPLACES = {
-    "color_update": "mgroms_tpu/ops/pallas/relax_tiled.py:147",
-    "color_update_emit": "mgroms_tpu/ops/pallas/relax_tiled.py:247",
-    "rr_zsum": "mgroms_tpu/ops/pallas/relax_tiled.py:340",
+CSRC = "mgroms_tpu_torch/csrc/"
+# kernel -> (source, the TPU kernel it replaces, the phase that is its path)
+KERNELS = {
+    "color_update": ("relax_tiled.cu",
+                     "mgroms_tpu/ops/pallas/relax_tiled.py:147", 4),
+    "color_update_emit": ("relax_tiled.cu",
+                          "mgroms_tpu/ops/pallas/relax_tiled.py:247", 4),
+    "rr_zsum": ("relax_tiled.cu", "mgroms_tpu/ops/pallas/relax_tiled.py:340",
+                4),
+    "residual_tiled": ("stencil_tiled.cu",
+                       "mgroms_tpu/ops/pallas/stencil_tiled.py:75", 7),
+    "fused_relax": ("relax_fused.cu",
+                    "mgroms_tpu/ops/pallas/relax_fused.py:99", 6),
+    "fused_relax_step": ("relax_fused.cu",
+                         "mgroms_tpu/ops/pallas/relax_fused.py:99", 7),
 }
 REL_TOL = 1e-6
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM (on-chip-measurement guide)
+F32_FLOPS = 67e12                # float32 outside the tensor cores
+
+
+def launches() -> dict:
+    return {**kt.LAUNCHES, **ks.LAUNCHES, **kf.LAUNCHES}
+
+
+def reset_launches() -> None:
+    for mod in (kt, ks, kf):
+        mod.reset_launches()
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(nbytes_, flops):
+    """The least time the card could take: (ms, what bounds it)."""
+    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_ulp(got, want) -> float:
+    """max |got - want| in units of the spacing of float at |want|."""
+    a = want.abs()
+    spacing = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return float(((got - want).abs() / spacing).max())
 
 
 def check(cond, msg):
@@ -99,83 +163,164 @@ def kernel_inputs(nz, H, W, dtype, dev, seed):
 
 
 def kernel_calls(pack, e, bq, t=(0, 1)):
-    """(kernel, plain) call pairs of K1, K2, K3 on target quad ``t``."""
+    """(kernel, plain, residual scale, bytes, flops) of K1, K2, K3 on
+    target quad ``t``.  Bytes: every input read once, every output written
+    once.  Flops per point: the 12-term gather (23), the RHS (1) and the
+    Thomas substitution (6), plus the 8 plane-0 'real' flops per column;
+    K2 adds the 7-flop residual, K3 is the 30-flop residual and the
+    z-pair sum."""
     m = rc._TKEYS.index(t)
     rb = pack.rblocks[m]
     e3 = tuple(e[k] for k in kt.gather_quads(t))
     e4 = tuple(e[k] for k in rc._TKEYS)
     f = (pack.blocks[m], pack.ud[m], pack.bet[m])
     scale = float(bq[t].abs().max())
+    n = bq[t].numel()
+    col = n // bq[t].shape[0]
+    k1_bytes = nbytes(*e3, bq[t], *f, rb, bq[t])
     return {
         "color_update": (
             lambda: kt.color_update(e3, bq[t], *f, t, True, rb),
-            lambda: kt.color_update_plain(e3, bq[t], *f, t, True, rb), None),
+            lambda: kt.color_update_plain(e3, bq[t], *f, t, True, rb), None,
+            k1_bytes, 30 * n + 8 * col),
         "color_update_emit": (
             lambda: kt.color_update_emit(e3, bq[t], *f, pack.d[m], t, True,
                                          rb),
             lambda: kt.color_update_emit_plain(e3, bq[t], *f, pack.d[m], t,
-                                               True, rb), scale),
+                                               True, rb), scale,
+            k1_bytes + nbytes(pack.d[m], bq[t]), 37 * n + 8 * col),
         "rr_zsum": (
             lambda: kt.rr_zsum(e4, bq[t], pack.blocks[m], pack.d[m],
                                pack.ud[m], t, True, rb),
             lambda: kt.rr_zsum_plain(e4, bq[t], pack.blocks[m], pack.d[m],
-                                     pack.ud[m], t, True, rb), scale),
+                                     pack.ud[m], t, True, rb), scale,
+            nbytes(*e4, bq[t], pack.blocks[m], pack.d[m], pack.ud[m], rb)
+            + nbytes(bq[t]) // 2, 30 * n + n // 2 + 8 * col),
     }
 
 
 def compare(name, got, want, res_scale):
-    """max |kernel - plain| and the bound it is held to: 1e-6 x max|plain|
-    for solutions, 1e-6 x max|bq| for residual outputs (a cancellation)."""
+    """max |kernel - plain| and max ulp, held to 1e-6 x max|plain| for
+    solutions, 1e-6 x max|b| for residual outputs (a cancellation)."""
     if isinstance(got, tuple):       # emit: (solution, raw residual)
         err_s = float((got[0] - want[0]).abs().max())
         err_r = float((got[1] - want[1]).abs().max())
         check(err_s <= REL_TOL * float(want[0].abs().max()),
               f"{name} solution off by {err_s}")
         check(err_r <= REL_TOL * res_scale, f"{name} residual off by {err_r}")
-        return max(err_s, err_r)
+        return (max(err_s, err_r),
+                max(max_ulp(got[0], want[0]), max_ulp(got[1], want[1])))
     err = float((got - want).abs().max())
-    bound = REL_TOL * (res_scale or float(want.abs().max()))
-    check(err <= bound, f"{name} off by {err} (bound {bound})")
-    return err
+    limit = REL_TOL * (res_scale or float(want.abs().max()))
+    check(err <= limit, f"{name} off by {err} (limit {limit})")
+    return err, max_ulp(got, want)
+
+
+def hold(results, name, shape, dtype, kern, plain, res_scale, nbytes_,
+         flops, timed):
+    """Hold one kernel call to its plain version; with ``timed`` also time
+    both and keep the numbers under ``name`` in ``results``."""
+    err, ulp = compare(name, kern(), plain(), res_scale)
+    torch.cuda.synchronize()
+    print(f"kernel {name:18s} {str(shape):17s} {str(dtype):14s} "
+          f"max|kernel-plain| = {err:.3e} ({ulp:g} ulp)")
+    if not timed:
+        return
+    ms = median_ms(kern)
+    plain_ms = median_ms(plain)
+    bound_ms, bound_by = bound(nbytes_, flops)
+    if timed == "json":
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
+    print(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes_ / 1e9:.4f} GB, "
+          f"{flops / 1e9:.4f} GFLOP)")
 
 
 def kernel_phase(dev):
     results = {}
-    for shape, dtype, timed in (((6, 5, 7), torch.float32, False),
-                                ((6, 5, 7), torch.float64, False),
-                                ((64, 512, 512), torch.float32, True),
-                                ((64, 512, 512), torch.float64, False)):
+    for shape, dtype, timed in (((6, 5, 7), torch.float32, None),
+                                ((6, 5, 7), torch.float64, None),
+                                ((64, 512, 512), torch.float32, "json"),
+                                ((64, 512, 512), torch.float64, None)):
         pack, e, bq = kernel_inputs(*shape, dtype, dev, seed=sum(shape))
         calls = kernel_calls(pack, e, bq)
         if dtype == torch.float64:           # K1 once in f64
             calls = {"color_update": calls["color_update"]}
-        for name, (kern, plain, res_scale) in calls.items():
-            err = compare(name, kern(), plain(), res_scale)
-            torch.cuda.synchronize()
-            print(f"kernel {name:18s} {str(shape):15s} {str(dtype):14s} "
-                  f"max|kernel-plain| = {err:.3e}")
-            if timed:
-                ms = median_ms(kern)
-                plain_ms = median_ms(plain)
-                results[name] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms)
-                print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                      f"ms (median of 20)")
+        for name, call in calls.items():
+            hold(results, name, shape, dtype, *call, timed)
         del pack, e, bq, calls
         torch.cuda.empty_cache()
+    full_layout_kernels(dev, results)
     return results
+
+
+def full_inputs(nz, ny, nx, dtype, dev, seed):
+    """Random bands with a dominant diagonal (a well-conditioned Thomas
+    solve), state and RHS of a full-layout level, made on the card from a
+    seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *s: torch.rand(s, generator=g, device=dev, dtype=dtype)
+    cA = 0.2 * u(8, nz, ny + 2, nx + 2) - 0.1
+    cA[0] -= 4.0
+    return cA, 2 * u(nz, ny, nx) - 1, 2 * u(nz, ny, nx) - 1
+
+
+# (kernel, shape, dtype, sweeps, timed): "json" times the shape the main
+# path gives the kernel (CUC), "print" times another path's shape
+FULL_LAYOUT_CASES = [
+    ("residual_tiled", (64, 1024, 1024), torch.float32, None, "json"),
+    ("residual_tiled", (3, 5, 7), torch.float32, None, None),
+    ("residual_tiled", (8, 16, 33), torch.float64, None, None),
+    ("fused_relax", (2, 32, 32), torch.float32, 40, "json"),
+    ("fused_relax", (4, 4, 4), torch.float32, 40, "print"),
+    ("fused_relax", (3, 5, 7), torch.float32, 3, None),
+    ("fused_relax", (2, 32, 32), torch.float64, 40, None),
+    ("fused_relax_step", (64, 64, 64), torch.float32, 3, "print"),
+    ("fused_relax_step", (64, 1024, 1024), torch.float32, 3, "json"),
+]
+
+
+def full_layout_kernels(dev, results):
+    """K5 and K6 against their plain versions.  Flops per point: K5 the
+    30-flop residual; K6 per sweep the gather (23), RHS (1), the Thomas
+    recurrence with its two divisions (7 forward, 2 back) and the commit
+    (2); both add 8 plane-0 'real' flops per column (per sweep for K6)."""
+    for name, shape, dtype, ns, timed in FULL_LAYOUT_CASES:
+        nz, ny, nx = shape
+        cA, p, b = full_inputs(*shape, dtype, dev, seed=sum(shape))
+        col = ny * nx
+        if name == "residual_tiled":
+            pe = extend_h1(p).contiguous()
+            kern = lambda: ks.residual_tiled(pe, b, cA, True)
+            plain = lambda: ks.residual_tiled_plain(pe, b, cA, True)
+            res_scale = float(b.abs().max())
+            cost = (nbytes(pe, b, cA, b), 30 * p.numel() + 8 * col)
+        else:
+            check(("fused_relax_step", "fused_relax")[kf.one_block(p)]
+                  == name, f"{shape} {dtype} does not take {name}")
+            kern = lambda: kf.fused_relax(p, b, cA, ns, "RB", True)
+            plain = lambda: kf.fused_relax_plain(p, b, cA, ns, "RB", True)
+            res_scale = None
+            cost = (nbytes(p, b, cA, p), ns * (35 * p.numel() + 8 * col))
+        hold(results, name, shape, dtype, kern, plain, res_scale, *cost,
+             timed)
+        del cA, p, b, kern, plain
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------- slice phases
 
-def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter):
+def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, **cfg):
     """The user's path: NHModel -> set_matrices -> solve ->
-    check_nondivergence.  Returns the model, SolveInfo, the max|div| ratios
-    after/before over the whole grid and over the interior (the 2-cell wall
-    ring excluded), set-up seconds and peak device memory."""
+    check_nondivergence, with ``SolverConfig(dtype=dtype, **cfg)``.
+    Returns the model, SolveInfo, the max|div| ratios after/before over the
+    whole grid and over the interior (the 2-cell wall ring excluded),
+    set-up seconds and peak device memory."""
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    m = NHModel(nx, ny, nz, cfg=SolverConfig(dtype=dtype), device=dev)
+    m = NHModel(nx, ny, nz, cfg=SolverConfig(dtype=dtype, **cfg), device=dev)
     m.set_matrices(case.dx, case.dy, case.zeta, case.h, hc=case.hc,
                    theta_b=case.theta_b, theta_s=case.theta_s)
     torch.cuda.synchronize(dev)
@@ -254,6 +399,51 @@ def profile_fcycle(m, top=8):
         print(f"    {us / 1e3:10.3f} ms {n:7d}x  {name[:90]}")
 
 
+def pallas_phase(title, grid, case, dev, maxiter, ref, rtol, div_limits, cfg,
+                 idle):
+    """One use_pallas phase (float32) at the case's full size: history
+    against the default phase's ``ref`` within ``rtol``, <= 1e-4 within
+    ``maxiter`` cycles, the whole-grid and interior max|div| ratios within
+    ``div_limits``, every kernel of the path launched and those of
+    ``idle`` not, K6's one-launch form once per coarsest relax (L per
+    F-cycle) and K5 7 times per F-cycle plus once in solve_init where the
+    path has it.  Returns the launch counts."""
+    print(f"== {title}")
+    t0 = time.perf_counter()
+    nx, ny, nz = grid
+    reset_launches()
+    m, info, ratio, inner, _, _ = run_model(nx, ny, nz, case, "float32",
+                                            dev, tol=1e-4, maxiter=maxiter,
+                                            **cfg)
+    counts = launches()
+    print(f"  launches {counts}")
+    n = min(len(info.history), len(ref))
+    dev_rel = max(abs(a / b - 1) for a, b in zip(info.history[:n], ref[:n]))
+    print(f"  history vs the default phase: max rel deviation {dev_rel:.3e} "
+          f"over {n} entries (limit {rtol:g})")
+    check(dev_rel <= rtol, f"history {info.history} vs default {ref}")
+    check(info.res <= 1e-4 and info.niter <= maxiter,
+          f"{info.res} after {info.niter} cycles")
+    check(ratio <= div_limits[0] and inner <= div_limits[1],
+          f"max|div| cut only to {ratio} (interior {inner})")
+    busy = [k for k in counts if k not in idle]
+    check(all(counts[k] > 0 for k in busy)
+          and all(counts[k] == 0 for k in idle), f"launches {counts}")
+    L = len(m.levels)
+    check(counts["fused_relax"] == L * info.niter,
+          f"K6 one-launch form {counts['fused_relax']} times, expected "
+          f"{L} per F-cycle")
+    if "residual_tiled" in busy:
+        check(counts["residual_tiled"] == 7 * info.niter + 1,
+              f"K5 {counts['residual_tiled']} times")
+    print(f"  F-cycle median {fcycle_ms(m):.3f} ms")
+    profile_fcycle(m)
+    del m
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -277,15 +467,17 @@ def main() -> int:
     kres = kernel_phase(dev)
 
     print("== phase 2: seamount 64^3 float32")
+    case_seamount = setup_seamount(64, 64, 64)
     with open(os.path.join(HERE, "tests", "goldens",
                            "seamount64_history.json")) as f:
         gold64 = json.load(f)["history"]
-    case = setup_seamount(64, 64, 64)
-    kt.reset_launches()
-    m, info, ratio, inner, _, _ = run_model(64, 64, 64, case, "float32",
-                                            dev, tol=1e-4, maxiter=6)
+    reset_launches()
+    m, info, ratio, inner, _, _ = run_model(64, 64, 64, case_seamount,
+                                            "float32", dev, tol=1e-4,
+                                            maxiter=6)
     counts = dict(kt.LAUNCHES)
-    print(f"  launches {counts}")
+    print(f"  launches {launches()}")
+    seamount_history = info.history
     check(abs(info.history[1] / gold64[1] - 1) <= 0.02,
           f"first cycle {info.history[1]} vs golden {gold64[1]}")
     check(info.res <= 1e-4 and info.niter <= 3,
@@ -310,11 +502,12 @@ def main() -> int:
 
     print("== phase 4: CUC 1024^2 x 64 float32 (main path)")
     case = setup_cuc_synthetic(1024, 1024, 64)
-    kt.reset_launches()
+    reset_launches()
     m, info, ratio, inner, setup_s, peak = run_model(
         1024, 1024, 64, case, "float32", dev, tol=1e-4, maxiter=8)
     counts = dict(kt.LAUNCHES)
-    print(f"  launches {counts}")
+    print(f"  launches {launches()}")
+    cuc_history = info.history
     check(info.res <= 1e-4, f"CUC: {info.res} after {info.niter} cycles")
     check(all(c > 0 for c in counts.values()), f"a kernel idle: {counts}")
     # the whole-grid max sits on the wall ring, whose remnant is a property
@@ -327,11 +520,33 @@ def main() -> int:
     check(ratio <= 2.5e-2, f"CUC whole-grid max|div| cut only to {ratio}")
     print(f"  F-cycle median {fcycle_ms(m):.3f} ms")
     profile_fcycle(m)
+    del m
+    torch.cuda.empty_cache()
+    phase_counts = {4: counts}
 
+    phase_counts[5] = pallas_phase(
+        "phase 5: seamount 64^3 float32, use_pallas=True", (64, 64, 64),
+        case_seamount, dev, maxiter=3, ref=seamount_history, rtol=1e-6,
+        div_limits=(1e-2, 1e-2), cfg=dict(use_pallas=True),
+        idle=("fused_relax_step", "residual_tiled"))
+    phase_counts[6] = pallas_phase(
+        "phase 6: CUC 1024^2 x 64 float32, use_pallas=True",
+        (1024, 1024, 64), case, dev, maxiter=8, ref=cuc_history, rtol=1e-6, div_limits=(2.5e-2, 1e-2),
+        cfg=dict(use_pallas=True),
+        idle=("fused_relax_step", "residual_tiled"))
+    phase_counts[7] = pallas_phase(
+        "phase 7: CUC 1024^2 x 64 float32, use_pallas=True, compact=False",
+        (1024, 1024, 64), case, dev, maxiter=8, ref=cuc_history, rtol=1e-3,
+        div_limits=(2.5e-2, 1e-2), cfg=dict(use_pallas=True, compact=False),
+        idle=("color_update", "color_update_emit", "rr_zsum"))
+
+    for name, (src, _, phase) in KERNELS.items():
+        print(f"  {name}: {phase_counts[phase][name]} launches in phase "
+              f"{phase}, source {src}")
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCE,
-             replaces=REPLACES[name], launches=counts[name],
-             **kres[name]) for name in REPLACES]}))
+        dict(name=name, route="cuda", source=CSRC + src, replaces=replaces,
+             launches=phase_counts[phase][name], **kres[name])
+        for name, (src, replaces, phase) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

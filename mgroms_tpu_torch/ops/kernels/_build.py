@@ -1,10 +1,12 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``), and the
+checks their wrappers share.
 
-``nvcc`` compiles the source into a shared library with a plain C
-interface, at first use, into ``build/mgroms_tpu_torch/`` at the root of
-the checkout; the file name carries a hash of the source and the flags, so
-an edited source is rebuilt.  The library is loaded with ``ctypes``.
-Nothing here runs at import: the CPU-only test host has no ``nvcc``.
+``nvcc`` compiles every source into an object, all at once, then links
+them into one shared library with a plain C interface, at first use, into
+``build/mgroms_tpu_torch/`` at the root of the checkout; the file name
+carries a hash of every source (headers included) and of the flags, so an
+edited source is rebuilt.  The library is loaded with ``ctypes``.  Nothing
+here runs at import: the CPU-only test host has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -18,15 +20,19 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "relax_tiled.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mgroms_tpu_torch"
 
 # -fmad=false: products and sums round separately, like the plain torch
-# versions, so the kernels agree with them to 0 ulp
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+# versions, so the kernels agree with them to 0 ulp (no --use_fast_math:
+# divisions stay IEEE, as in the plain versions)
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas",
+                 "-v"]
+LINK_FLAGS = ["-shared"]
 
 
 class BuildInfo:
@@ -63,7 +69,34 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # e0 e1 e2 e3 blocks rb d ud bq out | nz H W real own | terms stream
         fn.argtypes = [p] * 10 + [i] * 5 + [p, p]
         fn.restype = i
+        fn = getattr(lib, f"mg_relax_fused_{dt}")
+        # p b cA out buf gam | nz ny nx real nsweeps one_block | stream
+        fn.argtypes = [p] * 6 + [i] * 6 + [p]
+        fn.restype = i
+        fn = getattr(lib, f"mg_residual_{dt}")
+        # pe b cA r | nz ny nx real | stream
+        fn.argtypes = [p] * 4 + [i] * 4 + [p]
+        fn.restype = i
     return lib
+
+
+def _compile(sources, tmpdir: str) -> list:
+    """One nvcc per source, all started together; the objects' paths."""
+    procs = []
+    for src in sources:
+        obj = os.path.join(tmpdir, src.stem + ".o")
+        procs.append((obj, subprocess.Popen(
+            [_nvcc(), *COMPILE_FLAGS, "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    objs, failed = [], False
+    for (obj, proc), src in zip(procs, sources):
+        out, _ = proc.communicate()
+        BuildInfo.log += f"[{src.name}]\n{out}"
+        failed |= proc.returncode != 0
+        objs.append(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{BuildInfo.log}")
+    return objs
 
 
 def load() -> ctypes.CDLL:
@@ -71,24 +104,65 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"relax_tiled_{tag}.so"
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for f in sorted(f for f in CSRC.iterdir() if f.is_file()):
+        h.update(f.name.encode() + f.read_bytes())
+    so = BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
+        BuildInfo.log = ""
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = _compile(sources, tmp)
+            out = os.path.join(tmp, "kernels.so")
+            proc = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", out, *objs],
+                                  capture_output=True, text=True)
+            BuildInfo.log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):"
+                                   f"\n{BuildInfo.log}")
+            # atomic: a concurrent build never sees a torn file
+            os.replace(out, so)
         BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{BuildInfo.log}")
-        # atomic: a concurrent build never sees a torn file
-        os.replace(tmp, so)
     BuildInfo.path = str(so)
     _lib = _declare(ctypes.CDLL(str(so)))
     return _lib
+
+
+# ------------------------------------------------- checks of the wrappers
+
+def on_cpu(x: torch.Tensor) -> bool:
+    """True for a CPU tensor (the wrapper runs its plain version); False
+    for a CUDA tensor (it launches its kernel); raises otherwise."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return False
+
+
+def check_tensors(named: dict, shapes: dict, dtype, device) -> None:
+    """Every tensor of ``named`` is contiguous, of ``dtype`` on ``device``
+    and of the shape ``shapes`` gives it."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernels take float32/float64, got {dtype}")
+    for name, t in named.items():
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                             f"{dtype} on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{shapes[name]}")
+
+
+def ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` from a kernel entry."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -1,0 +1,86 @@
+"""K6: masked red-black line smoothing of a whole full-layout level, its
+hand-written CUDA kernel and its plain torch version.
+
+Port of ``mgroms_tpu/ops/pallas/relax_fused.py:fused_relax`` (RB only).
+The kernel (``csrc/relax_fused.cu``) has two forms, chosen by the level's
+size:
+
+  ``fused_relax``       one launch per call, the level in one block's
+                        shared memory (levels whose four fields fit
+                        ``ONE_BLOCK_BYTES``: the coarsest level of every
+                        cell);
+  ``fused_relax_step``  one launch per colour step (larger levels).
+
+``LAUNCHES`` counts the kernel launches of each form.  The wrapper runs
+the plain version for tensors on the CPU only; for a CUDA tensor it checks
+device, dtype, shape and contiguity, launches the kernel or raises.  The
+TPU's VMEM gate (``fits_vmem``) has no counterpart: the kernel takes any
+level.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...bc import extend_h1
+from .. import relax as relax_ops
+from . import _build
+from ._build import check_launch, check_tensors, on_cpu, ptr
+
+LAUNCHES = {"fused_relax": 0, "fused_relax_step": 0}
+
+# shared memory of the one-block form: two state buffers, b and the Thomas
+# multipliers (the H100 gives a block up to 227 KB)
+ONE_BLOCK_BYTES = 160 * 1024
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def one_block(p: torch.Tensor) -> bool:
+    """Whether a level of ``p``'s shape and dtype runs in one launch."""
+    return 4 * p.numel() * p.element_size() <= ONE_BLOCK_BYTES
+
+
+def fused_relax_plain(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
+    """``nsweeps`` masked sweeps, colour 0 first (ops/relax.relax with the
+    edge-copy halo)."""
+    return relax_ops.relax(p, b, cA, nsweeps, kind, real_matrix,
+                           extend_fn=extend_h1)
+
+
+def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
+    """``nsweeps`` RB line-relaxation sweeps of a whole level (K6): ``p``,
+    ``b`` interior (nz, ny, nx), ``cA`` extended (8, nz, ny+2, nx+2), the
+    physical boundary on every side.  Returns the new ``p``; the inputs are
+    not written."""
+    if kind != "RB":
+        raise NotImplementedError(
+            f"fused_relax kind={kind!r} is not ported (RB only)")
+    if on_cpu(p):
+        return fused_relax_plain(p, b, cA, nsweeps, kind, real_matrix)
+    nz, ny, nx = p.shape
+    check_tensors({"p": p, "b": b, "cA": cA},
+                  {"p": (nz, ny, nx), "b": (nz, ny, nx),
+                   "cA": (8, nz, ny + 2, nx + 2)}, p.dtype, p.device)
+    if nsweeps <= 0:
+        return p
+    single = one_block(p)
+    out = torch.empty_like(p)
+    buf = None if single else torch.empty_like(p)
+    gam = None if single else torch.empty_like(p)
+    lib = _build.load()
+    fn = (lib.mg_relax_fused_f32 if p.dtype == torch.float32
+          else lib.mg_relax_fused_f64)
+    with torch.cuda.device(p.device):
+        rc = fn(ptr(p), ptr(b), ptr(cA), ptr(out), ptr(buf), ptr(gam), nz,
+                ny, nx, int(real_matrix), nsweeps, int(single),
+                torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "fused_relax")
+    if single:
+        LAUNCHES["fused_relax"] += 1
+    else:
+        LAUNCHES["fused_relax_step"] += 2 * nsweeps
+    return out

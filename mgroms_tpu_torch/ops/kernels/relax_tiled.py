@@ -24,6 +24,7 @@ import torch
 
 from ..relax import thomas_factored_unrolled
 from . import _build
+from ._build import check_launch, check_tensors, on_cpu, ptr
 from ..relax_compact import (_BASE_TERMS, _RB_TARGETS, _REAL_TERMS, _TKEYS,
                              CompactPack, _residual_one_core, extend_quads,
                              gather_blocks, gather_keys,
@@ -111,28 +112,6 @@ def rr_zsum_plain(e4, bq, blocks_w, d, ud, target, real_matrix, rb=None):
 
 # ------------------------------------------------------------- wrappers
 
-def _on_cpu(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return False
-
-
-def _check(named: dict, shapes: dict, dtype, device) -> None:
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernels take float32/float64, got {dtype}")
-    for name, t in named.items():
-        if t.device != device or t.dtype != dtype:
-            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
-                             f"{dtype} on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{shapes[name]}")
-
-
 def _shapes(nz, H, W, real_matrix) -> dict:
     s = {"e": (nz, H + 2, W + 2), "bq": (nz, H, W), "d": (nz, H, W),
          "bet": (nz, H, W), "ud": (nz - 1, H, W),
@@ -151,10 +130,6 @@ def _geometry(bq, real_matrix, rb):
     return nz, H, W
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _launch_color_update(e3, bq, blocks_w, ud, bet, d, target, real_matrix,
                          rb, emit):
     nz, H, W = _geometry(bq, real_matrix, rb)
@@ -166,7 +141,7 @@ def _launch_color_update(e3, bq, blocks_w, ud, bet, d, target, real_matrix,
         named["d"] = d
     if real_matrix:
         named["rb"] = rb
-    _check(named, sh, bq.dtype, bq.device)
+    check_tensors(named, sh, bq.dtype, bq.device)
     out = torch.empty_like(bq)
     res = torch.empty_like(bq) if emit else None
     lib = _build.load()
@@ -174,13 +149,11 @@ def _launch_color_update(e3, bq, blocks_w, ud, bet, d, target, real_matrix,
           else lib.mg_color_update_f64)
     tt = _terms(target, gather_quads(target))
     with torch.cuda.device(bq.device):
-        rc = fn(*(_ptr(x) for x in e3), _ptr(blocks_w), _ptr(rb), _ptr(ud),
-                _ptr(bet), _ptr(bq), _ptr(d if emit else None), _ptr(out),
-                _ptr(res), nz, H, W, int(real_matrix), int(emit),
+        rc = fn(*(ptr(x) for x in e3), ptr(blocks_w), ptr(rb), ptr(ud),
+                ptr(bet), ptr(bq), ptr(d if emit else None), ptr(out),
+                ptr(res), nz, H, W, int(real_matrix), int(emit),
                 ctypes.addressof(tt), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"color_update kernel launch failed: CUDA error "
-                           f"{rc}")
+    check_launch(rc, "color_update")
     return out, res
 
 
@@ -190,7 +163,7 @@ def color_update(e3, bq, blocks_w, ud, bet, target, real_matrix, rb=None):
     target's RHS (nz, H, W); ``blocks_w`` (nz, H, 12W), ``ud``
     (nz-1, H, W), ``bet`` (nz, H, W), ``rb`` (1, H, 2W) the target's pack
     fields.  Returns the new quad."""
-    if _on_cpu(bq):
+    if on_cpu(bq):
         return color_update_plain(e3, bq, blocks_w, ud, bet, target,
                                   real_matrix, rb)
     out, _ = _launch_color_update(e3, bq, blocks_w, ud, bet, None, target,
@@ -203,7 +176,7 @@ def color_update_emit(e3, bq, blocks_w, ud, bet, d, target, real_matrix,
                       rb=None):
     """:func:`color_update` that also returns the raw residual of the
     updated target from its own gather (K2): ``(new quad, residual)``."""
-    if _on_cpu(bq):
+    if on_cpu(bq):
         return color_update_emit_plain(e3, bq, blocks_w, ud, bet, d, target,
                                        real_matrix, rb)
     out, res = _launch_color_update(e3, bq, blocks_w, ud, bet, d, target,
@@ -215,7 +188,7 @@ def color_update_emit(e3, bq, blocks_w, ud, bet, d, target, real_matrix,
 def rr_zsum(e4, bq, blocks_w, d, ud, target, real_matrix, rb=None):
     """Fresh residual of one target quad as z-pair sums (K3): ``e4`` the
     4 extended quads in ``_TKEYS`` order.  Returns (nz/2, H, W)."""
-    if _on_cpu(bq):
+    if on_cpu(bq):
         return rr_zsum_plain(e4, bq, blocks_w, d, ud, target, real_matrix,
                              rb)
     nz, H, W = _geometry(bq, real_matrix, rb)
@@ -227,19 +200,18 @@ def rr_zsum(e4, bq, blocks_w, d, ud, target, real_matrix, rb=None):
     sh.update({f"e{i}": sh["e"] for i in range(4)})
     if real_matrix:
         named["rb"] = rb
-    _check(named, sh, bq.dtype, bq.device)
+    check_tensors(named, sh, bq.dtype, bq.device)
     out = bq.new_empty((nz // 2, H, W))
     lib = _build.load()
     fn = lib.mg_rr_zsum_f32 if bq.dtype == torch.float32 \
         else lib.mg_rr_zsum_f64
     tt = _terms(target, _TKEYS)
     with torch.cuda.device(bq.device):
-        rc = fn(*(_ptr(x) for x in e4), _ptr(blocks_w), _ptr(rb), _ptr(d),
-                _ptr(ud), _ptr(bq), _ptr(out), nz, H, W, int(real_matrix),
+        rc = fn(*(ptr(x) for x in e4), ptr(blocks_w), ptr(rb), ptr(d),
+                ptr(ud), ptr(bq), ptr(out), nz, H, W, int(real_matrix),
                 _TKEYS.index(tuple(target)), ctypes.addressof(tt),
                 torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"rr_zsum kernel launch failed: CUDA error {rc}")
+    check_launch(rc, "rr_zsum")
     LAUNCHES["rr_zsum"] += 1
     return out
 

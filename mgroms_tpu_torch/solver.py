@@ -9,13 +9,29 @@ Every non-coarsest level with even ny, nx keeps its state in quad-parity
 layout (``QuadField``) — the rule the JAX package applies on the CPU
 (``compact_eligible``), here on every device.  On those levels all
 smoothing and every down-leg residual go through the three kernels of
-ops/kernels/relax_tiled.py (their plain versions on the CPU); the
-coarsest level runs the masked relax of ops/relax.py.  The glue between
-kernels (quad halo extension, the emitted-residual patch, restriction,
-prolongation) is plain torch.
+ops/kernels/relax_tiled.py (their plain versions on the CPU).  The other
+levels (the coarsest, or every level with ``compact=False``) are held in
+full layout:
 
-The TPU scheduling fields of :class:`SolverConfig` (``pallas_tiled``,
-``pallas_tiled_relax``, ``pallas_fused_sweep``, ``fused_sweep_chunks``,
+- relax: with ``use_pallas`` the K6 kernel (ops/kernels/relax_fused.py,
+  :meth:`SingleDeviceBackend._use_pallas`), else the masked relax of
+  ops/relax.py;
+- residual: on levels at least 256 wide with ``pallas_tiled`` the K5
+  kernel (ops/kernels/stencil_tiled.py,
+  :meth:`SingleDeviceBackend._use_tiled`), else ops/stencil.residual.
+
+The gates keep the JAX package's rules that define the paths
+(``use_pallas``, 3-D levels and itemsize <= 4 for K6; ``pallas_tiled``
+and ``nxg >= 256`` for K5) and drop its TPU-only ones: the platform test
+(a wrapper takes its plain version on the CPU instead), ``fits_vmem``
+(K6 takes any level: one launch per call where the level fits one
+block's shared memory, one launch per colour step above) and the Mosaic
+tile budget ``stencil_tiled.supports`` (K5 takes any shape).  The glue
+between kernels (quad halo extension, the emitted-residual patch,
+restriction, prolongation) is plain torch.
+
+The other TPU scheduling fields of :class:`SolverConfig`
+(``pallas_tiled_relax``, ``pallas_fused_sweep``, ``fused_sweep_chunks``,
 ``pallas_interpret``) are not read: the colour-fused sweep kernel is still
 to be ported (ROADMAP.md).  Options off this slice raise
 ``NotImplementedError`` (:func:`check_supported`).
@@ -35,6 +51,7 @@ from .config import SolverConfig
 from .levels import LevelSpec
 from .ops import relax as relax_ops
 from .ops import stencil, transfer
+from .ops.kernels import relax_fused, stencil_tiled
 from .ops.kernels import relax_tiled as kernels
 from .ops.relax_compact import (QuadField, build_compact_pack,
                                 residual_quads, restrict_quads_to_full)
@@ -53,7 +70,6 @@ def check_supported(cfg: SolverConfig) -> None:
         "fused_bands_bf16": cfg.fused_bands_bf16,
         "device_loop": cfg.device_loop,
         "netcdf_output": cfg.netcdf_output,
-        "use_pallas": cfg.use_pallas,
         "cycles_per_check": cfg.cycles_per_check != 1,
     }
     bad = [k for k, v in off.items() if v]
@@ -113,6 +129,20 @@ class SingleDeviceBackend:
         return x.merge() if isinstance(x, QuadField) else x
 
     # -- smoothing / residual ----------------------------------------------
+    def _use_pallas(self, lev: int) -> bool:
+        """K6 on a full-layout level (JAX ``_use_pallas`` without its
+        ``fits_vmem`` gate)."""
+        return (self.cfg.use_pallas and self.levels[lev].nd == 8
+                and getattr(torch, self.cfg.dtype).itemsize <= 4)
+
+    def _use_tiled(self, lev: int, kind: str) -> bool:
+        """K5 for ``kind == 'residual'`` on a full-layout level (JAX
+        ``_use_tiled`` without its platform test and tile budget).  For
+        ``kind == 'relax'`` False: the quad levels always run K1-K3."""
+        spec = self.levels[lev]
+        return (kind == "residual" and self.cfg.pallas_tiled
+                and spec.nd == 8 and spec.nxg >= 256)
+
     def relax(self, lev: int, p, b, nsweeps: int):
         if isinstance(p, QuadField):
             return QuadField.fromdict(kernels.relax_compact_tiled_quads(
@@ -121,6 +151,9 @@ class SingleDeviceBackend:
             raise NotImplementedError(
                 "2-D (nz==1) levels are unreachable under the standard plan "
                 "and have no assembly path (parity with the reference)")
+        if self._use_pallas(lev):
+            return relax_fused.fused_relax(p, b, self.ops[lev].cA, nsweeps,
+                                           "RB", self.real)
         return relax_ops.relax(p, b, self.ops[lev].cA, nsweeps, "RB",
                                self.real,
                                extend_fn=lambda x: self.extend(lev, x))
@@ -157,8 +190,11 @@ class SingleDeviceBackend:
         if isinstance(p, QuadField):
             return QuadField.fromdict(residual_quads(
                 p.asdict(), b.asdict(), self.packs[lev], self.real))
-        return stencil.residual(self.extend(lev, p), b, self.ops[lev].cA,
-                                self.real)
+        pe = self.extend(lev, p)
+        if self._use_tiled(lev, "residual"):
+            return stencil_tiled.residual_tiled(pe, b, self.ops[lev].cA,
+                                                self.real)
+        return stencil.residual(pe, b, self.ops[lev].cA, self.real)
 
     # -- transfers ---------------------------------------------------------
     def restrict(self, lev: int, r, as_quads: bool = False):

@@ -96,6 +96,6 @@ def test_unported_options_raise():
     for kw in (dict(bmask=True), dict(coarsest="direct"),
                dict(relax_method="GS"), dict(tridiag="pcr"),
                dict(cycles_per_check=2), dict(device_loop=True),
-               dict(use_pallas=True), dict(fused_bands_bf16=True)):
+               dict(fused_bands_bf16=True)):
         with pytest.raises(NotImplementedError):
             NHModel(16, 16, 16, cfg=TConfig(**kw), device="cpu")

@@ -9,16 +9,20 @@ no CUDA device is present (the CPU test host).  Run on a GPU machine with
 need not have.)
 
 Built with -fmad=false, the kernels round like the plain versions' separate
-torch ops, so the solution outputs are held to 0 ulp; the raw residual
-outputs, a cancellation, are held to 1e-6 x max|bq| (f32).
+torch ops, so the solution outputs (K1, K2, K6) and K5's residual are held
+to 0 ulp; the raw residual outputs of K2 and K3, a cancellation, are held
+to 1e-6 x max|bq| (f32).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mgroms_tpu_torch.bc import extend_h1
 from mgroms_tpu_torch.ops import relax_compact as rc
+from mgroms_tpu_torch.ops.kernels import relax_fused as kf
 from mgroms_tpu_torch.ops.kernels import relax_tiled as kt
+from mgroms_tpu_torch.ops.kernels import stencil_tiled as ks
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +123,102 @@ def test_seamount16_solve_runs_the_kernels(cuda):
                                tol=1e-11, maxiter=12)
     np.testing.assert_allclose(info.history, ic.history, rtol=1e-6,
                                atol=1e-15)
+
+
+def _full_inputs(nz, ny, nx, dtype, device, seed):
+    """Random bands with a dominant diagonal (a well-conditioned Thomas
+    solve), state and RHS of a full-layout level."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = lambda *sh: torch.rand(sh, generator=g, device=device, dtype=dtype)
+    cA = 0.2 * u(8, nz, ny + 2, nx + 2) - 0.1
+    cA[0] -= 4.0
+    return cA, 2 * u(nz, ny, nx) - 1, 2 * u(nz, ny, nx) - 1
+
+
+# (shape, sweeps): the coarsest levels of seamount 64^3 and CUC in the
+# one-launch form, a 64^3 level in the per-colour-step form, a ragged one
+K6_CASES = [((4, 4, 4), 40), ((2, 32, 32), 40), ((64, 64, 64), 3),
+            ((3, 5, 7), 3), ((1, 6, 5), 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", K6_CASES)
+@pytest.mark.parametrize("real", [True, False])
+def test_fused_relax_matches_plain(cuda, case, dtype, real):
+    shape, ns = case
+    cA, p, b = _full_inputs(*shape, dtype, cuda, seed=sum(shape))
+    p0 = p.clone()
+    before = dict(kf.LAUNCHES)
+    got = kf.fused_relax(p, b, cA, ns, "RB", real)
+    want = kf.fused_relax_plain(p, b, cA, ns, "RB", real)
+    torch.cuda.synchronize()
+    assert torch.equal(p, p0)
+    assert _maxdiff(got, want) == 0.0
+    key = "fused_relax" if kf.one_block(p) else "fused_relax_step"
+    n = 1 if key == "fused_relax" else 2 * ns
+    assert kf.LAUNCHES[key] == before[key] + n
+
+
+# the CUC level-0 shape in float32, two ragged shapes in both types
+K5_CASES = ([((64, 1024, 1024), torch.float32)]
+            + [(s, t) for s in ((3, 5, 7), (8, 16, 33))
+               for t in (torch.float32, torch.float64)])
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+@pytest.mark.parametrize("real", [True, False])
+def test_residual_tiled_matches_plain(cuda, case, real):
+    shape, dtype = case
+    cA, p, b = _full_inputs(*shape, dtype, cuda, seed=sum(shape))
+    pe = extend_h1(p).contiguous()
+    before = ks.LAUNCHES["residual_tiled"]
+    got = ks.residual_tiled(pe, b, cA, real)
+    want = ks.residual_tiled_plain(pe, b, cA, real)
+    torch.cuda.synchronize()
+    assert _maxdiff(got, want) == 0.0
+    assert ks.LAUNCHES["residual_tiled"] == before + 1
+
+
+def test_full_layout_wrappers_reject_bad_input(cuda):
+    cA, p, b = _full_inputs(3, 4, 5, torch.float32, cuda, seed=0)
+    pe = extend_h1(p).contiguous()
+    for bad in (dict(b=b.double()), dict(cA=cA.cpu()), dict(cA=cA[:, :, 1:]),
+                dict(b=torch.empty((3, 5, 4), device=cuda).transpose(1, 2))):
+        args = {"p": p, "b": b, "cA": cA, **bad}
+        with pytest.raises(ValueError):
+            kf.fused_relax(args["p"], args["b"], args["cA"], 1, "RB", True)
+        with pytest.raises(ValueError):
+            ks.residual_tiled(pe, args["b"], args["cA"], True)
+    for kind in ("FC", "GS"):
+        with pytest.raises(NotImplementedError):
+            kf.fused_relax(p, b, cA, 1, kind, True)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_use_pallas_solve_equals_default(cuda, compact):
+    """use_pallas=True on the card: K6 runs (on every level with
+    compact=False, where K1-K3 do not), and the history equals the
+    default solve's on the card."""
+    from mgroms_tpu_torch import NHModel, SolverConfig
+    from mgroms_tpu_torch.cases.seamount import (initial_velocities,
+                                                 setup_seamount)
+    n = 16
+    c = setup_seamount(n, n, n)
+    hist = []
+    for use_pallas in (False, True):
+        m = NHModel(n, n, n, cfg=SolverConfig(dtype="float32",
+                                              use_pallas=use_pallas,
+                                              compact=compact), device=cuda)
+        m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
+                       theta_b=c.theta_b, theta_s=c.theta_s)
+        kf.reset_launches()
+        kt.reset_launches()
+        *_, info = m.solve(*initial_velocities(n, n, n, dtype=m.dtype,
+                                               device=cuda),
+                           tol=1e-5, maxiter=4)
+        hist.append(info.history)
+        k6 = kf.LAUNCHES["fused_relax"]
+        assert (k6 > 0) == use_pallas, kf.LAUNCHES
+        if not compact:
+            assert sum(kt.LAUNCHES.values()) == 0, kt.LAUNCHES
+    np.testing.assert_allclose(hist[1], hist[0], rtol=1e-6, atol=0)
