@@ -13,9 +13,9 @@ Phases (any failed check raises, so the exit code is non-zero):
    (2, 32, 32) and seamount (4, 4, 4), at a ragged (3, 5, 7) and once in
    float64, and in its per-colour-step form with 3 sweeps at (64, 64, 64)
    and at the CUC level-0 shape.  Time each against its plain version
-   (CUDA events, median of 20) beside its bound: the larger of its bytes (each input read once, each
-   output written once) over 3.35 TB/s and its operations over the
-   float32 peak of 67 TFLOP/s.
+   (CUDA events, median of 20) beside its bound: the larger of its bytes
+   (each input read once, each output written once) over 3.35 TB/s and
+   its operations over the float32 peak of 67 TFLOP/s.
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -65,9 +65,9 @@ import numpy as np
 import torch
 
 from mgroms_tpu_torch import NHModel, SolverConfig
+from mgroms_tpu_torch.bc import extend_h1
 from mgroms_tpu_torch.cases.cuc import setup_cuc_synthetic
 from mgroms_tpu_torch.cases.seamount import initial_velocities, setup_seamount
-from mgroms_tpu_torch.bc import extend_h1
 from mgroms_tpu_torch.ops import relax_compact as rc
 from mgroms_tpu_torch.ops.kernels import _build
 from mgroms_tpu_torch.ops.kernels import relax_fused as kf
@@ -531,8 +531,8 @@ def main() -> int:
         idle=("fused_relax_step", "residual_tiled"))
     phase_counts[6] = pallas_phase(
         "phase 6: CUC 1024^2 x 64 float32, use_pallas=True",
-        (1024, 1024, 64), case, dev, maxiter=8, ref=cuc_history, rtol=1e-6, div_limits=(2.5e-2, 1e-2),
-        cfg=dict(use_pallas=True),
+        (1024, 1024, 64), case, dev, maxiter=8, ref=cuc_history, rtol=1e-6,
+        div_limits=(2.5e-2, 1e-2), cfg=dict(use_pallas=True),
         idle=("fused_relax_step", "residual_tiled"))
     phase_counts[7] = pallas_phase(
         "phase 7: CUC 1024^2 x 64 float32, use_pallas=True, compact=False",

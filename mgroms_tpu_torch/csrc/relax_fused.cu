@@ -27,9 +27,10 @@
 // operations (the inputs are ~0.1 MB, read once) but the 2*nsweeps serial
 // colour steps and their barriers inside one launch; the one-block form
 // removes the ~100 torch launches per colour step of the plain version.
-// The per-step form is memory-bound: each step reads the state, b, 2 of
-// the 8 bands in full and the other 6 at half the columns, and writes the
-// state and the multipliers.
+// The per-step form is memory-bound: each step reads the state, b and
+// the 8 bands (active and inactive columns alternate, so every cache line
+// is fetched although half the columns solve), and writes the state and
+// the multipliers.
 //
 // Rounding: built with -fmad=false and IEEE division, so every product,
 // sum and quotient rounds like the plain version's separate torch ops.
@@ -163,7 +164,8 @@ int launch_relax_fused(const void* p, const void* b, const void* cA,
         return (int)cudaGetLastError();
     }
     const dim3 block(32, 8);
-    const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+    const dim3 grid((nx + block.x - 1) / block.x,
+                    (ny + block.y - 1) / block.y);
     const int nsteps = 2 * nsweeps;
     const T* src = (const T*)p;
     for (int step = 0; step < nsteps; ++step) {

@@ -47,7 +47,8 @@ int launch_residual(const void* pe, const void* b, const void* cA, void* r,
                     int nz, int ny, int nx, int real, void* stream) {
     const Level g{nz, ny, nx};
     const dim3 block(32, 8);
-    const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+    const dim3 grid((nx + block.x - 1) / block.x,
+                    (ny + block.y - 1) / block.y);
     residual_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         (const T*)pe, (const T*)b, (const T*)cA, (T*)r, g, real);
     return (int)cudaGetLastError();
