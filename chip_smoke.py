@@ -93,7 +93,7 @@ KERNELS = {
                          "mgroms_tpu/ops/pallas/relax_fused.py:99", 7),
 }
 REL_TOL = 1e-6
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
 F32_FLOPS = 67e12                # float32 outside the tensor cores
 
 
