@@ -8,6 +8,9 @@ can be checked apart from assembly:
         levels, [np.asarray(o.cA) for o in jax_model.ops],
         {f: np.asarray(x) for f, x in jax_model.metrics._asdict().items()})
     model.use_operators(ops, metrics)
+
+Both functions put the tensors on the card unless ``device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ def _t(a, device, dtype) -> torch.Tensor:
 
 
 def operators_from_numpy(levels, cA_list: Sequence, metrics: Mapping,
-                         device="cpu", dtype=torch.float64):
+                         device="cuda", dtype=torch.float64):
     """Per-level band stacks ``cA_list[lev]`` (8, nz, ny+2, nx+2) and the
     FineMetrics fields ``metrics`` (name -> array) as the port's
     ``(list[LevelOperator], FineMetrics)``.  Shapes are checked against the
@@ -48,7 +51,7 @@ def operators_from_numpy(levels, cA_list: Sequence, metrics: Mapping,
     return ops, fm
 
 
-def pack_from_numpy(fields: Mapping, real_matrix: bool, device="cpu",
+def pack_from_numpy(fields: Mapping, real_matrix: bool, device="cuda",
                     dtype=torch.float64) -> CompactPack:
     """A CompactPack from ``fields``: ``blocks``, ``d``, ``ud``, ``bet``
     (and ``rblocks`` when ``real_matrix``), each a sequence of the four

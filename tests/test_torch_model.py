@@ -54,10 +54,12 @@ def jax_run():
 
 
 def test_entry_points_default_to_the_card():
-    """NHModel and initial_velocities run on the card unless the caller
-    asks for the CPU (checked on the signatures: nothing is built)."""
+    """NHModel, initial_velocities and the converters of JAX state run on
+    the card unless the caller asks for the CPU (checked on the
+    signatures: nothing is built)."""
     import inspect
-    for fn in (NHModel.__init__, initial_velocities):
+    for fn in (NHModel.__init__, initial_velocities, operators_from_numpy,
+               pack_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -102,12 +104,14 @@ def test_solve_on_jax_assembled_operators(jax_run):
     levels = jm.levels
     ops, metrics = operators_from_numpy(
         levels, [np.asarray(o.cA) for o in jm.ops],
-        {f: np.asarray(x) for f, x in jm.metrics._asdict().items()})
+        {f: np.asarray(x) for f, x in jm.metrics._asdict().items()},
+        device="cpu")
     jpacks = jm.backend.packs
     packs = [None if pk is None or lev == len(levels) - 1 else
              pack_from_numpy({f: [np.asarray(x) for x in getattr(pk, f)]
                               for f in ("blocks", "d", "ud", "bet",
-                                        "rblocks")}, pk.real_matrix)
+                                        "rblocks")}, pk.real_matrix,
+                             device="cpu")
              for lev, pk in enumerate(jpacks)]
     assert any(pk is not None for pk in packs)
     m = NHModel(N, N, N, cfg=SolverConfig(), device="cpu")

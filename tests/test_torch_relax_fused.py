@@ -38,7 +38,8 @@ def jax_levels():
     cA = [np.asarray(o.cA) for o in m.ops]
     ops, _ = operators_from_numpy(
         m.levels, cA, {f: np.asarray(x)
-                       for f, x in m.metrics._asdict().items()})
+                       for f, x in m.metrics._asdict().items()},
+        device="cpu")
     return m.levels, cA, ops
 
 

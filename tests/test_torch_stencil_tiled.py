@@ -41,7 +41,8 @@ def jax_operator():
                    theta_b=c.theta_b, theta_s=c.theta_s)
     ops, _ = operators_from_numpy(
         m.levels, [np.asarray(o.cA) for o in m.ops],
-        {f: np.asarray(x) for f, x in m.metrics._asdict().items()})
+        {f: np.asarray(x) for f, x in m.metrics._asdict().items()},
+        device="cpu")
     return np.asarray(m.ops[0].cA), ops[0].cA
 
 
