@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .assembly import FineMetrics, LevelOperator
-from .ops.relax_compact import CompactPack
+from .ops.relax_compact import CompactPack, LowPrecision
 
 
 def _t(a, device, dtype) -> torch.Tensor:
@@ -55,9 +55,25 @@ def pack_from_numpy(fields: Mapping, real_matrix: bool, device="cuda",
                     dtype=torch.float64) -> CompactPack:
     """A CompactPack from ``fields``: ``blocks``, ``d``, ``ud``, ``bet``
     (and ``rblocks`` when ``real_matrix``), each a sequence of the four
-    target quads' arrays in ``_TKEYS`` order."""
+    target quads' arrays in ``_TKEYS`` order.
+
+    With ``blocks_lp`` and ``bet_lp`` (and ``rblocks_lp`` when
+    ``real_matrix``) the pack also carries the low-precision smoother
+    operator (``pack.lp``, the JAX package's ``attach_lp``): the blocks
+    arrive as float32 arrays of bfloat16 values and are stored in bfloat16
+    (exact), the pivots in ``dtype``.  The Thomas multipliers ``gam`` are
+    not carried for either operator: the port recomputes them as
+    ``ud * bet``."""
     conv = {k: tuple(_t(a, device, dtype) for a in fields[k])
             for k in ("blocks", "d", "ud", "bet")}
     rb = (tuple(_t(a, device, dtype) for a in fields["rblocks"])
           if real_matrix else None)
-    return CompactPack(real_matrix=real_matrix, rblocks=rb, **conv)
+    lp = None
+    if "blocks_lp" in fields:
+        bf16 = lambda xs: tuple(_t(a, device, torch.float32)
+                                .to(torch.bfloat16) for a in xs)
+        lp = LowPrecision(
+            blocks=bf16(fields["blocks_lp"]),
+            rblocks=bf16(fields["rblocks_lp"]) if real_matrix else None,
+            bet=tuple(_t(a, device, dtype) for a in fields["bet_lp"]))
+    return CompactPack(real_matrix=real_matrix, rblocks=rb, lp=lp, **conv)

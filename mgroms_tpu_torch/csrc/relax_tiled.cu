@@ -19,6 +19,11 @@
 // the L1/L2 caches serve.  No shared-memory staging yet: a later step can
 // stage the state windows and stream the blocks with TMA.
 //
+// K1 also reads the low-precision smoother operator (cfg.fused_bands_bf16):
+// bfloat16 blocks, upcast at read (exact), the compute in float32 — half
+// the bytes of the dominant block stream.  K2 and K3 are residual paths and
+// read only full-precision blocks.
+//
 // Rounding: built with -fmad=false, so every product and sum rounds on its
 // own like the separate torch ops of the plain versions (0 ulp apart).
 //
@@ -27,20 +32,7 @@
 
 #include <cuda_runtime.h>
 
-constexpr int kTerms = 16;      // 12 base gather terms + 4 plane-0 'real'
-constexpr int kBaseKeys = 12;   // blocks side by side in the wide array
-
-// Per-term read recipe, built in Python (relax_tiled.term_table): for term
-// m the state value is quad src[m] at z-offset dk[m], extended row J+oj[m],
-// extended column I+oi[m]; the operator value is block blk[m] (blk >= 12:
-// half blk-12 of the plane-0 'real' pair).
-struct Terms {
-    int src[kTerms];
-    int dk[kTerms];
-    int oj[kTerms];
-    int oi[kTerms];
-    int blk[kTerms];
-};
+#include "quad_terms.cuh"
 
 namespace {
 
@@ -63,26 +55,27 @@ __device__ __forceinline__ T state(const T* const* eq, const Terms& tt,
 
 // Off-column coupling sum at plane k: the 12 base terms summed in order,
 // then on plane 0 the four 'real' terms summed into x0 and added last
-// (relax_compact.gather_blocks).
-template <typename T>
-__device__ __forceinline__ T gather(const T* const* eq, const T* blocks,
-                                    const T* rb, int real, const Terms& tt,
+// (relax_compact.gather_blocks).  Blocks of type B are upcast to T.
+template <typename T, typename B>
+__device__ __forceinline__ T gather(const T* const* eq, const B* blocks,
+                                    const B* rb, int real, const Terms& tt,
                                     int k, int J, int I, const Geom& g) {
     const size_t wrow = (size_t)kBaseKeys * g.W;
-    const T* brow = blocks + ((size_t)k * g.H + J) * wrow + I;
-    T s = brow[0] * state(eq, tt, 0, k, J, I, g);
+    const B* brow = blocks + ((size_t)k * g.H + J) * wrow + I;
+    T s = up(brow[0]) * state(eq, tt, 0, k, J, I, g);
 #pragma unroll
     for (int m = 1; m < kBaseKeys; ++m) {
-        s = s + brow[(size_t)m * g.W] * state(eq, tt, m, k, J, I, g);
+        s = s + up(brow[(size_t)m * g.W]) * state(eq, tt, m, k, J, I, g);
     }
     if (real && k == 0) {
         T x0 = T(0);
 #pragma unroll
         for (int m = kBaseKeys; m < kTerms; ++m) {
             int b = tt.blk[m];
-            T bv = b < kBaseKeys
-                       ? blocks[(size_t)J * wrow + (size_t)b * g.W + I]
-                       : rb[(size_t)J * 2 * g.W + (size_t)(b - kBaseKeys) * g.W + I];
+            T bv = up(b < kBaseKeys
+                          ? blocks[(size_t)J * wrow + (size_t)b * g.W + I]
+                          : rb[(size_t)J * 2 * g.W
+                               + (size_t)(b - kBaseKeys) * g.W + I]);
             T t = bv * state(eq, tt, m, k, J, I, g);
             x0 = (m == kBaseKeys) ? t : x0 + t;
         }
@@ -96,12 +89,14 @@ __device__ __forceinline__ T gather(const T* const* eq, const T* blocks,
 // substitution x_k -= (ud_k * bet_k) * x_{k+1} in place (gam recomputed,
 // ops/relax.thomas_factored_unrolled).  EMIT keeps the gather in `res`
 // and then overwrites it with the raw residual bq - d x - lo x_- - hi x_+ - g.
-template <typename T, bool EMIT>
+// B is the block type: T, or bfloat16 for the smoother's low-precision
+// operator (K1 only).
+template <typename T, typename B, bool EMIT>
 __global__ void color_update_kernel(const T* __restrict__ e0,
                                     const T* __restrict__ e1,
                                     const T* __restrict__ e2,
-                                    const T* __restrict__ blocks,
-                                    const T* __restrict__ rb,
+                                    const B* __restrict__ blocks,
+                                    const B* __restrict__ rb,
                                     const T* __restrict__ ud,
                                     const T* __restrict__ bet,
                                     const T* __restrict__ bq,
@@ -189,27 +184,33 @@ dim3 grid_for(int H, int W, dim3 block) {
 
 const dim3 kBlock(32, 8);
 
+template <typename T, typename B, bool EMIT>
+int launch_color_update(const void* e0, const void* e1, const void* e2,
+                        const void* blocks, const void* rb, const void* ud,
+                        const void* bet, const void* bq, const void* d,
+                        void* out, void* res, int nz, int H, int W, int real,
+                        const Terms* tt, void* stream) {
+    Geom g{nz, H, W};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    color_update_kernel<T, B, EMIT><<<grid_for(H, W, kBlock), kBlock, 0, s>>>(
+        (const T*)e0, (const T*)e1, (const T*)e2, (const B*)blocks,
+        (const B*)rb, (const T*)ud, (const T*)bet, (const T*)bq,
+        (const T*)d, (T*)out, (T*)res, g, real, *tt);
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_color_update(const void* e0, const void* e1, const void* e2,
                         const void* blocks, const void* rb, const void* ud,
                         const void* bet, const void* bq, const void* d,
                         void* out, void* res, int nz, int H, int W, int real,
                         int emit, const Terms* tt, void* stream) {
-    Geom g{nz, H, W};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dim3 grid = grid_for(H, W, kBlock);
-    if (emit) {
-        color_update_kernel<T, true><<<grid, kBlock, 0, s>>>(
-            (const T*)e0, (const T*)e1, (const T*)e2, (const T*)blocks,
-            (const T*)rb, (const T*)ud, (const T*)bet, (const T*)bq,
-            (const T*)d, (T*)out, (T*)res, g, real, *tt);
-    } else {
-        color_update_kernel<T, false><<<grid, kBlock, 0, s>>>(
-            (const T*)e0, (const T*)e1, (const T*)e2, (const T*)blocks,
-            (const T*)rb, (const T*)ud, (const T*)bet, (const T*)bq,
-            (const T*)d, (T*)out, (T*)res, g, real, *tt);
-    }
-    return (int)cudaGetLastError();
+    return emit ? launch_color_update<T, T, true>(
+                      e0, e1, e2, blocks, rb, ud, bet, bq, d, out, res, nz,
+                      H, W, real, tt, stream)
+                : launch_color_update<T, T, false>(
+                      e0, e1, e2, blocks, rb, ud, bet, bq, d, out, res, nz,
+                      H, W, real, tt, stream);
 }
 
 template <typename T>
@@ -249,6 +250,19 @@ int mg_color_update_f64(const void* e0, const void* e1, const void* e2,
     return launch_color_update<double>(e0, e1, e2, blocks, rb, ud, bet, bq,
                                        d, out, res, nz, H, W, real, emit, tt,
                                        stream);
+}
+
+// K1 on the low-precision smoother operator: float32 state, bfloat16 blocks
+// (no emit form: the emitted residual needs the true operator).
+int mg_color_update_bf16(const void* e0, const void* e1, const void* e2,
+                         const void* blocks, const void* rb, const void* ud,
+                         const void* bet, const void* bq, const void* d,
+                         void* out, void* res, int nz, int H, int W, int real,
+                         int emit, const Terms* tt, void* stream) {
+    if (emit) return (int)cudaErrorInvalidValue;
+    return launch_color_update<float, __nv_bfloat16, false>(
+        e0, e1, e2, blocks, rb, ud, bet, bq, d, out, res, nz, H, W, real, tt,
+        stream);
 }
 
 int mg_rr_zsum_f32(const void* e0, const void* e1, const void* e2,

@@ -37,8 +37,8 @@ class NHModel:
                  cfg: Optional[SolverConfig] = None, device="cuda",
                  verbose: bool = False):
         self.cfg = cfg or SolverConfig()
-        check_supported(self.cfg)
         self.device = torch.device(device)
+        check_supported(self.cfg, self.device.type == "cuda")
         self.levels = build_level_plan(nx, ny, nz,
                                        aggressive=self.cfg.aggressive)
         self.nx, self.ny, self.nz = nx, ny, nz

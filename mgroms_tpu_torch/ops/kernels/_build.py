@@ -59,12 +59,17 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for dt in ("f32", "f64"):
+    for dt in ("f32", "f64", "bf16"):
         fn = getattr(lib, f"mg_color_update_{dt}")
         # e0 e1 e2 blocks rb ud bet bq d out res | nz H W real emit |
-        # terms stream
+        # terms stream (bf16: float32 state, bfloat16 blocks, emit 0)
         fn.argtypes = [p] * 11 + [i] * 5 + [p, p]
         fn.restype = i
+        fn = getattr(lib, f"mg_sweep_fused_{dt}")
+        # SweepArgs* | nz H W real | terms[4] stream
+        fn.argtypes = [p] + [i] * 4 + [p, p]
+        fn.restype = i
+    for dt in ("f32", "f64"):
         fn = getattr(lib, f"mg_rr_zsum_{dt}")
         # e0 e1 e2 e3 blocks rb d ud bq out | nz H W real own | terms stream
         fn.argtypes = [p] * 10 + [i] * 5 + [p, p]
@@ -142,15 +147,26 @@ def on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-def check_tensors(named: dict, shapes: dict, dtype, device) -> None:
-    """Every tensor of ``named`` is contiguous, of ``dtype`` on ``device``
-    and of the shape ``shapes`` gives it."""
+def check_tensors(named: dict, shapes: dict, dtype, device,
+                  dtypes=None) -> None:
+    """Every tensor of ``named`` is contiguous, on ``device``, of the
+    shape ``shapes`` gives it and of ``dtype`` — or of ``dtypes[name]``
+    where given (the operator blocks: the state type, or bfloat16 beside
+    float32 state)."""
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernels take float32/float64, got {dtype}")
+    dtypes = dtypes or {}
+    for name, want in dtypes.items():
+        if want != dtype and (want, dtype) != (torch.bfloat16,
+                                               torch.float32):
+            raise ValueError(f"{name}: {want} blocks with {dtype} state")
     for name, t in named.items():
-        if t.device != device or t.dtype != dtype:
+        want = dtypes.get(name, dtype)
+        if t is None:
+            raise ValueError(f"{name} is missing")
+        if t.device != device or t.dtype != want:
             raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
-                             f"{dtype} on {device}")
+                             f"{want} on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if tuple(t.shape) != shapes[name]:

@@ -11,9 +11,10 @@ Port of ``mgroms_tpu/ops/pallas/relax_tiled.py``.  The kernels
 Each wrapper runs its plain version (written with ops/relax_compact.py)
 for tensors on the CPU only; for a CUDA tensor it checks device, dtype,
 shape and contiguity, launches the kernel or raises.  ``LAUNCHES`` counts
-kernel launches per wrapper.  The TPU kernels' row tiles, VMEM budgets
-and Element windows have no counterpart here: the kernels take any
-``nz >= 2`` and any H, W.
+kernel launches per wrapper (``color_update_bf16``: K1 on the
+low-precision smoother operator, bfloat16 blocks beside float32 state).
+The TPU kernels' row tiles, VMEM budgets and Element windows have no
+counterpart here: the kernels take any ``nz >= 2`` and any H, W.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from ..relax_compact import (_BASE_TERMS, _RB_TARGETS, _REAL_TERMS, _TKEYS,
                              relax_residual_restrict_compact_quads,
                              key_views, residual_from_gather)
 
-LAUNCHES = {"color_update": 0, "color_update_emit": 0, "rr_zsum": 0}
+LAUNCHES = {"color_update": 0, "color_update_bf16": 0,
+            "color_update_emit": 0, "rr_zsum": 0}
 
 _NKEYS = len(gather_keys(False))
 
@@ -84,10 +86,12 @@ def color_update_plain(e3, bq, blocks_w, ud, bet, target, real_matrix,
                        rb=None):
     """One RB colour update of target quad ``target``: gather from the 3
     sibling extended quads ``e3`` (:func:`gather_quads` order), then the
-    factored Thomas solve with gam recomputed."""
+    factored Thomas solve with gam recomputed.  Blocks in bfloat16 are
+    upcast to the state type at read."""
     e = dict(zip(gather_quads(target), e3))
-    g = gather_blocks(e, key_views(blocks_w, rb), target[0], target[1],
-                      real_matrix)
+    g = gather_blocks(e, tuple(v.to(bq.dtype) for v in key_views(blocks_w,
+                                                                 rb)),
+                      target[0], target[1], real_matrix)
     return thomas_factored_unrolled(bet, None, ud, bq - g)
 
 
@@ -141,12 +145,16 @@ def _launch_color_update(e3, bq, blocks_w, ud, bet, d, target, real_matrix,
         named["d"] = d
     if real_matrix:
         named["rb"] = rb
-    check_tensors(named, sh, bq.dtype, bq.device)
+    # the emitted residual needs the true operator: blocks of the state type
+    band = bq.dtype if emit else blocks_w.dtype
+    check_tensors(named, sh, bq.dtype, bq.device,
+                  {"blocks": band, "rb": band})
     out = torch.empty_like(bq)
     res = torch.empty_like(bq) if emit else None
     lib = _build.load()
-    fn = (lib.mg_color_update_f32 if bq.dtype == torch.float32
-          else lib.mg_color_update_f64)
+    fn = {torch.bfloat16: lib.mg_color_update_bf16,
+          torch.float64: lib.mg_color_update_f64}.get(band,
+                                                      lib.mg_color_update_f32)
     tt = _terms(target, gather_quads(target))
     with torch.cuda.device(bq.device):
         rc = fn(*(ptr(x) for x in e3), ptr(blocks_w), ptr(rb), ptr(ud),
@@ -161,14 +169,17 @@ def color_update(e3, bq, blocks_w, ud, bet, target, real_matrix, rb=None):
     """Colour update of one target quad (K1).  ``e3``: the 3 extended
     sibling quads (nz, H+2, W+2) in :func:`gather_quads` order; ``bq`` the
     target's RHS (nz, H, W); ``blocks_w`` (nz, H, 12W), ``ud``
-    (nz-1, H, W), ``bet`` (nz, H, W), ``rb`` (1, H, 2W) the target's pack
-    fields.  Returns the new quad."""
+    (nz-1, H, W), ``bet`` (nz, H, W), ``rb`` (1, H, 2W) the target's
+    smoother operator fields (the blocks and ``rb`` in the state type, or
+    in bfloat16 with float32 state and the pack's ``lp.bet``).  Returns
+    the new quad."""
     if on_cpu(bq):
         return color_update_plain(e3, bq, blocks_w, ud, bet, target,
                                   real_matrix, rb)
     out, _ = _launch_color_update(e3, bq, blocks_w, ud, bet, None, target,
                                   real_matrix, rb, emit=False)
-    LAUNCHES["color_update"] += 1
+    LAUNCHES["color_update_bf16" if blocks_w.dtype == torch.bfloat16
+             else "color_update"] += 1
     return out
 
 
@@ -225,9 +236,12 @@ def _rb(pack: CompactPack, m: int):
 
 def relax_compact_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int):
     """``nsweeps`` RB sweeps, one :func:`color_update` per (colour, target
-    quad); the quad halo extension between colours stays plain torch, and
-    both targets of a colour read the same pre-colour extension."""
+    quad), with the smoother operator (``pack.lp``'s blocks and pivots
+    when present, as relax_compact.smoother_operator); the quad halo
+    extension between colours stays plain torch, and both targets of a
+    colour read the same pre-colour extension."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
+    op = pack.lp if pack.lp is not None else pack
     q = dict(q0)
     for _ in range(nsweeps):
         for targets in _RB_TARGETS:
@@ -235,9 +249,10 @@ def relax_compact_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int):
             for t in targets:
                 m = ti[t]
                 q[t] = color_update(tuple(e[k] for k in gather_quads(t)),
-                                    bq[t], pack.blocks[m], pack.ud[m],
-                                    pack.bet[m], t, pack.real_matrix,
-                                    _rb(pack, m))
+                                    bq[t], op.blocks[m], pack.ud[m],
+                                    op.bet[m], t, pack.real_matrix,
+                                    op.rblocks[m] if pack.real_matrix
+                                    else None)
     return q
 
 

@@ -14,8 +14,12 @@ lands in quad (a', b') = ((a+dj)%2, (b+di)%2) at quad index
 slice of one extended quad (:func:`_qread`).  Quad halos (the mirror ring
 of bc.extend_h1) come from sibling quads (:func:`extend_quads`).
 
-Off the slice: the four-colour ordering, the PCR solve and the bf16
-smoother operator (``attach_lp``) are not ported.
+The low-precision smoother operator (``cfg.fused_bands_bf16``) is
+:func:`attach_lp`: the gather blocks rounded to bfloat16 beside
+row-sum-consistent Thomas pivots, read by every smoothing path through
+:func:`smoother_operator`; residual paths keep the full-precision blocks.
+
+Off the slice: the four-colour ordering and the PCR solve are not ported.
 """
 
 from __future__ import annotations
@@ -183,6 +187,17 @@ def real_only_keys() -> tuple:
     return tuple(k for k in gather_keys(True) if k not in base)
 
 
+class LowPrecision(NamedTuple):
+    """The low-precision smoother operator of a pack (:func:`attach_lp`),
+    per target quad in ``_TKEYS`` order: the gather blocks and the 'real'
+    pair in bfloat16, and the Thomas pivots ``bet`` of the rounded
+    operator (state dtype)."""
+
+    blocks: tuple    # per target: (nz, H, 12*W) bfloat16
+    rblocks: object  # per target: (1, H, 2*W) bfloat16, None unless 'real'
+    bet: tuple       # per target: (nz, H, W)
+
+
 class CompactPack(NamedTuple):
     """Per-level smoother operator in quad-gather layout.  Every field is a
     tuple over target quads (``_TKEYS`` order) of contiguous tensors.
@@ -194,7 +209,8 @@ class CompactPack(NamedTuple):
     ``bet`` holds the precomputed reciprocal Thomas pivots (ops/relax.
     thomas_factor; the back-substitution multipliers ud*bet are recomputed
     where used, as the kernels do); ``d``/``ud`` the in-column diagonal and
-    off-diagonal.
+    off-diagonal.  ``lp`` holds the low-precision smoother operator
+    (:class:`LowPrecision`, :func:`attach_lp`) or None.
     """
 
     blocks: tuple    # per target: (nz, H, 12*W)
@@ -203,6 +219,7 @@ class CompactPack(NamedTuple):
     bet: tuple       # per target: (nz, H, W)
     real_matrix: bool
     rblocks: object = None
+    lp: object = None
 
 
 def wide_slices(wide: torch.Tensor, nkeys: int) -> tuple:
@@ -223,10 +240,36 @@ def key_views(blocks_w: torch.Tensor, rb=None) -> tuple:
     return base + (rb[:, :, :W], rb[:, :, W:])
 
 
-def block_views(pack: CompactPack, m: int) -> tuple:
-    """Per-key block views of target ``m`` in gather_keys(real) order."""
-    return key_views(pack.blocks[m],
-                     pack.rblocks[m] if pack.real_matrix else None)
+def block_views(pack: CompactPack, m: int, lp: bool = False) -> tuple:
+    """Per-key block views of target ``m`` in gather_keys(real) order;
+    ``lp`` selects the low-precision smoother copies (``pack.lp``)."""
+    src = pack.lp if lp else pack
+    return key_views(src.blocks[m],
+                     src.rblocks[m] if pack.real_matrix else None)
+
+
+def smoother_operator(pack: CompactPack, m: int):
+    """(block views, bet) the smoother uses for target ``m``: the
+    low-precision consistent operator when the pack has one, else the
+    full-precision one.  Residual paths never use this (they need the
+    true A)."""
+    if pack.lp is not None:
+        return block_views(pack, m, lp=True), pack.lp.bet[m]
+    return block_views(pack, m), pack.bet[m]
+
+
+def attach_lp(pack: CompactPack, band_dtype=torch.bfloat16) -> CompactPack:
+    """Attach the low-precision smoother operator: the blocks rounded to
+    ``band_dtype`` (round to nearest even) and the row-sum-consistent
+    pivots of the rounded operator (kernels/sweep_fused.
+    consistent_pivots).  One-time build work."""
+    # imported here: kernels/sweep_fused.py imports this module
+    from .kernels.sweep_fused import consistent_pivots
+    rb = (tuple(r.to(band_dtype) for r in pack.rblocks)
+          if pack.real_matrix else None)
+    return pack._replace(lp=LowPrecision(
+        blocks=tuple(b.to(band_dtype) for b in pack.blocks), rblocks=rb,
+        bet=consistent_pivots(pack, band_dtype)))
 
 
 def build_compact_pack(cA: torch.Tensor, real_matrix: bool) -> CompactPack:
@@ -288,22 +331,29 @@ _RB_TARGETS = (((0, 0), (1, 1)),   # color 0: (i + j) even
 
 
 def plain_color_update(q: Quads, bq: Quads, pack: CompactPack, targets,
-                       emit: bool, real_matrix: bool):
+                       emit: bool, real_matrix: bool,
+                       smoother: bool = False):
     """One RB colour update of ``targets`` in plain torch.  Both targets
     read the same pre-colour extension and are solved as one
     x-concatenated tridiagonal system (factored Thomas, ud*bet recomputed
     per plane as in the kernels).  With ``emit``, each target's raw
-    residual from its own gather comes too.  Returns ``(q, {target: raw
-    r})``."""
+    residual from its own gather comes too.  ``smoother`` takes the
+    operator of :func:`smoother_operator` (low-precision blocks, upcast at
+    read, when the pack has them), else the full-precision one.  Returns
+    ``(q, {target: raw r})``."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
     W = q[(0, 0)].shape[2]
     e = extend_quads(q)
-    gs = {t: gather_blocks(e, block_views(pack, ti[t]), t[0], t[1],
-                           real_matrix) for t in targets}
+    dt = q[(0, 0)].dtype
+    ops = {t: (smoother_operator(pack, ti[t]) if smoother
+               else (block_views(pack, ti[t]), pack.bet[ti[t]]))
+           for t in targets}
+    gs = {t: gather_blocks(e, tuple(v.to(dt) for v in ops[t][0]), t[0],
+                           t[1], real_matrix) for t in targets}
     cat = lambda f: torch.cat([f[ti[t]] for t in targets], dim=-1)
-    sol = thomas_factored_unrolled(cat(pack.bet), None, cat(pack.ud),
-                                   torch.cat([bq[t] - gs[t] for t in targets],
-                                             dim=-1))
+    sol = thomas_factored_unrolled(
+        torch.cat([ops[t][1] for t in targets], dim=-1), None, cat(pack.ud),
+        torch.cat([bq[t] - gs[t] for t in targets], dim=-1))
     q = dict(q)
     info = {}
     for n, t in enumerate(targets):
@@ -318,7 +368,8 @@ def relax_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
                         nsweeps: int, kind: str, real_matrix: bool,
                         tridiag_method: str = "thomas") -> Quads:
     """``nsweeps`` RB line-smoothing sweeps, state in and out in quad-parity
-    layout, one :func:`plain_color_update` per colour."""
+    layout, one :func:`plain_color_update` per colour, with the smoother
+    operator (:func:`smoother_operator`)."""
     if kind != "RB" or tridiag_method != "thomas":
         raise NotImplementedError(
             f"compact relax kind={kind!r}, tridiag={tridiag_method!r} is "
@@ -327,7 +378,7 @@ def relax_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
     for _ in range(nsweeps):
         for targets in _RB_TARGETS:
             q, _ = plain_color_update(q, bq, pack, targets, False,
-                                      real_matrix)
+                                      real_matrix, smoother=True)
     return q
 
 

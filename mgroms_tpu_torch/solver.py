@@ -7,11 +7,25 @@ the levels, run eagerly.
 
 Every non-coarsest level with even ny, nx keeps its state in quad-parity
 layout (``QuadField``) — the rule the JAX package applies on the CPU
-(``compact_eligible``), here on every device.  On those levels all
-smoothing and every down-leg residual go through the three kernels of
-ops/kernels/relax_tiled.py (their plain versions on the CPU).  The other
-levels (the coarsest, or every level with ``compact=False``) are held in
-full layout:
+(``compact_eligible``), here on every device.  On those levels:
+
+- relax: where :func:`fused_sweep_wanted` holds (``pallas_tiled``,
+  ``pallas_fused_sweep``, RB, and the level's tensors on the card or
+  ``pallas_interpret`` set — the JAX package's ``platform != "cpu" or
+  pallas_interpret``), the colour-fused sweep K4
+  (ops/kernels/sweep_fused.py), one launch per sweep; else one K1 launch
+  per (colour, target quad) (ops/kernels/relax_tiled.py);
+- the down-leg residual and restriction: K3, fused with the last sweep
+  through K2 (``fused_residual``) except on K4 levels and under
+  ``fused_bands_bf16``, as in the JAX package.
+
+With ``fused_bands_bf16`` (float32) every quad level's pack carries the
+low-precision smoother operator (relax_compact.attach_lp), read by K4 or
+K1; residuals keep the full-precision blocks, and the outer step runs in
+defect-correction form (:func:`cycle_step`).
+
+The other levels (the coarsest, or every level with ``compact=False``)
+are held in full layout:
 
 - relax: with ``use_pallas`` the K6 kernel (ops/kernels/relax_fused.py,
   :meth:`SingleDeviceBackend._use_pallas`), else the masked relax of
@@ -20,20 +34,20 @@ full layout:
   kernel (ops/kernels/stencil_tiled.py,
   :meth:`SingleDeviceBackend._use_tiled`), else ops/stencil.residual.
 
-The gates keep the JAX package's rules that define the paths
-(``use_pallas``, 3-D levels and itemsize <= 4 for K6; ``pallas_tiled``
-and ``nxg >= 256`` for K5) and drop its TPU-only ones: the platform test
-(a wrapper takes its plain version on the CPU instead), ``fits_vmem``
-(K6 takes any level: one launch per call where the level fits one
-block's shared memory, one launch per colour step above) and the Mosaic
-tile budget ``stencil_tiled.supports`` (K5 takes any shape).  The glue
-between kernels (quad halo extension, the emitted-residual patch,
-restriction, prolongation) is plain torch.
+The gates keep the JAX package's rules that define the paths and drop
+its TPU-only ones: a wrapper takes its plain version on the CPU instead
+of a platform test, and ``fits_vmem``, the Mosaic tile budgets
+(``stencil_tiled.supports``, ``sweep_fused.supports``) and the K1 tile
+gate of bfloat16 blocks have no counterpart (the kernels take any shape).
+The glue between kernels (quad halo extension, the emitted-residual
+patch, restriction, prolongation) is plain torch.
 
-The other TPU scheduling fields of :class:`SolverConfig`
-(``pallas_tiled_relax``, ``pallas_fused_sweep``, ``fused_sweep_chunks``,
-``pallas_interpret``) are not read: the colour-fused sweep kernel is still
-to be ported (ROADMAP.md).  Options off this slice raise
+Config fields read: the reference's (``ns_*``, ``cmatrix``,
+``relax_method``, ``interp_type``, ...), ``dtype``, ``compact``,
+``use_pallas``, ``pallas_tiled``, ``pallas_fused_sweep``,
+``pallas_interpret``, ``fused_bands_bf16`` and ``fused_residual``.  Not
+read: ``pallas_tiled_relax`` and ``fused_sweep_chunks`` (Mosaic tiles and
+lane chunks have no GPU counterpart).  Options off this slice raise
 ``NotImplementedError`` (:func:`check_supported`).
 """
 
@@ -51,15 +65,25 @@ from .config import SolverConfig
 from .levels import LevelSpec
 from .ops import relax as relax_ops
 from .ops import stencil, transfer
-from .ops.kernels import relax_fused, stencil_tiled
+from .ops.kernels import relax_fused, stencil_tiled, sweep_fused
 from .ops.kernels import relax_tiled as kernels
-from .ops.relax_compact import (QuadField, build_compact_pack,
+from .ops.relax_compact import (QuadField, attach_lp, build_compact_pack,
                                 residual_quads, restrict_quads_to_full)
 
 
-def check_supported(cfg: SolverConfig) -> None:
+def fused_sweep_wanted(cfg: SolverConfig, on_card: bool) -> bool:
+    """The colour-fused sweep K4 smooths the quad levels: the JAX package's
+    rule, with "the level's tensors are on the card" for its
+    ``platform != "cpu"``."""
+    return (cfg.pallas_tiled and cfg.pallas_fused_sweep
+            and cfg.relax_kind == "RB"
+            and (on_card or cfg.pallas_interpret))
+
+
+def check_supported(cfg: SolverConfig, on_card: bool) -> None:
     """Raise ``NotImplementedError`` for a config option this port does not
-    implement yet (nothing silently does something else)."""
+    implement yet (nothing silently does something else).  ``on_card``:
+    the solve's tensors are CUDA tensors."""
     off = {
         "relax_method": cfg.relax_kind != "RB",
         "gs_exact": cfg.gs_exact,
@@ -67,7 +91,10 @@ def check_supported(cfg: SolverConfig) -> None:
         "aggressive": cfg.aggressive,
         "bmask": cfg.bmask,
         "coarsest": cfg.coarsest != "relax",
-        "fused_bands_bf16": cfg.fused_bands_bf16,
+        # K4 has no (double state, bfloat16 blocks) instance
+        "fused_bands_bf16 with float64 on the fused sweep":
+            (cfg.fused_bands_bf16 and cfg.dtype == "float64"
+             and fused_sweep_wanted(cfg, on_card)),
         "device_loop": cfg.device_loop,
         "netcdf_output": cfg.netcdf_output,
         "cycles_per_check": cfg.cycles_per_check != 1,
@@ -90,11 +117,25 @@ def build_relax_packs(levels, ops, cfg: SolverConfig) -> list:
     quad-persistent levels (every compact-eligible level but the
     coarsest); None elsewhere.  Built level by level, so only one level's
     quad-sampled band temporaries exist at a time (~2 GB at CUC level 0
-    in float32)."""
-    return [build_compact_pack(ops[lev].cA, cfg.cmatrix == "real")
-            if lev < len(levels) - 1 and compact_eligible(spec, cfg)
-            else None
-            for lev, spec in enumerate(levels)]
+    in float32).
+
+    With ``fused_bands_bf16`` and a state of at most 4 bytes each pack
+    also carries the low-precision smoother operator (``pack.lp``), the
+    one copy that K4 and K1 both read.  The JAX package keeps a second
+    bfloat16 copy inside its fused-sweep operator on K4 levels; the values
+    are the same, because rounding a band and then slicing it equals
+    slicing it and then rounding."""
+    lp = (cfg.fused_bands_bf16
+          and getattr(torch, cfg.dtype).itemsize <= 4)
+    packs = []
+    for lev, spec in enumerate(levels):
+        pack = None
+        if lev < len(levels) - 1 and compact_eligible(spec, cfg):
+            pack = build_compact_pack(ops[lev].cA, cfg.cmatrix == "real")
+            if lp:
+                pack = attach_lp(pack)
+        packs.append(pack)
+    return packs
 
 
 class SingleDeviceBackend:
@@ -102,7 +143,9 @@ class SingleDeviceBackend:
 
     def __init__(self, levels: List[LevelSpec], ops: List[LevelOperator],
                  cfg: SolverConfig, packs: Optional[list] = None):
-        check_supported(cfg)
+        # (a backend built to read its gates may hold no operators)
+        self.on_card = ops[0] is not None and ops[0].cA.is_cuda
+        check_supported(cfg, self.on_card)
         self.levels = tuple(levels)
         self.ops = list(ops)
         self.cfg = cfg
@@ -110,6 +153,7 @@ class SingleDeviceBackend:
         self.real = cfg.cmatrix == "real"
         self.packs = (list(packs) if packs is not None
                       else build_relax_packs(levels, ops, cfg))
+        self.fused_sweep = fused_sweep_wanted(cfg, self.on_card)
 
     def extend(self, lev: int, x: torch.Tensor) -> torch.Tensor:
         return extend_h1(x)
@@ -119,6 +163,12 @@ class SingleDeviceBackend:
         """Levels whose V-cycle state stays in quad-parity layout: every
         level with a pack but the coarsest (which runs the masked relax)."""
         return lev < self.nlevs - 1 and self.packs[lev] is not None
+
+    def _use_sweep(self, lev: int) -> bool:
+        """The quad levels smoothed by K4 (the JAX package's levels with a
+        fused-sweep operator, minus its VMEM gate): every quad-persistent
+        level where :func:`fused_sweep_wanted` holds."""
+        return self.fused_sweep and self.state_quads(lev)
 
     def to_state(self, lev: int, x):
         if self.state_quads(lev) and not isinstance(x, QuadField):
@@ -138,15 +188,18 @@ class SingleDeviceBackend:
     def _use_tiled(self, lev: int, kind: str) -> bool:
         """K5 for ``kind == 'residual'`` on a full-layout level (JAX
         ``_use_tiled`` without its platform test and tile budget).  For
-        ``kind == 'relax'`` False: the quad levels always run K1-K3."""
+        ``kind == 'relax'`` False: the quad levels always run the quad
+        kernels (K4, or K1-K2, and K3)."""
         spec = self.levels[lev]
         return (kind == "residual" and self.cfg.pallas_tiled
                 and spec.nd == 8 and spec.nxg >= 256)
 
     def relax(self, lev: int, p, b, nsweeps: int):
         if isinstance(p, QuadField):
-            return QuadField.fromdict(kernels.relax_compact_tiled_quads(
-                p.asdict(), b.asdict(), self.packs[lev], nsweeps))
+            smooth = (sweep_fused.relax_fused_sweep if self._use_sweep(lev)
+                      else kernels.relax_compact_tiled_quads)
+            return QuadField.fromdict(smooth(p.asdict(), b.asdict(),
+                                             self.packs[lev], nsweeps))
         if self.levels[lev].nd == 5:
             raise NotImplementedError(
                 "2-D (nz==1) levels are unreachable under the standard plan "
@@ -160,8 +213,13 @@ class SingleDeviceBackend:
 
     def supports_fused_residual(self, lev: int) -> bool:
         """Relax at this level can emit the post-sweep residual from its
-        last colour update (cfg.fused_residual, quad-persistent levels)."""
-        return self.cfg.fused_residual and self.state_quads(lev)
+        last colour update (cfg.fused_residual, quad-persistent levels).
+        Not under ``fused_bands_bf16`` (the smoother's gather is then of
+        the perturbed operator, not the true A) nor on K4 levels (they keep
+        their one-launch sweep), as in the JAX package."""
+        return (self.cfg.fused_residual and self.state_quads(lev)
+                and not self.cfg.fused_bands_bf16
+                and not self._use_sweep(lev))
 
     def supports_fused_rr(self, lev: int) -> bool:
         """Fused relax + residual + restrict down-leg applicability."""
@@ -321,8 +379,20 @@ def solve_init(be, b):
 
 
 def cycle_step(be, p, b, r, cfg):
-    """One F-cycle + fresh residual, in the direct form p = Fcycle(p, b)
-    (mg_solvers.f90:61-79)."""
+    """One F-cycle + fresh residual.
+
+    Default: the direct form p = Fcycle(p, b) (mg_solvers.f90:61-79).
+    With the low-precision smoother operator (``fused_bands_bf16``) the
+    defect-correction form p += Fcycle(0, r, r) instead.  The two are equal
+    in exact arithmetic (relaxation is shift-invariant), but with a
+    perturbed smoother operator A' the direct form's fixed point is biased
+    from A^-1 b by O(|A - A'|), a floor of the relative residual, while in
+    defect form the perturbation multiplies the current error and only
+    slows the convergence factor; the true-A residual steers."""
+    if cfg.fused_bands_bf16:
+        z = be.zeros(0, as_quads=isinstance(p, QuadField))
+        p = p + fcycle(be, z, r, r, cfg)
+        return p, be.residual(0, p, b)
     p, r = fcycle(be, p, b, r, cfg, emit_residual=True)
     if r is None:
         r = be.residual(0, p, b)
@@ -352,7 +422,7 @@ def solve_p(backend, b: torch.Tensor, cfg: Optional[SolverConfig] = None,
     ||b - Ap|| / ||b|| drops under ``tol`` or ``maxiter`` cycles (:61-79);
     the host reads the norm once per cycle, as the reference does."""
     cfg = cfg or backend.cfg
-    check_supported(cfg)
+    check_supported(cfg, backend.on_card)
     tol = cfg.solver_prec if tol is None else tol
     maxiter = cfg.solver_maxiter if maxiter is None else maxiter
 

@@ -96,6 +96,9 @@ def test_unported_options_raise():
     for kw in (dict(bmask=True), dict(coarsest="direct"),
                dict(relax_method="GS"), dict(tridiag="pcr"),
                dict(cycles_per_check=2), dict(device_loop=True),
-               dict(fused_bands_bf16=True)):
+               # K4 has no (float64 state, bfloat16 blocks) instance;
+               # pallas_interpret puts the CPU solve on K4's route
+               dict(fused_bands_bf16=True, dtype="float64",
+                    pallas_interpret=True)):
         with pytest.raises(NotImplementedError):
             NHModel(16, 16, 16, cfg=TConfig(**kw), device="cpu")

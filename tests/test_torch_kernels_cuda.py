@@ -9,9 +9,9 @@ no CUDA device is present (the CPU test host).  Run on a GPU machine with
 need not have.)
 
 Built with -fmad=false, the kernels round like the plain versions' separate
-torch ops, so the solution outputs (K1, K2, K6) and K5's residual are held
-to 0 ulp; the raw residual outputs of K2 and K3, a cancellation, are held
-to 1e-6 x max|bq| (f32).
+torch ops, so the solution outputs (K1 with either block type, K2, K4,
+K6) and K5's residual are held to 0 ulp; the raw residual outputs of K2
+and K3, a cancellation, are held to 1e-6 x max|bq| (f32).
 """
 
 import numpy as np
@@ -23,6 +23,7 @@ from mgroms_tpu_torch.ops import relax_compact as rc
 from mgroms_tpu_torch.ops.kernels import relax_fused as kf
 from mgroms_tpu_torch.ops.kernels import relax_tiled as kt
 from mgroms_tpu_torch.ops.kernels import stencil_tiled as ks
+from mgroms_tpu_torch.ops.kernels import sweep_fused as ksf
 
 pytestmark = pytest.mark.cuda
 
@@ -101,19 +102,32 @@ def test_wrapper_rejects_bad_input(cuda):
                             **{**f, **bad})
 
 
-def test_seamount16_solve_runs_the_kernels(cuda):
+@pytest.mark.parametrize("fused_sweep", [True, False])
+def test_seamount16_solve_runs_the_kernels(cuda, fused_sweep):
+    """The default solve on the card smooths the quad levels with K4 and
+    restricts with K3; with pallas_fused_sweep=False with K1, K2 (the
+    fused residual) and K3.  Either history equals the CPU solve's."""
     from mgroms_tpu_torch import NHModel, SolverConfig
     from mgroms_tpu_torch.cases.seamount import (initial_velocities,
                                                  setup_seamount)
     n = 16
-    m = NHModel(n, n, n, cfg=SolverConfig(), device=cuda)
+    m = NHModel(n, n, n, cfg=SolverConfig(pallas_fused_sweep=fused_sweep),
+                device=cuda)
     c = setup_seamount(n, n, n)
     m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
                    theta_b=c.theta_b, theta_s=c.theta_s)
     u, v, w = initial_velocities(n, n, n, device=cuda)
     kt.reset_launches()
+    ksf.reset_launches()
     uc, vc, wc, p, info = m.solve(u, v, w, tol=1e-11, maxiter=12)
-    assert all(v > 0 for v in kt.LAUNCHES.values()), kt.LAUNCHES
+    k1_k2 = ("color_update", "color_update_emit")
+    assert kt.LAUNCHES["rr_zsum"] > 0, kt.LAUNCHES
+    assert all((kt.LAUNCHES[k] > 0) != fused_sweep for k in k1_k2), \
+        kt.LAUNCHES
+    assert (ksf.LAUNCHES["relax_fused_sweep"] > 0) == fused_sweep, \
+        ksf.LAUNCHES
+    assert kt.LAUNCHES["color_update_bf16"] == 0
+    assert ksf.LAUNCHES["relax_fused_sweep_bf16"] == 0
     assert info.res <= 1e-11
     # the same solve on the CPU (plain versions) gives the same history
     mc = NHModel(n, n, n, cfg=SolverConfig(), device="cpu")
@@ -222,3 +236,96 @@ def test_use_pallas_solve_equals_default(cuda, compact):
         if not compact:
             assert sum(kt.LAUNCHES.values()) == 0, kt.LAUNCHES
     np.testing.assert_allclose(hist[1], hist[0], rtol=1e-6, atol=0)
+
+
+def _sweep_inputs(nz, H, W, dtype, device, real, seed, lp):
+    """A random pack (with the low-precision operator when ``lp``, float32
+    state), raw state quads and RHS quads."""
+    rng = np.random.default_rng(seed)
+    cA = rng.uniform(-0.1, 0.1, (8, nz, 2 * H + 2, 2 * W + 2))
+    cA[0] -= 4.0
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    pack = rc.build_compact_pack(t(cA), real)
+    if lp:
+        pack = rc.attach_lp(pack)
+    q = rc.split_quads(t(rng.standard_normal((nz, 2 * H, 2 * W))))
+    bq = rc.split_quads(t(rng.standard_normal((nz, 2 * H, 2 * W))))
+    return pack, q, bq
+
+
+# quads: ragged, nz = 2, one column, a one-block grid, a 32-wide tile seam
+# and a level whose columns outnumber the resident threads (the grid-stride
+# loops wrap)
+K4_SHAPES = [(6, 5, 7), (2, 3, 4), (3, 1, 1), (8, 16, 33), (64, 8, 128),
+             (2, 512, 520)]
+BANDS = [(torch.float32, False), (torch.float64, False),
+         (torch.float32, True)]
+
+
+@pytest.mark.parametrize("band", BANDS, ids=["f32", "f64", "bf16"])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+@pytest.mark.parametrize("real", [True, False])
+def test_sweep_fused_matches_plain(cuda, shape, band, real):
+    """K4 == its plain version to 0 ulp, one launch per sweep, its inputs
+    untouched."""
+    dtype, lp = band
+    pack, q, bq = _sweep_inputs(*shape, dtype, cuda, real, sum(shape), lp)
+    q0 = {k: x.clone() for k, x in q.items()}
+    key = "relax_fused_sweep_bf16" if lp else "relax_fused_sweep"
+    before = ksf.LAUNCHES[key]
+    got = ksf.relax_fused_sweep(q, bq, pack, 2)
+    want = ksf.relax_fused_sweep_plain(q, bq, pack, 2)
+    torch.cuda.synchronize()
+    assert ksf.LAUNCHES[key] == before + 2
+    for t in rc._TKEYS:
+        assert torch.equal(q[t], q0[t])
+        assert _maxdiff(got[t], want[t]) == 0.0
+
+
+@pytest.mark.parametrize("shape", [(6, 5, 7), (64, 8, 128)])
+@pytest.mark.parametrize("real", [True, False])
+def test_bf16_color_update_matches_plain(cuda, shape, real):
+    """K1 reading the low-precision blocks == its plain version to 0 ulp,
+    per target and over two sweeps of the K1 orchestration."""
+    pack, q, bq = _sweep_inputs(*shape, torch.float32, cuda, real,
+                                sum(shape), True)
+    e = rc.extend_quads(q)
+    for m, t in enumerate(rc._TKEYS):
+        e3 = tuple(e[k] for k in kt.gather_quads(t))
+        f = (pack.lp.blocks[m], pack.ud[m], pack.lp.bet[m], t, real,
+             pack.lp.rblocks[m] if real else None)
+        before = kt.LAUNCHES["color_update_bf16"]
+        got = kt.color_update(e3, bq[t], *f)
+        want = kt.color_update_plain(e3, bq[t], *f)
+        torch.cuda.synchronize()
+        assert kt.LAUNCHES["color_update_bf16"] == before + 1
+        assert _maxdiff(got, want) == 0.0
+    got = kt.relax_compact_tiled_quads(q, bq, pack, 2)
+    want = rc.relax_compact_quads(q, bq, pack, 2, "RB", real)
+    for t in rc._TKEYS:
+        assert _maxdiff(got[t], want[t]) == 0.0
+
+
+def test_sweep_wrapper_rejects_bad_input(cuda):
+    pack, q, bq = _sweep_inputs(4, 3, 5, torch.float32, cuda, True, 0, True)
+    nc = torch.empty((4, 5, 3), device=cuda).transpose(1, 2)
+    bad_q = ({**q, (0, 1): q[(0, 1)].double()},      # dtype
+             {**q, (1, 0): q[(1, 0)].cpu()},         # device
+             {**q, (1, 1): nc})                      # not contiguous
+    for qb in bad_q:
+        with pytest.raises(ValueError):
+            ksf.relax_fused_sweep(qb, bq, pack, 1)
+    # low-precision blocks in the pack's full-precision slots come without
+    # their consistent pivots
+    no_pivots = pack._replace(blocks=pack.lp.blocks,
+                              rblocks=pack.lp.rblocks, lp=None)
+    for bad in (no_pivots, pack._replace(lp=pack.lp._replace(bet=None))):
+        with pytest.raises(ValueError):
+            ksf.relax_fused_sweep(q, bq, bad, 1)
+    # K2, the emitting form, takes no low-precision blocks
+    e = rc.extend_quads(q)
+    with pytest.raises(ValueError):
+        kt.color_update_emit(tuple(e[k] for k in kt.gather_quads((0, 0))),
+                             bq[(0, 0)], pack.lp.blocks[0], pack.ud[0],
+                             pack.lp.bet[0], pack.d[0], (0, 0), True,
+                             pack.lp.rblocks[0])
