@@ -1,7 +1,7 @@
 // The colour-fused red-black sweep for Hopper (sm_90a): one launch per
 // smoother sweep of a quad-parity level, colour 0 then colour 1.
 //
-// Replaces mgroms_tpu/ops/pallas/sweep_fused.py:_sweep_chunk (driver
+// Replaces mgroms_tpu/ops/pallas/sweep_fused.py:_sweep_chunk (called by
 // relax_fused_sweep) and computes, term for term and in the same operation
 // order, what its plain version (ops/kernels/sweep_fused.
 // relax_fused_sweep_plain, i.e. relax_compact_quads) computes: per colour,

@@ -4,7 +4,7 @@ low-precision smoother operator.
 
 Port of ``mgroms_tpu/ops/pallas/sweep_fused.py``.  The kernel
 (``csrc/sweep_fused.cu``) replaces ``_sweep_chunk`` (sweep_fused.py:509,
-driver ``relax_fused_sweep``): one launch computes one whole RB sweep of a
+called by ``relax_fused_sweep``): one launch computes one whole RB sweep of a
 quad-parity level, colour 0 then colour 1, bitwise what
 relax_compact.relax_compact_quads computes with the same smoother operator.
 
