@@ -7,10 +7,13 @@ Phases (any failed check raises, so the exit code is non-zero):
 1. Build the CUDA kernels from mgroms_tpu_torch/csrc/ and hold each one to
    its plain torch version on the card, with the max ulp printed:
    K1-K3 in float32 at the CUC level-0 quad shape (64, 512, 512) and at a
-   ragged shape, plus K1 once in float64; K1 on bfloat16 blocks and K4
-   (one sweep, float32 and bfloat16 blocks) at (64, 512, 512), both held
-   to 0 ulp, and K4 also at the CUC level-4 quad shape (4, 32, 32), at a
-   ragged shape and once in float64; K5 at the CUC level-0 shape
+   ragged shape, plus K1 once in float64; K4 (one sweep, float32 and
+   bfloat16 blocks) at the CUC level-0 quad shape (64, 512, 512), at the
+   CUC level-4 quad shape (4, 32, 32), at a ragged shape and once in
+   float64; K1 on bfloat16 blocks, all four targets, at the seamount 64^3
+   quad shapes (64, 32, 32) ... (8, 4, 4), at (64, 512, 512) and at a
+   ragged shape; K4 and K1 on bfloat16 blocks held to 0 ulp; K5 at the
+   CUC level-0 shape
    (64, 1024, 1024), at a ragged shape and once in float64; K6 in its
    one-launch form with 40 sweeps at the coarsest levels of CUC
    (2, 32, 32) and seamount (4, 4, 4), at a ragged (3, 5, 7) and once in
@@ -18,9 +21,12 @@ Phases (any failed check raises, so the exit code is non-zero):
    and at the CUC level-0 shape.  Time each against its plain version
    (CUDA events, median of 20) beside its bound: the larger of its bytes
    (each input read once, each output written once) over 3.35 TB/s and
-   its operations over the float32 peak of 67 TFLOP/s.  At (64, 512, 512)
-   one K4 sweep is also timed against one sweep of four K1 launches and
-   their two halo extensions, with either block type.
+   its operations over the float32 peak of 67 TFLOP/s; each kernel's
+   line in the json is timed at the shape its path gives it (K1 on
+   bfloat16 blocks at (64, 32, 32)).  At (64, 512, 512) one K4 sweep is
+   also timed against one sweep of four K1 launches and their two halo
+   extensions, with either block type, and K1 on bfloat16 blocks is timed
+   there too.
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -292,15 +298,23 @@ def kernel_phase(dev):
     return results
 
 
-# (shape, dtype, low-precision blocks, timed): "json" times the CUC
-# level-0 quad shape the main path gives K4 (phases 4 and 9)
+# (shape, dtype, low-precision blocks, K4 timed, K1 timed).  "json" times
+# the shape a kernel's main path gives it: K4 at the CUC level-0 quad
+# (phases 4 and 9), K1 on bfloat16 blocks at the seamount 64^3 level-0 quad
+# (phase 10); "print" times another shape.  Every low-precision case also
+# holds K1 on bfloat16 blocks, at each quad level of phase 10 and at the
+# CUC level-0 quad, where both are timed against K4.
 SWEEP_CASES = [
-    ((64, 512, 512), torch.float32, False, "json"),
-    ((64, 512, 512), torch.float32, True, "json"),
-    ((4, 32, 32), torch.float32, False, "print"),
-    ((6, 5, 7), torch.float32, False, None),
-    ((6, 5, 7), torch.float32, True, None),
-    ((6, 5, 7), torch.float64, False, None),
+    ((64, 512, 512), torch.float32, False, "json", None),
+    ((64, 512, 512), torch.float32, True, "json", "print"),
+    ((64, 32, 32), torch.float32, True, None, "json"),
+    ((32, 16, 16), torch.float32, True, None, None),
+    ((16, 8, 8), torch.float32, True, None, None),
+    ((8, 4, 4), torch.float32, True, None, None),
+    ((4, 32, 32), torch.float32, False, "print", None),
+    ((6, 5, 7), torch.float32, False, None, None),
+    ((6, 5, 7), torch.float32, True, None, None),
+    ((6, 5, 7), torch.float64, False, None, None),
 ]
 
 
@@ -308,42 +322,44 @@ def sweep_kernels(dev, results):
     """K4 (one sweep) and, on bfloat16 blocks, K1, each against its plain
     version to 0 ulp.  Bytes of K4: the four state and RHS quads, each
     target's blocks, 'real' pair, ud and bet, and the four new quads; flops
-    four times K1's.  At the timed shapes one K4 sweep is also timed
-    against one sweep of four K1 launches and the two halo extensions
-    (relax_tiled.relax_compact_tiled_quads) on the same operator."""
-    for shape, dtype, lp, timed in SWEEP_CASES:
+    four times K1's.  Where K4 is timed for the json line, one K4 sweep is
+    also timed against one sweep of four K1 launches and the two halo
+    extensions (relax_tiled.relax_compact_tiled_quads) on the same
+    operator."""
+    for shape, dtype, lp, k4_timed, k1_timed in SWEEP_CASES:
         pack, q, bq = kernel_inputs(*shape, dtype, dev, seed=sum(shape))
         if lp:
             pack = rc.attach_lp(pack)
-        op = pack.lp if lp else pack
+        blocks, rblocks, bet, _ = rc.smoother_operator(pack, dtype)
         n = bq[(0, 0)].numel()
         col = n // shape[0]
         name = "relax_fused_sweep_bf16" if lp else "relax_fused_sweep"
         hold(results, name, shape, dtype,
              lambda: ksf.relax_fused_sweep(q, bq, pack, 1),
              lambda: ksf.relax_fused_sweep_plain(q, bq, pack, 1), None,
-             nbytes(*q.values(), *bq.values(), *op.blocks, *op.rblocks,
-                    *pack.ud, *op.bet, *q.values()),
-             4 * (30 * n + 8 * col), timed, exact=True)
-        if lp and timed:
-            t = (0, 1)
-            m = rc._TKEYS.index(t)
-            e3 = tuple(rc.extend_quads(q)[k] for k in kt.gather_quads(t))
-            f = (op.blocks[m], pack.ud[m], op.bet[m], t, True, op.rblocks[m])
-            hold(results, "color_update_bf16", shape, dtype,
-                 lambda: kt.color_update(e3, bq[t], *f),
-                 lambda: kt.color_update_plain(e3, bq[t], *f), None,
-                 nbytes(*e3, bq[t], *f[:3], f[-1], bq[t]),
-                 30 * n + 8 * col, timed, exact=True)
-            del e3, f
-        if timed == "json":
+             nbytes(*q.values(), *bq.values(), *blocks, *rblocks, *pack.ud,
+                    *bet, *q.values()),
+             4 * (30 * n + 8 * col), k4_timed, exact=True)
+        if lp:
+            e = rc.extend_quads(q)
+            for m, t in enumerate(rc._TKEYS):
+                e3 = tuple(e[k] for k in kt.gather_quads(t))
+                f = (blocks[m], pack.ud[m], bet[m], t, True, rblocks[m])
+                hold(results, "color_update_bf16", shape, dtype,
+                     lambda: kt.color_update(e3, bq[t], *f),
+                     lambda: kt.color_update_plain(e3, bq[t], *f), None,
+                     nbytes(*e3, bq[t], *f[:3], f[-1], bq[t]),
+                     30 * n + 8 * col, k1_timed if t == (0, 1) else None,
+                     exact=True)
+            del e, e3, f
+        if k4_timed == "json":
             k4 = median_ms(lambda: ksf.relax_fused_sweep(q, bq, pack, 1))
             k1 = median_ms(lambda: kt.relax_compact_tiled_quads(q, bq, pack,
                                                                 1))
             print(f"  one sweep at {shape}, {'bfloat16' if lp else dtype} "
                   f"blocks: K4 {k4:.4f} ms, four K1 launches + two halo "
                   f"extensions {k1:.4f} ms")
-        del pack, op, q, bq
+        del pack, blocks, rblocks, bet, q, bq
         torch.cuda.empty_cache()
 
 

@@ -31,7 +31,8 @@ from ..relax_compact import (_BASE_TERMS, _RB_TARGETS, _REAL_TERMS, _TKEYS,
                              gather_blocks, gather_keys,
                              relax_residual_compact_quads,
                              relax_residual_restrict_compact_quads,
-                             key_views, residual_from_gather)
+                             key_views, residual_from_gather,
+                             smoother_operator)
 
 LAUNCHES = {"color_update": 0, "color_update_bf16": 0,
             "color_update_emit": 0, "rr_zsum": 0}
@@ -236,12 +237,12 @@ def _rb(pack: CompactPack, m: int):
 
 def relax_compact_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int):
     """``nsweeps`` RB sweeps, one :func:`color_update` per (colour, target
-    quad), with the smoother operator (``pack.lp``'s blocks and pivots
-    when present, as relax_compact.smoother_operator); the quad halo
-    extension between colours stays plain torch, and both targets of a
-    colour read the same pre-colour extension."""
+    quad), with the smoother operator (relax_compact.smoother_operator:
+    ``pack.lp``'s blocks and pivots when present); the quad halo extension
+    between colours stays plain torch, and both targets of a colour read
+    the same pre-colour extension."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
-    op = pack.lp if pack.lp is not None else pack
+    blocks, rblocks, bet, _ = smoother_operator(pack, q0[(0, 0)].dtype)
     q = dict(q0)
     for _ in range(nsweeps):
         for targets in _RB_TARGETS:
@@ -249,10 +250,9 @@ def relax_compact_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int):
             for t in targets:
                 m = ti[t]
                 q[t] = color_update(tuple(e[k] for k in gather_quads(t)),
-                                    bq[t], op.blocks[m], pack.ud[m],
-                                    op.bet[m], t, pack.real_matrix,
-                                    op.rblocks[m] if pack.real_matrix
-                                    else None)
+                                    bq[t], blocks[m], pack.ud[m], bet[m], t,
+                                    pack.real_matrix,
+                                    rblocks[m] if pack.real_matrix else None)
     return q
 
 

@@ -1,6 +1,5 @@
-"""The colour-fused red-black sweep (K4): its hand-written CUDA kernel, its
-plain torch version, and the row-sum-consistent pivots of the
-low-precision smoother operator.
+"""The colour-fused red-black sweep (K4): its hand-written CUDA kernel and
+its plain torch version.
 
 Port of ``mgroms_tpu/ops/pallas/sweep_fused.py``.  The kernel
 (``csrc/sweep_fused.cu``) replaces ``_sweep_chunk`` (sweep_fused.py:509,
@@ -10,8 +9,9 @@ relax_compact.relax_compact_quads computes with the same smoother operator.
 
 The TPU kernel's VMEM machinery (``SweepOperator`` band windows, lane
 chunks, ``_Plan``/``_pick_plan``/``supports``, ``VMEM_LIMIT``) has no
-counterpart: the kernel reads the pack's own fields — ``blocks``/``rblocks``
-and ``bet``, or their low-precision copies ``pack.lp`` — and ``ud``, and
+counterpart: the kernel reads the smoother operator of
+relax_compact.smoother_operator — the pack's ``blocks``/``rblocks`` and
+``bet``, or their low-precision copies ``pack.lp`` — and ``ud``, and
 recomputes ``gam = ud * bet`` as K1 does (thomas_factor's ``gam`` is that
 same product, so the result is unchanged).  It takes any ``nz >= 2`` and any
 quad H, W.
@@ -32,9 +32,8 @@ import torch
 from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
 from .relax_tiled import term_table
-from ..relax import thomas_factor
-from ..relax_compact import (_TKEYS, CompactPack, block_views, gather_blocks,
-                             gather_keys, relax_compact_quads)
+from ..relax_compact import (_TKEYS, CompactPack, gather_keys,
+                             relax_compact_quads, smoother_operator)
 
 LAUNCHES = {"relax_fused_sweep": 0, "relax_fused_sweep_bf16": 0}
 
@@ -44,33 +43,6 @@ _NKEYS = len(gather_keys(False))
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def consistent_pivots(pack: CompactPack, band_dtype) -> tuple:
-    """Thomas pivots ``bet'`` per target (``_TKEYS`` order) of the
-    row-sum-consistent low-precision smoother operator.
-
-    Rounding the gather blocks to ``band_dtype`` while the pivots keep the
-    full-precision diagonal breaks the diag = -(row sum) identity the
-    operator is built on (mg_define_matrix.f90:615-657), and the smoother
-    then amplifies the constant mode (the JAX package's round-3 negative
-    result: CUC stalled at a relative residual of 0.17).  So the rounded
-    blocks are the smoother's operator A', with its diagonal rebuilt so the
-    row sums match A's:
-
-        d' = d + gather(1, A - A')     (the gather against an all-ones state)
-
-    and ``bet', _ = thomas_factor(d', ud)``."""
-    bets = []
-    for m, (a, b) in enumerate(_TKEYS):
-        blocks = block_views(pack, m)
-        deltas = tuple(x - x.to(band_dtype).to(x.dtype) for x in blocks)
-        nz, H, W = pack.d[m].shape
-        ones = pack.d[m].new_ones((nz, H + 2, W + 2))
-        d2 = pack.d[m] + gather_blocks({t: ones for t in _TKEYS}, deltas,
-                                       a, b, pack.real_matrix)
-        bets.append(thomas_factor(d2, pack.ud[m])[0])
-    return tuple(bets)
 
 
 def relax_fused_sweep_plain(q0, bq, pack: CompactPack, nsweeps: int):
@@ -95,22 +67,6 @@ def _term_tables(device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def _operator(pack: CompactPack, dtype):
-    """(blocks, rblocks, bet, block dtype) of the smoother operator.  Blocks
-    in another type than the state come only with their consistent pivots,
-    in ``pack.lp``."""
-    if pack.lp is None:
-        return pack.blocks, pack.rblocks, pack.bet, dtype
-    if dtype != torch.float32:
-        raise ValueError(f"low-precision blocks need float32 state, got "
-                         f"{dtype}")
-    lp = pack.lp
-    if lp.bet is None:
-        raise ValueError("low-precision blocks without their consistent "
-                         "pivots (pack.lp.bet)")
-    return lp.blocks, lp.rblocks, lp.bet, torch.bfloat16
-
-
 def _launch(q, bq, pack: CompactPack):
     """One K4 launch: the four new quads of one sweep of ``q``."""
     q0 = q[(0, 0)]
@@ -120,7 +76,7 @@ def _launch(q, bq, pack: CompactPack):
     real = pack.real_matrix
     if real != (pack.rblocks is not None):
         raise ValueError("rblocks are required exactly when real_matrix")
-    blocks, rblocks, bet, band = _operator(pack, q0.dtype)
+    blocks, rblocks, bet, band = smoother_operator(pack, q0.dtype)
     named, shapes, dtypes = {}, {}, {}
     for m, t in enumerate(_TKEYS):
         fields = {"q": (q[t], (nz, H, W)), "bq": (bq[t], (nz, H, W)),

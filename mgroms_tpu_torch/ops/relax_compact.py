@@ -16,8 +16,9 @@ of bc.extend_h1) come from sibling quads (:func:`extend_quads`).
 
 The low-precision smoother operator (``cfg.fused_bands_bf16``) is
 :func:`attach_lp`: the gather blocks rounded to bfloat16 beside
-row-sum-consistent Thomas pivots, read by every smoothing path through
-:func:`smoother_operator`; residual paths keep the full-precision blocks.
+row-sum-consistent Thomas pivots (:func:`consistent_pivots`), read by
+every smoothing path, plain or kernel, through :func:`smoother_operator`;
+residual paths keep the full-precision blocks.
 
 Off the slice: the four-colour ordering and the PCR solve are not ported.
 """
@@ -248,23 +249,63 @@ def block_views(pack: CompactPack, m: int, lp: bool = False) -> tuple:
                      src.rblocks[m] if pack.real_matrix else None)
 
 
-def smoother_operator(pack: CompactPack, m: int):
-    """(block views, bet) the smoother uses for target ``m``: the
-    low-precision consistent operator when the pack has one, else the
-    full-precision one.  Residual paths never use this (they need the
-    true A)."""
-    if pack.lp is not None:
-        return block_views(pack, m, lp=True), pack.lp.bet[m]
-    return block_views(pack, m), pack.bet[m]
+def smoother_operator(pack: CompactPack, dtype):
+    """``(blocks, rblocks, bet, block dtype)`` the smoother uses, per target
+    in ``_TKEYS`` order, for state of type ``dtype``: the low-precision
+    consistent operator (bfloat16 blocks, float32 state) when the pack has
+    one, else the full-precision one.  Blocks of another type than the
+    state come only with their consistent pivots, in ``pack.lp``: the
+    full-precision pivots with rounded blocks break the operator's row
+    sums (:func:`consistent_pivots`).  Residual paths never use this (they
+    need the true A)."""
+    lp = pack.lp
+    if lp is None:
+        blocks, rblocks, bet, band = (pack.blocks, pack.rblocks, pack.bet,
+                                      dtype)
+    elif dtype != torch.float32:
+        raise ValueError(f"low-precision blocks need float32 state, got "
+                         f"{dtype}")
+    else:
+        blocks, rblocks, bet, band = (lp.blocks, lp.rblocks, lp.bet,
+                                      torch.bfloat16)
+    if bet is None or any(b.dtype != band for b in blocks):
+        raise ValueError(f"{blocks[0].dtype} blocks for {dtype} state "
+                         "without their consistent pivots (pack.lp)")
+    return blocks, rblocks, bet, band
+
+
+def consistent_pivots(pack: CompactPack, band_dtype) -> tuple:
+    """Thomas pivots ``bet'`` per target (``_TKEYS`` order) of the
+    row-sum-consistent low-precision smoother operator.
+
+    Rounding the gather blocks to ``band_dtype`` while the pivots keep the
+    full-precision diagonal breaks the diag = -(row sum) identity the
+    operator is built on (mg_define_matrix.f90:615-657), and the smoother
+    then amplifies the constant mode (the JAX package's round-3 negative
+    result: CUC stalled at a relative residual of 0.17).  So the rounded
+    blocks are the smoother's operator A', with its diagonal rebuilt so the
+    row sums match A's:
+
+        d' = d + gather(1, A - A')     (the gather against an all-ones state)
+
+    and ``bet', _ = thomas_factor(d', ud)``."""
+    bets = []
+    for m, (a, b) in enumerate(_TKEYS):
+        blocks = block_views(pack, m)
+        deltas = tuple(x - x.to(band_dtype).to(x.dtype) for x in blocks)
+        nz, H, W = pack.d[m].shape
+        ones = pack.d[m].new_ones((nz, H + 2, W + 2))
+        d2 = pack.d[m] + gather_blocks({t: ones for t in _TKEYS}, deltas,
+                                       a, b, pack.real_matrix)
+        bets.append(thomas_factor(d2, pack.ud[m])[0])
+    return tuple(bets)
 
 
 def attach_lp(pack: CompactPack, band_dtype=torch.bfloat16) -> CompactPack:
     """Attach the low-precision smoother operator: the blocks rounded to
     ``band_dtype`` (round to nearest even) and the row-sum-consistent
-    pivots of the rounded operator (kernels/sweep_fused.
-    consistent_pivots).  One-time build work."""
-    # imported here: kernels/sweep_fused.py imports this module
-    from .kernels.sweep_fused import consistent_pivots
+    pivots of the rounded operator (:func:`consistent_pivots`).  One-time
+    build work."""
     rb = (tuple(r.to(band_dtype) for r in pack.rblocks)
           if pack.real_matrix else None)
     return pack._replace(lp=LowPrecision(
@@ -331,28 +372,26 @@ _RB_TARGETS = (((0, 0), (1, 1)),   # color 0: (i + j) even
 
 
 def plain_color_update(q: Quads, bq: Quads, pack: CompactPack, targets,
-                       emit: bool, real_matrix: bool,
-                       smoother: bool = False):
-    """One RB colour update of ``targets`` in plain torch.  Both targets
-    read the same pre-colour extension and are solved as one
-    x-concatenated tridiagonal system (factored Thomas, ud*bet recomputed
-    per plane as in the kernels).  With ``emit``, each target's raw
-    residual from its own gather comes too.  ``smoother`` takes the
-    operator of :func:`smoother_operator` (low-precision blocks, upcast at
-    read, when the pack has them), else the full-precision one.  Returns
+                       emit: bool, real_matrix: bool):
+    """One RB colour update of ``targets`` in plain torch, with the
+    smoother operator (:func:`smoother_operator`; low-precision blocks are
+    upcast at read).  Both targets read the same pre-colour extension and
+    are solved as one x-concatenated tridiagonal system (factored Thomas,
+    ud*bet recomputed per plane as in the kernels).  With ``emit``, each
+    target's raw residual from its own gather comes too (full-precision
+    packs only, :func:`relax_emit_last_color`).  Returns
     ``(q, {target: raw r})``."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
     W = q[(0, 0)].shape[2]
     e = extend_quads(q)
     dt = q[(0, 0)].dtype
-    ops = {t: (smoother_operator(pack, ti[t]) if smoother
-               else (block_views(pack, ti[t]), pack.bet[ti[t]]))
-           for t in targets}
-    gs = {t: gather_blocks(e, tuple(v.to(dt) for v in ops[t][0]), t[0],
-                           t[1], real_matrix) for t in targets}
+    blocks, rblocks, bet, _ = smoother_operator(pack, dt)
+    gs = {t: gather_blocks(e, tuple(v.to(dt) for v in key_views(
+        blocks[ti[t]], rblocks[ti[t]] if real_matrix else None)), t[0], t[1],
+        real_matrix) for t in targets}
     cat = lambda f: torch.cat([f[ti[t]] for t in targets], dim=-1)
     sol = thomas_factored_unrolled(
-        torch.cat([ops[t][1] for t in targets], dim=-1), None, cat(pack.ud),
+        cat(bet), None, cat(pack.ud),
         torch.cat([bq[t] - gs[t] for t in targets], dim=-1))
     q = dict(q)
     info = {}
@@ -378,7 +417,7 @@ def relax_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
     for _ in range(nsweeps):
         for targets in _RB_TARGETS:
             q, _ = plain_color_update(q, bq, pack, targets, False,
-                                      real_matrix, smoother=True)
+                                      real_matrix)
     return q
 
 
@@ -560,8 +599,13 @@ def relax_emit_last_color(q0: Quads, bq: Quads, pack: CompactPack,
 
     ``sweep_fn(q, n)`` runs the first ``nsweeps - 1`` sweeps (default: the
     plain path); ``color_update_fn(q, targets, emit) -> (q, info)``
-    substitutes the per-colour update (the kernel path)."""
+    substitutes the per-colour update (the kernel path).  The emitted
+    residual is the true A's, so a pack with the low-precision smoother
+    operator is refused."""
     assert nsweeps >= 1, "fused relax+residual needs at least one sweep"
+    if pack.lp is not None:
+        raise ValueError("the fused relax+residual needs the full-precision "
+                         "operator; this pack carries pack.lp")
     if sweep_fn is None:
         sweep_fn = lambda q, n: relax_compact_quads(q, bq, pack, n, "RB",
                                                     real_matrix)

@@ -282,7 +282,7 @@ def test_sweep_fused_matches_plain(cuda, shape, band, real):
         assert _maxdiff(got[t], want[t]) == 0.0
 
 
-@pytest.mark.parametrize("shape", [(6, 5, 7), (64, 8, 128)])
+@pytest.mark.parametrize("shape", [(6, 5, 7), (64, 8, 128), (64, 32, 32)])
 @pytest.mark.parametrize("real", [True, False])
 def test_bf16_color_update_matches_plain(cuda, shape, real):
     """K1 reading the low-precision blocks == its plain version to 0 ulp,
@@ -322,6 +322,8 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
     for bad in (no_pivots, pack._replace(lp=pack.lp._replace(bet=None))):
         with pytest.raises(ValueError):
             ksf.relax_fused_sweep(q, bq, bad, 1)
+        with pytest.raises(ValueError):
+            kt.relax_compact_tiled_quads(q, bq, bad, 1)
     # K2, the emitting form, takes no low-precision blocks
     e = rc.extend_quads(q)
     with pytest.raises(ValueError):

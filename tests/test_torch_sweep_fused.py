@@ -120,7 +120,7 @@ def test_attach_lp_matches_jax(real):
         np.testing.assert_allclose(tp.lp.bet[m].numpy(), np.asarray(jbet[m]),
                                    rtol=1e-6)
         np.testing.assert_allclose(
-            ksf.consistent_pivots(tp, torch.bfloat16)[m].numpy(),
+            trc.consistent_pivots(tp, torch.bfloat16)[m].numpy(),
             np.asarray(jbet2[m]), rtol=1e-6)
         nz, H, W = tp.d[m].shape
         ones = {t: torch.ones((nz, H + 2, W + 2)) for t in trc._TKEYS}
@@ -171,6 +171,35 @@ def test_bf16_color_update_plain_matches_jax_kernel():
     got = kt.relax_compact_tiled_quads(tquads(p), tb, tp, 2)
     for t in trc._TKEYS:
         close(got[t], want[t], 1e-6)
+
+
+def test_smoothers_refuse_blocks_without_their_pivots():
+    """Every smoothing path (K4's and K1's orchestration, the plain sweep)
+    takes its operator from smoother_operator, which refuses bfloat16
+    blocks beside the full-precision pivots, a low-precision operator
+    without pivots, and one under float64 state; the fused relax+residual
+    refuses a pack with the low-precision operator (its residual is A's)."""
+    cA, p, b = problem(4, 8, 8, seed=3, dtype=np.float32)
+    tp = trc.attach_lp(trc.build_compact_pack(torch.from_numpy(cA), True))
+    q, bq = tquads(p), tquads(b)
+    no_pivots = tp._replace(blocks=tp.lp.blocks, rblocks=tp.lp.rblocks,
+                            lp=None)
+    bad = (no_pivots, tp._replace(lp=tp.lp._replace(bet=None)))
+    smoothers = (lambda pk, x: ksf.relax_fused_sweep(x, bq, pk, 1),
+                 lambda pk, x: kt.relax_compact_tiled_quads(x, bq, pk, 1),
+                 lambda pk, x: trc.relax_compact_quads(x, bq, pk, 1, "RB",
+                                                       True))
+    q64 = {t: x.double() for t, x in q.items()}
+    for smooth in smoothers:
+        for pk in bad:
+            with pytest.raises(ValueError, match="consistent pivots"):
+                smooth(pk, q)
+        with pytest.raises(ValueError, match="float32 state"):
+            smooth(tp, q64)
+    with pytest.raises(ValueError, match="full-precision"):
+        trc.relax_residual_compact_quads(q, bq, tp, 1, True)
+    with pytest.raises(ValueError, match="full-precision"):
+        kt.relax_residual_tiled_quads(q, bq, tp, 1)
 
 
 # ------------------------------------------------- the CUDA kernel's recipe
@@ -236,7 +265,7 @@ def _emulate_sweep(q, bq, pack, real):
             return None
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
-    op = pack.lp if pack.lp is not None else pack
+    blocks, rblocks, bet, _ = trc.smoother_operator(pack, q[(0, 0)].dtype)
     qs = [n(q[t]) for t in trc._TKEYS]
     out = [None] * 4
     for phase, targets in ((0, (0, 3)), (1, (1, 2))):
@@ -245,8 +274,8 @@ def _emulate_sweep(q, bq, pack, real):
             t = trc._TKEYS[m]
             tt = kt.term_table(t, trc._TKEYS)
             out[m] = _emulate_column_update(
-                src, n(op.blocks[m]), n(op.rblocks[m]) if real else None,
-                n(pack.ud[m]), n(op.bet[m]), n(bq[t]), tt, real)
+                src, n(blocks[m]), n(rblocks[m]) if real else None,
+                n(pack.ud[m]), n(bet[m]), n(bq[t]), tt, real)
     return dict(zip(trc._TKEYS, out))
 
 
