@@ -26,7 +26,15 @@ Phases (any failed check raises, so the exit code is non-zero):
    bfloat16 blocks at (64, 32, 32)).  At (64, 512, 512) one K4 sweep is
    also timed against one sweep of four K1 launches and their two halo
    extensions, with either block type, and K1 on bfloat16 blocks is timed
-   there too.
+   there too.  K8 (one packed sweep, every chunk) at the CUC level-0 quad
+   shape (64, 512, 512) with the card-default plan, f32 and bfloat16
+   bands, at level 1 (32, 256, 256), at a shape with 3 chunks and 3
+   tiles, without 'real' and once in float64, held to 0 ulp, its bound
+   beside the unique bytes of the same sweep; K9 in both modes at the
+   level-0 state and RHS shapes, exact, beside one strided PyTorch copy
+   (library_ms); K10's dma_only in its three variants at (64, 512, 512)
+   and on bfloat16 blocks (all, blocks), exact, and fma_run within its
+   stated tolerance.
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -52,6 +60,14 @@ Phases (any failed check raises, so the exit code is non-zero):
    F-cycles, its cycles printed beside phase 4's.
 10. Seamount 64^3 in perf mode with pallas_fused_sweep=False: K1 on
    bfloat16 blocks and K3; <= 1e-4 within 6 F-cycles.
+11. The level-0 smoother micro-benchmarks at the CUC level-0 shape, run
+   in this process through their timing functions
+   (mgroms_tpu_torch/scripts/): micro_sweep_fused (one sweep by the K1
+   route, K4 and the packed sweep K8 + K9, f32 and bfloat16, timed in
+   turns; the packed iterates held to K4's after 2 sweeps and each route
+   to the plain sweep; exactly the kernels of each route launched),
+   micro_packed_parts and micro_roofline (K1 against K10's dma_only, the
+   FMA rate of K10's fma_run); their rows are printed.
 
 Phases 5-10 run in float32.  Phases 5-8 hold their history to the
 matching default phase's (2 or 4) within rel 1e-6 (1e-3 with
@@ -67,8 +83,9 @@ step's wall time (the idle share), and the top device ops.
 The line before last is a JSON object with, for each kernel, its launches
 in the phase that is its path (4 for K4 and K3, 6 for K6's one-launch
 form, 7 for K5 and K6's per-colour-step form, 8 for K1 and K2, 9 for K4
-on bfloat16 blocks, 10 for K1 on bfloat16 blocks), its error against the
-plain version, both times and its bound; the last line is
+on bfloat16 blocks, 10 for K1 on bfloat16 blocks, 11 for K8, K9 and
+K10), its error against the plain version, both times and its bound; the
+last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -78,7 +95,6 @@ import collections
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -93,8 +109,14 @@ from mgroms_tpu_torch.ops import relax_compact as rc
 from mgroms_tpu_torch.ops.kernels import _build
 from mgroms_tpu_torch.ops.kernels import relax_fused as kf
 from mgroms_tpu_torch.ops.kernels import relax_tiled as kt
+from mgroms_tpu_torch.ops.kernels import roofline as rl
 from mgroms_tpu_torch.ops.kernels import stencil_tiled as ks
 from mgroms_tpu_torch.ops.kernels import sweep_fused as ksf
+from mgroms_tpu_torch.ops.kernels import sweep_packed as sp
+from mgroms_tpu_torch.scripts import micro_packed_parts as mpp
+from mgroms_tpu_torch.scripts import micro_roofline as mr
+from mgroms_tpu_torch.scripts import micro_sweep_fused as msf
+from mgroms_tpu_torch.scripts._timing import card_line, median_ms
 from mgroms_tpu_torch.solver import solve_init, solve_step
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -119,6 +141,14 @@ KERNELS = {
                     "mgroms_tpu/ops/pallas/relax_fused.py:99", 6),
     "fused_relax_step": ("relax_fused.cu",
                          "mgroms_tpu/ops/pallas/relax_fused.py:99", 7),
+    "sweep_packed": ("sweep_packed.cu",
+                     "mgroms_tpu/ops/pallas/sweep_packed.py:519", 11),
+    "sweep_packed_bf16": ("sweep_packed.cu",
+                          "mgroms_tpu/ops/pallas/sweep_packed.py:519", 11),
+    "pack_streams": ("sweep_packed.cu",
+                     "mgroms_tpu/ops/pallas/sweep_packed.py:591", 11),
+    "dma_only": ("roofline.cu", "scripts/micro_roofline.py:123", 11),
+    "fma_run": ("roofline.cu", "scripts/micro_roofline.py:266", 11),
 }
 REL_TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
@@ -126,11 +156,12 @@ F32_FLOPS = 67e12                # float32 outside the tensor cores
 
 
 def launches() -> dict:
-    return {**kt.LAUNCHES, **ks.LAUNCHES, **kf.LAUNCHES, **ksf.LAUNCHES}
+    return {**kt.LAUNCHES, **ks.LAUNCHES, **kf.LAUNCHES, **ksf.LAUNCHES,
+            **sp.LAUNCHES, **rl.LAUNCHES}
 
 
 def reset_launches() -> None:
-    for mod in (kt, ks, kf, ksf):
+    for mod in (kt, ks, kf, ksf, sp, rl):
         mod.reset_launches()
 
 
@@ -161,23 +192,6 @@ def max_ulp(got, want) -> float:
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
-
-
-def median_ms(fn, reps=20, warm=3):
-    """Median time of ``fn`` on the current stream (CUDA events)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 # ------------------------------------------------------------ phase 1
@@ -251,15 +265,25 @@ def compare(name, got, want, res_scale):
     return err, max_ulp(got, want)
 
 
+def flat(parts) -> torch.Tensor:
+    """One 1-D tensor of a list of per-chunk results (K8: tuples of the
+    four quads; K9: the streams)."""
+    return torch.cat([(torch.stack(p) if isinstance(p, tuple) else p)
+                      .flatten() for p in parts])
+
+
 def hold(results, name, shape, dtype, kern, plain, res_scale, nbytes_,
-         flops, timed, exact=False):
+         flops, timed, exact=False, library=None):
     """Hold one kernel call to its plain version (to 0 ulp with
-    ``exact``); with ``timed`` also time both and keep the numbers under
+    ``exact``); with ``timed`` also time both (and ``library``, the one
+    PyTorch call computing the same function) and keep the numbers under
     ``name`` in ``results``."""
     got, want = kern(), plain()
     if isinstance(got, dict):                 # K4: the four quads
         got, want = (torch.stack([x[t] for t in rc._TKEYS])
                      for x in (got, want))
+    elif isinstance(got, list):               # K8, K9: per chunk
+        got, want = flat(got), flat(want)
     err, ulp = compare(name, got, want, res_scale)
     torch.cuda.synchronize()
     print(f"kernel {name:22s} {str(shape):17s} {str(dtype):14s} "
@@ -269,13 +293,15 @@ def hold(results, name, shape, dtype, kern, plain, res_scale, nbytes_,
         return
     ms = median_ms(kern)
     plain_ms = median_ms(plain)
+    library_ms = median_ms(library) if library else None
     bound_ms, bound_by = bound(nbytes_, flops)
     if timed == "json":
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=None)
+                             library_ms=library_ms)
     print(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes_ / 1e9:.4f} GB, "
+          + (f"library {library_ms:.4f} ms, " if library else "")
+          + f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes_ / 1e9:.4f} GB, "
           f"{flops / 1e9:.4f} GFLOP)")
 
 
@@ -295,6 +321,8 @@ def kernel_phase(dev):
         torch.cuda.empty_cache()
     sweep_kernels(dev, results)
     full_layout_kernels(dev, results)
+    packed_kernels(dev, results)
+    roofline_kernels(dev, results)
     return results
 
 
@@ -415,6 +443,113 @@ def full_layout_kernels(dev, results):
              timed)
         del cA, p, b, kern, plain
         torch.cuda.empty_cache()
+
+
+# (quad shape, dtype, bfloat16 bands, real, plan (tj, nchunks), timed):
+# "json" at the shape of phase 11 (the CUC level-0 quad, the card-default
+# plan), "print" another; one shape with 3 chunks and 3 tiles (seams,
+# first and last tile), one without 'real', one in float64
+PACKED_CASES = [
+    ((64, 512, 512), torch.float32, False, True,
+     (sp.DEFAULT_TJ, sp.DEFAULT_NCHUNKS), "json"),
+    ((64, 512, 512), torch.float32, True, True,
+     (sp.DEFAULT_TJ, sp.DEFAULT_NCHUNKS), "json"),
+    ((32, 256, 256), torch.float32, False, True,
+     (sp.DEFAULT_TJ, sp.DEFAULT_NCHUNKS), "print"),
+    ((6, 12, 96), torch.float32, False, True, (4, 3), None),
+    ((16, 64, 64), torch.float32, False, False, (8, 2), None),
+    ((6, 12, 96), torch.float64, False, True, (4, 3), None),
+]
+
+
+def packed_kernels(dev, results):
+    """K8 (one packed sweep: every chunk on pre-packed streams) and K9
+    (both modes, at the shapes a sweep gives it) against their plain
+    versions, exactly.  Bytes of K8: the six packed streams of every
+    chunk as stored, and the four output quads; flops as K4's.  Beside it
+    the unique bytes of the same sweep (what K4's bound counts)."""
+    for shape, dtype, lp, real, (tj, C), timed in PACKED_CASES:
+        nz, H, W = shape
+        g = torch.Generator(device=dev).manual_seed(sum(shape))
+        u = lambda *s: torch.rand(s, generator=g, device=dev, dtype=dtype)
+        cA = 0.2 * u(8, nz, 2 * H + 2, 2 * W + 2) - 0.1
+        cA[0] -= 4.0
+        pack = rc.build_compact_pack(cA, real)
+        sop = sp.build_sweep_operator(cA, pack, nz, H, W, tj=tj, nchunks=C,
+                                      band_dtype=torch.bfloat16 if lp
+                                      else None)
+        del cA, pack
+        q = rc.split_quads(2 * u(nz, 2 * H, 2 * W) - 1)
+        bq = rc.split_quads(2 * u(nz, 2 * H, 2 * W) - 1)
+        pbq, pqs = sp.pack_rhs(bq, tj, C)
+        psts = sp.pack_state(q, tj, C)
+        args = [(psts[c], sop.pband[c], sop.ppiv[c], sop.pseam[c], pbq[c],
+                 pqs[c], tj, nz, real, c == 0, c == C - 1) for c in range(C)]
+        n = nz * H * W
+        nb = nbytes(*psts, *sop.pband, *sop.ppiv, *sop.pseam, *pbq, *pqs) \
+            + 4 * n * q[(0, 0)].element_size()
+        uniq = sp.unique_bytes(nz, H, W, q[(0, 0)].element_size(),
+                               sop.pband[0].element_size())
+        name = "sweep_packed_bf16" if lp else "sweep_packed"
+        hold(results, name, shape, dtype,
+             lambda: [sp.sweep_chunk(*a) for a in args],
+             lambda: [sp.sweep_chunk_plain(*a) for a in args], None, nb,
+             4 * (30 * n + 8 * H * W), timed, exact=True)
+        print(f"  {name} {shape} plan tj {tj}, {C} chunk(s): packed "
+              f"{nb / 1e9:.4f} GB; unique bytes of the sweep (GB) "
+              + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in uniq.items())
+              + f", total {sum(uniq.values()) / 1e9:.4f}")
+        if shape == (64, 512, 512) and not lp:
+            for mode, arrs, rows, wpad in (
+                    ("state", tuple(sp._pad_rows(sp._pad_cols(e, 1), 1,
+                                                 H + 4)
+                                    for e in rc.extend_quads(q).values()),
+                     tj + 4, 4),
+                    ("rhs seam", tuple(sp._pad_cols(sp._pad_rows(
+                        bq[t], 1, H + 2), 1) for t in sp._COLOR0),
+                     tj + 2, -2)):
+                pk = (arrs, tj, rows, W // C, wpad, C)
+                outs = sp.pack_streams(*pk)
+                hold(results, "pack_streams", f"{shape} {mode}", dtype,
+                     lambda: list(sp.pack_streams(*pk)),
+                     lambda: list(sp.pack_streams_plain(*pk)), None,
+                     nbytes(*arrs, *outs), 0,
+                     "json" if mode == "state" else "print", exact=True,
+                     library=lambda: sp.pack_streams_library(*pk))
+                del arrs, outs, pk
+        del sop, q, bq, pbq, pqs, psts, args
+        torch.cuda.empty_cache()
+
+
+def roofline_kernels(dev, results):
+    """K10: dma_only in its three variants at the CUC level-0 quad shape
+    on K1's operands with the 'real' pair, and on bfloat16 blocks in two
+    (exact; bytes: each loaded array read once, the output written once;
+    flops: one add per value loaded),
+    and fma_run (within roofline.FMA_RTOL of its float64 plain version)."""
+    nz, H, W = 64, 512, 512
+    o = mr.operands(dev, nz, H, W)
+    n, col = nz * H * W, H * W
+    adds = {"all": (26, 6), "windows": (12, 4), "blocks": (12, 2)}
+    b16 = (o["blocks"].to(torch.bfloat16), o["rb"].to(torch.bfloat16))
+    cases = [(w, o["blocks"], o["rb"]) for w in rl.WHICH] \
+        + [(w, *b16) for w in ("all", "blocks")]
+    for which, blocks, rb in cases:
+        lp = blocks.dtype == torch.bfloat16
+        a = (o["e3"], o["bq"], blocks, o["ud"], o["bet"], None, which, rb)
+        hold(results, "dma_only", f"{(nz, H, W)} {which}"
+             + (" bf16 blocks" if lp else ""), torch.float32,
+             lambda: rl.dma_only(*a), lambda: rl.dma_only_plain(*a), None,
+             rl.dma_only_bytes(nz, H, W, which, lp=lp),
+             adds[which][0] * n + adds[which][1] * col,
+             "json" if which == "all" and not lp else "print", exact=True)
+    del o, a, b16, cases
+    x = torch.rand(rl.FMA_BLOCK, device=dev) + 0.5
+    scale = float(rl.fma_run_plain(x).abs().max())
+    hold(results, "fma_run", f"{rl.FMA_BLOCK} x {rl.FMA_TILES}",
+         torch.float32, lambda: rl.fma_run(x), lambda: rl.fma_run_plain(x),
+         rl.FMA_RTOL / REL_TOL * scale, 2 * nbytes(x), rl.fma_flops(),
+         "json")
 
 
 # ------------------------------------------------------- slice phases
@@ -552,15 +687,52 @@ def path_phase(title, grid, case, dev, maxiter, ref, rtol, div_limits, cfg,
     return counts, info
 
 
+# the kernels one sweep of each micro_sweep_fused route launches
+ROUTE_KERNELS = {
+    "tiled": {"color_update"},
+    "fused_f32": {"relax_fused_sweep"},
+    "fused_bf16": {"relax_fused_sweep_bf16"},
+    "packed_f32": {"sweep_packed", "pack_streams"},
+    "packed_bf16": {"sweep_packed_bf16", "pack_streams"},
+}
+
+
+def micro_phase(dev):
+    """Phase 11: the three micro entry points' timing functions at the CUC
+    level-0 shape.  The packed iterates against K4's after 2 sweeps within
+    micro_sweep_fused.CHECK_RTOL (f32 and bfloat16), every route against
+    the plain sweep within it, and exactly each route's kernels launched.
+    Returns the phase's launch counts."""
+    print("== phase 11: level-0 smoother micro-benchmarks, CUC level 0 "
+          "(64, 1024, 1024)")
+    t0 = time.perf_counter()
+    reset_launches()
+    rows, per_route = msf.timed(dev)
+    print(json.dumps({"micro_sweep_fused": rows}))
+    print(json.dumps({"micro_sweep_fused_launches": per_route}))
+    for route, busy in ROUTE_KERNELS.items():
+        check(set(per_route[route]) == busy,
+              f"{route} launched {per_route[route]}, expected {busy}")
+    for key, val in rows.items():
+        if key.startswith("check_"):
+            check(val <= msf.CHECK_RTOL, f"{key} = {val}")
+    print(json.dumps({"micro_packed_parts": mpp.timed(dev)}))
+    print(json.dumps({"micro_roofline": mr.timed(dev)}))
+    counts = launches()
+    print(f"  launches {counts}")
+    for name, (_, _, phase) in KERNELS.items():
+        check(phase != 11 or counts[name] > 0, f"{name} not launched")
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
                          "() is False); this check runs on a GPU only")
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
+    print(card_line())
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)}")
@@ -670,6 +842,8 @@ def main() -> int:
         busy={"color_update_bf16", "rr_zsum"})
     print(f"  F-cycles to 1e-4: {info.niter} in perf mode, "
           f"{len(seamount_history) - 1} in phase 2")
+
+    phase_counts[11] = micro_phase(dev)
 
     for name, (src, _, phase) in KERNELS.items():
         print(f"  {name}: {phase_counts[phase][name]} launches in phase "

@@ -1,15 +1,15 @@
 """Carry assembled state into the port as numpy arrays.
 
-The JAX package's assembled operators, fine metrics and smoother packs
-(converted to numpy by the caller) become the port's tensors, so a solve
-can be checked apart from assembly:
+The JAX package's assembled operators, fine metrics, smoother packs and
+packed-stream sweep operators (converted to numpy by the caller) become
+the port's tensors, so a solve can be checked apart from assembly:
 
     ops, metrics = operators_from_numpy(
         levels, [np.asarray(o.cA) for o in jax_model.ops],
         {f: np.asarray(x) for f, x in jax_model.metrics._asdict().items()})
     model.use_operators(ops, metrics)
 
-Both functions put the tensors on the card unless ``device`` says
+Every function puts the tensors on the card unless ``device`` says
 otherwise.
 """
 
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .assembly import FineMetrics, LevelOperator
+from .ops.kernels.sweep_packed import SweepOperator
 from .ops.relax_compact import CompactPack, LowPrecision
 
 
@@ -77,3 +78,24 @@ def pack_from_numpy(fields: Mapping, real_matrix: bool, device="cuda",
             rblocks=bf16(fields["rblocks_lp"]) if real_matrix else None,
             bet=tuple(_t(a, device, dtype) for a in fields["bet_lp"]))
     return CompactPack(real_matrix=real_matrix, rblocks=rb, lp=lp, **conv)
+
+
+def packed_operator_from_numpy(pband: Sequence, ppiv: Sequence,
+                               pseam: Sequence, tj: int, nchunks: int,
+                               device="cuda", dtype=torch.float64,
+                               band_dtype=None) -> SweepOperator:
+    """The JAX package's packed-stream ``SweepOperator`` (its per-chunk
+    ``pband``/``ppiv``/``pseam`` as numpy arrays, its plan's ``tj`` and
+    ``nchunks``) as the port's (ops/kernels/sweep_packed.SweepOperator).
+    Bands of another type than the state (bfloat16) arrive as float32
+    arrays and are stored in ``band_dtype`` (exact)."""
+    if not len(pband) == len(ppiv) == len(pseam) == nchunks:
+        raise ValueError(f"{len(pband)}/{len(ppiv)}/{len(pseam)} chunk "
+                         f"streams for {nchunks} chunks")
+    bd = band_dtype or dtype
+    band = tuple(_t(a, device, torch.float32 if bd == torch.bfloat16
+                    else bd).to(bd) for a in pband)
+    return SweepOperator(pband=band,
+                         ppiv=tuple(_t(a, device, dtype) for a in ppiv),
+                         pseam=tuple(_t(a, device, dtype) for a in pseam),
+                         tj=tj, nchunks=nchunks)

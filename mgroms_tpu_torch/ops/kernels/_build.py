@@ -82,6 +82,23 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # pe b cA r | nz ny nx real | stream
         fn.argtypes = [p] * 4 + [i] * 4 + [p]
         fn.restype = i
+        fn = getattr(lib, f"mg_pack_streams_{dt}")
+        # PackArgs* | nslabs C nz Hp Wp tj rows Wc wpad ntiles | stream
+        fn.argtypes = [p] + [i] * 10 + [p]
+        fn.restype = i
+    for dt in ("f32", "f64", "bf16"):
+        fn = getattr(lib, f"mg_sweep_packed_{dt}")
+        # SweepPackedArgs* | nz ntiles tj Wc real first_chunk last_chunk |
+        # terms stream
+        fn.argtypes = [p] + [i] * 7 + [p, p]
+        fn.restype = i
+    # e0 e1 e2 blocks rb ud bet gam bq out | nz H W which | terms stream
+    for fn in (lib.mg_dma_only, lib.mg_dma_only_bf16):
+        fn.argtypes = [p] * 10 + [i] * 4 + [p, p]
+        fn.restype = i
+    # x out | n ntiles | stream
+    lib.mg_fma_run.argtypes = [p, p, i, i, p]
+    lib.mg_fma_run.restype = i
     return lib
 
 

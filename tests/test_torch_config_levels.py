@@ -80,7 +80,12 @@ def test_import_leaves_jax_out():
     code = ("import sys, mgroms_tpu_torch, mgroms_tpu_torch.model, "
             "mgroms_tpu_torch.convert, mgroms_tpu_torch.drivers.cuc, "
             "mgroms_tpu_torch.drivers.seamount, "
-            "mgroms_tpu_torch.ops.kernels.relax_tiled\n"
+            "mgroms_tpu_torch.ops.kernels.relax_tiled, "
+            "mgroms_tpu_torch.ops.kernels.sweep_packed, "
+            "mgroms_tpu_torch.ops.kernels.roofline, "
+            "mgroms_tpu_torch.scripts.micro_sweep_fused, "
+            "mgroms_tpu_torch.scripts.micro_packed_parts, "
+            "mgroms_tpu_torch.scripts.micro_roofline\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mgroms_tpu')]\n"
             "assert not bad, bad\n")

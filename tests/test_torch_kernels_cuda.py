@@ -331,3 +331,128 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
                              bq[(0, 0)], pack.lp.blocks[0], pack.ud[0],
                              pack.lp.bet[0], pack.d[0], (0, 0), True,
                              pack.lp.rblocks[0])
+
+
+# ------------------------------------------------- K8, K9 and K10 (PR 4)
+
+from mgroms_tpu_torch.ops.kernels import roofline as rl          # noqa: E402
+from mgroms_tpu_torch.ops.kernels import sweep_packed as sp      # noqa: E402
+
+# (quad shape, tj, nchunks): ragged plans with several tiles, column
+# blocks and chunks, one-row tiles, one-column chunks, nz = 2, a chunk
+# wider than one column block with a ragged last block
+K8_PLANS = [((3, 6, 18), 2, 3), ((2, 4, 6), 1, 6), ((5, 8, 8), 8, 1),
+            ((4, 12, 100), 3, 2), ((64, 16, 70), 8, 1)]
+
+
+@pytest.mark.parametrize("band", BANDS, ids=["f32", "f64", "bf16"])
+@pytest.mark.parametrize("case", K8_PLANS)
+@pytest.mark.parametrize("real", [True, False])
+def test_sweep_packed_matches_plain(cuda, case, band, real):
+    """K9 (both modes) and K8 == their plain versions to 0 ulp on every
+    chunk; two sweeps of the driver == the plain RB sweep."""
+    dtype, lp = band
+    (nz, H, W), tj, C = case
+    pack, q, bq = _sweep_inputs(nz, H, W, dtype, cuda, real, sum(case[0]),
+                                False)
+    rng = np.random.default_rng(sum(case[0]))
+    cA = torch.tensor(rng.uniform(-0.1, 0.1, (8, nz, 2 * H + 2, 2 * W + 2)),
+                      dtype=dtype, device=cuda)
+    cA[0] -= 4.0
+    pack = rc.build_compact_pack(cA, real)
+    sop = sp.build_sweep_operator(cA, pack, nz, H, W, tj=tj, nchunks=C,
+                                  band_dtype=torch.bfloat16 if lp else None)
+    before = dict(sp.LAUNCHES)
+    pbq, pqs = sp.pack_rhs(bq, tj, C)
+    psts = sp.pack_state(q, tj, C)
+    full = tuple(sp._pad_rows(bq[t], 1, H + 2) for t in sp._PTARGETS)
+    for got, want in zip(pbq, sp.pack_streams_plain(full, tj, tj + 2, W // C,
+                                                    0, C)):
+        assert torch.equal(got, want)
+    se = tuple(sp._pad_cols(sp._pad_rows(bq[t], 1, H + 2), 1)
+               for t in sp._COLOR0)
+    for got, want in zip(pqs, sp.pack_streams_plain(se, tj, tj + 2, W // C,
+                                                    -2, C)):
+        assert torch.equal(got, want)
+    for c in range(C):
+        args = (psts[c], sop.pband[c], sop.ppiv[c], sop.pseam[c], pbq[c],
+                pqs[c], tj, nz, real, c == 0, c == C - 1)
+        got = sp.sweep_chunk(*args)
+        want = sp.sweep_chunk_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert _maxdiff(g, w) == 0.0
+    key = "sweep_packed_bf16" if lp else "sweep_packed"
+    assert sp.LAUNCHES[key] == before[key] + C
+    assert sp.LAUNCHES["pack_streams"] == before["pack_streams"] + 3
+    got = sp.relax_packed_sweep(q, bq, pack, sop, 2)
+    want = rc.relax_compact_quads(q, bq, rc.attach_lp(pack) if lp else pack,
+                                  2, "RB", real)
+    for t in rc._TKEYS:
+        assert _maxdiff(got[t], want[t]) == 0.0
+
+
+def test_sweep_packed_wrappers_reject_bad_input(cuda):
+    nz, H, W, tj, C = 3, 4, 6, 2, 2
+    pack, q, bq = _sweep_inputs(nz, H, W, torch.float32, cuda, True, 0, False)
+    cA = torch.rand((8, nz, 2 * H + 2, 2 * W + 2), device=cuda) - 4.0
+    sop = sp.build_sweep_operator(cA, pack, nz, H, W, tj=tj, nchunks=C)
+    pbq, pqs = sp.pack_rhs(bq, tj, C)
+    psts = sp.pack_state(q, tj, C)
+    args = [psts[0], sop.pband[0], sop.ppiv[0], sop.pseam[0], pbq[0], pqs[0]]
+    nc = lambda x: x.transpose(2, 3).contiguous().transpose(2, 3)
+    for i, bad in ((0, lambda x: x.double()),          # dtype
+                   (1, lambda x: x.to(torch.bfloat16).double()),
+                   (2, nc),                            # not contiguous
+                   (4, lambda x: x[:, :, 1:]),         # shape
+                   (3, lambda x: x.cpu())):            # device
+        a = list(args)
+        a[i] = bad(a[i])
+        with pytest.raises((ValueError, TypeError)):
+            sp.sweep_chunk(*a, tj, nz, True, True, False)
+    with pytest.raises(ValueError):                    # H % tj != 0
+        sp.build_sweep_operator(cA, pack, nz, H, W, tj=3, nchunks=C)
+    q3 = {k: v[:, :3].contiguous() for k, v in q.items()}
+    with pytest.raises(ValueError):
+        sp.relax_packed_sweep(q3, q3, pack, sop, 1)
+    with pytest.raises(ValueError):
+        sp.pack_streams((bq[(0, 0)], bq[(0, 1)].double()), 2, 3, 3, 0, 2)
+    with pytest.raises(ValueError):
+        sp.pack_streams((nc(psts[0]),), 2, 3, 3, 0, 2)
+
+
+@pytest.mark.parametrize("shape", [(5, 6, 40), (64, 512, 512)])
+@pytest.mark.parametrize("which", rl.WHICH)
+def test_dma_only_matches_plain(cuda, shape, which):
+    """dma_only == its plain version exactly, with and without gam and
+    the 'real' pair, and on bfloat16 blocks."""
+    nz, H, W = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    f = lambda *s: torch.rand(s, generator=g, device=cuda) + 0.5
+    e3 = tuple(f(nz, H + 2, W + 2) for _ in range(3))
+    ops = (f(nz, H, W), f(nz, H, 12 * W), f(nz - 1, H, W), f(nz, H, W))
+    gam, rb = f(nz - 1, H, W), f(1, H, 2 * W)
+    b16 = ops[1].to(torch.bfloat16)
+    for gm, r, blk in ((None, None, ops[1]), (gam, rb, ops[1]),
+                       (None, rb.to(torch.bfloat16), b16)):
+        a = (e3, ops[0], blk, *ops[2:], gm, which, r)
+        before = rl.LAUNCHES["dma_only"]
+        got = rl.dma_only(*a)
+        want = rl.dma_only_plain(*a)
+        torch.cuda.synchronize()
+        assert rl.LAUNCHES["dma_only"] == before + 1
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        rl.dma_only(e3, ops[0].double(), *ops[1:], None, which)
+
+
+def test_fma_run_within_tolerance(cuda):
+    """fma_run (one rounding per FMA) against its float64 plain version
+    within roofline.FMA_RTOL x max|plain|."""
+    x = torch.rand(rl.FMA_BLOCK, device=cuda) + 0.5
+    got = rl.fma_run(x)
+    want = rl.fma_run_plain(x)
+    torch.cuda.synchronize()
+    assert _maxdiff(got, want) <= rl.FMA_RTOL * float(want.abs().max())
+    with pytest.raises(ValueError):
+        rl.fma_run(x.double())

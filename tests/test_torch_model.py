@@ -58,8 +58,9 @@ def test_entry_points_default_to_the_card():
     the card unless the caller asks for the CPU (checked on the
     signatures: nothing is built)."""
     import inspect
+    from mgroms_tpu_torch.convert import packed_operator_from_numpy
     for fn in (NHModel.__init__, initial_velocities, operators_from_numpy,
-               pack_from_numpy):
+               pack_from_numpy, packed_operator_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
