@@ -520,7 +520,7 @@ def sweep_chunk(pst, pband_c, ppiv_c, pseam_c, pbq_c, pqs_c, tj: int,
     return tuple(outs)
 
 
-# ------------------------------------------------------------- driver
+# ------------------------------------------------------ the whole sweep
 
 def pack_rhs(bq, tj: int, C: int) -> tuple:
     """The RHS streams of one call (sweep_packed.py:659-665): the four

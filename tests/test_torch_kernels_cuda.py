@@ -333,7 +333,7 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
                              pack.lp.rblocks[0])
 
 
-# ------------------------------------------------- K8, K9 and K10 (PR 4)
+# ------------------------------------------------------- K8, K9 and K10
 
 from mgroms_tpu_torch.ops.kernels import roofline as rl          # noqa: E402
 from mgroms_tpu_torch.ops.kernels import sweep_packed as sp      # noqa: E402
@@ -350,7 +350,7 @@ K8_PLANS = [((3, 6, 18), 2, 3), ((2, 4, 6), 1, 6), ((5, 8, 8), 8, 1),
 @pytest.mark.parametrize("real", [True, False])
 def test_sweep_packed_matches_plain(cuda, case, band, real):
     """K9 (both modes) and K8 == their plain versions to 0 ulp on every
-    chunk; two sweeps of the driver == the plain RB sweep."""
+    chunk; two sweeps of relax_packed_sweep == the plain RB sweep."""
     dtype, lp = band
     (nz, H, W), tj, C = case
     pack, q, bq = _sweep_inputs(nz, H, W, dtype, cuda, real, sum(case[0]),
