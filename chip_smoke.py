@@ -30,7 +30,8 @@ Phases (any failed check raises, so the exit code is non-zero):
    shape (64, 512, 512) with the card-default plan, f32 and bfloat16
    bands, at level 1 (32, 256, 256), at a shape with 3 chunks and 3
    tiles, without 'real' and once in float64, held to 0 ulp, its bound
-   beside the unique bytes of the same sweep; K9 in both modes at the
+   beside the unique bytes of the same sweep and the size of its blocks'
+   colour-0 stores; K9 in both modes at the
    level-0 state and RHS shapes, exact, beside one strided PyTorch copy
    (library_ms); K10's dma_only in its three variants at (64, 512, 512)
    and on bfloat16 blocks (all, blocks), exact, and fma_run within its
@@ -490,6 +491,7 @@ def packed_kernels(dev, results):
             + 4 * n * q[(0, 0)].element_size()
         uniq = sp.unique_bytes(nz, H, W, q[(0, 0)].element_size(),
                                sop.pband[0].element_size())
+        store = sp.store_bytes(nz, H, W, tj, C, q[(0, 0)].element_size())
         name = "sweep_packed_bf16" if lp else "sweep_packed"
         hold(results, name, shape, dtype,
              lambda: [sp.sweep_chunk(*a) for a in args],
@@ -498,7 +500,8 @@ def packed_kernels(dev, results):
         print(f"  {name} {shape} plan tj {tj}, {C} chunk(s): packed "
               f"{nb / 1e9:.4f} GB; unique bytes of the sweep (GB) "
               + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in uniq.items())
-              + f", total {sum(uniq.values()) / 1e9:.4f}")
+              + f", total {sum(uniq.values()) / 1e9:.4f}; the blocks' "
+              f"colour-0 stores {store / 1e9:.4f}")
         if shape == (64, 512, 512) and not lp:
             for mode, arrs, rows, wpad in (
                     ("state", tuple(sp._pad_rows(sp._pad_cols(e, 1), 1,

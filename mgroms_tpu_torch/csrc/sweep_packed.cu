@@ -26,9 +26,12 @@
 // needed (K4 uses a cooperative launch instead).  The overhang's Thomas
 // solve runs in place, so it cannot go to the shared outputs (two blocks
 // would race): each block has a PRIVATE colour-0 store in device memory
-// (2 x nz x (TJ+2) x 34 values, written and read back by the same block at
-// once, so it lives in the L2 cache), chosen over shared memory, which at
-// nz = 64 would hold it only for TJ <= 8 in float32 and not in float64.
+// (2 x nz x (TJ+2) x 34 values, written and read back by the same block),
+// chosen over shared memory, which at nz = 64 would hold it only for
+// TJ <= 8 in float32 and TJ <= 4 in float64.  At nz = 64, TJ 8, float32 a
+// store is 174 KB, a (512, 512) launch fills 178 MB, and at three resident
+// blocks per SM about 69 MB is live, more than the 50 MB L2 cache: how
+// much of the store's traffic reaches device memory is not measured.
 // Phase 1 (after __syncthreads) updates (0,1) and (1,0) on the block's
 // columns, reading the colour-0 values from that store.  Which values the
 // halo reads take follows the TPU kernel's patches (e1 below): the

@@ -17,6 +17,7 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -28,6 +29,9 @@ from ..relax_compact import _BASE_TERMS, _REAL_TERMS, _qread
 LAUNCHES = {"dma_only": 0, "fma_run": 0}
 
 WHICH = ("all", "windows", "blocks")
+# the target quad whose loads the probe makes: K1 is timed on it
+# (micro_roofline.py:78-79)
+TARGET = (0, 0)
 FMA_CHAINS, FMA_REPS = 8, 64          # micro_roofline.py:248
 FMA_BLOCK, FMA_TILES = (8, 8, 512), 256   # :249, :262
 # the float32 tolerance of fma_run against its float64 plain version:
@@ -41,33 +45,35 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def fma_flops(ntiles: int = FMA_TILES, numel: int = 8 * 8 * 512) -> float:
-    """FMA = 2 flops (micro_roofline.py:283)."""
-    return 2.0 * FMA_CHAINS * FMA_REPS * ntiles * numel
+def fma_flops() -> float:
+    """The flops of one ``fma_run`` on an :data:`FMA_BLOCK` block; FMA = 2
+    flops (micro_roofline.py:283)."""
+    return 2.0 * FMA_CHAINS * FMA_REPS * FMA_TILES * math.prod(FMA_BLOCK)
 
 
-def dma_only_bytes(nz, H, W, which, real=True, gam=False, lp=False) -> int:
-    """The bytes ``dma_only`` must move (f32 state, the blocks in bfloat16
-    with ``lp``): each array it loads read once, the output written once."""
+def dma_only_bytes(nz, H, W, which, real=True, lp=False) -> int:
+    """The bytes ``dma_only`` must move without ``gam`` (f32 state, the
+    blocks in bfloat16 with ``lp``): each array it loads read once, the
+    output written once."""
     sh = _shapes(nz, H, W, real)
     n = lambda s: 4 * int(torch.Size(s).numel())
     win = 3 * n(sh["e"])
     blk = (n(sh["blocks"]) + (n(sh["rb"]) if real else 0)) // (2 if lp else 1)
-    piv = n(sh["ud"]) + n(sh["bet"]) + (n(sh["ud"]) if gam else 0)
+    piv = n(sh["ud"]) + n(sh["bet"])
     base = 2 * n(sh["bq"])
     return base + {"all": win + blk + piv, "windows": win,
                    "blocks": blk}[which]
 
 
-def dma_only_plain(e3, bq, blocks_w, ud, bet, gam, which, rb=None,
-                   target=(0, 0)):
-    """Per plane, in this order (blocks upcast to the state type): the RHS, the 12 state values of K1's
-    gather (``_BASE_TERMS``), on plane 0 the 4 'real' ones; the 12 blocks,
+def dma_only_plain(e3, bq, blocks_w, ud, bet, gam, which, rb=None):
+    """Per plane, in this order (blocks upcast to the state type): the
+    RHS, the 12 state values of K1's gather of :data:`TARGET`
+    (``_BASE_TERMS``), on plane 0 the 4 'real' ones; the 12 blocks,
     on plane 0 the 'real' pair; ud at k-1, bet, gam at k (when given)
     -- each added in turn (``windows``: state only, ``blocks``: blocks
     only, both with the RHS)."""
-    a, b = target
-    e = dict(zip(gather_quads(target), e3))
+    a, b = TARGET
+    e = dict(zip(gather_quads(TARGET), e3))
     W = bq.shape[2]
     acc = bq.clone()
     if which != "blocks":
@@ -94,7 +100,7 @@ def dma_only_plain(e3, bq, blocks_w, ud, bet, gam, which, rb=None,
     return acc
 
 
-def dma_only(e3, bq, blocks_w, ud, bet, gam, which, rb=None, target=(0, 0)):
+def dma_only(e3, bq, blocks_w, ud, bet, gam, which, rb=None):
     """K10 ``dma_only`` on K1's float32 operands (:func:`dma_only_plain`),
     the blocks and ``rb`` in float32 or bfloat16 (upcast at load);
     ``gam`` (nz-1, H, W) and ``rb`` may be None; ``which`` in
@@ -102,8 +108,7 @@ def dma_only(e3, bq, blocks_w, ud, bet, gam, which, rb=None, target=(0, 0)):
     if which not in WHICH:
         raise ValueError(f"which must be one of {WHICH}, got {which!r}")
     if on_cpu(bq):
-        return dma_only_plain(e3, bq, blocks_w, ud, bet, gam, which, rb,
-                              target)
+        return dma_only_plain(e3, bq, blocks_w, ud, bet, gam, which, rb)
     nz, H, W = bq.shape
     sh = _shapes(nz, H, W, rb is not None)
     named = {"bq": bq, "blocks": blocks_w, "ud": ud, "bet": bet}
@@ -119,7 +124,7 @@ def dma_only(e3, bq, blocks_w, ud, bet, gam, which, rb=None, target=(0, 0)):
     check_tensors(named, sh, bq.dtype, bq.device,
                   {"blocks": band, "rb": band})
     out = torch.empty_like(bq)
-    tt = _terms(target, gather_quads(target))
+    tt = _terms(TARGET, gather_quads(TARGET))
     lib = _build.load()
     fn = lib.mg_dma_only_bf16 if band == torch.bfloat16 else lib.mg_dma_only
     with torch.cuda.device(bq.device):
@@ -133,10 +138,10 @@ def dma_only(e3, bq, blocks_w, ud, bet, gam, which, rb=None, target=(0, 0)):
     return out
 
 
-def fma_run_plain(x, ntiles: int = FMA_TILES):
+def fma_run_plain(x):
     """micro_roofline.py ``fma_kernel`` in float64 (the kernel's float32
     constants), rounded to float32 at the end; every tile computes the
-    same block, so ``ntiles`` does not change the result."""
+    same block, so this is one tile's result."""
     xd = x.double()
     f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))
     step = f32(1.000001)
@@ -149,17 +154,18 @@ def fma_run_plain(x, ntiles: int = FMA_TILES):
     return s.to(x.dtype)
 
 
-def fma_run(x, ntiles: int = FMA_TILES):
-    """K10 ``fma_run``: ``ntiles`` tiles of 8 chains x 64 FMAs per element
-    of the float32 block ``x``; :func:`fma_run_plain` for a CPU tensor."""
+def fma_run(x):
+    """K10 ``fma_run``: :data:`FMA_TILES` tiles of 8 chains x 64 FMAs per
+    element of the float32 block ``x``; :func:`fma_run_plain` for a CPU
+    tensor."""
     if on_cpu(x):
-        return fma_run_plain(x, ntiles)
+        return fma_run_plain(x)
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("fma_run takes a contiguous float32 tensor")
     out = torch.empty_like(x)
     lib = _build.load()
     with torch.cuda.device(x.device):
-        rc = lib.mg_fma_run(ptr(x), ptr(out), x.numel(), ntiles,
+        rc = lib.mg_fma_run(ptr(x), ptr(out), x.numel(), FMA_TILES,
                             torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "fma_run")
     LAUNCHES["fma_run"] += 1

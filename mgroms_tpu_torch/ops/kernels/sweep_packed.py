@@ -19,9 +19,13 @@ card's default, tj 8 with one chunk: the CUDA kernel splits a chunk's
 columns over its own blocks (32 columns each, with a one-column colour-0
 overhang), so lane chunks only add launches and seam recomputes; at tj 8
 the duplicated overhang rows make the band stream 1.5x its unique bytes
-(tj 16: 1.25x) while each block's private colour-0 store (2 x nz x 10 x
-34 values) stays small enough for the L2 cache, and a (512, 512) quad
-level gives 64 x 16 = 1024 blocks per launch.
+(tj 16: 1.25x), a (512, 512) quad level gives 64 x 16 = 1024 blocks per
+launch, and of tj 4, 8, 16 and 32 it timed fastest at CUC level 0
+(PERF.md, section 6).  Each block's private colour-0 store holds 2 x nz
+x (tj+2) x 34 values (:func:`store_bytes`): 174 KB per block at nz 64 in
+float32, 178 MB per launch, about 69 MB of it live at three resident
+blocks per SM, more than the 50 MB L2 cache; how much of its traffic
+reaches device memory is not measured.
 
 Iterates equal relax_compact.relax_compact_quads bit for bit with bands of
 the state type (same term order, the same factored Thomas recurrence) and
@@ -40,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -188,6 +193,17 @@ def plan_bytes(nz: int, H: int, W: int, tj: int, nchunks: int,
             "state": per(4, tj + 4, Wc + 4, itemsize),
             "rhs": per(4, tj + 2, Wc, itemsize) + per(2, tj + 2, 2, itemsize),
             "outputs": 4 * nz * H * W * itemsize}
+
+
+def store_bytes(nz: int, H: int, W: int, tj: int, nchunks: int,
+                itemsize: int) -> int:
+    """The size of the blocks' private colour-0 stores one packed sweep
+    fills, over all chunks.  K8 writes each value and reads it back in the
+    same block; the store is neither an input nor an output, so the
+    sweep's bound does not count it."""
+    Wc = W // nchunks
+    return nchunks * itemsize * math.prod(_scratch_shape(H // tj, Wc, nz,
+                                                         tj))
 
 
 def unique_bytes(nz: int, H: int, W: int, itemsize: int,

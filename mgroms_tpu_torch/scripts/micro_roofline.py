@@ -35,8 +35,6 @@ from ..ops.kernels import relax_tiled as kt
 from ..ops.kernels import roofline as rl
 from ._timing import card, card_line, emit, median_ms
 
-TARGET = (0, 0)
-
 
 def operands(dev, nz, H, W, seed=0):
     """K1's float32 operands at quad shape (nz, H, W), uniform [0.5, 1.5)
@@ -78,7 +76,7 @@ def timed(dev=None, nz=64, H=512, W=512, reps=20) -> dict:
     o = operands(dev, nz, H, W)
     e3, bq, blocks, ud, bet, gam, rb, d = (
         o[k] for k in ("e3", "bq", "blocks", "ud", "bet", "gam", "rb", "d"))
-    t = TARGET
+    t = rl.TARGET
     ms = lambda fn: median_ms(fn, reps=reps)
     emit(rows, "update_real_ms", ms(
         lambda: kt.color_update(e3, bq, blocks, ud, bet, t, True, rb)))

@@ -105,17 +105,13 @@ def _all_launches() -> dict:
     return {**kt.LAUNCHES, **ksf.LAUNCHES, **sp.LAUNCHES}
 
 
-def _reset() -> None:
-    for mod in (kt, ksf, sp):
-        mod.reset_launches()
-
-
 def timed(dev=None, nz=64, ny=1024, nx=1024, modes=MODES,
           tj=sp.DEFAULT_TJ, nchunks=sp.DEFAULT_NCHUNKS, reps=20):
     """Time one sweep of each route of ``modes`` on the card.  Returns
     ``(rows, launches)``: the JSON rows (ms, the plan's bytes and, with
     ``check``, the errors) and, per route, the kernels one sweep
-    launched."""
+    launched (the counters' growth over that sweep; they are never
+    reset here)."""
     dev = card(dev)
     print(card_line(), flush=True)
     rows = {}
@@ -129,12 +125,15 @@ def timed(dev=None, nz=64, ny=1024, nx=1024, modes=MODES,
                 nz, H, W, tj, nchunks, 4, bsz).values()) / 1e9)
             emit(rows, f"packed_unique_gb_{name}", sum(sp.unique_bytes(
                 nz, H, W, 4, bsz).values()) / 1e9)
+        emit(rows, "packed_store_gb",
+             sp.store_bytes(nz, H, W, tj, nchunks, 4) / 1e9)
     launches = {}
     for mode, (fn, _) in rts.items():
-        _reset()
+        before = _all_launches()
         fn(q, bq)
         torch.cuda.synchronize()
-        launches[mode] = {k: v for k, v in _all_launches().items() if v}
+        launches[mode] = {k: v - before[k] for k, v in _all_launches().items()
+                          if v > before[k]}
     if "check" in modes:
         for mode, (fn, pk) in rts.items():
             if mode != "tiled":

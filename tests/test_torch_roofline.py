@@ -31,7 +31,7 @@ def operands(nz, H, W, seed):
                 bet=f(nz, H, W), gam=f(nz - 1, H, W), rb=f(1, H, 2 * W))
 
 
-def np_dma_only(o, which, gam, real, target=(0, 0)):
+def np_dma_only(o, which, gam, real):
     """micro_roofline.py:123-144's streams per variant ("all": the three
     state windows, the wide blocks, ud, bet, gam and bq; "windows": the
     windows and bq; "blocks": the blocks and bq), every value K1 loads
@@ -39,7 +39,7 @@ def np_dma_only(o, which, gam, real, target=(0, 0)):
     the Thomas operands)."""
     e3, bq = o["e3"], o["bq"]
     nz, H, W = bq.shape
-    tt = term_table(target, gather_quads(target))
+    tt = term_table(rl.TARGET, gather_quads(rl.TARGET))
     out = np.empty_like(bq)
     for k in range(nz):
         acc = bq[k].copy()
@@ -114,12 +114,12 @@ def np_fma_kernel(x):
 def test_fma_run_plain_matches_numpy(seed):
     """fma_run_plain (float64, rounded once at the end) and the CPU wrapper
     == the float32 transcription within FMA_RTOL x max|numpy| on the
-    (8, 8, 512) block; the tile count does not change the result."""
+    (8, 8, 512) block."""
     x = np.random.default_rng(seed).uniform(0.5, 1.5, rl.FMA_BLOCK).astype(
         np.float32)
     want = np_fma_kernel(x)
     for got in (rl.fma_run_plain(torch.from_numpy(x)),
-                rl.fma_run(torch.from_numpy(x), 3)):
+                rl.fma_run(torch.from_numpy(x))):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                    atol=rl.FMA_RTOL * np.abs(want).max())
