@@ -35,7 +35,9 @@ Phases (any failed check raises, so the exit code is non-zero):
    level-0 state and RHS shapes, exact, beside one strided PyTorch copy
    (library_ms); K10's dma_only in its three variants at (64, 512, 512)
    and on bfloat16 blocks (all, blocks), exact, and fma_run within its
-   stated tolerance.
+   stated tolerance.  K7 at CUC level 0 split over a virtual (1, 4) mesh
+   (four (64, 1024, 256) tiles, both real_matrix values), 0 ulp from its
+   plain version and from K5 on the whole grid.
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -69,6 +71,15 @@ Phases (any failed check raises, so the exit code is non-zero):
    to the plain sweep; exactly the kernels of each route launched),
    micro_packed_parts and micro_roofline (K1 against K10's dma_only, the
    FMA rate of K10's fma_run); their rows are printed.
+12. CUC 1024^2 x 64, default config, NHModel.distribute(2, 2,
+   comm="shard_map") over a virtual mesh of four tiles on the one card
+   (the reference's testcuc decomposition; no interconnect is measured):
+   <= 1e-4 within 8 F-cycles, the history within DIST_RTOL of phase 8
+   (the single-device K1-K3 route), phase 4's max|div| limits, exactly
+   the kernels its routing predicts (DIST_KERNELS: K1-K3 per tile).
+13. The residual of phase 12's pressure by two schedules: the shard_map
+   backend's on the 2x2 tiles (K5 per tile) and K7 on a (1, 4) re-cut,
+   bit for bit, four launches each.
 
 Phases 5-10 run in float32.  Phases 5-8 hold their history to the
 matching default phase's (2 or 4) within rel 1e-6 (1e-3 with
@@ -77,7 +88,7 @@ residuals are emitted where phase 4's are fresh).  Every phase reaches
 <= 1e-4 within its cycle limit, meets its default phase's max|div| limits
 and launches every kernel of its path and no other.
 
-Phases 2 and 4-10 also trace one F-cycle with torch.profiler (device
+Phases 2, 4-10 and 12 also trace one F-cycle with torch.profiler (device
 activity only): device ops, device busy time against the same traced
 step's wall time (the idle share), and the top device ops.
 
@@ -85,7 +96,7 @@ The line before last is a JSON object with, for each kernel, its launches
 in the phase that is its path (4 for K4 and K3, 6 for K6's one-launch
 form, 7 for K5 and K6's per-colour-step form, 8 for K1 and K2, 9 for K4
 on bfloat16 blocks, 10 for K1 on bfloat16 blocks, 11 for K8, K9 and
-K10), its error against the plain version, both times and its bound; the
+K10, 13 for K7), its error against the plain version, both times and its bound; the
 last line is
 {"ok": true, "device": {...}}.
 """
@@ -106,14 +117,18 @@ from mgroms_tpu_torch import NHModel, SolverConfig
 from mgroms_tpu_torch.bc import extend_h1
 from mgroms_tpu_torch.cases.cuc import setup_cuc_synthetic
 from mgroms_tpu_torch.cases.seamount import initial_velocities, setup_seamount
+from mgroms_tpu_torch.levels import describe
 from mgroms_tpu_torch.ops import relax_compact as rc
 from mgroms_tpu_torch.ops.kernels import _build
+from mgroms_tpu_torch.ops.kernels import rdma_halo as k7
 from mgroms_tpu_torch.ops.kernels import relax_fused as kf
 from mgroms_tpu_torch.ops.kernels import relax_tiled as kt
 from mgroms_tpu_torch.ops.kernels import roofline as rl
 from mgroms_tpu_torch.ops.kernels import stencil_tiled as ks
 from mgroms_tpu_torch.ops.kernels import sweep_fused as ksf
 from mgroms_tpu_torch.ops.kernels import sweep_packed as sp
+from mgroms_tpu_torch.parallel import mesh as pmesh
+from mgroms_tpu_torch.parallel.exchange import unblock_overlapped
 from mgroms_tpu_torch.scripts import micro_packed_parts as mpp
 from mgroms_tpu_torch.scripts import micro_roofline as mr
 from mgroms_tpu_torch.scripts import micro_sweep_fused as msf
@@ -150,6 +165,8 @@ KERNELS = {
                      "mgroms_tpu/ops/pallas/sweep_packed.py:591", 11),
     "dma_only": ("roofline.cu", "scripts/micro_roofline.py:123", 11),
     "fma_run": ("roofline.cu", "scripts/micro_roofline.py:266", 11),
+    "residual_overlap_x": ("rdma_halo.cu",
+                           "mgroms_tpu/ops/pallas/rdma_halo.py:132", 13),
 }
 REL_TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
@@ -158,11 +175,11 @@ F32_FLOPS = 67e12                # float32 outside the tensor cores
 
 def launches() -> dict:
     return {**kt.LAUNCHES, **ks.LAUNCHES, **kf.LAUNCHES, **ksf.LAUNCHES,
-            **sp.LAUNCHES, **rl.LAUNCHES}
+            **sp.LAUNCHES, **rl.LAUNCHES, **k7.LAUNCHES}
 
 
 def reset_launches() -> None:
-    for mod in (kt, ks, kf, ksf, sp, rl):
+    for mod in (kt, ks, kf, ksf, sp, rl, k7):
         mod.reset_launches()
 
 
@@ -324,6 +341,7 @@ def kernel_phase(dev):
     full_layout_kernels(dev, results)
     packed_kernels(dev, results)
     roofline_kernels(dev, results)
+    overlap_kernels(dev, results)
     return results
 
 
@@ -555,19 +573,75 @@ def roofline_kernels(dev, results):
          "json")
 
 
+def virtual_mesh(dev, npx, npy):
+    """An (npy, npx) mesh of ``dev`` repeated: every tile on the one card."""
+    return pmesh.make_mesh(npx, npy, [dev] * (npx * npy))
+
+
+def overlap_kernels(dev, results):
+    """K7 at CUC level 0 (64, 1024, 1024) f32 split over a virtual (1, 4)
+    mesh, four (64, 1024, 256) tiles, both ``real_matrix`` values: 0 ulp
+    from its plain version (halo_extend + stencil.residual per tile) and
+    from K5 on the whole grid.  Timed: the four launches (kernel), the
+    plain version through shard_map; printed beside them the four launches
+    through shard_map (the lock-step runner's host cost).  Bytes: each
+    tile's extended bands, p and b read once and r written once; flops
+    K5's."""
+    nz, ny, nx, npx = 64, 1024, 1024, 4
+    cA, p, b = full_inputs(nz, ny, nx, torch.float32, dev, seed=132)
+    mesh = virtual_mesh(dev, npx, 1)
+    cut = lambda a, extra=(0, 0): pmesh.split_tiles(a, (1, npx),
+                                                    mesh.devices, extra)
+    pt, bt, ct = cut(p), cut(b), cut(cA, (2, 2))
+    nb = nbytes(*pt.flat(), *bt.flat(), *ct.flat(), *bt.flat())
+    for real in (True, False):
+        k5 = ks.residual_tiled(extend_h1(p).contiguous(), b, cA, real)
+        via = lambda fn: pmesh.shard_map(
+            lambda p_l, b_l, c_l: fn(p_l, b_l, c_l, real), mesh)(pt, bt, ct)
+        row = pt.grid[0]
+
+        def kern():
+            return [k7.residual_overlap_tile(
+                row[i], bt.grid[0][i], ct.grid[0][i], real,
+                row[i - 1] if i else None,
+                row[i + 1] if i < npx - 1 else None) for i in range(npx)]
+
+        hold(results, "residual_overlap_x", f"4 x {(nz, ny, nx // npx)} "
+             f"real={real}", torch.float32, kern,
+             lambda: list(via(k7.residual_overlap_x_plain).flat()),
+             float(b.abs().max()), nb, 30 * p.numel() + 8 * ny * nx,
+             "json" if real else None, exact=True)
+        got = pmesh.join_tiles(via(k7.residual_overlap_x), dev)
+        check(torch.equal(got, k5), f"K7 != K5 on the whole grid "
+              f"(real={real}): max ulp {max_ulp(got, k5)}")
+        print(f"  K7 == K5 on the whole (64, 1024, 1024) grid, "
+              f"real={real}: 0 ulp")
+        if real:
+            print(f"  the four K7 launches through shard_map: "
+                  f"{median_ms(lambda: via(k7.residual_overlap_x)):.4f} ms")
+        del k5, got
+    del cA, p, b, pt, bt, ct
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------- slice phases
 
-def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, **cfg):
-    """The user's path: NHModel -> set_matrices -> solve ->
-    check_nondivergence, with ``SolverConfig(dtype=dtype, **cfg)``.
-    Returns the model, SolveInfo, the max|div| ratios after/before over the
-    whole grid and over the interior (the 2-cell wall ring excluded),
-    set-up seconds and peak device memory."""
+def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
+              **cfg):
+    """The user's path: NHModel -> set_matrices [-> distribute over a
+    virtual ``mesh`` (npx, npy) of ``dev``] -> solve -> check_
+    nondivergence, with ``SolverConfig(dtype=dtype, **cfg)``.  Returns the
+    model, SolveInfo, the max|div| ratios after/before over the whole grid
+    and over the interior (the 2-cell wall ring excluded), set-up seconds
+    and peak device memory; the pressure is kept as ``m.p_solved``."""
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     m = NHModel(nx, ny, nz, cfg=SolverConfig(dtype=dtype, **cfg), device=dev)
     m.set_matrices(case.dx, case.dy, case.zeta, case.h, hc=case.hc,
                    theta_b=case.theta_b, theta_s=case.theta_s)
+    if mesh:
+        m.distribute(*mesh, devices=[dev] * (mesh[0] * mesh[1]),
+                     comm="shard_map")
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
     u, v, w = initial_velocities(nx, ny, nz, dtype=m.dtype, device=dev)
@@ -577,6 +651,7 @@ def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, **cfg):
     inner = float(m.rhs(uc, vc, wc)[:, 2:-2, 2:-2].abs().max())
     check(torch.isfinite(p).all() and p.shape == (nz, ny, nx),
           "pressure not finite / wrong shape")
+    m.p_solved = p
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"  history {['%.4e' % h for h in info.history]}")
     print(f"  set-up {setup_s:.3f} s, solve {info.time_s:.3f} s, "
@@ -592,7 +667,7 @@ def fcycle_ms(m, reps=5):
     be = m.backend
     u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
                                  device=m.device)
-    p, bs, r, _, _ = solve_init(be, m.rhs(u, v, w))
+    p, bs, r, _, _ = solve_init(be, m._rhs_state(u, v, w))
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -615,7 +690,7 @@ def profile_fcycle(m, top=8):
     be = m.backend
     u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
                                  device=m.device)
-    p, bs, r, _, _ = solve_init(be, m.rhs(u, v, w))
+    p, bs, r, _, _ = solve_init(be, m._rhs_state(u, v, w))
     p, r, _ = solve_step(be, p, bs, r, m.cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -730,6 +805,106 @@ def micro_phase(dev):
     return counts
 
 
+# The routing of phase 12 (CUC 1024^2 x 64 on a virtual 2x2 mesh): every
+# level stays sharded on both axes (local tiles 512 .. 16, all >= nsmall);
+# levels 0-1 (tiles 512^2, 256^2) pass the card's compact gate
+# (shardmap_backend.compact_shard_eligible: quad tiles >= 128 wide) and
+# run K1 (sweeps), K2 (the emitted residual) and K3 per tile; levels 2-5
+# (tiles <= 128 wide) run the plain masked relax and the plain residual
+# (K5 needs a tile >= 256 wide); no level is replicated, so K4 never runs,
+# and the default config has no K6.
+DIST_COMPACT_LEVELS = (0, 1)
+DIST_KERNELS = {"color_update", "color_update_emit", "rr_zsum"}
+# phase 12's history against phase 8's (the single-device K1-K3 route).
+# Not 1e-6: the one compared entry is a residual norm near 7e-5 in f32,
+# summed over four tiles in another order, and levels 2-5 compute fresh
+# full-layout residuals where phase 8 emits them from the smoother's last
+# colour (phase 8 itself sits 1e-3 from phase 4 for that reason); the
+# first chip run measured 1.57e-6 (PERF.md)
+DIST_RTOL = 1e-5
+
+
+def distributed_phase(case, dev, ref):
+    """Phase 12: CUC 1024^2 x 64 f32, default config, distributed over a
+    virtual 2x2 mesh of the one card (the reference's testcuc
+    decomposition, mg_testcuc.f90:34-39): <= 1e-4 within 8 F-cycles, the
+    history within DIST_RTOL of phase 8's ``ref``, phase 4's max|div|
+    limits, exactly the kernels the routing predicts (DIST_KERNELS).
+    Returns the model and the phase's launch counts."""
+    print("== phase 12: CUC 1024^2 x 64 float32, distribute(2, 2, "
+          "comm='shard_map') on a virtual mesh of one card (no "
+          "interconnect is measured)")
+    t0 = time.perf_counter()
+    reset_launches()
+    m, info, ratio, inner, setup_s, peak = run_model(
+        1024, 1024, 64, case, "float32", dev, tol=1e-4, maxiter=8,
+        mesh=(2, 2))
+    counts = launches()
+    print(f"  launches {counts}")
+    be = m.backend
+    print("  " + describe(m.levels, be.plan.shards).replace("\n", "\n  "))
+    check(all(s.sharded and s.shard_py and s.shard_px
+              for s in be.plan.shards), "a level left the 2x2 tiling")
+    check(tuple(lev for lev in range(be.nlevs)
+                if be._use_compact_shard(lev)) == DIST_COMPACT_LEVELS,
+          "compact levels differ from the routing's premise")
+    check_path(counts, DIST_KERNELS)
+    n = min(len(info.history), len(ref))
+    dev_rel = max(abs(a / b - 1) for a, b in zip(info.history[:n], ref[:n]))
+    print(f"  history vs phase 8: max rel deviation {dev_rel:.3e} over {n} "
+          f"entries (limit {DIST_RTOL})")
+    check(info.res <= 1e-4, f"{info.res} after {info.niter} cycles")
+    check(ratio <= 2.5e-2 and inner <= 1e-2,
+          f"max|div| cut only to {ratio} (interior {inner})")
+    print(f"  F-cycle median {fcycle_ms(m):.3f} ms (virtual mesh: four "
+          f"tiles on one card)")
+    profile_fcycle(m)
+    check(dev_rel <= DIST_RTOL, f"history {info.history} vs phase 8 {ref}")
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+    return m, counts
+
+
+def overlap_phase(m, dev):
+    """Phase 13: the residual of phase 12's pressure on its level-0
+    operator by two schedules — the shard_map backend's residual on the
+    2x2 tiles (halo_extend, then K5 on each 512-wide tile) and K7 on the
+    same grid re-cut into a virtual (1, 4) mesh — equal bit for bit; K5
+    and K7 launch four times each and nothing else.  Returns the phase's
+    launch counts."""
+    print("== phase 13: K7 on a virtual (1, 4) mesh against the 2x2 "
+          "shard_map residual, phase 12's pressure")
+    t0 = time.perf_counter()
+    be = m.backend
+    u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
+                                 device=dev)
+    b = m.rhs(u, v, w)
+    p = m.p_solved
+    cA = unblock_overlapped(pmesh.join_tiles(be.ops[0].cA, dev), 2, 2, 2, 2)
+    mesh = virtual_mesh(dev, 4, 1)
+    cut = lambda a, extra=(0, 0): pmesh.split_tiles(a, (1, 4), mesh.devices,
+                                                    extra)
+    pt, bt, ct = cut(p), cut(b), cut(cA, (2, 2))
+    del cA
+    reset_launches()
+    r_sm = be.gather(0, be.residual(0, be.place(0, p), be.place(0, b)))
+    r_k7 = pmesh.join_tiles(pmesh.shard_map(
+        lambda p_l, b_l, c_l: k7.residual_overlap_x(p_l, b_l, c_l, be.real),
+        mesh)(pt, bt, ct), dev)
+    counts = launches()
+    print(f"  launches {counts}")
+    check_path(counts, {"residual_tiled", "residual_overlap_x"})
+    check(counts["residual_tiled"] == 4 and counts["residual_overlap_x"] == 4,
+          "expected four launches of K5 and of K7")
+    check(torch.equal(r_k7, r_sm),
+          f"K7 != the shard_map residual: max ulp {max_ulp(r_k7, r_sm)}")
+    rel = float(torch.linalg.vector_norm(r_k7) / torch.linalg.vector_norm(b))
+    print(f"  K7 == shard_map residual (0 ulp); ||r||/||b|| = {rel:.4e}")
+    check(rel <= 1e-4, f"relative residual {rel}")
+    del pt, bt, ct, r_sm, r_k7
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -825,7 +1000,7 @@ def main() -> int:
         *cuc, maxiter=8, ref=cuc_history, rtol=1e-3,
         div_limits=(2.5e-2, 1e-2), cfg=dict(use_pallas=True, compact=False),
         busy={"fused_relax", "fused_relax_step", "residual_tiled"})
-    phase_counts[8], _ = path_phase(
+    phase_counts[8], info8 = path_phase(
         "phase 8: CUC 1024^2 x 64 float32, pallas_fused_sweep=False", *cuc,
         maxiter=8, ref=cuc_history, rtol=1e-3, div_limits=(2.5e-2, 1e-2),
         cfg=dict(pallas_fused_sweep=False),
@@ -847,6 +1022,10 @@ def main() -> int:
           f"{len(seamount_history) - 1} in phase 2")
 
     phase_counts[11] = micro_phase(dev)
+    m, phase_counts[12] = distributed_phase(case, dev, info8.history)
+    phase_counts[13] = overlap_phase(m, dev)
+    del m
+    torch.cuda.empty_cache()
 
     for name, (src, _, phase) in KERNELS.items():
         print(f"  {name}: {phase_counts[phase][name]} launches in phase "

@@ -9,6 +9,12 @@ the port's tensors, so a solve can be checked apart from assembly:
         {f: np.asarray(x) for f, x in jax_model.metrics._asdict().items()})
     model.use_operators(ops, metrics)
 
+A distributed state carries over the same way: the JAX package's blocked
+arrays (per-shard blocks side by side in the last two dims: the
+``block_extended`` cA of its shard_map backend, the leaves of its per-shard
+packs) become the port's tile grids (:func:`tiles_from_numpy`,
+:func:`pack_tiles_from_numpy`).
+
 Every function puts the tensors on the card unless ``device`` says
 otherwise.
 """
@@ -23,6 +29,7 @@ import torch
 from .assembly import FineMetrics, LevelOperator
 from .ops.kernels.sweep_packed import SweepOperator
 from .ops.relax_compact import CompactPack, LowPrecision
+from .parallel.mesh import Tiles
 
 
 def _t(a, device, dtype) -> torch.Tensor:
@@ -99,3 +106,42 @@ def packed_operator_from_numpy(pband: Sequence, ppiv: Sequence,
                          ppiv=tuple(_t(a, device, dtype) for a in ppiv),
                          pseam=tuple(_t(a, device, dtype) for a in pseam),
                          tj=tj, nchunks=nchunks)
+
+
+def _tile_slices(a, shape):
+    """The (ny, nx) grid ``shape`` of equal blocks of ``a``'s last two
+    dims."""
+    ny, nx = shape
+    bj, bi = a.shape[-2] // ny, a.shape[-1] // nx
+    return [[a[..., j * bj:(j + 1) * bj, i * bi:(i + 1) * bi]
+             for i in range(nx)] for j in range(ny)]
+
+
+def _tile_device(device, j, i):
+    """``device``, or tile (j, i)'s entry of a grid of devices."""
+    return device[j][i] if isinstance(device, (list, tuple)) else device
+
+
+def tiles_from_numpy(blocked, shape, device="cuda",
+                     dtype=torch.float64) -> Tiles:
+    """A blocked array — the tiles' arrays side by side in the last two
+    dims, e.g. the JAX package's ``block_extended`` cA — as a Tiles grid of
+    ``shape`` (tiles along y, along x).  ``device`` is one device or a
+    grid of them, one per tile."""
+    grid = _tile_slices(np.asarray(blocked), shape)
+    return Tiles([[_t(a, _tile_device(device, j, i), dtype)
+                   for i, a in enumerate(row)] for j, row in enumerate(grid)])
+
+
+def pack_tiles_from_numpy(fields: Mapping, shape, real_matrix: bool,
+                          device="cuda", dtype=torch.float64) -> Tiles:
+    """The JAX package's per-shard CompactPack (its leaves, as numpy: the
+    tiles' arrays side by side in the last two dims) as a Tiles grid of
+    ``shape`` of the port's packs (:func:`pack_from_numpy` per tile)."""
+    ny, nx = shape
+    split = {k: [_tile_slices(np.asarray(a), shape) for a in v]
+             for k, v in fields.items()}
+    return Tiles([[pack_from_numpy(
+        {k: [g[j][i] for g in v] for k, v in split.items()}, real_matrix,
+        device=_tile_device(device, j, i), dtype=dtype)
+        for i in range(nx)] for j in range(ny)])

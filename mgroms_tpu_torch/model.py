@@ -8,6 +8,10 @@ Port of the single-device part of ``mgroms_tpu/model.py`` (reference
   nhydro_solve     -> NHModel.solve(...)                 (:53-102)
   nhydro_check_nondivergence -> NHModel.check_nondivergence(...) (:105-134)
 
+and ``NHModel.distribute`` (the reference's 2-D horizontal decomposition,
+npxg x npyg) over a mesh of devices driven from this one process
+(mgroms_tpu_torch/parallel).
+
 Velocity layout (z leading): u (nz, ny+2, nx+1), v (nz, ny+1, nx+2),
 w (nz+1, ny+2, nx+2).  Every tensor the model creates takes its device and
 ``cfg.dtype``; inputs are converted to them.
@@ -26,6 +30,7 @@ from .config import SolverConfig
 from .levels import build_level_plan, describe
 from .ops.projection import correct_uvw
 from .ops.rhs import compute_rhs
+from .parallel.mesh import Tiles
 from .solver import SingleDeviceBackend, SolveInfo, check_supported, solve_p
 
 
@@ -79,8 +84,65 @@ class NHModel:
         carried over from elsewhere (mgroms_tpu_torch.convert)."""
         self.ops = ops
         self.metrics = metrics
+        self._physics = None
         self.backend = SingleDeviceBackend(self.levels, ops, self.cfg,
                                            packs=packs)
+
+    def distribute(self, npx: int, npy: int, devices=None,
+                   comm: str = "auto") -> None:
+        """Distribute the solve over an (npx, npy) device mesh — the
+        reference's 2-D horizontal domain decomposition (npxg x npyg,
+        nhydro_init, nhydro.f90:18).  Call after :meth:`set_matrices`.
+        ``devices`` (default: every visible CUDA device) may repeat a
+        device: ``["cuda:0"] * 4`` is a virtual 2x2 mesh on one card.
+
+        ``comm`` selects the communication layer: 'shard_map' (explicit
+        halo exchange, per-tile operators; parallel/shardmap_backend.py),
+        or 'auto', which resolves as the JAX package does
+        (parallel.shardmap_backend.default_comm).  'gspmd' is not ported
+        and raises.  Distributes the whole solve: rhs, project and
+        check_nondivergence run per tile too (parallel/physics.py).  The
+        single-device operators and packs of the sharded levels are freed
+        once cut into tiles."""
+        from .parallel import (DistributedPhysics, MeshPlan,
+                               ShardMapBackend, make_mesh,
+                               shard_operators_blocked)
+        from .parallel.mesh import move
+        from .parallel.shardmap_backend import (default_comm,
+                                                shard_packs_blocked)
+        self._require()
+        mesh = make_mesh(npx, npy, devices)
+        plan = MeshPlan.create(mesh, self.levels, nsmall=self.cfg.nsmall)
+        if comm == "auto":
+            comm = default_comm(self.levels, plan, self.cfg,
+                                "cuda" if mesh.on_card else "cpu")
+        if comm == "gspmd":
+            raise NotImplementedError(
+                "the GSPMD comm layer is not ported (ROADMAP, queue 1 item "
+                "8: the GSPMD backend, DTensor or retired); use "
+                "comm='shard_map'")
+        if comm != "shard_map":
+            raise ValueError(f"unknown comm layer {comm!r}")
+        # replicated (agglomerated) levels keep their packs, on the mesh's
+        # first device; sharded levels build per-tile packs
+        packs = [None if (pk is None or plan.shards[lev].sharded)
+                 else move(pk, mesh.first)
+                 for lev, pk in enumerate(self.backend.packs)]
+        ops = shard_operators_blocked(self.ops, plan)
+        self.ops = ops
+        self.backend = None
+        backend = ShardMapBackend(self.levels, ops, self.cfg, plan,
+                                  packs=packs)
+        spk = shard_packs_blocked(self.levels, ops, self.cfg, plan, backend)
+        backend.packs = [s if s is not None else packs[lev]
+                         for lev, s in enumerate(spk)]
+        self.backend = backend
+        self.device = mesh.first
+        self._physics = DistributedPhysics(plan, self.metrics, self.cfg)
+
+    @property
+    def distributed(self) -> bool:
+        return getattr(self, "_physics", None) is not None
 
     def _require(self) -> FineMetrics:
         if self.metrics is None:
@@ -89,16 +151,42 @@ class NHModel:
 
     # -- pieces ------------------------------------------------------------
     def rhs(self, u, v, w) -> torch.Tensor:
+        if self.distributed:
+            return self.backend.gather(0, self._rhs_state(u, v, w))
         return compute_rhs(self._require(), self.tensor(u), self.tensor(v),
                            self.tensor(w), self.cfg.bmask)
 
+    def _state(self, x):
+        """``x`` as a tensor of the model, unless it is already a tile grid
+        of a distributed state (parallel.mesh.Tiles)."""
+        return x if isinstance(x, Tiles) else self.tensor(x)
+
+    def _rhs_state(self, u, v, w):
+        """b in level 0's layout (its tiles when distributed)."""
+        if not self.distributed:
+            return self.rhs(u, v, w)
+        return self.backend.place(0, self._physics.rhs(
+            self.tensor(u), self.tensor(v), self.tensor(w)))
+
+    def _solve_state(self, b, tol, maxiter, verbose):
+        self._require()
+        if self.distributed:
+            b = self.backend.place(0, self._state(b))
+        else:
+            b = self.tensor(b)
+        return solve_p(self.backend, b, self.cfg, tol=tol, maxiter=maxiter,
+                       verbose=verbose)
+
     def pressure_solve(self, b, tol=None, maxiter=None, verbose=False
                        ) -> Tuple[torch.Tensor, SolveInfo]:
-        self._require()
-        return solve_p(self.backend, self.tensor(b), self.cfg, tol=tol,
-                       maxiter=maxiter, verbose=verbose)
+        p, info = self._solve_state(b, tol, maxiter, verbose)
+        return (self.backend.gather(0, p) if self.distributed else p), info
 
     def project(self, p, u, v, w):
+        if self.distributed:
+            return self._physics.project(
+                self._state(p), self.tensor(u), self.tensor(v),
+                self.tensor(w))
         return correct_uvw(self._require(), extend_h1(self.tensor(p)),
                            self.tensor(u), self.tensor(v), self.tensor(w))
 
@@ -107,13 +195,17 @@ class NHModel:
         """compute_rhs -> solve_p -> correct_uvw.  Returns corrected
         (u, v, w), the pressure p, and a SolveInfo."""
         u, v, w = self.tensor(u), self.tensor(v), self.tensor(w)
-        b = self.rhs(u, v, w)
-        p, info = self.pressure_solve(b, tol=tol, maxiter=maxiter,
-                                      verbose=verbose)
+        p, info = self._solve_state(self._rhs_state(u, v, w), tol, maxiter,
+                                    verbose)
         u, v, w = self.project(p, u, v, w)
+        if self.distributed:
+            p = self.backend.gather(0, p)
         return u, v, w, p, info
 
     def check_nondivergence(self, u, v, w) -> torch.Tensor:
         """max |div| of the corrected velocities
         (nhydro_check_nondivergence, nhydro.f90:105-134)."""
+        if self.distributed:
+            return self._physics.check_nondivergence(
+                self.tensor(u), self.tensor(v), self.tensor(w))
         return torch.max(torch.abs(self.rhs(u, v, w)))

@@ -82,6 +82,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # pe b cA r | nz ny nx real | stream
         fn.argtypes = [p] * 4 + [i] * 4 + [p]
         fn.restype = i
+        fn = getattr(lib, f"mg_residual_overlap_x_{dt}")
+        # p pw pe b cA r | nz ny nx nxw nxe real | stream
+        fn.argtypes = [p] * 6 + [i] * 6 + [p]
+        fn.restype = i
         fn = getattr(lib, f"mg_pack_streams_{dt}")
         # PackArgs* | nslabs C nz Hp Wp tj rows Wc wpad ntiles | stream
         fn.argtypes = [p] + [i] * 10 + [p]
@@ -96,6 +100,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.mg_dma_only, lib.mg_dma_only_bf16):
         fn.argtypes = [p] * 10 + [i] * 4 + [p, p]
         fn.restype = i
+    lib.mg_enable_peer.argtypes = [i]
+    lib.mg_enable_peer.restype = i
     # x out | n ntiles | stream
     lib.mg_fma_run.argtypes = [p, p, i, i, p]
     lib.mg_fma_run.restype = i

@@ -28,11 +28,11 @@ from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
 from ..relax_compact import (_BASE_TERMS, _RB_TARGETS, _REAL_TERMS, _TKEYS,
                              CompactPack, _residual_one_core, extend_quads,
-                             gather_blocks, gather_keys,
+                             gather_blocks, gather_keys, merge_quads,
                              relax_residual_compact_quads,
                              relax_residual_restrict_compact_quads,
                              key_views, residual_from_gather,
-                             smoother_operator)
+                             smoother_operator, split_quads)
 
 LAUNCHES = {"color_update": 0, "color_update_bf16": 0,
             "color_update_emit": 0, "rr_zsum": 0}
@@ -235,18 +235,21 @@ def _rb(pack: CompactPack, m: int):
     return pack.rblocks[m] if pack.real_matrix else None
 
 
-def relax_compact_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int):
+def relax_compact_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int,
+                              extend_fn=None):
     """``nsweeps`` RB sweeps, one :func:`color_update` per (colour, target
     quad), with the smoother operator (relax_compact.smoother_operator:
     ``pack.lp``'s blocks and pivots when present); the quad halo extension
-    between colours stays plain torch, and both targets of a colour read
-    the same pre-colour extension."""
+    between colours (``extend_fn``, default extend_quads; the seam
+    exchange on a tile of a distributed level) stays plain torch, and both
+    targets of a colour read the same pre-colour extension."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
     blocks, rblocks, bet, _ = smoother_operator(pack, q0[(0, 0)].dtype)
+    extend = extend_fn or extend_quads
     q = dict(q0)
     for _ in range(nsweeps):
         for targets in _RB_TARGETS:
-            e = extend_quads(q)
+            e = extend(q)
             for t in targets:
                 m = ti[t]
                 q[t] = color_update(tuple(e[k] for k in gather_quads(t)),
@@ -256,17 +259,26 @@ def relax_compact_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int):
     return q
 
 
-def _tiled_fused_parts(bq, pack: CompactPack):
+def relax_compact_tiled(p, b, pack: CompactPack, nsweeps: int,
+                        extend_fn=None):
+    """:func:`relax_compact_tiled_quads` on a full-layout state (even ny,
+    nx): split, sweep, merge."""
+    return merge_quads(relax_compact_tiled_quads(
+        split_quads(p), split_quads(b), pack, nsweeps, extend_fn=extend_fn))
+
+
+def _tiled_fused_parts(bq, pack: CompactPack, extend_fn=None):
     """The kernel ``sweep_fn`` / ``color_update_fn`` / ``rr_fn`` plugged
     into the relax_compact fused-residual orchestrators."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
     real = pack.real_matrix
+    extend = extend_fn or extend_quads
 
     def sweep_fn(q, n):
-        return relax_compact_tiled_quads(q, bq, pack, n)
+        return relax_compact_tiled_quads(q, bq, pack, n, extend_fn=extend_fn)
 
     def color_update_fn(q, targets, emit):
-        e = extend_quads(q)
+        e = extend(q)
         q = dict(q)
         info = {}
         for t in targets:
@@ -289,32 +301,35 @@ def _tiled_fused_parts(bq, pack: CompactPack):
     return sweep_fn, color_update_fn, rr_fn
 
 
-def relax_residual_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int):
+def relax_residual_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int,
+                               extend_fn=None):
     """``nsweeps`` RB sweeps + the fresh residual: the last colour's
     residual from :func:`color_update_emit`, the first colour's fresh
     (plain).  Returns ``(q, rq)``."""
-    sweep_fn, color_update_fn, _ = _tiled_fused_parts(bq, pack)
+    sweep_fn, color_update_fn, _ = _tiled_fused_parts(bq, pack, extend_fn)
     return relax_residual_compact_quads(
-        q0, bq, pack, nsweeps, pack.real_matrix, sweep_fn=sweep_fn,
-        color_update_fn=color_update_fn)
+        q0, bq, pack, nsweeps, pack.real_matrix, extend_fn=extend_fn,
+        sweep_fn=sweep_fn, color_update_fn=color_update_fn)
 
 
 def relax_residual_restrict_tiled_quads(q0, bq, pack: CompactPack,
-                                        nsweeps: int):
+                                        nsweeps: int, extend_fn=None):
     """The V-cycle down-leg: ``nsweeps`` RB sweeps + restrict(b - A p), the
     last colour's residual from :func:`color_update_emit`, the first
     colour's from :func:`rr_zsum`.  Returns ``(q, coarse_b)``."""
-    sweep_fn, color_update_fn, rr_fn = _tiled_fused_parts(bq, pack)
+    sweep_fn, color_update_fn, rr_fn = _tiled_fused_parts(bq, pack,
+                                                          extend_fn)
     return relax_residual_restrict_compact_quads(
-        q0, bq, pack, nsweeps, pack.real_matrix, sweep_fn=sweep_fn,
-        color_update_fn=color_update_fn, rr_fn=rr_fn)
+        q0, bq, pack, nsweeps, pack.real_matrix, extend_fn=extend_fn,
+        sweep_fn=sweep_fn, color_update_fn=color_update_fn, rr_fn=rr_fn)
 
 
-def residual_restrict_tiled_quads(q, bq, pack: CompactPack) -> torch.Tensor:
+def residual_restrict_tiled_quads(q, bq, pack: CompactPack,
+                                  extend_fn=None) -> torch.Tensor:
     """Coarse b = restrict(b - A p) with :func:`rr_zsum` on all four
     targets (the fine residual is never materialized); the four z-pair
     sums at (J, I) are the 8 children of coarse cell (K, J, I)."""
-    e = extend_quads(q)
+    e = (extend_fn or extend_quads)(q)
     e4 = tuple(e[k] for k in _TKEYS)
     zs = {}
     for m, t in enumerate(_TKEYS):

@@ -6,8 +6,10 @@ The tridiagonal RHS is built for every column at once
 loop over z whose steps are elementwise (ny, nx) ops, and only the active
 colour is committed through a parity mask; the halo is refreshed per
 colour (mg_relax.f90:181).  The port runs this masked form on the
-coarsest level only; every other level runs the quad-parity form
-(ops/relax_compact.py and its kernels).
+full-layout levels (the coarsest, and the tiles of distributed levels
+that fail the card's compact gate, with their global origin ``j0, i0``);
+every other level runs the quad-parity form (ops/relax_compact.py and its
+kernels).
 
 Off the slice: the 'GS'/'FC' orderings, ``gs_exact`` and the PCR solve
 raise ``NotImplementedError``.
@@ -98,27 +100,30 @@ def _column_solve(pe: torch.Tensor, b: torch.Tensor, cA: torch.Tensor,
     return tridiag(d, ud, rhs)
 
 
-def _parity_mask(ny: int, nx: int, c: int, like: torch.Tensor
-                 ) -> torch.Tensor:
-    """Columns of colour ``c``: (i + j + c) even selects colour 0 first
-    (reference sweep order ``j = 1+mod(i+rb,2)``, mg_relax.f90:172-174)."""
-    jj = torch.arange(ny, device=like.device)[:, None]
-    ii = torch.arange(nx, device=like.device)[None, :]
+def _parity_mask(ny: int, nx: int, c: int, j0: int, i0: int,
+                 like: torch.Tensor) -> torch.Tensor:
+    """Columns of colour ``c``: global (i + j + c) even selects colour 0
+    first (reference sweep order ``j = 1+mod(i+rb,2)``,
+    mg_relax.f90:172-174).  ``j0, i0`` are the global offsets of this
+    tile's interior origin."""
+    jj = torch.arange(ny, device=like.device)[:, None] + j0
+    ii = torch.arange(nx, device=like.device)[None, :] + i0
     return ((jj + ii + c) % 2 == 0).to(like.dtype)
 
 
 def relax(p: torch.Tensor, b: torch.Tensor, cA: torch.Tensor,
           nsweeps: int, kind: str, real_matrix: bool,
-          extend_fn: ExtendFn, tridiag_method: str = "thomas"
-          ) -> torch.Tensor:
+          extend_fn: ExtendFn, j0: int = 0, i0: int = 0,
+          tridiag_method: str = "thomas") -> torch.Tensor:
     """``nsweeps`` masked red-black sweeps (``relax``, mg_relax.f90:16-47);
-    ``extend_fn`` supplies the halo once per colour."""
+    ``extend_fn`` supplies the halo (physical BCs and/or neighbour tiles)
+    once per colour; ``j0, i0`` the tile's global origin (the parity)."""
     if kind != "RB" or tridiag_method != "thomas":
         raise NotImplementedError(
             f"relax kind={kind!r}, tridiag={tridiag_method!r} is not "
             "ported (RB with Thomas only)")
     ny, nx = p.shape[-2:]
-    masks = [_parity_mask(ny, nx, c, p) for c in (0, 1)]
+    masks = [_parity_mask(ny, nx, c, j0, i0, p) for c in (0, 1)]
     for _ in range(nsweeps):
         for mask in masks:
             sol = _column_solve(extend_fn(p), b, cA, real_matrix)

@@ -372,18 +372,19 @@ _RB_TARGETS = (((0, 0), (1, 1)),   # color 0: (i + j) even
 
 
 def plain_color_update(q: Quads, bq: Quads, pack: CompactPack, targets,
-                       emit: bool, real_matrix: bool):
+                       emit: bool, real_matrix: bool, extend_fn=None):
     """One RB colour update of ``targets`` in plain torch, with the
     smoother operator (:func:`smoother_operator`; low-precision blocks are
     upcast at read).  Both targets read the same pre-colour extension and
     are solved as one x-concatenated tridiagonal system (factored Thomas,
     ud*bet recomputed per plane as in the kernels).  With ``emit``, each
     target's raw residual from its own gather comes too (full-precision
-    packs only, :func:`relax_emit_last_color`).  Returns
-    ``(q, {target: raw r})``."""
+    packs only, :func:`relax_emit_last_color`).  ``extend_fn`` maps the
+    quads to their halo-extended forms (default :func:`extend_quads`).
+    Returns ``(q, {target: raw r})``."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
     W = q[(0, 0)].shape[2]
-    e = extend_quads(q)
+    e = (extend_fn or extend_quads)(q)
     dt = q[(0, 0)].dtype
     blocks, rblocks, bet, _ = smoother_operator(pack, dt)
     gs = {t: gather_blocks(e, tuple(v.to(dt) for v in key_views(
@@ -403,12 +404,37 @@ def plain_color_update(q: Quads, bq: Quads, pack: CompactPack, targets,
     return q, info
 
 
+def relax_compact(p: torch.Tensor, b: torch.Tensor, cA, nsweeps: int,
+                  kind: str, real_matrix: bool,
+                  tridiag_method: str = "thomas", extend_fn=None,
+                  pack: CompactPack | None = None) -> torch.Tensor:
+    """``nsweeps`` RB line-smoothing sweeps in quad-parity form on a
+    full-layout state (even ny, nx).  ``extend_fn`` maps the four quads to
+    their halo-extended forms: the single-tile mirror rule
+    (:func:`extend_quads`) by default, the seam exchange
+    (parallel/exchange.extend_quads_shard) on a tile of a distributed
+    level, whose even dims make local quad parity the global one.
+    ``pack`` is the persisted gather-block operator, built from ``cA``
+    here if absent."""
+    nz, ny, nx = p.shape
+    assert ny % 2 == 0 and nx % 2 == 0, "compact relax needs even ny, nx"
+    if pack is None:
+        pack = build_compact_pack(cA, real_matrix)
+    q = relax_compact_quads(split_quads(p), split_quads(b), pack, nsweeps,
+                            kind, real_matrix,
+                            tridiag_method=tridiag_method,
+                            extend_fn=extend_fn)
+    return merge_quads(q)
+
+
 def relax_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
                         nsweeps: int, kind: str, real_matrix: bool,
-                        tridiag_method: str = "thomas") -> Quads:
+                        tridiag_method: str = "thomas",
+                        extend_fn=None) -> Quads:
     """``nsweeps`` RB line-smoothing sweeps, state in and out in quad-parity
     layout, one :func:`plain_color_update` per colour, with the smoother
-    operator (:func:`smoother_operator`)."""
+    operator (:func:`smoother_operator`) and the halo of ``extend_fn``
+    (default :func:`extend_quads`)."""
     if kind != "RB" or tridiag_method != "thomas":
         raise NotImplementedError(
             f"compact relax kind={kind!r}, tridiag={tridiag_method!r} is "
@@ -417,7 +443,7 @@ def relax_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
     for _ in range(nsweeps):
         for targets in _RB_TARGETS:
             q, _ = plain_color_update(q, bq, pack, targets, False,
-                                      real_matrix)
+                                      real_matrix, extend_fn=extend_fn)
     return q
 
 
@@ -529,11 +555,12 @@ def _residual_plane0(e: Quads, bq_t, pack: CompactPack, m: int,
 
 
 def residual_quads(q: Quads, bq: Quads, pack: CompactPack,
-                   real_matrix: bool, targets=None) -> Quads:
+                   real_matrix: bool, extend_fn=None, targets=None) -> Quads:
     """r = b - A p with state and result in quad-parity layout — term for
-    term ops/stencil.residual in quad form.  ``targets`` restricts the
-    output to a subset of quads."""
-    e = extend_quads(q)
+    term ops/stencil.residual in quad form, with the halo of ``extend_fn``
+    (default :func:`extend_quads`).  ``targets`` restricts the output to a
+    subset of quads."""
+    e = (extend_fn or extend_quads)(q)
     ti = {t: i for i, t in enumerate(_TKEYS)}
     return {t: _residual_one(e, bq[t], pack, ti[t], t, real_matrix)
             for t in (targets if targets is not None else _TKEYS)}
@@ -591,7 +618,7 @@ def _patched_zsum(e2: Quads, bq_t, pack: CompactPack, m: int,
 
 
 def relax_emit_last_color(q0: Quads, bq: Quads, pack: CompactPack,
-                          nsweeps: int, real_matrix: bool,
+                          nsweeps: int, real_matrix: bool, extend_fn=None,
                           sweep_fn=None, color_update_fn=None):
     """``nsweeps`` RB sweeps with the last colour update also emitting its
     targets' raw residuals from its own gather (callers patch them with
@@ -599,7 +626,8 @@ def relax_emit_last_color(q0: Quads, bq: Quads, pack: CompactPack,
 
     ``sweep_fn(q, n)`` runs the first ``nsweeps - 1`` sweeps (default: the
     plain path); ``color_update_fn(q, targets, emit) -> (q, info)``
-    substitutes the per-colour update (the kernel path).  The emitted
+    substitutes the per-colour update (the kernel path); ``extend_fn`` is
+    the plain path's halo (default :func:`extend_quads`).  The emitted
     residual is the true A's, so a pack with the low-precision smoother
     operator is refused."""
     assert nsweeps >= 1, "fused relax+residual needs at least one sweep"
@@ -608,11 +636,13 @@ def relax_emit_last_color(q0: Quads, bq: Quads, pack: CompactPack,
                          "operator; this pack carries pack.lp")
     if sweep_fn is None:
         sweep_fn = lambda q, n: relax_compact_quads(q, bq, pack, n, "RB",
-                                                    real_matrix)
+                                                    real_matrix,
+                                                    extend_fn=extend_fn)
     q = dict(sweep_fn(q0, nsweeps - 1)) if nsweeps > 1 else dict(q0)
     update = color_update_fn or (
         lambda q, targets, emit: plain_color_update(q, bq, pack, targets,
-                                                    emit, real_matrix))
+                                                    emit, real_matrix,
+                                                    extend_fn=extend_fn))
     q, _ = update(q, _RB_TARGETS[0], False)
     q, info = update(q, _RB_TARGETS[1], True)
     return q, info
@@ -620,16 +650,20 @@ def relax_emit_last_color(q0: Quads, bq: Quads, pack: CompactPack,
 
 def relax_residual_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
                                  nsweeps: int, real_matrix: bool,
-                                 sweep_fn=None, color_update_fn=None):
+                                 extend_fn=None, sweep_fn=None,
+                                 color_update_fn=None):
     """``nsweeps`` RB sweeps plus the fresh post-sweep residual, the last
     colour's residual coming from its own colour update.  Returns
     ``(q, rq)``; equal to :func:`relax_compact_quads` then
-    :func:`residual_quads` in exact arithmetic."""
+    :func:`residual_quads` in exact arithmetic.  The patches read the
+    post-sweep extension of ``extend_fn`` (default :func:`extend_quads`):
+    they recompute the one halo-reading row and column per quad fresh, so
+    they hold under the mirror and under a seam exchange alike."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
     q, info = relax_emit_last_color(q0, bq, pack, nsweeps, real_matrix,
-                                    sweep_fn=sweep_fn,
+                                    extend_fn=extend_fn, sweep_fn=sweep_fn,
                                     color_update_fn=color_update_fn)
-    e2 = extend_quads(q)
+    e2 = (extend_fn or extend_quads)(q)
     rq = {}
     for t in _RB_TARGETS[0]:
         rq[t] = _residual_one(e2, bq[t], pack, ti[t], t, real_matrix)
@@ -642,7 +676,7 @@ def relax_residual_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
 def relax_residual_restrict_compact_quads(q0: Quads, bq: Quads,
                                           pack: CompactPack, nsweeps: int,
                                           real_matrix: bool,
-                                          sweep_fn=None,
+                                          extend_fn=None, sweep_fn=None,
                                           color_update_fn=None,
                                           rr_fn=None):
     """``nsweeps`` RB sweeps plus the coarse RHS restrict(b - A p) — the
@@ -654,9 +688,9 @@ def relax_residual_restrict_compact_quads(q0: Quads, bq: Quads,
     residual."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
     q, info = relax_emit_last_color(q0, bq, pack, nsweeps, real_matrix,
-                                    sweep_fn=sweep_fn,
+                                    extend_fn=extend_fn, sweep_fn=sweep_fn,
                                     color_update_fn=color_update_fn)
-    e2 = extend_quads(q)
+    e2 = (extend_fn or extend_quads)(q)
     zs = {}
     for t in _RB_TARGETS[0]:
         if rr_fn is not None:

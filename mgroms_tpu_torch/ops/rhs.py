@@ -30,8 +30,11 @@ def wall_face_masks(ny: int, nx: int, like: torch.Tensor):
 
 
 def compute_rhs(m: FineMetrics, u: torch.Tensor, v: torch.Tensor,
-                w: torch.Tensor, bmask: bool) -> torch.Tensor:
-    """b = div(fluxes) on the interior, (nz, ny, nx)."""
+                w: torch.Tensor, bmask: bool, uface_mask=None,
+                vface_mask=None) -> torch.Tensor:
+    """b = div(fluxes) on the interior, (nz, ny, nx).  The face masks
+    default to walls on all four sides; a tile of a distributed solve
+    passes its own (parallel/exchange.shard_face_masks)."""
     if bmask:
         raise NotImplementedError("bmask is not ported yet")
     nz = u.shape[0]
@@ -48,7 +51,9 @@ def compute_rhs(m: FineMetrics, u: torch.Tensor, v: torch.Tensor,
     whi[-1] = 2.0
     k0 = u.new_zeros((nz, 1, 1))
     k0[0] = 1.0
-    uface_mask, vface_mask = wall_face_masks(ny, nx, u)
+    walls = wall_face_masks(ny, nx, u)
+    uface_mask = walls[0] if uface_mask is None else uface_mask
+    vface_mask = walls[1] if vface_mask is None else vface_mask
 
     # ---------------- UF: u-fluxes on (nz, ny, nx+1) ----------------
     def MU(arr, di=0):

@@ -138,13 +138,21 @@ def build_relax_packs(levels, ops, cfg: SolverConfig) -> list:
     return packs
 
 
+def is_quads(x) -> bool:
+    """A level state in quad-parity layout: a QuadField, or the tiles of
+    one on a sharded level (parallel/mesh.Tiles)."""
+    return isinstance(x, QuadField) or getattr(x, "is_quads", False)
+
+
 class SingleDeviceBackend:
     """All per-level ops on one device (physical BCs on every edge)."""
 
     def __init__(self, levels: List[LevelSpec], ops: List[LevelOperator],
-                 cfg: SolverConfig, packs: Optional[list] = None):
+                 cfg: SolverConfig, packs: Optional[list] = None,
+                 on_card: Optional[bool] = None):
         # (a backend built to read its gates may hold no operators)
-        self.on_card = ops[0] is not None and ops[0].cA.is_cuda
+        self.on_card = (on_card if on_card is not None
+                        else ops[0] is not None and ops[0].cA.is_cuda)
         check_supported(cfg, self.on_card)
         self.levels = tuple(levels)
         self.ops = list(ops)
@@ -281,6 +289,11 @@ class SingleDeviceBackend:
                                self.cfg.interp_type, as_quads=as_quads)
         return QuadField.fromdict(out) if as_quads else out
 
+    def synchronize(self) -> None:
+        """Wait for the device's queued work (the solve's end)."""
+        if self.on_card:
+            torch.cuda.synchronize(self.ops[0].cA.device)
+
     # -- reductions --------------------------------------------------------
     def norm_sq(self, lev: int, x) -> torch.Tensor:
         if isinstance(x, QuadField):
@@ -297,12 +310,12 @@ class SingleDeviceBackend:
 
 
 def _fused_rr_ok(backend, lev: int, nsweeps: int, p) -> bool:
-    return (nsweeps >= 1 and isinstance(p, QuadField)
+    return (nsweeps >= 1 and is_quads(p)
             and backend.supports_fused_rr(lev))
 
 
 def _fused_res_ok(backend, lev: int, nsweeps: int, p) -> bool:
-    return (nsweeps >= 1 and isinstance(p, QuadField)
+    return (nsweeps >= 1 and is_quads(p)
             and backend.supports_fused_residual(lev))
 
 
@@ -390,7 +403,7 @@ def cycle_step(be, p, b, r, cfg):
     defect form the perturbation multiplies the current error and only
     slows the convergence factor; the true-A residual steers."""
     if cfg.fused_bands_bf16:
-        z = be.zeros(0, as_quads=isinstance(p, QuadField))
+        z = be.zeros(0, as_quads=is_quads(p))
         p = p + fcycle(be, z, r, r, cfg)
         return p, be.residual(0, p, b)
     p, r = fcycle(be, p, b, r, cfg, emit_residual=True)
@@ -444,8 +457,7 @@ def solve_p(backend, b: torch.Tensor, cfg: Optional[SolverConfig] = None,
             print(f"ite = {nite:2d}: res = {rnorm:10.3e} / "
                   f"conv = {conv:10.3f}")
     p = backend.to_full(0, p)
-    if p.is_cuda:
-        torch.cuda.synchronize(p.device)
+    backend.synchronize()
     dt = time.perf_counter() - t0
 
     # rescaled performance (mg_solvers.f90:84-97): core-seconds per DOF per

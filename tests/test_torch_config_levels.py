@@ -66,6 +66,25 @@ def test_level_plan_equal(grid):
     assert tlev.describe(t) == jlev.describe(j)
 
 
+@pytest.mark.parametrize("grid,mesh", [((1024, 1024, 64), (2, 2)),
+                                       ((64, 64, 16), (2, 4))])
+def test_shard_plan_copy_equal(grid, mesh):
+    """ShardSpec's fields and build_shard_plan's plan (the staged axis
+    drops, nsmall) equal the JAX package's."""
+    jf = [(f.name, f.type, f.default)
+          for f in dataclasses.fields(jlev.ShardSpec)]
+    tf = [(f.name, f.type, f.default)
+          for f in dataclasses.fields(tlev.ShardSpec)]
+    assert tf == jf
+    for nsmall in (8, 32):
+        j = jlev.build_shard_plan(jlev.build_level_plan(*grid), *mesh,
+                                  nsmall=nsmall)
+        t = tlev.build_shard_plan(tlev.build_level_plan(*grid), *mesh,
+                                  nsmall=nsmall)
+        assert ([dataclasses.asdict(x) for x in t]
+                == [dataclasses.asdict(x) for x in j])
+
+
 def test_gather_term_tables_equal():
     assert trc._BASE_TERMS == jrc._BASE_TERMS
     assert trc._REAL_TERMS == jrc._REAL_TERMS
@@ -83,6 +102,10 @@ def test_import_leaves_jax_out():
             "mgroms_tpu_torch.ops.kernels.relax_tiled, "
             "mgroms_tpu_torch.ops.kernels.sweep_packed, "
             "mgroms_tpu_torch.ops.kernels.roofline, "
+            "mgroms_tpu_torch.ops.kernels.rdma_halo, "
+            "mgroms_tpu_torch.parallel, "
+            "mgroms_tpu_torch.parallel.shardmap_backend, "
+            "mgroms_tpu_torch.parallel.physics, "
             "mgroms_tpu_torch.scripts.micro_sweep_fused, "
             "mgroms_tpu_torch.scripts.micro_packed_parts, "
             "mgroms_tpu_torch.scripts.micro_roofline\n"

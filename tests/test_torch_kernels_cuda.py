@@ -456,3 +456,85 @@ def test_fma_run_within_tolerance(cuda):
     assert _maxdiff(got, want) <= rl.FMA_RTOL * float(want.abs().max())
     with pytest.raises(ValueError):
         rl.fma_run(x.double())
+
+
+# ---------------------------------------------- K7 and the distributed path
+
+def _k7_run(mesh, p, b, cA, real, fn):
+    from mgroms_tpu_torch.parallel import mesh as tmesh
+    npx = mesh.shape[1]
+    tl = lambda a, extra=(0, 0): tmesh.split_tiles(a, (1, npx),
+                                                   mesh.devices, extra)
+    r = tmesh.shard_map(lambda p_l, b_l, c_l: fn(p_l, b_l, c_l, real),
+                        mesh)(tl(p), tl(b), tl(cA, (2, 2)))
+    return tmesh.join_tiles(r, p.device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("npx,nx", [(1, 8), (2, 4), (3, 6), (4, 8),
+                                    (4, 64)])
+@pytest.mark.parametrize("real", [True, False])
+def test_overlap_residual_matches_plain(cuda, npx, nx, dtype, real):
+    """K7 on a virtual (1, npx) mesh on one card, down to two columns a
+    tile: 0 ulp from its plain version and from K5 on the whole grid."""
+    from mgroms_tpu_torch.ops.kernels import rdma_halo as k7
+    from mgroms_tpu_torch.parallel import mesh as tmesh
+    nz, ny = 5, 7
+    cA, p, b = _full_inputs(nz, ny, nx, dtype, cuda, seed=nx + npx)
+    mesh = tmesh.make_mesh(npx, 1, [cuda] * npx)
+    k7.reset_launches()
+    got = _k7_run(mesh, p, b, cA, real, k7.residual_overlap_x)
+    assert k7.LAUNCHES["residual_overlap_x"] == npx
+    want = _k7_run(mesh, p, b, cA, real, k7.residual_overlap_x_plain)
+    assert torch.equal(got, want)
+    assert torch.equal(got, ks.residual_tiled(extend_h1(p).contiguous(), b,
+                                              cA, real))
+
+
+def test_overlap_residual_refuses_missing_peer_access(cuda, monkeypatch):
+    """A neighbour tile on another card without peer access raises (no
+    staging through the host); on the CPU it is refused outright."""
+    from mgroms_tpu_torch.ops.kernels import rdma_halo as k7
+    cA, p, b = _full_inputs(2, 3, 4, torch.float32, cuda, seed=1)
+    with pytest.raises(ValueError, match="CUDA tiles"):
+        k7.residual_overlap_tile(p, b, cA, True, p_west=p.cpu())
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card for a neighbour on another device")
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: False)
+    with pytest.raises(RuntimeError, match="no peer access"):
+        k7.residual_overlap_tile(p, b, cA, True,
+                                 p_east=p.to("cuda:1"))
+
+
+def test_distributed_solve_on_a_virtual_mesh(cuda):
+    """Seamount 512 x 32 x 8 f32 on a virtual 2x2 mesh on one card gives
+    the single-device iterates (the K1-K3 route) to f32 round-off over 3
+    F-cycles.  Level 0's tiles (256 x 16) pass the card's compact gate and
+    run K1-K3 per tile; levels 1-2 run the masked relax.  (This flat grid
+    barely converges on one device either; the contract is agreement.)"""
+    from mgroms_tpu_torch import NHModel, SolverConfig
+    from mgroms_tpu_torch.cases.seamount import (initial_velocities,
+                                                 setup_seamount)
+    nx, ny, nz = 512, 32, 8
+    c = setup_seamount(nx, ny, nz)
+    out = []
+    for mesh in (None, (2, 2)):
+        m = NHModel(nx, ny, nz, cfg=SolverConfig(
+            dtype="float32", pallas_fused_sweep=False), device=cuda)
+        m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
+                       theta_b=c.theta_b, theta_s=c.theta_s)
+        if mesh:
+            m.distribute(*mesh, devices=[cuda] * 4, comm="shard_map")
+        kt.reset_launches()
+        u, v, w = initial_velocities(nx, ny, nz, dtype=m.dtype, device=cuda)
+        uc, vc, wc, p, info = m.solve(u, v, w, tol=1e-6, maxiter=3)
+        out.append((p, info, dict(kt.LAUNCHES),
+                    float(m.check_nondivergence(uc, vc, wc))))
+    (p1, i1, l1, d1), (p2, i2, l2, d2) = out
+    assert i2.niter == i1.niter == 3
+    assert l2["color_update"] > 0 and l2["color_update_emit"] > 0
+    assert l2["rr_zsum"] > 0
+    np.testing.assert_allclose(i2.history, i1.history, rtol=1e-3)
+    assert float((p2 - p1).abs().max()) <= 1e-4 * float(p1.abs().max())
+    assert abs(d2 - d1) <= 1e-3 * d1

@@ -59,9 +59,35 @@ def test_entry_points_default_to_the_card():
     signatures: nothing is built)."""
     import inspect
     from mgroms_tpu_torch.convert import packed_operator_from_numpy
+    from mgroms_tpu_torch.convert import (pack_tiles_from_numpy,
+                                          tiles_from_numpy)
+    from mgroms_tpu_torch.parallel import make_mesh
     for fn in (NHModel.__init__, initial_velocities, operators_from_numpy,
-               pack_from_numpy, packed_operator_from_numpy):
+               pack_from_numpy, packed_operator_from_numpy, tiles_from_numpy,
+               pack_tiles_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # the mesh takes the visible CUDA devices by default and never falls
+    # back to the CPU: here, with no card, it raises
+    assert inspect.signature(NHModel.distribute).parameters[
+        "devices"].default is None
+    assert inspect.signature(make_mesh).parameters["devices"].default is None
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="need 4 devices, have 0"):
+            make_mesh(2, 2)
+        m = _port(16)
+        with pytest.raises(ValueError, match="need 4 devices, have 0"):
+            m.distribute(2, 2)
+        # with four cards visible the default mesh is theirs (no tensor is
+        # made, so no card is needed to build it)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.cuda, "is_available", lambda: True)
+            mp.setattr(torch.cuda, "device_count", lambda: 4)
+            mesh = make_mesh(2, 2)
+        assert mesh.devices == ((torch.device("cuda", 0),
+                                 torch.device("cuda", 1)),
+                                (torch.device("cuda", 2),
+                                 torch.device("cuda", 3)))
+        assert mesh.on_card
 
 
 def test_seamount32_history_matches_golden():

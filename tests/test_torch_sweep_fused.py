@@ -321,9 +321,9 @@ def test_k4_route(monkeypatch, interpret):
     seen = {"k4": set(), "k1": set()}
 
     def spy(name, fn):
-        def wrapped(q0, bq, pack, nsweeps):
+        def wrapped(q0, bq, pack, nsweeps, **kw):
             seen[name].add(tuple(q0[(0, 0)].shape))
-            return fn(q0, bq, pack, nsweeps)
+            return fn(q0, bq, pack, nsweeps, **kw)
         return wrapped
 
     monkeypatch.setattr(ksf, "relax_fused_sweep",
