@@ -114,8 +114,7 @@ class NHModel:
         mesh = make_mesh(npx, npy, devices)
         plan = MeshPlan.create(mesh, self.levels, nsmall=self.cfg.nsmall)
         if comm == "auto":
-            comm = default_comm(self.levels, plan, self.cfg,
-                                "cuda" if mesh.on_card else "cpu")
+            comm = default_comm(self.levels, plan, self.cfg)
         if comm == "gspmd":
             raise NotImplementedError(
                 "the GSPMD comm layer is not ported (ROADMAP, queue 1 item "

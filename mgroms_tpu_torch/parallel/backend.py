@@ -38,8 +38,6 @@ class DistributedBackend(SingleDeviceBackend):
                          on_card=plan.mesh.on_card)
         self.plan = plan
         self.ndevices = plan.mesh.size
-        # the JAX package's platform test, read by the per-tile gates
-        self.platform = "cuda" if self.on_card else "cpu"
 
     def _sharded(self, lev: int) -> bool:
         return self.plan.shards[lev].sharded

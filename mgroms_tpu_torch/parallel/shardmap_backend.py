@@ -46,30 +46,27 @@ from ..ops.kernels import relax_tiled as kernels
 from ..ops.kernels import stencil_tiled
 from ..ops.relax_compact import (QuadField, attach_lp, build_compact_pack,
                                  residual_quads)
-from ..solver import is_quads
+from ..solver import compact_eligible, is_quads
 from .backend import DistributedBackend
 from .exchange import axis_offsets, extend_quads_shard, halo_extend
 from .mesh import MeshPlan, Tiles, shard_map, split_tiles
 
 
 def compact_shard_eligible(spec: LevelSpec, sh: ShardSpec,
-                           cfg: SolverConfig, platform: str) -> bool:
-    """Quad-parity compact smoothing eligibility for a SHARDED level: local
-    tiles must be even (so local quad parity == global parity,
-    parallel/exchange.extend_quads_shard) and, on the card, the local quad
-    width must be at least 128 and its height 8 (the JAX package's gate on
-    its accelerator, kept)."""
-    if not (cfg.compact and spec.nd == 8
-            and cfg.relax_kind in ("RB", "FC")
-            and sh.ny % 2 == 0 and sh.nx % 2 == 0):
-        return False
-    if platform == "cpu":
-        return True
-    return sh.nx // 2 >= 128 and sh.ny // 2 >= 8
+                           cfg: SolverConfig) -> bool:
+    """Quad-parity compact smoothing eligibility for a SHARDED level: the
+    single-device rule (solver.compact_eligible) with even local tiles, so
+    that local quad parity is the global parity
+    (parallel/exchange.extend_quads_shard).  The same on every device: the
+    JAX package's further gate on its accelerator (quad tiles >= 128 wide,
+    for the TPU's (8, 128) vector registers) has no counterpart on the
+    card."""
+    return (compact_eligible(spec, cfg)
+            and sh.ny % 2 == 0 and sh.nx % 2 == 0)
 
 
 def default_comm(levels: List[LevelSpec], plan: MeshPlan,
-                 cfg: SolverConfig, platform: str) -> str:
+                 cfg: SolverConfig) -> str:
     """Auto comm-layer selection (``NHModel.distribute(comm='auto')``):
     the explicit shard_map backend whenever any sharded level can smooth
     in quad-parity compact form there, else 'gspmd' (which the port does
@@ -77,7 +74,7 @@ def default_comm(levels: List[LevelSpec], plan: MeshPlan,
     1024^2 on 2x2, mg_testcuc.f90:34-39)."""
     for lev, spec in enumerate(levels):
         sh = plan.shards[lev]
-        if sh.sharded and compact_shard_eligible(spec, sh, cfg, platform):
+        if sh.sharded and compact_shard_eligible(spec, sh, cfg):
             return "shard_map"
     return "gspmd"
 
@@ -129,8 +126,7 @@ class ShardMapBackend(DistributedBackend):
     # -- smoothing ----------------------------------------------------------
     def _use_compact_shard(self, lev) -> bool:
         return compact_shard_eligible(self.levels[lev],
-                                      self.plan.shards[lev],
-                                      self.cfg, self.platform)
+                                      self.plan.shards[lev], self.cfg)
 
     def _axes(self, lev):
         """Active mesh axis names for this level (None = dropped by staged

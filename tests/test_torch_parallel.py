@@ -334,6 +334,30 @@ def test_collectives_and_errors():
         tex.halo_extend(torch.zeros(1, 2, 2))
 
 
+@pytest.mark.parametrize("grid", [(64, 64, 64), (1024, 1024, 64)])
+@pytest.mark.parametrize("kind", ["RB", "GS"])
+def test_compact_gate_on_tiles_is_the_single_device_rule(grid, kind):
+    """The sharded compact gate is the single-device rule applied to the
+    tile, on a mesh of the card as on the CPU: on seamount 64^3 and CUC
+    1024^2 x 64 cut 2x2 it agrees with solver.compact_eligible on every
+    level, and comm='auto' resolves to shard_map wherever a level is
+    compact (the card's former width gate left seamount 64^3 on 2x2 with
+    none)."""
+    from mgroms_tpu_torch.parallel.shardmap_backend import (
+        compact_shard_eligible, default_comm)
+    from mgroms_tpu_torch.solver import compact_eligible
+    cfg = SolverConfig(relax_method=kind)
+    levels = tlev.build_level_plan(*grid)
+    plan = tmesh.MeshPlan.create(tmesh.make_mesh(2, 2, ["cuda:0"] * 4),
+                                 levels)
+    assert plan.mesh.on_card
+    for spec, sh in zip(levels, plan.shards):
+        assert compact_shard_eligible(spec, sh, cfg) \
+            == compact_eligible(spec, cfg)
+    assert default_comm(levels, plan, cfg) == \
+        ("gspmd" if kind == "GS" else "shard_map")
+
+
 def test_gspmd_and_unknown_comm_raise():
     m = NHModel(16, 16, 16, cfg=SolverConfig(compact=False), device="cpu")
     c = setup_seamount(16, 16, 16)
