@@ -75,8 +75,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [p] * 10 + [i] * 5 + [p, p]
         fn.restype = i
         fn = getattr(lib, f"mg_relax_fused_{dt}")
-        # p b cA out buf gam | nz ny nx real nsweeps one_block | stream
-        fn.argtypes = [p] * 6 + [i] * 6 + [p]
+        # p b cA out buf gam | nz ny nx real nsweeps kind one_block |
+        # stream
+        fn.argtypes = [p] * 6 + [i] * 7 + [p]
         fn.restype = i
         fn = getattr(lib, f"mg_residual_{dt}")
         # pe b cA r | nz ny nx real | stream

@@ -1,9 +1,11 @@
-"""K6: masked red-black line smoothing of a whole full-layout level, its
-hand-written CUDA kernel and its plain torch version.
+"""K6: masked line smoothing of a whole full-layout level in any of the
+three orderings, its hand-written CUDA kernel and its plain torch version.
 
-Port of ``mgroms_tpu/ops/pallas/relax_fused.py:fused_relax`` (RB only).
-The kernel (``csrc/relax_fused.cu``) has two forms, chosen by the level's
-size:
+Port of ``mgroms_tpu/ops/pallas/relax_fused.py:fused_relax``: ``nsweeps``
+sweeps of ``ncolor`` colour steps (:data:`NCOLOR`: 'RB' two parity
+colours, 'FC' four, 'GS' one all-ones step, the JAX package's
+column-Jacobi GS), each committing ``p + mask * (sol - p)``.  The kernel
+(``csrc/relax_fused.cu``) has two forms, chosen by the level's size:
 
   ``fused_relax``       one launch per call, the level in one block's
                         shared memory (levels whose four fields fit
@@ -11,11 +13,12 @@ size:
                         cell);
   ``fused_relax_step``  one launch per colour step (larger levels).
 
-``LAUNCHES`` counts the kernel launches of each form.  The wrapper runs
-the plain version for tensors on the CPU only; for a CUDA tensor it checks
-device, dtype, shape and contiguity, launches the kernel or raises.  The
-TPU's VMEM gate (``fits_vmem``) has no counterpart: the kernel takes any
-level.
+``LAUNCHES`` counts the kernel launches of each form and ordering: RB
+under the form's name, FC and GS under it with ``_fc`` / ``_gs`` added.
+The wrapper runs the plain version for tensors on the CPU only; for a CUDA
+tensor it checks device, dtype, shape and contiguity, launches the kernel
+or raises.  The TPU's VMEM gate (``fits_vmem``) has no counterpart: the
+kernel takes any level.
 """
 
 from __future__ import annotations
@@ -27,7 +30,13 @@ from .. import relax as relax_ops
 from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
 
-LAUNCHES = {"fused_relax": 0, "fused_relax_step": 0}
+# colour steps per sweep, and the kernel's ordering code (relax_fused.cu)
+NCOLOR = {"RB": 2, "FC": 4, "GS": 1}
+_KIND_CODE = {"RB": 0, "FC": 1, "GS": 2}
+_SUFFIX = {"RB": "", "FC": "_fc", "GS": "_gs"}
+
+LAUNCHES = {f"{form}{sfx}": 0 for sfx in _SUFFIX.values()
+            for form in ("fused_relax", "fused_relax_step")}
 
 # shared memory of the one-block form: two state buffers, b and the Thomas
 # multipliers (the H100 gives a block up to 227 KB)
@@ -44,21 +53,27 @@ def one_block(p: torch.Tensor) -> bool:
     return 4 * p.numel() * p.element_size() <= ONE_BLOCK_BYTES
 
 
+def launch_name(p: torch.Tensor, kind: str) -> str:
+    """The ``LAUNCHES`` key of the form ``p`` takes in ordering ``kind``."""
+    form = "fused_relax" if one_block(p) else "fused_relax_step"
+    return form + _SUFFIX[kind]
+
+
 def fused_relax_plain(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
-    """``nsweeps`` masked sweeps, colour 0 first (ops/relax.relax with the
-    edge-copy halo)."""
+    """``nsweeps`` masked sweeps of ordering ``kind``, colour 0 first
+    (ops/relax.relax with the edge-copy halo)."""
     return relax_ops.relax(p, b, cA, nsweeps, kind, real_matrix,
                            extend_fn=extend_h1)
 
 
 def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
-    """``nsweeps`` RB line-relaxation sweeps of a whole level (K6): ``p``,
-    ``b`` interior (nz, ny, nx), ``cA`` extended (8, nz, ny+2, nx+2), the
-    physical boundary on every side.  Returns the new ``p``; the inputs are
-    not written."""
-    if kind != "RB":
-        raise NotImplementedError(
-            f"fused_relax kind={kind!r} is not ported (RB only)")
+    """``nsweeps`` line-relaxation sweeps of ordering ``kind`` ('RB',
+    'FC' or 'GS') of a whole level (K6): ``p``, ``b`` interior
+    (nz, ny, nx), ``cA`` extended (8, nz, ny+2, nx+2), the physical
+    boundary on every side.  Returns the new ``p``; the inputs are not
+    written."""
+    if kind not in NCOLOR:
+        raise ValueError(f"unknown relax kind {kind!r}")
     if on_cpu(p):
         return fused_relax_plain(p, b, cA, nsweeps, kind, real_matrix)
     nz, ny, nx = p.shape
@@ -76,11 +91,8 @@ def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
           else lib.mg_relax_fused_f64)
     with torch.cuda.device(p.device):
         rc = fn(ptr(p), ptr(b), ptr(cA), ptr(out), ptr(buf), ptr(gam), nz,
-                ny, nx, int(real_matrix), nsweeps, int(single),
-                torch.cuda.current_stream().cuda_stream)
+                ny, nx, int(real_matrix), nsweeps, _KIND_CODE[kind],
+                int(single), torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "fused_relax")
-    if single:
-        LAUNCHES["fused_relax"] += 1
-    else:
-        LAUNCHES["fused_relax_step"] += 2 * nsweeps
+    LAUNCHES[launch_name(p, kind)] += 1 if single else NCOLOR[kind] * nsweeps
     return out

@@ -26,8 +26,9 @@ import torch
 from ..relax import thomas_factored_unrolled
 from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
-from ..relax_compact import (_BASE_TERMS, _RB_TARGETS, _REAL_TERMS, _TKEYS,
-                             CompactPack, _residual_one_core, extend_quads,
+from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS,
+                             CompactPack, _residual_one_core, colour_targets,
+                             extend_quads,
                              gather_blocks, gather_keys, merge_quads,
                              relax_residual_compact_quads,
                              relax_residual_restrict_compact_quads,
@@ -236,19 +237,21 @@ def _rb(pack: CompactPack, m: int):
 
 
 def relax_compact_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int,
-                              extend_fn=None):
-    """``nsweeps`` RB sweeps, one :func:`color_update` per (colour, target
-    quad), with the smoother operator (relax_compact.smoother_operator:
-    ``pack.lp``'s blocks and pivots when present); the quad halo extension
-    between colours (``extend_fn``, default extend_quads; the seam
-    exchange on a tile of a distributed level) stays plain torch, and both
-    targets of a colour read the same pre-colour extension."""
+                              kind: str = "RB", extend_fn=None):
+    """``nsweeps`` RB or FC sweeps, one :func:`color_update` per (colour,
+    target quad) (relax_compact.colour_targets: RB two colours of two
+    targets, FC four colours of one), with the smoother operator
+    (relax_compact.smoother_operator: ``pack.lp``'s blocks and pivots when
+    present); the quad halo extension before each colour (``extend_fn``,
+    default extend_quads; the seam exchange on a tile of a distributed
+    level) stays plain torch, and the targets of a colour read the same
+    pre-colour extension."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
     blocks, rblocks, bet, _ = smoother_operator(pack, q0[(0, 0)].dtype)
     extend = extend_fn or extend_quads
     q = dict(q0)
     for _ in range(nsweeps):
-        for targets in _RB_TARGETS:
+        for targets in colour_targets(kind):
             e = extend(q)
             for t in targets:
                 m = ti[t]
@@ -260,11 +263,12 @@ def relax_compact_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int,
 
 
 def relax_compact_tiled(p, b, pack: CompactPack, nsweeps: int,
-                        extend_fn=None):
+                        kind: str = "RB", extend_fn=None):
     """:func:`relax_compact_tiled_quads` on a full-layout state (even ny,
     nx): split, sweep, merge."""
     return merge_quads(relax_compact_tiled_quads(
-        split_quads(p), split_quads(b), pack, nsweeps, extend_fn=extend_fn))
+        split_quads(p), split_quads(b), pack, nsweeps, kind,
+        extend_fn=extend_fn))
 
 
 def _tiled_fused_parts(bq, pack: CompactPack, extend_fn=None):

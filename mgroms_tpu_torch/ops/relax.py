@@ -4,15 +4,19 @@ Port of ``mgroms_tpu/ops/relax.py`` (reference src/mg_relax.f90:16-334).
 The tridiagonal RHS is built for every column at once
 (ops/stencil.offdiag_columns), all columns are Thomas-solved together by a
 loop over z whose steps are elementwise (ny, nx) ops, and only the active
-colour is committed through a parity mask; the halo is refreshed per
-colour (mg_relax.f90:181).  The port runs this masked form on the
-full-layout levels (the coarsest, and the tiles of distributed levels
-that fail the card's compact gate, with their global origin ``j0, i0``);
-every other level runs the quad-parity form (ops/relax_compact.py and its
-kernels).
+colour is committed through a mask; the halo is refreshed per colour
+(mg_relax.f90:181).  Three orderings, as in the JAX package: 'RB' (two
+colours by (i + j) parity), 'FC' (four colours by (i, j) parity, the
+reference order) and 'GS' (one all-ones mask: every column from the
+pre-sweep state, the JAX package's column-Jacobi deviation from the
+reference's sequential sweep, PARITY.md).  The port runs this masked form
+on the full-layout levels (the coarsest, every level of a GS solve or of
+``compact=False``, and the tiles of distributed levels with odd local
+dims, with their global origin ``j0, i0``); every other level runs the
+quad-parity form (ops/relax_compact.py and its kernels).
 
-Off the slice: the 'GS'/'FC' orderings, ``gs_exact`` and the PCR solve
-raise ``NotImplementedError``.
+Off the slice: ``gs_exact`` and the PCR solve raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -111,19 +115,39 @@ def _parity_mask(ny: int, nx: int, c: int, j0: int, i0: int,
     return ((jj + ii + c) % 2 == 0).to(like.dtype)
 
 
+def colour_masks(kind: str, ny: int, nx: int, j0: int, i0: int,
+                 like: torch.Tensor) -> list:
+    """The masks of one sweep, in order: 'RB' the two parity colours,
+    'FC' the four colours of the reference order (mg_relax.f90:214-228):
+    (i even, j even), (i even, j odd), (i odd, j even), (i odd, j odd),
+    'GS' one all-ones mask.  ``j0, i0``: the tile's global origin."""
+    if kind == "RB":
+        return [_parity_mask(ny, nx, c, j0, i0, like) for c in (0, 1)]
+    if kind == "FC":
+        jj = torch.arange(ny, device=like.device)[:, None] + j0
+        ii = torch.arange(nx, device=like.device)[None, :] + i0
+        return [(((ii % 2) == t) & ((jj % 2) == s)).to(like.dtype)
+                for t, s in ((0, 0), (0, 1), (1, 0), (1, 1))]
+    if kind == "GS":
+        return [like.new_ones((ny, nx))]
+    raise ValueError(f"unknown relax kind {kind!r}")
+
+
 def relax(p: torch.Tensor, b: torch.Tensor, cA: torch.Tensor,
           nsweeps: int, kind: str, real_matrix: bool,
           extend_fn: ExtendFn, j0: int = 0, i0: int = 0,
           tridiag_method: str = "thomas") -> torch.Tensor:
-    """``nsweeps`` masked red-black sweeps (``relax``, mg_relax.f90:16-47);
-    ``extend_fn`` supplies the halo (physical BCs and/or neighbour tiles)
-    once per colour; ``j0, i0`` the tile's global origin (the parity)."""
-    if kind != "RB" or tridiag_method != "thomas":
+    """``nsweeps`` masked sweeps of ordering ``kind`` (``relax``,
+    mg_relax.f90:16-47, :func:`colour_masks`); ``extend_fn`` supplies the
+    halo (physical BCs and/or neighbour tiles) once per colour; ``j0,
+    i0`` the tile's global origin (the colouring).  Every colour commits
+    ``p + mask * (sol - p)``, GS's all-ones mask too (in floating point
+    that is not ``sol``)."""
+    if tridiag_method != "thomas":
         raise NotImplementedError(
-            f"relax kind={kind!r}, tridiag={tridiag_method!r} is not "
-            "ported (RB with Thomas only)")
+            f"relax tridiag={tridiag_method!r} is not ported (Thomas only)")
     ny, nx = p.shape[-2:]
-    masks = [_parity_mask(ny, nx, c, j0, i0, p) for c in (0, 1)]
+    masks = colour_masks(kind, ny, nx, j0, i0, p)
     for _ in range(nsweeps):
         for mask in masks:
             sol = _column_solve(extend_fn(p), b, cA, real_matrix)

@@ -20,7 +20,10 @@ row-sum-consistent Thomas pivots (:func:`consistent_pivots`), read by
 every smoothing path, plain or kernel, through :func:`smoother_operator`;
 residual paths keep the full-precision blocks.
 
-Off the slice: the four-colour ordering and the PCR solve are not ported.
+Orderings: 'RB' (two colours, each two target quads solved as one
+x-concatenated system) and 'FC' (four colours, one target quad each, the
+reference order).  GS has no quad form here or in the JAX package.  Off
+the slice: the PCR solve is not ported.
 """
 
 from __future__ import annotations
@@ -369,14 +372,28 @@ def gather_blocks(e: Quads, blocks_t, a: int, b: int,
 
 _RB_TARGETS = (((0, 0), (1, 1)),   # color 0: (i + j) even
                ((0, 1), (1, 0)))   # color 1: (i + j) odd
+# FC reference order (mg_relax.f90:214-228): (i even, j even), (i even,
+# j odd), (i odd, j even), (i odd, j odd); the quad key is (j%2, i%2)
+_FC_TARGETS = (((0, 0),), ((1, 0),), ((0, 1),), ((1, 1),))
+
+
+def colour_targets(kind: str) -> tuple:
+    """The target quads of each colour of one sweep of ordering ``kind``
+    ('RB' or 'FC')."""
+    if kind == "RB":
+        return _RB_TARGETS
+    if kind == "FC":
+        return _FC_TARGETS
+    raise NotImplementedError(f"no quad-parity form of relax kind {kind!r} "
+                              "(RB and FC only)")
 
 
 def plain_color_update(q: Quads, bq: Quads, pack: CompactPack, targets,
                        emit: bool, real_matrix: bool, extend_fn=None):
-    """One RB colour update of ``targets`` in plain torch, with the
-    smoother operator (:func:`smoother_operator`; low-precision blocks are
-    upcast at read).  Both targets read the same pre-colour extension and
-    are solved as one x-concatenated tridiagonal system (factored Thomas,
+    """One colour update of ``targets`` in plain torch, with the smoother
+    operator (:func:`smoother_operator`; low-precision blocks are upcast
+    at read).  The targets read the same pre-colour extension and are
+    solved as one x-concatenated tridiagonal system (factored Thomas,
     ud*bet recomputed per plane as in the kernels).  With ``emit``, each
     target's raw residual from its own gather comes too (full-precision
     packs only, :func:`relax_emit_last_color`).  ``extend_fn`` maps the
@@ -408,7 +425,7 @@ def relax_compact(p: torch.Tensor, b: torch.Tensor, cA, nsweeps: int,
                   kind: str, real_matrix: bool,
                   tridiag_method: str = "thomas", extend_fn=None,
                   pack: CompactPack | None = None) -> torch.Tensor:
-    """``nsweeps`` RB line-smoothing sweeps in quad-parity form on a
+    """``nsweeps`` RB or FC line-smoothing sweeps in quad-parity form on a
     full-layout state (even ny, nx).  ``extend_fn`` maps the four quads to
     their halo-extended forms: the single-tile mirror rule
     (:func:`extend_quads`) by default, the seam exchange
@@ -431,17 +448,18 @@ def relax_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
                         nsweeps: int, kind: str, real_matrix: bool,
                         tridiag_method: str = "thomas",
                         extend_fn=None) -> Quads:
-    """``nsweeps`` RB line-smoothing sweeps, state in and out in quad-parity
-    layout, one :func:`plain_color_update` per colour, with the smoother
-    operator (:func:`smoother_operator`) and the halo of ``extend_fn``
-    (default :func:`extend_quads`)."""
-    if kind != "RB" or tridiag_method != "thomas":
+    """``nsweeps`` RB or FC line-smoothing sweeps, state in and out in
+    quad-parity layout, one :func:`plain_color_update` per colour
+    (:func:`colour_targets`), with the smoother operator
+    (:func:`smoother_operator`) and the halo of ``extend_fn`` (default
+    :func:`extend_quads`)."""
+    if tridiag_method != "thomas":
         raise NotImplementedError(
-            f"compact relax kind={kind!r}, tridiag={tridiag_method!r} is "
-            "not ported (RB with Thomas only)")
+            f"compact relax tridiag={tridiag_method!r} is not ported "
+            "(Thomas only)")
     q = dict(q0)
     for _ in range(nsweeps):
-        for targets in _RB_TARGETS:
+        for targets in colour_targets(kind):
             q, _ = plain_color_update(q, bq, pack, targets, False,
                                       real_matrix, extend_fn=extend_fn)
     return q

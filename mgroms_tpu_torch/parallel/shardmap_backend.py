@@ -164,11 +164,12 @@ class ShardMapBackend(DistributedBackend):
         target) on every tile with the seam exchange per colour — the
         fill_halo-per-colour protocol (mg_relax.f90:181) on QuadField
         state."""
-        ext = self._ext(lev)
+        ext, kind = self._ext(lev), self.cfg.relax_kind
 
         def local(pq, bq, pack_l):
             return QuadField.fromdict(kernels.relax_compact_tiled_quads(
-                pq.asdict(), bq.asdict(), pack_l, nsweeps, extend_fn=ext))
+                pq.asdict(), bq.asdict(), pack_l, nsweeps, kind=kind,
+                extend_fn=ext))
 
         return self._map(lev, local, p, b, self.packs[lev])
 
@@ -246,7 +247,8 @@ class ShardMapBackend(DistributedBackend):
             ext = self._ext(lev)
             return self._map(lev, lambda p_l, b_l, pack_l:
                              kernels.relax_compact_tiled(
-                                 p_l, b_l, pack_l, nsweeps, extend_fn=ext),
+                                 p_l, b_l, pack_l, nsweeps,
+                                 kind=cfg.relax_kind, extend_fn=ext),
                              p, b, self.packs[lev])
 
         def local(p_l, b_l, cA_l):

@@ -5,18 +5,20 @@ Port of the single-device part of ``mgroms_tpu/solver.py`` (reference
 object (:class:`SingleDeviceBackend`); the cycle code is plain Python over
 the levels, run eagerly.
 
-Every non-coarsest level with even ny, nx keeps its state in quad-parity
-layout (``QuadField``) — the rule the JAX package applies on the CPU
-(``compact_eligible``), here on every device.  On those levels:
+Every non-coarsest level with even ny, nx of an RB or FC solve keeps its
+state in quad-parity layout (``QuadField``) — the rule the JAX package
+applies on the CPU (``compact_eligible``), here on every device.  On those
+levels:
 
 - relax: where :func:`fused_sweep_wanted` holds (``pallas_tiled``,
   ``pallas_fused_sweep``, RB, and the level's tensors on the card or
   ``pallas_interpret`` set — the JAX package's ``platform != "cpu" or
   pallas_interpret``), the colour-fused sweep K4
   (ops/kernels/sweep_fused.py), one launch per sweep; else one K1 launch
-  per (colour, target quad) (ops/kernels/relax_tiled.py);
+  per (colour, target quad) (ops/kernels/relax_tiled.py: RB two targets
+  per colour, FC one per each of four colours);
 - the down-leg residual and restriction: K3, fused with the last sweep
-  through K2 (``fused_residual``) except on K4 levels and under
+  through K2 (``fused_residual``) on RB levels without K4 and without
   ``fused_bands_bf16``, as in the JAX package.
 
 With ``fused_bands_bf16`` (float32) every quad level's pack carries the
@@ -24,12 +26,12 @@ low-precision smoother operator (relax_compact.attach_lp), read by K4 or
 K1; residuals keep the full-precision blocks, and the outer step runs in
 defect-correction form (:func:`cycle_step`).
 
-The other levels (the coarsest, or every level with ``compact=False``)
-are held in full layout:
+The other levels (the coarsest, every level of a GS solve, or every level
+with ``compact=False``) are held in full layout:
 
-- relax: with ``use_pallas`` the K6 kernel (ops/kernels/relax_fused.py,
-  :meth:`SingleDeviceBackend._use_pallas`), else the masked relax of
-  ops/relax.py;
+- relax: with ``use_pallas`` the K6 kernel in the solve's ordering
+  (ops/kernels/relax_fused.py, :meth:`SingleDeviceBackend._use_pallas`),
+  else the masked relax of ops/relax.py;
 - residual: on levels at least 256 wide with ``pallas_tiled`` the K5
   kernel (ops/kernels/stencil_tiled.py,
   :meth:`SingleDeviceBackend._use_tiled`), else ops/stencil.residual.
@@ -85,7 +87,6 @@ def check_supported(cfg: SolverConfig, on_card: bool) -> None:
     implement yet (nothing silently does something else).  ``on_card``:
     the solve's tensors are CUDA tensors."""
     off = {
-        "relax_method": cfg.relax_kind != "RB",
         "gs_exact": cfg.gs_exact,
         "tridiag": cfg.tridiag != "thomas",
         "aggressive": cfg.aggressive,
@@ -106,9 +107,12 @@ def check_supported(cfg: SolverConfig, on_card: bool) -> None:
 
 
 def compact_eligible(spec: LevelSpec, cfg: SolverConfig) -> bool:
-    """Quad-parity compact relax eligibility: 3-D RB levels with even
-    ny, nx (the JAX package's CPU rule, on every device)."""
-    return (cfg.compact and spec.nd == 8 and cfg.relax_kind == "RB"
+    """Quad-parity compact relax eligibility: 3-D levels of an RB or FC
+    solve with even ny, nx (the JAX package's CPU rule, on every device;
+    its accelerator gate, quad tiles >= 128 wide for the TPU's vector
+    registers, has no counterpart on the card).  GS has no quad form."""
+    return (cfg.compact and spec.nd == 8
+            and cfg.relax_kind in ("RB", "FC")
             and spec.nyg % 2 == 0 and spec.nxg % 2 == 0)
 
 
@@ -159,6 +163,7 @@ class SingleDeviceBackend:
         self.cfg = cfg
         self.nlevs = len(levels)
         self.real = cfg.cmatrix == "real"
+        self.kind = cfg.relax_kind
         self.packs = (list(packs) if packs is not None
                       else build_relax_packs(levels, ops, cfg))
         self.fused_sweep = fused_sweep_wanted(cfg, self.on_card)
@@ -204,28 +209,33 @@ class SingleDeviceBackend:
 
     def relax(self, lev: int, p, b, nsweeps: int):
         if isinstance(p, QuadField):
-            smooth = (sweep_fused.relax_fused_sweep if self._use_sweep(lev)
-                      else kernels.relax_compact_tiled_quads)
-            return QuadField.fromdict(smooth(p.asdict(), b.asdict(),
-                                             self.packs[lev], nsweeps))
+            if self._use_sweep(lev):
+                q = sweep_fused.relax_fused_sweep(p.asdict(), b.asdict(),
+                                                  self.packs[lev], nsweeps)
+            else:
+                q = kernels.relax_compact_tiled_quads(
+                    p.asdict(), b.asdict(), self.packs[lev], nsweeps,
+                    kind=self.kind)
+            return QuadField.fromdict(q)
         if self.levels[lev].nd == 5:
             raise NotImplementedError(
                 "2-D (nz==1) levels are unreachable under the standard plan "
                 "and have no assembly path (parity with the reference)")
         if self._use_pallas(lev):
             return relax_fused.fused_relax(p, b, self.ops[lev].cA, nsweeps,
-                                           "RB", self.real)
-        return relax_ops.relax(p, b, self.ops[lev].cA, nsweeps, "RB",
+                                           self.kind, self.real)
+        return relax_ops.relax(p, b, self.ops[lev].cA, nsweeps, self.kind,
                                self.real,
                                extend_fn=lambda x: self.extend(lev, x))
 
     def supports_fused_residual(self, lev: int) -> bool:
         """Relax at this level can emit the post-sweep residual from its
-        last colour update (cfg.fused_residual, quad-persistent levels).
-        Not under ``fused_bands_bf16`` (the smoother's gather is then of
-        the perturbed operator, not the true A) nor on K4 levels (they keep
-        their one-launch sweep), as in the JAX package."""
-        return (self.cfg.fused_residual and self.state_quads(lev)
+        last colour update (cfg.fused_residual, quad-persistent RB
+        levels).  Not under ``fused_bands_bf16`` (the smoother's gather is
+        then of the perturbed operator, not the true A) nor on K4 levels
+        (they keep their one-launch sweep), as in the JAX package."""
+        return (self.cfg.fused_residual and self.kind == "RB"
+                and self.state_quads(lev)
                 and not self.cfg.fused_bands_bf16
                 and not self._use_sweep(lev))
 

@@ -94,7 +94,7 @@ def test_setup_path_matches_jax(name):
 def test_unported_options_raise():
     from mgroms_tpu_torch import NHModel
     for kw in (dict(bmask=True), dict(coarsest="direct"),
-               dict(relax_method="GS"), dict(tridiag="pcr"),
+               dict(gs_exact=True), dict(tridiag="pcr"),
                dict(cycles_per_check=2), dict(device_loop=True),
                # K4 has no (float64 state, bfloat16 blocks) instance;
                # pallas_interpret puts the CPU solve on K4's route

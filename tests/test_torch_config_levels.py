@@ -90,6 +90,7 @@ def test_gather_term_tables_equal():
     assert trc._REAL_TERMS == jrc._REAL_TERMS
     assert trc._TKEYS == jrc._TKEYS
     assert trc._RB_TARGETS == jrc._RB_TARGETS
+    assert trc._FC_TARGETS == jrc._FC_TARGETS
     for real in (True, False):
         assert trc.gather_keys(real) == jrc.gather_keys(real)
     assert trc.real_only_keys() == jrc.real_only_keys()

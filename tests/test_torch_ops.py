@@ -71,8 +71,24 @@ def test_masked_relax():
     want = jrelax.relax(jp, jb, jc, 3, "RB", True, extend_fn=jbc.extend_h1)
     got = trelax.relax(tp, tb, tc, 3, "RB", True, extend_fn=tbc.extend_h1)
     close(got, want)
-    with pytest.raises(NotImplementedError):
-        trelax.relax(tp, tb, tc, 1, "FC", True, extend_fn=tbc.extend_h1)
+    with pytest.raises(ValueError, match="unknown relax kind"):
+        trelax.relax(tp, tb, tc, 1, "XY", True, extend_fn=tbc.extend_h1)
+
+
+@pytest.mark.parametrize("origin", [(0, 0), (1, 2)])
+@pytest.mark.parametrize("kind", ["FC", "GS"])
+def test_masked_relax_orderings(kind, origin):
+    """The four-colour and column-Jacobi GS orderings, with a tile origin
+    that shifts the colouring, against JAX's masked relax."""
+    cA, p, b = problem(6)
+    (jc, jp, jb), (tc, tp, tb) = both(cA, p, b)
+    j0, i0 = origin
+    for real in (True, False):
+        want = jrelax.relax(jp, jb, jc, 3, kind, real,
+                            extend_fn=jbc.extend_h1, j0=j0, i0=i0)
+        got = trelax.relax(tp, tb, tc, 3, kind, real,
+                           extend_fn=tbc.extend_h1, j0=j0, i0=i0)
+        close(got, want)
 
 
 @pytest.mark.parametrize("nz", [1, 2, 16])

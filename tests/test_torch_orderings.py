@@ -1,0 +1,133 @@
+"""The FC and GS smoother orderings (``relax_method``) through the whole
+solve, against the JAX package's, on the CPU.
+
+- the slice: seamount 16^3 in float64 with relax_method 'FC' and 'GS',
+  the port's F-cycle history against JAX's at rel 1e-10, on the default
+  config and with ``use_pallas=True`` (in float64 neither package routes
+  to K6, whose plain version tests/test_torch_relax_fused.py holds to the
+  JAX kernel);
+- the routing in float32: FC smooths its quad levels with K1 in four
+  colours of one target and restricts with K3, never K2 or K4; GS keeps
+  every level in full layout; with ``use_pallas`` K6 gets the solve's
+  ordering.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mgroms_tpu import NHModel as JModel
+from mgroms_tpu import SolverConfig as JConfig
+from mgroms_tpu.cases.seamount import initial_velocities as jvel
+from mgroms_tpu_torch import NHModel, SolverConfig
+from mgroms_tpu_torch.cases.seamount import initial_velocities, setup_seamount
+from mgroms_tpu_torch.ops.kernels import relax_fused as kf
+from mgroms_tpu_torch.ops.kernels import relax_tiled as kt
+
+torch.set_num_threads(1)
+
+N = 16
+
+
+def _port(**kw):
+    m = NHModel(N, N, N, cfg=SolverConfig(**kw), device="cpu")
+    c = setup_seamount(N, N, N)
+    m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
+                   theta_b=c.theta_b, theta_s=c.theta_s)
+    return m
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("kind", ["FC", "GS"])
+def test_history_matches_jax(kind, use_pallas):
+    cfg = dict(relax_method=kind, use_pallas=use_pallas)
+    c = setup_seamount(N, N, N)
+    jm = JModel(N, N, N, cfg=JConfig(**cfg))
+    jm.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
+                    theta_b=c.theta_b, theta_s=c.theta_s)
+    *_, jp, jinfo = jm.solve(*jvel(N, N, N, dtype=jnp.float64), tol=0.0,
+                             maxiter=3)
+    m = _port(**cfg)
+    *_, p, info = m.solve(*initial_velocities(N, N, N, device="cpu"),
+                          tol=0.0, maxiter=3)
+    assert len(info.history) == len(jinfo.history) == 4
+    # every cycle cuts the residual (a wrong ordering stalls or diverges)
+    assert all(b < a for a, b in zip(info.history, info.history[1:]))
+    # atol: the f64 round-off of a relative residual norm (both packages
+    # sum in their own order; tests/test_torch_model.py holds RB so too)
+    np.testing.assert_allclose(info.history, jinfo.history, rtol=1e-10,
+                               atol=1e-15)
+    jp = np.asarray(jp)
+    np.testing.assert_allclose(p.numpy(), jp, rtol=0,
+                               atol=1e-10 * np.abs(jp).max())
+
+
+def _record(monkeypatch, mod, name):
+    """The (shape, kind, nsweeps) of every call the backend makes to
+    ``mod.name``."""
+    calls = []
+    wrapped = getattr(mod, name)
+
+    def record(p, b, pack_or_cA, nsweeps, kind="RB", *args, **kw):
+        shape = (tuple(p.shape) if isinstance(p, torch.Tensor)
+                 else tuple(p[(0, 0)].shape))
+        calls.append((shape, kind, nsweeps))
+        return wrapped(p, b, pack_or_cA, nsweeps, kind, *args, **kw)
+
+    monkeypatch.setattr(mod, name, record)
+    return calls
+
+
+def _counting(monkeypatch, mod, names):
+    counts = dict.fromkeys(names, 0)
+    for name in names:
+        wrapped = getattr(mod, name)
+
+        def count(*args, _w=wrapped, _n=name, **kw):
+            counts[_n] += 1
+            return _w(*args, **kw)
+
+        monkeypatch.setattr(mod, name, count)
+    return counts
+
+
+def _one_fcycle(m):
+    u, v, w = initial_velocities(N, N, N, dtype=m.dtype, device="cpu")
+    m.pressure_solve(m.rhs(u, v, w), tol=0.0, maxiter=1)
+
+
+def test_fc_routing(monkeypatch):
+    """FC, f32 default config: the quad levels run the K1 orchestration
+    in the FC ordering, four K1 launches a sweep; K3 restricts; no K2."""
+    sweeps = _record(monkeypatch, kt, "relax_compact_tiled_quads")
+    counts = _counting(monkeypatch, kt, ("color_update", "color_update_emit",
+                                         "rr_zsum"))
+    m = _port(dtype="float32", relax_method="FC")
+    be = m.backend
+    assert [be.state_quads(lev) for lev in range(be.nlevs)] == [
+        True, True, False]
+    assert not be.fused_sweep and not be.supports_fused_residual(0)
+    _one_fcycle(m)
+    assert {k for _, k, _ in sweeps} == {"FC"}
+    assert counts["color_update_emit"] == 0 and counts["rr_zsum"] > 0
+    # every sweep is four single-target colour updates
+    assert counts["color_update"] == 4 * sum(n for _, _, n in sweeps) > 0
+
+
+@pytest.mark.parametrize("kind", ["FC", "GS"])
+def test_use_pallas_runs_k6_in_the_solve_ordering(monkeypatch, kind):
+    """f32 ``use_pallas``: K6 in the solve's ordering, on the coarsest
+    level for FC (its quad levels keep K1), on every level for GS (no
+    quad form)."""
+    calls = _record(monkeypatch, kf, "fused_relax")
+    m = _port(dtype="float32", relax_method=kind, use_pallas=True)
+    _one_fcycle(m)
+    assert {k for _, k, _ in calls} == {kind}
+    shapes = {s for s, _, _ in calls}
+    if kind == "FC":
+        assert shapes == {(4, 4, 4)}
+    else:
+        assert shapes == {(4, 4, 4), (8, 8, 8), (16, 16, 16)}
+        assert not any(m.backend.state_quads(lev)
+                       for lev in range(m.backend.nlevs))

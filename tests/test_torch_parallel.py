@@ -269,6 +269,24 @@ def test_distributed_routing(seamount_4x2):
     assert be.state_quads(1) and not isinstance(be.packs[1], tmesh.Tiles)
 
 
+def test_distributed_fc_solve_matches_jax():
+    """The four-colour ordering through the tiles: K1's FC orchestration
+    per tile with the seam exchange before each colour, seamount 32x16x8
+    on (4, 2), 2 F-cycles: JAX's distributed pressure to rtol 1e-9."""
+    nx, ny, nz = 32, 16, 8
+    j, m = _models(nx, ny, nz, (4, 2), cfg=dict(relax_method="FC"))
+    assert m.backend.state_quads(0) and m.backend._use_compact_shard(0)
+    pj, ij = j.pressure_solve(j.rhs(*jvel(nx, ny, nz)), tol=1e-10,
+                              maxiter=2)
+    u, v, w = initial_velocities(nx, ny, nz, device="cpu")
+    p, info = m.pressure_solve(m.rhs(u, v, w), tol=1e-10, maxiter=2)
+    pj = np.asarray(pj)
+    np.testing.assert_allclose(p.numpy(), pj, rtol=1e-9,
+                               atol=1e-9 * np.abs(pj).max())
+    np.testing.assert_allclose(info.history, ij.history, rtol=1e-9,
+                               atol=1e-15)
+
+
 def test_staged_agglomeration_solve_matches_single():
     """64x64x16 on a (2, 4) mesh stages both axes -> both -> one ->
     replicated (tests/test_distributed.py:80); one F-cycle against the
@@ -335,7 +353,7 @@ def test_collectives_and_errors():
 
 
 @pytest.mark.parametrize("grid", [(64, 64, 64), (1024, 1024, 64)])
-@pytest.mark.parametrize("kind", ["RB", "GS"])
+@pytest.mark.parametrize("kind", ["RB", "FC", "GS"])
 def test_compact_gate_on_tiles_is_the_single_device_rule(grid, kind):
     """The sharded compact gate is the single-device rule applied to the
     tile, on a mesh of the card as on the CPU: on seamount 64^3 and CUC

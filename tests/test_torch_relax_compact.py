@@ -283,3 +283,38 @@ def test_tiled_orchestrators_match_plain():
     close(kt.residual_restrict_tiled_quads(q0, bq, tp),
           trc.restrict_quads_to_full(trc.residual_quads(q0, bq, tp, True)),
           0)
+
+
+@pytest.mark.parametrize("real", [True, False])
+def test_fc_quads_match_jax(real):
+    """Four-colour sweeps in quad-parity form (one target quad a colour,
+    the reference order) against JAX's relax_compact_quads and
+    relax_compact; the K1 orchestration (plain versions on the CPU) gives
+    the plain sweep bit for bit; GS has no quad form."""
+    cA, p, b = problem(6, 10, 14, seed=6)
+    jp = jrc.build_compact_pack(jnp.asarray(cA), real)
+    tp = trc.build_compact_pack(torch.from_numpy(cA), real)
+    assert trc.colour_targets("FC") == jrc._FC_TARGETS
+    got = trc.relax_compact_quads(tquads(p), tquads(b), tp, 2, "FC", real)
+    close_quads(got, jrc.relax_compact_quads(jquads(p), jquads(b), jp, 2,
+                                             "FC", real))
+    close(trc.relax_compact(torch.from_numpy(p), torch.from_numpy(b), None,
+                            2, "FC", real, pack=tp),
+          jrc.relax_compact(jnp.asarray(p), jnp.asarray(b), None, 2, "FC",
+                            real, pack=jp))
+    close_quads(kt.relax_compact_tiled_quads(tquads(p), tquads(b), tp, 2,
+                                             "FC"), got, 0)
+    with pytest.raises(NotImplementedError, match="RB and FC"):
+        trc.relax_compact_quads(tquads(p), tquads(b), tp, 1, "GS", real)
+
+
+def test_fc_tiled_orchestration_matches_pallas():
+    """The K1 orchestration in the FC ordering against JAX's tiled
+    orchestration (its Pallas kernel in interpret mode), f64."""
+    cA, p, b = problem(8, 16, 16, seed=7)
+    jp = jrc.build_compact_pack(jnp.asarray(cA), True)
+    tp = trc.build_compact_pack(torch.from_numpy(cA), True)
+    close_quads(kt.relax_compact_tiled_quads(tquads(p), tquads(b), tp, 2,
+                                             "FC"),
+                jtiled.relax_compact_tiled_quads(jquads(p), jquads(b), jp, 2,
+                                                 "FC", True, interpret=True))

@@ -66,11 +66,44 @@ def test_plain_matches_jax_kernel(jax_levels, lev, nsweeps):
     assert all(v == 0 for v in kf.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("lev,nsweeps", [(0, 2), (-1, 40)])
 @pytest.mark.parametrize("kind", ["FC", "GS"])
-def test_other_orderings_raise(kind):
-    z = torch.zeros((2, 3, 4))
-    with pytest.raises(NotImplementedError):
-        kf.fused_relax(z, z, torch.zeros((8, 2, 5, 6)), 1, kind, True)
+def test_orderings_plain_match_jax_kernel(jax_levels, kind, lev, nsweeps):
+    """The four-colour and column-Jacobi GS orderings (RB: the test
+    above), f64, to 1e-12, with and without the 'real' couplings; the
+    wrapper on CPU tensors is the plain version and counts nothing."""
+    levels, cA, ops = jax_levels
+    s = levels[lev]
+    rng = np.random.default_rng(7 + nsweeps)
+    p = rng.standard_normal((s.nzg, s.nyg, s.nxg))
+    b = rng.standard_normal((s.nzg, s.nyg, s.nxg))
+    tp, tb = torch.from_numpy(p), torch.from_numpy(b)
+    kf.reset_launches()
+    for real in (True, False):
+        want = np.asarray(jfused_relax(jnp.asarray(p), jnp.asarray(b),
+                                       jnp.asarray(cA[lev]), nsweeps, kind,
+                                       real, interpret=True))
+        got = kf.fused_relax_plain(tp, tb, ops[lev].cA, nsweeps, kind, real)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-12 * np.abs(want).max())
+        assert torch.equal(kf.fused_relax(tp, tb, ops[lev].cA, nsweeps,
+                                          kind, real), got)
+    assert all(v == 0 for v in kf.LAUNCHES.values())
+
+
+def test_launch_names_and_unknown_kind():
+    """Each ordering and form counts under its own name; an unknown
+    ordering raises."""
+    small, big = torch.zeros((2, 4, 4)), torch.zeros((64, 64, 64))
+    assert [kf.launch_name(small, k) for k in ("RB", "FC", "GS")] == [
+        "fused_relax", "fused_relax_fc", "fused_relax_gs"]
+    assert [kf.launch_name(big, k) for k in ("RB", "FC", "GS")] == [
+        "fused_relax_step", "fused_relax_step_fc", "fused_relax_step_gs"]
+    assert sorted(kf.LAUNCHES) == sorted(
+        kf.launch_name(x, k) for x in (small, big) for k in kf.NCOLOR)
+    with pytest.raises(ValueError, match="unknown relax kind"):
+        kf.fused_relax(small, small, torch.zeros((8, 2, 6, 6)), 1, "XY",
+                       True)
 
 
 def _port(dtype="float32", **kw):
