@@ -104,12 +104,14 @@ def test_import_leaves_jax_out():
             "mgroms_tpu_torch.ops.kernels.sweep_packed, "
             "mgroms_tpu_torch.ops.kernels.roofline, "
             "mgroms_tpu_torch.ops.kernels.rdma_halo, "
+            "mgroms_tpu_torch.ops.kernels.dma_probe, "
             "mgroms_tpu_torch.parallel, "
             "mgroms_tpu_torch.parallel.shardmap_backend, "
             "mgroms_tpu_torch.parallel.physics, "
             "mgroms_tpu_torch.scripts.micro_sweep_fused, "
             "mgroms_tpu_torch.scripts.micro_packed_parts, "
-            "mgroms_tpu_torch.scripts.micro_roofline\n"
+            "mgroms_tpu_torch.scripts.micro_roofline, "
+            "mgroms_tpu_torch.scripts.micro_dma_probe\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mgroms_tpu')]\n"
             "assert not bad, bad\n")
