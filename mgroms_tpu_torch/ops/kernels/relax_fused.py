@@ -13,8 +13,9 @@ column-Jacobi GS), each committing ``p + mask * (sol - p)``.  The kernel
                         cell);
   ``fused_relax_step``  one launch per colour step (larger levels).
 
-``LAUNCHES`` counts the kernel launches of each form and ordering: RB
-under the form's name, FC and GS under it with ``_fc`` / ``_gs`` added.
+``LAUNCHES`` counts the kernel launches of each form and ordering under
+the names of :data:`FORMS`: RB under the form's name, FC and GS under it
+with ``_fc`` / ``_gs`` added.
 The wrapper runs the plain version for tensors on the CPU only; for a CUDA
 tensor it checks device, dtype, shape and contiguity, launches the kernel
 or raises.  The TPU's VMEM gate (``fits_vmem``) has no counterpart: the
@@ -33,10 +34,11 @@ from ._build import check_launch, check_tensors, on_cpu, ptr
 # colour steps per sweep, and the kernel's ordering code (relax_fused.cu)
 NCOLOR = {"RB": 2, "FC": 4, "GS": 1}
 _KIND_CODE = {"RB": 0, "FC": 1, "GS": 2}
-_SUFFIX = {"RB": "", "FC": "_fc", "GS": "_gs"}
+# the LAUNCHES names of each ordering: (one-launch form, per-step form)
+FORMS = {kind: (f"fused_relax{sfx}", f"fused_relax_step{sfx}")
+         for kind, sfx in (("RB", ""), ("FC", "_fc"), ("GS", "_gs"))}
 
-LAUNCHES = {f"{form}{sfx}": 0 for sfx in _SUFFIX.values()
-            for form in ("fused_relax", "fused_relax_step")}
+LAUNCHES = {name: 0 for pair in FORMS.values() for name in pair}
 
 # shared memory of the one-block form: two state buffers, b and the Thomas
 # multipliers (the H100 gives a block up to 227 KB)
@@ -55,8 +57,7 @@ def one_block(p: torch.Tensor) -> bool:
 
 def launch_name(p: torch.Tensor, kind: str) -> str:
     """The ``LAUNCHES`` key of the form ``p`` takes in ordering ``kind``."""
-    form = "fused_relax" if one_block(p) else "fused_relax_step"
-    return form + _SUFFIX[kind]
+    return FORMS[kind][0 if one_block(p) else 1]
 
 
 def fused_relax_plain(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):

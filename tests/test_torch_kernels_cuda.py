@@ -10,8 +10,9 @@ need not have.)
 
 Built with -fmad=false, the kernels round like the plain versions' separate
 torch ops, so the solution outputs (K1 with either block type, K2, K4,
-K6) and K5's residual are held to 0 ulp; the raw residual outputs of K2
-and K3, a cancellation, are held to 1e-6 x max|bq| (f32).
+K6 in every ordering), K5's residual and K11's sums are held to 0 ulp;
+the raw residual outputs of K2 and K3, a cancellation, are held to
+1e-6 x max|bq| (f32).
 """
 
 import numpy as np
@@ -203,9 +204,48 @@ def test_full_layout_wrappers_reject_bad_input(cuda):
             kf.fused_relax(args["p"], args["b"], args["cA"], 1, "RB", True)
         with pytest.raises(ValueError):
             ks.residual_tiled(pe, args["b"], args["cA"], True)
-    for kind in ("FC", "GS"):
-        with pytest.raises(NotImplementedError):
-            kf.fused_relax(p, b, cA, 1, kind, True)
+    with pytest.raises(ValueError, match="unknown relax kind"):
+        kf.fused_relax(p, b, cA, 1, "XY", True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", K6_CASES)
+@pytest.mark.parametrize("kind", ["FC", "GS"])
+def test_fused_relax_orderings_match_plain(cuda, case, kind, dtype):
+    """K6's four-colour and column-Jacobi forms, both forms, with and
+    without 'real': 0 ulp, the inputs unwritten, each counted under its
+    own name (ncolor launches a sweep in the per-colour-step form)."""
+    shape, ns = case
+    cA, p, b = _full_inputs(*shape, dtype, cuda, seed=sum(shape) + 1)
+    p0 = p.clone()
+    for real in (True, False):
+        before = dict(kf.LAUNCHES)
+        got = kf.fused_relax(p, b, cA, ns, kind, real)
+        want = kf.fused_relax_plain(p, b, cA, ns, kind, real)
+        torch.cuda.synchronize()
+        assert torch.equal(p, p0)
+        assert _maxdiff(got, want) == 0.0
+        key = kf.launch_name(p, kind)
+        n = 1 if kf.one_block(p) else kf.NCOLOR[kind] * ns
+        assert {k: v - before[k] for k, v in kf.LAUNCHES.items()} == {
+            k: (n if k == key else 0) for k in kf.LAUNCHES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(6, 5, 7), (64, 8, 128)])
+def test_fc_sweep_of_single_targets_matches_plain(cuda, shape, dtype):
+    """The FC route: K1 on one target quad a colour, four colours a sweep,
+    equals the plain FC quad sweep bit for bit."""
+    nz, H, W = shape
+    pack, e, bq = _inputs(nz, H, W, dtype, cuda, True, seed=sum(shape))
+    q = {k: v[:, 1:-1, 1:-1].contiguous() for k, v in e.items()}
+    before = kt.LAUNCHES["color_update"]
+    got = kt.relax_compact_tiled_quads(q, bq, pack, 2, kind="FC")
+    want = rc.relax_compact_quads(q, bq, pack, 2, "FC", True)
+    torch.cuda.synchronize()
+    assert kt.LAUNCHES["color_update"] == before + 8
+    for k in rc._TKEYS:
+        assert _maxdiff(got[k], want[k]) == 0.0
 
 
 @pytest.mark.parametrize("compact", [True, False])
@@ -538,3 +578,45 @@ def test_distributed_solve_on_a_virtual_mesh(cuda):
     np.testing.assert_allclose(i2.history, i1.history, rtol=1e-3)
     assert float((p2 - p1).abs().max()) <= 1e-4 * float(p1.abs().max())
     assert abs(d2 - d1) <= 1e-3 * d1
+
+
+# ------------------------------------------------- K11, the load-rate probes
+
+@pytest.mark.parametrize("geom", [(2, 16, 8, 12), (4, 32, 16, 24),
+                                  (64, 512, 16, 24)])
+def test_dma_probes_match_plain(cuda, geom):
+    """Every row of both JAX probe sets, at two small shapes and at the
+    JAX script's: 0 ulp from the plain version (the same left-to-right
+    sums), one launch each; the library call within 1e-6 relative."""
+    from mgroms_tpu_torch.ops.kernels import dma_probe as dp
+    from mgroms_tpu_torch.scripts import micro_dma_probe as mdp
+    nz, H, tj, ws = geom
+    for k, (label, probe, shape, _) in enumerate(mdp.cases(*geom)):
+        X = mdp.inputs(shape, cuda, k)
+        kern, plain, lib = mdp.calls(probe, X, tj, ws, H)
+        before = dict(dp.LAUNCHES)
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), label
+        assert sum(dp.LAUNCHES.values()) == sum(before.values()) + 1
+        assert _maxdiff(lib(), want) <= 1e-6 * float(want.abs().max())
+
+
+def test_dma_probes_reject_bad_input(cuda):
+    from mgroms_tpu_torch.ops.kernels import dma_probe as dp
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((3, 2, 20, 132), generator=g, device=cuda)
+    xs = list(x.unbind(0))
+    for bad in ([xs[0], xs[1].double()], [xs[0], xs[1][:, :19]],
+                [xs[0], x[1, :, :, :131]]):
+        with pytest.raises(ValueError):
+            dp.probe_windows(bad, 8, 12, 16)
+    with pytest.raises(ValueError):                 # H not a multiple of tj
+        dp.probe_windows(xs, 6, 12, 14)
+    with pytest.raises(ValueError):                 # window too narrow
+        dp.probe_windows([v[:, :, :128].contiguous() for v in xs], 8, 12, 16)
+    with pytest.raises(ValueError):
+        dp.probe_blocks([torch.rand((2, 16, 128), device=cuda)] * 65, 8)
+    with pytest.raises(ValueError):                 # W not 128 lanes wide
+        dp.probe_wide_stream(torch.rand((2, 16, 200), device=cuda), 8)

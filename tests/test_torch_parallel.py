@@ -287,6 +287,33 @@ def test_distributed_fc_solve_matches_jax():
                                atol=1e-15)
 
 
+def test_distributed_gs_solve_matches_single():
+    """GS has no quad form: comm='auto' resolves to the unported GSPMD
+    layer, and comm='shard_map' runs the masked column-Jacobi relax per
+    tile with the tile's origin; 3 F-cycles on (4, 2) equal the port's
+    single-device GS solve."""
+    nx, ny, nz = 32, 16, 8
+    c = setup_seamount(nx, ny, nz)
+    out = []
+    for mesh in (None, (4, 2)):
+        m = NHModel(nx, ny, nz, cfg=SolverConfig(relax_method="GS"),
+                    device="cpu")
+        m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc, theta_b=c.theta_b,
+                       theta_s=c.theta_s)
+        if mesh:
+            with pytest.raises(NotImplementedError, match="GSPMD"):
+                m.distribute(*mesh, devices=CPU8)
+            m.distribute(*mesh, devices=CPU8, comm="shard_map")
+            assert not any(m.backend.state_quads(lev)
+                           for lev in range(m.backend.nlevs))
+        u, v, w = initial_velocities(nx, ny, nz, device="cpu")
+        out.append(m.pressure_solve(m.rhs(u, v, w), tol=1e-12, maxiter=3))
+    (p1, i1), (p2, i2) = out
+    np.testing.assert_allclose(p2.numpy(), p1.numpy(), rtol=0,
+                               atol=1e-12 * float(p1.abs().max()))
+    np.testing.assert_allclose(i2.history, i1.history, rtol=1e-12)
+
+
 def test_staged_agglomeration_solve_matches_single():
     """64x64x16 on a (2, 4) mesh stages both axes -> both -> one ->
     replicated (tests/test_distributed.py:80); one F-cycle against the
