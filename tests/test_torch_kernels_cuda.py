@@ -550,8 +550,8 @@ def test_overlap_residual_refuses_missing_peer_access(cuda, monkeypatch):
 def test_distributed_solve_on_a_virtual_mesh(cuda):
     """Seamount 512 x 32 x 8 f32 on a virtual 2x2 mesh on one card gives
     the single-device iterates (the K1-K3 route) to f32 round-off over 3
-    F-cycles.  Level 0's tiles (256 x 16) pass the card's compact gate and
-    run K1-K3 per tile; levels 1-2 run the masked relax.  (This flat grid
+    F-cycles.  The sharded levels' tiles are even, so they take the
+    single-device compact rule and run K1-K3 per tile.  (This flat grid
     barely converges on one device either; the contract is agreement.)"""
     from mgroms_tpu_torch import NHModel, SolverConfig
     from mgroms_tpu_torch.cases.seamount import (initial_velocities,
