@@ -207,11 +207,11 @@ FC_MAXITER = 3
 # of the synthetic CUC slope in float32 reach the float32 floor within
 # two F-cycles and stall after it (128^2 x 32: 1.8e-5, then factors
 # 1.37, 1.00; 256^2 x 64: 4.3e-5, then 1.02, 1.00; 512^2 x 64: 5.05e-5,
-# 4.32e-5, then a 0.01 % rise); at 1024^2 x 64 the first F-cycle reached
-# 1.635e-4 (the first chip run, on an H100), above 1e-4, so two: the
-# second is the last that can cut before the floor.  Each must cut the residual, by >= 2x on the mean
-# (tests/test_solver.py:164 pins that mean factor for JAX's GS), to
-# <= 1e-4
+# 4.32e-5, then a 0.01 % rise); at 1024^2 x 64 the first F-cycle reaches
+# 1.635e-4 (measured on an H100 80GB HBM3 at 700 W), above 1e-4, so two:
+# the second is the last that can cut before the floor.  Each must cut
+# the residual, by >= 2x on the mean (tests/test_solver.py:164 pins that
+# mean factor for JAX's GS), to <= 1e-4
 GS_CYCLES = 2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
 F32_FLOPS = 67e12                # float32 outside the tensor cores
