@@ -484,7 +484,7 @@ FULL_LAYOUT_CASES = [
     ("residual_tiled", None, (64, 1024, 1024), torch.float32, None, "json"),
     ("residual_tiled", None, (3, 5, 7), torch.float32, None, None),
     ("residual_tiled", None, (8, 16, 33), torch.float64, None, None),
-] + [case for kind, (block, step) in kf.FORMS.items() for case in (
+] + [case for kind, (_, _, block, step) in kf.KINDS.items() for case in (
     (block, kind, (2, 32, 32), torch.float32, 40, "json"),
     (block, kind, (4, 4, 4), torch.float32, 40, "print"),
     (block, kind, (3, 5, 7), torch.float32, 3, None),
@@ -696,9 +696,11 @@ def probe_kernels(dev, results):
     the JAX script's (nz 64, H 512, tj 16, ws 24), both probe sets, to 0
     ulp from its plain version (the same left-to-right sums); timed with
     its one-call PyTorch sum (library_ms) at case A's row of its layout.
-    Bytes: each input read once and the output written once (the window
-    probes' own loads, every window at every step, are the JAX script's
-    count, printed beside)."""
+    Bytes: each input byte the sum reads once (for the window probes the
+    summed H x 128 slice of each plane, what their plain version and
+    library call read) and the output written once; the window probes'
+    own loads, every window at every step (the JAX script's count), and
+    each window byte once (unique) are printed beside."""
     for small in (True, False):
         geom = (2, 16, 8, 12) if small else (mdp.NZ, mdp.H, mdp.TJ, mdp.WS)
         nz, H, tj, ws = geom
@@ -709,13 +711,14 @@ def probe_kernels(dev, results):
             nsum = mdp.WIDE_GROUPS if probe == "wide" else shape[0]
             n_add = (nsum - 1) * nz * H * dp.LANES
             hold(results, name, f"{label} {geom}", torch.float32, kern,
-                 plain, None, nb["unique"], n_add,
+                 plain, None, nb["slice"], n_add,
                  "json" if label == json_label and not small else None,
                  exact=True, library=lib)
             if not small:
                 print(f"  {label}: the JAX script's count "
                       f"{nb['jax'] / 1e9:.4f} GB, unique "
-                      f"{nb['unique'] / 1e9:.4f} GB")
+                      f"{nb['unique'] / 1e9:.4f} GB, summed slice "
+                      f"{nb['slice'] / 1e9:.4f} GB")
             del X, kern, plain, lib
             torch.cuda.empty_cache()
 
@@ -849,7 +852,7 @@ def path_phase(title, grid, case, dev, maxiter, ref, rtol, div_limits, cfg,
           f"max|div| cut only to {ratio} (interior {inner})")
     check_path(counts, busy)
     L = len(m.levels)
-    for block, _ in kf.FORMS.values():
+    for block in (k.block for k in kf.KINDS.values()):
         if block in busy:
             check(counts[block] == L * info.niter,
                   f"K6 one-launch form {counts[block]} times, expected "

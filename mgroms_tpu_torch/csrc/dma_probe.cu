@@ -42,7 +42,10 @@
 // pl.Buffered(2)) is later work.  Bound: memory.
 //
 // Plain C interface (loaded with ctypes): each entry launches on the given
-// stream and returns cudaGetLastError().
+// stream and returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// geometry the kernels do not take (more than kMaxStreams streams, more
+// outputs than a block holds, a staged span over kMaxSmem, a row length
+// or pitch not a multiple of 4 floats); these checks are the only ones.
 
 #include <cuda_runtime.h>
 
@@ -184,8 +187,9 @@ int set_smem(const void* kernel, size_t smem) {
 
 extern "C" {
 
-// nsteps x nzb blocks of staged_sum_kernel
-int mg_probe_staged(const ProbeStreams* xs, const ProbeGeom* g, void* out,
+// nsteps x nzb blocks of staged_sum_kernel over the g->nstreams stream
+// pointers xs
+int mg_probe_staged(const float* const* xs, const ProbeGeom* g, void* out,
                     int nsteps, int nzb, void* stream) {
     if (g->nstreams < 1 || g->nstreams > kMaxStreams
         || g->tj * g->zc * g->ow > kMaxAcc * kThreads || g->rowlen % 4
@@ -194,8 +198,10 @@ int mg_probe_staged(const ProbeStreams* xs, const ProbeGeom* g, void* out,
     const size_t smem = (size_t)g->nrows * g->rowlen * sizeof(float);
     int e = set_smem((const void*)staged_sum_kernel, smem);
     if (e) return e;
+    ProbeStreams ps = {};
+    for (int s = 0; s < g->nstreams; ++s) ps.x[s] = xs[s];
     staged_sum_kernel<<<dim3(nsteps, nzb), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(*xs, *g,
+                        static_cast<cudaStream_t>(stream)>>>(ps, *g,
                                                              (float*)out);
     return (int)cudaGetLastError();
 }

@@ -57,7 +57,8 @@ namespace {
 
 constexpr int kBlockThreads = 512;
 
-// The orderings (ops/kernels/relax_fused.py _KIND_CODE).
+// The orderings and their colour steps per sweep (the code and ncolor of
+// each entry of ops/kernels/relax_fused.py KINDS).
 constexpr int kRB = 0;
 constexpr int kFC = 1;
 constexpr int kGS = 2;

@@ -101,7 +101,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.mg_dma_only, lib.mg_dma_only_bf16):
         fn.argtypes = [p] * 10 + [i] * 4 + [p, p]
         fn.restype = i
-    # ProbeStreams* ProbeGeom* out | nsteps nzb | stream
+    # stream pointers[nstreams] ProbeGeom* out | nsteps nzb | stream
     lib.mg_probe_staged.argtypes = [p, p, p, i, i, p]
     lib.mg_probe_staged.restype = i
     # x out | nz H tj ng gw rc | stream

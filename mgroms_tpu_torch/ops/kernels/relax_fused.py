@@ -2,7 +2,7 @@
 three orderings, its hand-written CUDA kernel and its plain torch version.
 
 Port of ``mgroms_tpu/ops/pallas/relax_fused.py:fused_relax``: ``nsweeps``
-sweeps of ``ncolor`` colour steps (:data:`NCOLOR`: 'RB' two parity
+sweeps of ``ncolor`` colour steps (:data:`KINDS`: 'RB' two parity
 colours, 'FC' four, 'GS' one all-ones step, the JAX package's
 column-Jacobi GS), each committing ``p + mask * (sol - p)``.  The kernel
 (``csrc/relax_fused.cu``) has two forms, chosen by the level's size:
@@ -14,7 +14,7 @@ column-Jacobi GS), each committing ``p + mask * (sol - p)``.  The kernel
   ``fused_relax_step``  one launch per colour step (larger levels).
 
 ``LAUNCHES`` counts the kernel launches of each form and ordering under
-the names of :data:`FORMS`: RB under the form's name, FC and GS under it
+the names of :data:`KINDS`: RB under the form's name, FC and GS under it
 with ``_fc`` / ``_gs`` added.
 The wrapper runs the plain version for tensors on the CPU only; for a CUDA
 tensor it checks device, dtype, shape and contiguity, launches the kernel
@@ -24,6 +24,8 @@ kernel takes any level.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ...bc import extend_h1
@@ -31,14 +33,24 @@ from .. import relax as relax_ops
 from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
 
-# colour steps per sweep, and the kernel's ordering code (relax_fused.cu)
-NCOLOR = {"RB": 2, "FC": 4, "GS": 1}
-_KIND_CODE = {"RB": 0, "FC": 1, "GS": 2}
-# the LAUNCHES names of each ordering: (one-launch form, per-step form)
-FORMS = {kind: (f"fused_relax{sfx}", f"fused_relax_step{sfx}")
-         for kind, sfx in (("RB", ""), ("FC", "_fc"), ("GS", "_gs"))}
 
-LAUNCHES = {name: 0 for pair in FORMS.values() for name in pair}
+
+class Kind(NamedTuple):
+    """One ordering: the kernel's code for it (relax_fused.cu), its
+    colour steps per sweep, and the ``LAUNCHES`` names of its one-launch
+    and per-step forms."""
+    code: int
+    ncolor: int
+    block: str
+    step: str
+
+
+KINDS = {kind: Kind(code, ncolor, f"fused_relax{sfx}",
+                    f"fused_relax_step{sfx}")
+         for kind, code, ncolor, sfx in (("RB", 0, 2, ""), ("FC", 1, 4, "_fc"),
+                                         ("GS", 2, 1, "_gs"))}
+
+LAUNCHES = {name: 0 for k in KINDS.values() for name in (k.block, k.step)}
 
 # shared memory of the one-block form: two state buffers, b and the Thomas
 # multipliers (the H100 gives a block up to 227 KB)
@@ -57,7 +69,7 @@ def one_block(p: torch.Tensor) -> bool:
 
 def launch_name(p: torch.Tensor, kind: str) -> str:
     """The ``LAUNCHES`` key of the form ``p`` takes in ordering ``kind``."""
-    return FORMS[kind][0 if one_block(p) else 1]
+    return KINDS[kind].block if one_block(p) else KINDS[kind].step
 
 
 def fused_relax_plain(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
@@ -73,7 +85,7 @@ def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
     (nz, ny, nx), ``cA`` extended (8, nz, ny+2, nx+2), the physical
     boundary on every side.  Returns the new ``p``; the inputs are not
     written."""
-    if kind not in NCOLOR:
+    if kind not in KINDS:
         raise ValueError(f"unknown relax kind {kind!r}")
     if on_cpu(p):
         return fused_relax_plain(p, b, cA, nsweeps, kind, real_matrix)
@@ -92,8 +104,9 @@ def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
           else lib.mg_relax_fused_f64)
     with torch.cuda.device(p.device):
         rc = fn(ptr(p), ptr(b), ptr(cA), ptr(out), ptr(buf), ptr(gam), nz,
-                ny, nx, int(real_matrix), nsweeps, _KIND_CODE[kind],
+                ny, nx, int(real_matrix), nsweeps, KINDS[kind].code,
                 int(single), torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "fused_relax")
-    LAUNCHES[launch_name(p, kind)] += 1 if single else NCOLOR[kind] * nsweeps
+    LAUNCHES[launch_name(p, kind)] += (1 if single
+                                       else KINDS[kind].ncolor * nsweeps)
     return out

@@ -164,7 +164,7 @@ class ShardMapBackend(DistributedBackend):
         target) on every tile with the seam exchange per colour — the
         fill_halo-per-colour protocol (mg_relax.f90:181) on QuadField
         state."""
-        ext, kind = self._ext(lev), self.kind
+        ext, kind = self._ext(lev), self.cfg.relax_kind
 
         def local(pq, bq, pack_l):
             return QuadField.fromdict(kernels.relax_compact_tiled_quads(
@@ -185,7 +185,7 @@ class ShardMapBackend(DistributedBackend):
         # fused_bands_bf16: the smoother's gather is then of the perturbed
         # operator, as on the single-device path (the JAX package's
         # shard_map backend omits this exclusion)
-        return (self.cfg.fused_residual and self.kind == "RB"
+        return (self.cfg.fused_residual and self.cfg.relax_kind == "RB"
                 and self.state_quads(lev) and not self.cfg.fused_bands_bf16)
 
     def _same_axes(self, lev) -> bool:
@@ -248,13 +248,13 @@ class ShardMapBackend(DistributedBackend):
             return self._map(lev, lambda p_l, b_l, pack_l:
                              kernels.relax_compact_tiled(
                                  p_l, b_l, pack_l, nsweeps,
-                                 kind=self.kind, extend_fn=ext),
+                                 kind=self.cfg.relax_kind, extend_fn=ext),
                              p, b, self.packs[lev])
 
         def local(p_l, b_l, cA_l):
             j0, i0 = axis_offsets(sh.ny, sh.nx, pya, pxa)
             return relax_ops.relax(
-                p_l, b_l, cA_l, nsweeps, self.kind, real,
+                p_l, b_l, cA_l, nsweeps, cfg.relax_kind, real,
                 extend_fn=lambda x: halo_extend(x, pya, pxa),
                 j0=j0, i0=i0, tridiag_method=cfg.tridiag)
 

@@ -163,7 +163,6 @@ class SingleDeviceBackend:
         self.cfg = cfg
         self.nlevs = len(levels)
         self.real = cfg.cmatrix == "real"
-        self.kind = cfg.relax_kind
         self.packs = (list(packs) if packs is not None
                       else build_relax_packs(levels, ops, cfg))
         self.fused_sweep = fused_sweep_wanted(cfg, self.on_card)
@@ -215,16 +214,17 @@ class SingleDeviceBackend:
             else:
                 q = kernels.relax_compact_tiled_quads(
                     p.asdict(), b.asdict(), self.packs[lev], nsweeps,
-                    kind=self.kind)
+                    kind=self.cfg.relax_kind)
             return QuadField.fromdict(q)
         if self.levels[lev].nd == 5:
             raise NotImplementedError(
                 "2-D (nz==1) levels are unreachable under the standard plan "
                 "and have no assembly path (parity with the reference)")
+        kind = self.cfg.relax_kind
         if self._use_pallas(lev):
             return relax_fused.fused_relax(p, b, self.ops[lev].cA, nsweeps,
-                                           self.kind, self.real)
-        return relax_ops.relax(p, b, self.ops[lev].cA, nsweeps, self.kind,
+                                           kind, self.real)
+        return relax_ops.relax(p, b, self.ops[lev].cA, nsweeps, kind,
                                self.real,
                                extend_fn=lambda x: self.extend(lev, x))
 
@@ -234,7 +234,7 @@ class SingleDeviceBackend:
         levels).  Not under ``fused_bands_bf16`` (the smoother's gather is
         then of the perturbed operator, not the true A) nor on K4 levels
         (they keep their one-launch sweep), as in the JAX package."""
-        return (self.cfg.fused_residual and self.kind == "RB"
+        return (self.cfg.fused_residual and self.cfg.relax_kind == "RB"
                 and self.state_quads(lev)
                 and not self.cfg.fused_bands_bf16
                 and not self._use_sweep(lev))

@@ -88,7 +88,8 @@ def test_wide_stream_plain_equals_numpy():
 def test_byte_counts_match_the_jax_script():
     """The ``jax`` count less the output is the JAX script's ``gb``
     (micro_dma_probe.py:116, :136, :157, :215, :234, :269) at its shapes;
-    ``unique`` reads each input byte once."""
+    ``unique`` reads each input byte once, ``slice`` each byte the sum
+    reads."""
     nz, Hj, tj, ws = mdp.NZ, mdp.H, mdp.TJ, mdp.WS
     hs = Hj - tj + ws
     out = 4 * nz * Hj * 128
@@ -107,8 +108,11 @@ def test_byte_counts_match_the_jax_script():
     assert a["unique"] == 24 * nz * hs * 132 * 4 + out
     assert round(a["jax"] / 1e9, 3) == 0.640       # 0.623 GB + the output
     assert round((a["unique"] - out) / 1e9, 3) == 0.422
+    assert a["slice"] == 24 * nz * Hj * 128 * 4 + out
     b = dp.blocks_bytes(37, nz, Hj, 128)
-    assert b["jax"] == b["unique"]
+    assert b["jax"] == b["unique"] == b["slice"]
+    w = dp.wide_stream_bytes(nz, Hj, mdp.WIDE_GROUPS)
+    assert w["jax"] == w["unique"] == w["slice"]
 
 
 def test_check_on_cpu_and_block_plans():
@@ -116,6 +120,6 @@ def test_check_on_cpu_and_block_plans():
     for label, probe, _, _ in mdp.cases():
         assert rows[label] == 0.0
         assert rows[f"{label}_library"] <= 1e-6
-    assert dp.jlead_planes(64, 16, 24, 132) == 4
+    assert [dp.jlead_planes(nz) for nz in (64, 2, 3)] == [4, 2, 1]
     assert dp.wide_rows(16, 3072) == 4
     assert all(v == 0 for v in dp.LAUNCHES.values())

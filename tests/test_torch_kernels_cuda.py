@@ -226,7 +226,7 @@ def test_fused_relax_orderings_match_plain(cuda, case, kind, dtype):
         assert torch.equal(p, p0)
         assert _maxdiff(got, want) == 0.0
         key = kf.launch_name(p, kind)
-        n = 1 if kf.one_block(p) else kf.NCOLOR[kind] * ns
+        n = 1 if kf.one_block(p) else kf.KINDS[kind].ncolor * ns
         assert {k: v - before[k] for k, v in kf.LAUNCHES.items()} == {
             k: (n if k == key else 0) for k in kf.LAUNCHES}
 
@@ -616,7 +616,7 @@ def test_dma_probes_reject_bad_input(cuda):
         dp.probe_windows(xs, 6, 12, 14)
     with pytest.raises(ValueError):                 # window too narrow
         dp.probe_windows([v[:, :, :128].contiguous() for v in xs], 8, 12, 16)
-    with pytest.raises(ValueError):
+    with pytest.raises(RuntimeError):               # over the kernel's 64
         dp.probe_blocks([torch.rand((2, 16, 128), device=cuda)] * 65, 8)
     with pytest.raises(ValueError):                 # W not 128 lanes wide
         dp.probe_wide_stream(torch.rand((2, 16, 200), device=cuda), 8)

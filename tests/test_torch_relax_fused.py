@@ -100,7 +100,7 @@ def test_launch_names_and_unknown_kind():
     assert [kf.launch_name(big, k) for k in ("RB", "FC", "GS")] == [
         "fused_relax_step", "fused_relax_step_fc", "fused_relax_step_gs"]
     assert sorted(kf.LAUNCHES) == sorted(
-        kf.launch_name(x, k) for x in (small, big) for k in kf.NCOLOR)
+        kf.launch_name(x, k) for x in (small, big) for k in kf.KINDS)
     with pytest.raises(ValueError, match="unknown relax kind"):
         kf.fused_relax(small, small, torch.zeros((8, 2, 6, 6)), 1, "XY",
                        True)
