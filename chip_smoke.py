@@ -8,9 +8,10 @@ Phases (any failed check raises, so the exit code is non-zero):
    its plain torch version on the card, with the max ulp printed:
    K1-K3 in float32 at the CUC level-0 quad shape (64, 512, 512) and at a
    ragged shape, plus K1 once in float64; K4 (one sweep, float32 and
-   bfloat16 blocks) at the CUC level-0 quad shape (64, 512, 512), at the
+   bfloat16 bands) at the CUC level-0 quad shape (64, 512, 512), at the
    CUC level-4 quad shape (4, 32, 32), at a ragged shape and once in
-   float64; K1 on bfloat16 blocks, all four targets, at the seamount 64^3
+   float64, its bytes counted as it reads them (the 24 band quads, its
+   bound on the 48 gather blocks printed beside); K1 on bfloat16 blocks, all four targets, at the seamount 64^3
    quad shapes (64, 32, 32) ... (8, 4, 4), at (64, 512, 512) and at a
    ragged shape; K4 and K1 on bfloat16 blocks held to 0 ulp; K5 at the
    CUC level-0 shape
@@ -43,7 +44,9 @@ Phases (any failed check raises, so the exit code is non-zero):
    probes (windows, blocks, j-lead windows, one wide stream), every row
    of the JAX script's two probe sets at a small shape and at its own
    (nz 64, H 512, tj 16, ws 24), to 0 ulp, timed beside one PyTorch call
-   of the same sum (library_ms).
+   of the same sum (library_ms).  Last, the asynchronous copies in the
+   SASS of K11's staged_sum_kernel and wide_stream_kernel (bulk copies)
+   and of K4 (cp.async), per instance (cuobjdump -sass).
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -106,7 +109,8 @@ and launches every kernel of its path and no other.
 
 Phases 2, 4-10, 12 and 14-16 also trace one F-cycle with torch.profiler (device
 activity only): device ops, device busy time against the same traced
-step's wall time (the idle share), and the top device ops.
+step's wall time (the idle share), K4's launches and device time where it
+runs (phases 2, 4, 5, 6, 9), and the top device ops.
 
 The line before last is a JSON object with, for each kernel, its launches
 in the phase that is its path (4 for K4 and K3, 6 for K6's one-launch
@@ -123,6 +127,7 @@ import collections
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -260,14 +265,20 @@ def check(cond, msg):
 
 # ------------------------------------------------------------ phase 1
 
-def kernel_inputs(nz, H, W, dtype, dev, seed):
-    """Random diagonally dominant operator pack, state quads and RHS quads,
-    made on the card from a seeded generator."""
+def kernel_inputs(nz, H, W, dtype, dev, seed, lp=False, bands=False):
+    """Random diagonally dominant operator pack (with the low-precision
+    smoother operator when ``lp``, with the band stack K4 reads when
+    ``bands``), state quads and RHS quads, made on the card from a seeded
+    generator."""
     g = torch.Generator(device=dev).manual_seed(seed)
     u = lambda *s: torch.rand(s, generator=g, device=dev, dtype=dtype)
     cA = 0.2 * u(8, nz, 2 * H + 2, 2 * W + 2) - 0.1
     cA[0] -= 4.0
     pack = rc.build_compact_pack(cA, True)
+    if lp:
+        pack = rc.attach_lp(pack)
+    if bands:
+        pack = rc.attach_bands(pack, cA)
     del cA
     q = rc.split_quads(2 * u(nz, 2 * H, 2 * W) - 1)
     bq = rc.split_quads(2 * u(nz, 2 * H, 2 * W) - 1)
@@ -396,6 +407,7 @@ def kernel_phase(dev):
     roofline_kernels(dev, results)
     overlap_kernels(dev, results)
     probe_kernels(dev, results)
+    sass_async_copies()
     return results
 
 
@@ -421,26 +433,37 @@ SWEEP_CASES = [
 
 def sweep_kernels(dev, results):
     """K4 (one sweep) and, on bfloat16 blocks, K1, each against its plain
-    version to 0 ulp.  Bytes of K4: the four state and RHS quads, each
-    target's blocks, 'real' pair, ud and bet, and the four new quads; flops
-    four times K1's.  Where K4 is timed for the json line, one K4 sweep is
-    also timed against one sweep of four K1 launches and the two halo
-    extensions (relax_tiled.relax_compact_tiled_quads) on the same
-    operator."""
+    version to 0 ulp.  Bytes of K4, each input read once as K4 reads it:
+    the four state and RHS quads, the 24 band quads (bands 3..8 of the
+    operator, the stack's content), ud and bet, and the four new quads; its
+    bound on the 48 gather blocks and the 'real' pair that the first port
+    read (and K1 reads) is printed beside.  Flops four times K1's.  Where
+    K4 is timed for the json line, one K4 sweep is also timed against one
+    sweep of four K1 launches and the two halo extensions
+    (relax_tiled.relax_compact_tiled_quads) on the same operator."""
     for shape, dtype, lp, k4_timed, k1_timed in SWEEP_CASES:
-        pack, q, bq = kernel_inputs(*shape, dtype, dev, seed=sum(shape))
-        if lp:
-            pack = rc.attach_lp(pack)
+        nz, H, W = shape
+        pack, q, bq = kernel_inputs(*shape, dtype, dev, seed=sum(shape),
+                                    lp=lp, bands=True)
         blocks, rblocks, bet, _ = rc.smoother_operator(pack, dtype)
+        stack = ksf.sweep_bands(pack, dtype)[0]
         n = bq[(0, 0)].numel()
         col = n // shape[0]
+        state = nbytes(*q.values(), *bq.values(), *pack.ud, *bet,
+                       *q.values())
+        band_bytes = rc.NBANDS * nz * (H + 2) * (W + 2) * stack.element_size()
         name = "relax_fused_sweep_bf16" if lp else "relax_fused_sweep"
         hold(results, name, shape, dtype,
              lambda: ksf.relax_fused_sweep(q, bq, pack, 1),
              lambda: ksf.relax_fused_sweep_plain(q, bq, pack, 1), None,
-             nbytes(*q.values(), *bq.values(), *blocks, *rblocks, *pack.ud,
-                    *bet, *q.values()),
-             4 * (30 * n + 8 * col), k4_timed, exact=True)
+             state + band_bytes, 4 * (30 * n + 8 * col), k4_timed,
+             exact=True)
+        if k4_timed == "json":
+            old = state + nbytes(*blocks, *rblocks)
+            print(f"  {name} {shape} bound on the band quads "
+                  f"{bound(state + band_bytes, 0)[0]:.6f} ms "
+                  f"({(state + band_bytes) / 1e9:.4f} GB); on the gather "
+                  f"blocks {bound(old, 0)[0]:.6f} ms ({old / 1e9:.4f} GB)")
         if lp:
             e = rc.extend_quads(q)
             for m, t in enumerate(rc._TKEYS):
@@ -460,8 +483,45 @@ def sweep_kernels(dev, results):
             print(f"  one sweep at {shape}, {'bfloat16' if lp else dtype} "
                   f"blocks: K4 {k4:.4f} ms, four K1 launches + two halo "
                   f"extensions {k1:.4f} ms")
-        del pack, blocks, rblocks, bet, q, bq
+        del pack, blocks, rblocks, bet, stack, q, bq
         torch.cuda.empty_cache()
+
+
+# kernel -> what its staging must show in the SASS: the bulk copies of
+# K11's ring, the asynchronous copies of K4's
+SASS_ASYNC = {"staged_sum_kernel": ("UBLKCP", "UTMALDG"),
+              "wide_stream_kernel": ("UBLKCP", "UTMALDG"),
+              "sweep_kernel": ("LDGSTS", "UBLKCP", "UTMALDG")}
+
+
+def sass_async_copies():
+    """Print, per instance of K11's two kernels and of K4, how many
+    asynchronous-copy instructions its SASS holds (cuobjdump -sass of the
+    built library), and check that each stages through them."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print(f"  SASS: {tool} not found; the staging instructions are not "
+              "checked")
+        return
+    sass = subprocess.run([tool, "-sass", _build.BuildInfo.path],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = next((k for k in SASS_ASYNC if k in fn), None)
+            key = fn
+            if name:
+                counts[key] = (name, collections.Counter())
+            continue
+        if name:
+            for op in SASS_ASYNC[name]:
+                if op in line:
+                    counts[key][1][op] += 1
+    for fn, (name, c) in sorted(counts.items()):
+        print(f"  SASS {name} ({fn[-40:]}): "
+              + ", ".join(f"{op} {c[op]}" for op in SASS_ASYNC[name]))
+        check(sum(c.values()) > 0, f"{fn}: no asynchronous copy in the SASS")
 
 
 def full_inputs(nz, ny, nx, dtype, dev, seed):
@@ -813,6 +873,11 @@ def profile_fcycle(m, top=8):
     print(f"  profile: {len(dev)} device ops, device busy {busy_ms:.3f} ms "
           f"of {wall_ms:.3f} ms traced wall, idle share "
           f"{1 - busy_ms / wall_ms:.4f}")
+    k4 = [v for k, v in by_name.items() if "sweep_kernel<" in k]
+    if k4:
+        print(f"  profile: K4 {sum(n for n, _ in k4)} launches, "
+              f"{sum(us for _, us in k4) / 1e3:.3f} ms device time per "
+              "F-cycle")
     for name, (n, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
         print(f"    {us / 1e3:10.3f} ms {n:7d}x  {name[:90]}")

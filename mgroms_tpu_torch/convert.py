@@ -28,7 +28,7 @@ import torch
 
 from .assembly import FineMetrics, LevelOperator
 from .ops.kernels.sweep_packed import SweepOperator
-from .ops.relax_compact import CompactPack, LowPrecision
+from .ops.relax_compact import CompactPack, LowPrecision, stack_bands
 from .parallel.mesh import Tiles
 
 
@@ -71,20 +71,33 @@ def pack_from_numpy(fields: Mapping, real_matrix: bool, device="cuda",
     arrive as float32 arrays of bfloat16 values and are stored in bfloat16
     (exact), the pivots in ``dtype``.  The Thomas multipliers ``gam`` are
     not carried for either operator: the port recomputes them as
-    ``ud * bet``."""
+    ``ud * bet``.
+
+    With ``ebands`` (or ``ebands_lp``, bfloat16 values as float32 arrays),
+    the 24 band quads the colour-fused sweep reads (relax_compact.
+    band_quads order, (nz, H+2, W+2) each: the JAX package's
+    ``SweepOperator.ebands`` of one chunk without its padding row and
+    columns, ``ebands[0][i][:, 1:H+3, 1:W+3]``), the pack carries their
+    stack (relax_compact.stack_bands)."""
     conv = {k: tuple(_t(a, device, dtype) for a in fields[k])
             for k in ("blocks", "d", "ud", "bet")}
     rb = (tuple(_t(a, device, dtype) for a in fields["rblocks"])
           if real_matrix else None)
+    bf16 = lambda xs: tuple(_t(a, device, torch.float32)
+                            .to(torch.bfloat16) for a in xs)
+    stack = lambda xs, dt: stack_bands([_t(a, device, dtype) for a in xs],
+                                       dt)
     lp = None
     if "blocks_lp" in fields:
-        bf16 = lambda xs: tuple(_t(a, device, torch.float32)
-                                .to(torch.bfloat16) for a in xs)
         lp = LowPrecision(
             blocks=bf16(fields["blocks_lp"]),
             rblocks=bf16(fields["rblocks_lp"]) if real_matrix else None,
-            bet=tuple(_t(a, device, dtype) for a in fields["bet_lp"]))
-    return CompactPack(real_matrix=real_matrix, rblocks=rb, lp=lp, **conv)
+            bet=tuple(_t(a, device, dtype) for a in fields["bet_lp"]),
+            ebands=(stack(fields["ebands_lp"], torch.bfloat16)
+                    if "ebands_lp" in fields else None))
+    eb = stack(fields["ebands"], dtype) if "ebands" in fields else None
+    return CompactPack(real_matrix=real_matrix, rblocks=rb, lp=lp,
+                       ebands=eb, **conv)
 
 
 def packed_operator_from_numpy(pband: Sequence, ppiv: Sequence,

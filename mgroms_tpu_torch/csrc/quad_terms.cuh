@@ -1,6 +1,7 @@
 // Shared by the quad-parity kernels (relax_tiled.cu, sweep_fused.cu): the
-// per-term read recipe of the 16-term neighbour gather and the upcast of
-// an operator block value to the state type.
+// term counts of the 16-term neighbour gather, relax_tiled.cu's per-term
+// read recipe (sweep_fused.cu compiles its own, on the band quads) and the
+// upcast of an operator value to the state type.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -5,55 +5,85 @@
 // relax_fused_sweep) and computes, term for term and in the same operation
 // order, what its plain version (ops/kernels/sweep_fused.
 // relax_fused_sweep_plain, i.e. relax_compact_quads) computes: per colour,
-// the 16-term gather through the quad halo extension of the state that
-// colour reads (relax_compact.extend_quads), then the factored Thomas solve
-// with gam = ud * bet recomputed.
+// the 12-term gather (14 with 'real') through the quad halo extension of
+// the state that colour reads (relax_compact.extend_quads), then the
+// factored Thomas solve with gam = ud * bet recomputed.
 //
-// Design: a cooperative launch, one thread per (J, I) column of a target
-// quad in grid-stride loops.  Phase 0 updates the colour-0 quads (0,0),
-// (1,1) from the pre-sweep quads into their outputs; a grid barrier; phase 1
-// updates (0,1), (1,0), reading the colour-0 quads' new values from those
-// outputs and the colour-1 quads' pre-sweep values from the inputs.  The
-// halo extension is done in the index arithmetic (halo_map, the rule of
-// extend_quads), so no extended copy of the state is made: every halo read
-// lands on the quad point whose value the plain sweep's extension copies,
-// pre-sweep or post-colour-0 as the plain sweep has it.  Instances:
-// (float, float), (double, double) and (float, bfloat16 blocks: the
-// low-precision smoother operator, upcast at read).
+// What bounds it: memory.  Per column and plane a colour reads 12 operator
+// values, 12 state values, the RHS, ud and bet, and writes the solution
+// (~2 flops per value read).  The design, per thing that held the first
+// port back:
 //
-// Bound: memory.  Per column and plane a sweep reads 12 operator blocks of
-// its target, 12 state values, the RHS, ud and bet, and writes the solution
-// (~2 flops per value read).  Against four K1 launches a sweep saves the
-// extended state copies (2 glue passes and the 3-quad reads per target
-// become the 4 raw quads, L1/L2 serving the neighbour reuse); it re-reads
-// the colour-0 outputs in phase 1 (2 quads, ~3% of the bytes at the CUC
-// level-0 shape).  The TPU kernel's tile overhang (colour 0 recomputed on a
-// one-row/column ring so no barrier is needed) would add ~1/3 more colour-0
-// work at a 32x8 tile and needs a private store for the ring's in-place
-// Thomas; the barrier costs neither.  No shared-memory staging of blocks
-// or state yet.
+// - The operator is read as the TPU kernel reads it: the 24 halo-extended
+//   band quads of bands 3..8 (relax_compact.band_quads), stacked in one
+//   array with a zero plane before and after each band quad (_kshift's
+//   padding, so no plane test is made) and rows padded to a 16-byte pitch
+//   (relax_compact.band_layout), so that a tile row of a band quad is one
+//   aligned span.  In one colour each band quad is read once (its other
+//   term belongs to the other colour's target), so a sweep reads each
+//   twice: the colour barrier below keeps the colours apart, and a tile's
+//   bands over all planes would need ~13x a block's shared memory to carry
+//   over it.
+// - The Thomas recurrence stays on chip: the forward values and the
+//   back-substitution multipliers c = ud * bet of each column live in
+//   shared memory, so `out` is written once and ud and bet read once.
+// - Latency is hidden by asynchronous staging over k.  A block owns a tile
+//   of kCols columns x (threads / kCols) rows of one target, one thread
+//   per column.  While plane k is solved, planes k+1 .. k+kAhead are in
+//   flight (cp.async, LDGSTS): the block's 12 band tiles of a plane, each
+//   tile row (kCols + one 16-byte column of values) in 16-byte copies
+//   that bypass L1, into a ring of kBandStages stages; each thread's RHS,
+//   bet and ud into its own ring of kColStages; and the state window of
+//   planes .. k+kAhead+1 into a ring of kWinPlanes planes: the two quads
+//   of the other colour that the 12 terms read, (rows + 2) x (kCols + 2)
+//   each, each value staged once and read by up to six terms of three
+//   planes.  The window and column values are 4-byte copies through L1
+//   (staging them as 16-byte chunks that bypass it measured slower on
+//   the H100).  One block barrier per plane publishes a plane's stages
+//   and frees the oldest.  What bounds the kernel now is the staging:
+//   with the arithmetic cut out it takes nearly as long, without the band
+//   tiles much less.
+// - Few instructions a value: the term recipe is compiled in (the kernel
+//   is instantiated per target quad), and the stages are laid out so that
+//   a term's band and state values sit at a compile-time offset from one
+//   per-thread address each: two shared loads, a multiply and an add a
+//   term.  Per column only 32-bit offsets are live.
+//
+// The domain-edge halo is the index rule of extend_quads (halo_map),
+// applied where a window value is staged: its source quad, row and column
+// come from the rule, so the staged window is the extended quad.  Colour
+// dependency: a cooperative launch.  Colour 0 updates (0,0), (1,1) from
+// the pre-sweep quads into their outputs; a grid barrier; colour 1 updates
+// (0,1), (1,0), reading colour 0's new values from those outputs and the
+// colour-1 quads' pre-sweep values from the inputs.  The plane-0 'real'
+// couplings (4 terms, one plane) are read in place.  Instances: (float,
+// float), (double, double) and (float, bfloat16 bands: the low-precision
+// smoother operator, upcast at read).
 //
 // Rounding: built with -fmad=false (0 ulp from the plain version).
 //
 // Plain C interface (loaded with ctypes): each entry launches on the given
-// stream and returns the launch's CUDA error code.
+// stream and returns the launch's CUDA error code (cudaErrorInvalidValue
+// when one column's planes do not fit a block's shared memory).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "quad_terms.cuh"
 
 namespace cg = cooperative_groups;
 
 // Pointers of one sweep, per quad in _TKEYS order (0,0), (0,1), (1,0),
-// (1,1): the pre-sweep state, the RHS, the target's smoother blocks and
-// 'real' pair (null unless real), ud, bet, and the output.
+// (1,1): the pre-sweep state, the RHS, ud, bet and the output; and the
+// start of the band stack's storage (relax_compact.band_quads: 24 band
+// quads x (nz + 2) planes x (H + 2) rows of `pitch` values, extended
+// column C at storage column C + 16 / sizeof(value) - 1).
 struct SweepArgs {
     const void* q[4];
     const void* bq[4];
-    const void* blocks[4];
-    const void* rb[4];
+    const void* band;
     const void* ud[4];
     const void* bet[4];
     void* out[4];
@@ -61,40 +91,113 @@ struct SweepArgs {
 
 namespace {
 
-constexpr int kThreads = 256;
+// ------------------------------------------------------- the term recipe
 
-template <typename T, typename B>
-struct Params {
-    const T* q[4];
-    const T* bq[4];
-    const B* blocks[4];
-    const B* rb[4];
-    const T* ud[4];
-    const T* bet[4];
-    T* out[4];
-    int nz, H, W, real;
+// One term's reads for target quad t (_TKEYS index, (a, b) = (t >> 1,
+// t & 1)): the band value is band quad `band` (band_quads order) at plane
+// k + bk, extended row J + bj, column I + bi; the state value is quad
+// `src` at plane k + dk, extended row J + oj, column I + oi.  The index
+// algebra of relax_compact._qread and of the JAX kernel's band_read
+// (sweep_fused.band_term_table builds the same table in Python; the CUDA
+// tests hold the two equal through mg_sweep_terms).
+struct Term {
+    int band, bk, bj, bi, src, dk, oj, oi;
 };
 
-// The fields of one target quad.
-template <typename T, typename B>
-struct Target {
-    const B* blocks;
-    const B* rb;
-    const T* bq;
-    const T* ud;
-    const T* bet;
-    T* out;
+__host__ __device__ constexpr int pmod2(int x) { return ((x % 2) + 2) % 2; }
+
+// term m of relax_compact._BASE_TERMS then _REAL_TERMS, in the summation
+// order: band n, band offset (bk, bj, bi), state offset (pk, pj, pi)
+__host__ __device__ constexpr Term term_of(int t, int m) {
+    int n = 0, bk = 0, bj = 0, bi = 0, pk = 0, pj = 0, pi = 0;
+    switch (m) {
+        case 0: n = 3; pk = 1; pj = -1; break;
+        case 1: n = 3; bk = -1; bj = 1; pk = -1; pj = 1; break;
+        case 2: n = 4; pj = -1; break;
+        case 3: n = 4; bj = 1; pj = 1; break;
+        case 4: n = 5; pk = -1; pj = -1; break;
+        case 5: n = 5; bk = 1; bj = 1; pk = 1; pj = 1; break;
+        case 6: n = 6; pk = 1; pi = -1; break;
+        case 7: n = 6; bk = -1; bi = 1; pk = -1; pi = 1; break;
+        case 8: n = 7; pi = -1; break;
+        case 9: n = 7; bi = 1; pi = 1; break;
+        case 10: n = 8; pk = -1; pi = -1; break;
+        case 11: n = 8; bk = 1; bi = 1; pk = 1; pi = 1; break;
+        case 12: n = 5; pj = 1; pi = -1; break;
+        case 13: n = 5; bj = -1; bi = 1; pj = -1; pi = 1; break;
+        case 14: n = 8; pj = -1; pi = -1; break;
+        default: n = 8; bj = 1; bi = 1; pj = 1; pi = 1; break;
+    }
+    const int a = t >> 1, b = t & 1;
+    const int kb0 = pmod2(a + bj), kb1 = pmod2(b + bi);
+    const int a2 = pmod2(a + pj), b2 = pmod2(b + pi);
+    return Term{(n - 3) * 4 + 2 * kb0 + kb1, bk, 1 + (a + bj - kb0) / 2,
+                1 + (b + bi - kb1) / 2, 2 * a2 + b2, pk,
+                1 + (a + pj - a2) / 2, 1 + (b + pi - b2) / 2};
+}
+
+// a compile-time term index, for the generic lambda of the gather
+template <int N>
+struct Int {
+    static constexpr int value = N;
 };
 
-template <int t, typename T, typename B>
-__device__ __forceinline__ Target<T, B> target(const Params<T, B>& p) {
-    return {p.blocks[t], p.rb[t], p.bq[t], p.ud[t], p.bet[t], p.out[t]};
+// ------------------------------------------------------------ the staging
+
+constexpr int kAhead = 2;              // planes staged ahead of the solved one
+// a column's own RHS, bet and ud: planes k .. k + kAhead
+constexpr int kColStages = kAhead + 1;
+// the block's band tiles: planes k .. k + kAhead, and one more so a stage
+// is refilled only a block barrier after its last read
+constexpr int kBandStages = kAhead + 2;
+// window planes live at once: k - 1 .. k + kAhead + 1, and one more
+constexpr int kWinPlanes = kAhead + 4;
+constexpr int kCols = 64;              // tile width: two warps walk one tile row
+constexpr int kWW = kCols + 2;         // window row: the tile's columns + halo
+constexpr int kMaxThreads = 128;
+constexpr int kMaxWinSlots = 7;        // window values a thread stages a plane
+// shared memory a block may take, less the static tables
+constexpr size_t kMaxDynSmem = 227 * 1024 - 4096;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "n"(N) : "memory");
+}
+
+// 16 bytes into shared memory, bypassing L1 (whose few lines are left to
+// the 4-byte copies)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies of all but the newest kAhead groups landed
+__device__ __forceinline__ void cp_wait_ahead() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kAhead) : "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ void stage(T* slot, const T* src) {
+    cp_async<sizeof(T)>(slot, src);
 }
 
 // extend_quads along one axis: extended index X (0..n+1) of a quad of
 // parity a with n interior points reads quad parity sa at index x.  Index 0
 // is the -1 mirror (parity 0, index 0), n+1 the n mirror (parity 1, index
-// n-1); the never-read junk ends follow the same rule.
+// n-1).
 __device__ __forceinline__ void halo_map(int a, int X, int n, int& sa,
                                          int& x) {
     if (X == 0) {
@@ -109,141 +212,351 @@ __device__ __forceinline__ void halo_map(int a, int X, int n, int& sa,
     }
 }
 
-template <typename T>
-__device__ __forceinline__ const T* pick(int i, const T* s0, const T* s1,
-                                         const T* s2, const T* s3) {
-    return i == 0 ? s0 : i == 1 ? s1 : i == 2 ? s2 : s3;
-}
-
-// One RB colour update of column (J, I) of a target quad with term table
-// tt: the gather reads the four quads s0..s3 (_TKEYS order) through the
-// halo map, then the factored Thomas solve into tg.out (forward values in
-// place, then the back substitution, as K1).
 template <typename T, typename B>
-__device__ __forceinline__ void update_column(
-        const Params<T, B>& p, const Target<T, B>& tg, const Terms& tt,
-        int J, int I, const T* s0, const T* s1, const T* s2, const T* s3) {
-    const int nz = p.nz, H = p.H, W = p.W;
-    const size_t P = (size_t)H * W;
-    const T* sp[kTerms];
-#pragma unroll
-    for (int m = 0; m < kTerms; ++m) {
-        int sa, r, sb, c;
-        halo_map(tt.src[m] >> 1, J + tt.oj[m], H, sa, r);
-        halo_map(tt.src[m] & 1, I + tt.oi[m], W, sb, c);
-        sp[m] = pick(2 * sa + sb, s0, s1, s2, s3) + (size_t)r * W + c;
+struct Params {
+    const T* q[4];
+    const T* bq[4];
+    const B* band;
+    const T* ud[4];
+    const T* bet[4];
+    T* out[4];
+    int nz, H, W, real;
+};
+
+// The band stack's row layout (relax_compact.band_layout): values per 16
+// bytes, the storage column of extended column 0 and the row pitch, a
+// multiple of 16 bytes with room for every tile's staged span.
+template <typename B>
+struct BandLayout {
+    static constexpr int e16 = 16 / sizeof(B);
+    static constexpr int lpad = e16 - 1;
+    static constexpr int span = kCols + e16;     // values staged per tile row
+    static constexpr int chunks = span / e16;    // 16-byte copies a tile row
+    __host__ __device__ static int pitch(int W) {
+        return (W + kCols - 1) / kCols * kCols + 2 * e16;
     }
-    auto val = [&](int m, int k) -> T {
-        const int kk = k + tt.dk[m];
-        return (kk < 0 || kk >= nz) ? T(0) : sp[m][(size_t)kk * P];
-    };
-    const size_t wrow = (size_t)kBaseKeys * W;
-    const size_t col = (size_t)J * W + I;
-    T x = T(0);
-    for (int k = 0; k < nz; ++k) {
-        const B* brow = tg.blocks + ((size_t)k * H + J) * wrow + I;
-        T s = up(brow[0]) * val(0, k);
+};
+
+// The pointers a thread picks by a runtime index, in shared memory (a
+// kernel parameter array indexed so would be copied to local memory).
+template <typename T>
+struct Tables {
+    const T* src[2][4];    // the quads each colour reads
+};
+
+// The block's dynamic shared memory for nt threads (rows = nt / kCols tile
+// rows): per thread the column ring (RHS, bet, ud of kColStages planes)
+// and the column's forward values and back-substitution multipliers over
+// nz planes; per block the window ring (kWinPlanes planes of [rows + 2][2
+// quads][kWW]) and the band ring (kBandStages stages of [rows][12 terms]
+// [span], tile rows of 16-byte multiples).
+template <typename T, typename B>
+struct Smem {
+    T* cv;     // [kColStages][3][nt]: RHS, bet, ud
+    T* xs;     // [nz][nt]
+    T* cs;     // [nz][nt]
+    T* win;    // [kWinPlanes][rows + 2][2][kWW]
+    B* bs;     // [kBandStages][rows][kBaseKeys][span]
+
+    __host__ __device__ static int win_plane(int rows) {
+        return (rows + 2) * 2 * kWW;
+    }
+    __host__ __device__ static int band_stage(int rows) {
+        return rows * kBaseKeys * BandLayout<B>::span;
+    }
+    __host__ __device__ static size_t tail(int nz, int nt) {
+        const size_t t = (size_t)nt * (kColStages * 3 + 2 * (size_t)nz)
+                         + kWinPlanes * (size_t)win_plane(nt / kCols);
+        return (t * sizeof(T) + 15) / 16 * 16;
+    }
+    static size_t bytes(int nz, int nt) {
+        return tail(nz, nt)
+               + kBandStages * (size_t)band_stage(nt / kCols) * sizeof(B);
+    }
+    __device__ Smem(unsigned char* base, int nz, int nt) {
+        cv = reinterpret_cast<T*>(base);
+        xs = cv + (size_t)kColStages * 3 * nt;
+        cs = xs + (size_t)nz * nt;
+        win = cs + (size_t)nz * nt;
+        bs = reinterpret_cast<B*>(base + tail(nz, nt));
+    }
+};
+
+// One RB colour update of target quad TG for the tile whose first column
+// is (J0, I0); every thread of the block takes part (it stages and meets
+// the barriers), the threads of columns inside the quad solve.
+template <typename T, typename B, int TG>
+__device__ __forceinline__ void update_tile(
+        const Params<T, B>& p, const Tables<T>& tb, const Smem<T, B>& sm,
+        int colour, int J0, int I0) {
+    using L = BandLayout<B>;
+    const T* const* src = tb.src[colour];
+    const int nz = p.nz, H = p.H, W = p.W;
+    const int nt = blockDim.x, tid = threadIdx.x, rows = nt / kCols;
+    const int jj = tid / kCols, ii = tid % kCols;
+    const int J = J0 + jj, I = I0 + ii;
+    const bool active = J < H && I < W;
+    const uint32_t P = (uint32_t)H * W;
+    const int pitch = L::pitch(W);
+    const uint32_t PB = (uint32_t)(H + 2) * pitch;     // a band plane
+    const uint32_t col = active ? (uint32_t)J * W + I : 0;
+    const int wplane = Smem<T, B>::win_plane(rows);
+    const int bstage = Smem<T, B>::band_stage(rows);
+    // the window quads: the target's row sibling (1-a, b) and column
+    // sibling (a, 1-b), the quads of the other colour the 12 terms read
+    constexpr int a = TG >> 1, b = TG & 1;
+    constexpr int wq0 = 2 * (1 - a) + b, wq1 = 2 * a + (1 - b);
+
+    // this thread's share of a band stage: 16-byte chunks of the tile
+    // rows of the 12 terms; rows past the extended quad are never read
+    // and not copied.  A block of nt threads has nt / kCols tile rows, so
+    // the share is the same for every block size.
+    constexpr int kBandSlots = (kBaseKeys * L::chunks + kCols - 1) / kCols;
+    constexpr uint32_t kNone = ~0u;
+    const int nchunks = rows * kBaseKeys * L::chunks;
+    uint32_t bsrc[kBandSlots];
 #pragma unroll
-        for (int m = 1; m < kBaseKeys; ++m) {
-            s = s + up(brow[(size_t)m * W]) * val(m, k);
+    for (int i = 0; i < kBandSlots; ++i) {
+        const int c = tid + i * nt;
+        bsrc[i] = kNone;
+        if (c < nchunks) {
+            const int q = c % L::chunks, rm = c / L::chunks;
+            const int jc = rm / kBaseKeys, mc = rm % kBaseKeys;
+            const Term tm = term_of(TG, mc);
+            const int R = J0 + jc + tm.bj;
+            if (R <= H + 1)
+                bsrc[i] = ((uint32_t)tm.band * (nz + 2) + tm.bk + 1) * PB
+                          + (uint32_t)R * pitch + I0 + (q + 1) * L::e16;
         }
+    }
+    auto stage_bands = [&](int kc) {
+        if (kc >= nz) return;
+        B* dst = sm.bs + (kc % kBandStages) * bstage;
+        const uint32_t kp = (uint32_t)kc * PB;
+#pragma unroll
+        for (int i = 0; i < kBandSlots; ++i) {
+            if (bsrc[i] != kNone)
+                cp_async16(dst + (size_t)(tid + i * nt) * L::e16,
+                           p.band + (bsrc[i] + kp));
+        }
+    };
+    // this thread's share of a window plane: source quad and offset, by
+    // the halo rule (-1: outside the extended quad, never read)
+    int wsrc[kMaxWinSlots], woff[kMaxWinSlots];
+#pragma unroll
+    for (int i = 0; i < kMaxWinSlots; ++i) {
+        const int e = tid + i * nt;
+        wsrc[i] = -1;
+        woff[i] = 0;
+        if (e < wplane) {
+            const int wr = e / (2 * kWW), w = (e / kWW) % 2, wc = e % kWW;
+            const int R = J0 + wr, C = I0 + wc;
+            if (R <= H + 1 && C <= W + 1) {
+                const int qd = w ? wq1 : wq0;
+                int sa, r, sb, c;
+                halo_map(qd >> 1, R, H, sa, r);
+                halo_map(qd & 1, C, W, sb, c);
+                wsrc[i] = 2 * sa + sb;
+                woff[i] = r * W + c;
+            }
+        }
+    }
+    auto wslot = [&](int kk) -> T* {
+        return sm.win + (size_t)((kk + kWinPlanes) % kWinPlanes) * wplane;
+    };
+    // window plane kk (-1 and nz: zeros, as _kshift pads)
+    auto stage_window = [&](int kk) {
+        if (kk > nz) return;
+        T* dst = wslot(kk) + tid;
+        if (kk < 0 || kk == nz) {
+#pragma unroll
+            for (int i = 0; i < kMaxWinSlots; ++i)
+                if (wsrc[i] >= 0) dst[i * nt] = T(0);
+            return;
+        }
+        const size_t kp = (size_t)kk * P;
+#pragma unroll
+        for (int i = 0; i < kMaxWinSlots; ++i)
+            if (wsrc[i] >= 0) stage(dst + i * nt, src[wsrc[i]] + kp + woff[i]);
+    };
+    // the column's RHS, bet and ud of plane kc
+    auto stage_column = [&](int kc) {
+        if (!active || kc >= nz) return;
+        const size_t o = (size_t)kc * P + col;
+        T* cv = sm.cv + (size_t)(kc % kColStages) * 3 * nt + tid;
+        stage(cv, p.bq[TG] + o);
+        stage(cv + nt, p.bet[TG] + o);
+        if (kc < nz - 1) stage(cv + 2 * nt, p.ud[TG] + o);
+    };
+    // group g: window plane g + kAhead + 1, band and column plane g + kAhead
+    stage_window(-1);
+    stage_window(0);
+    for (int g = -kAhead; g < 0; ++g) {
+        stage_window(g + kAhead + 1);
+        stage_bands(g + kAhead);
+        stage_column(g + kAhead);
+        cp_commit();
+    }
+    // a term's values sit at compile-time offsets from the thread's own
+    // places in a band stage and in the window planes k - 1, k, k + 1
+    const int bthread = jj * kBaseKeys * L::span + ii - 1;
+    const int wthread = jj * 2 * kWW + ii;
+    T x = T(0), udp = T(0);
+    for (int k = 0; k < nz; ++k) {
+        stage_window(k + kAhead + 1);
+        stage_bands(k + kAhead);
+        stage_column(k + kAhead);
+        cp_commit();
+        cp_wait_ahead();
+        __syncthreads();
+        if (!active) continue;
+        const B* bst = sm.bs + (k % kBandStages) * bstage + bthread;
+        const T* wk[3] = {wslot(k - 1) + wthread, wslot(k) + wthread,
+                          wslot(k + 1) + wthread};
+        auto value = [&](auto mi) -> T {
+            constexpr Term tm = term_of(TG, decltype(mi)::value);
+            constexpr int w = tm.src == wq0 ? 0 : 1;
+            return up(bst[decltype(mi)::value * L::span + tm.bi])
+                   * wk[tm.dk + 1][tm.oj * 2 * kWW + w * kWW + tm.oi];
+        };
+        T s = value(Int<0>{});
+        s = s + value(Int<1>{});
+        s = s + value(Int<2>{});
+        s = s + value(Int<3>{});
+        s = s + value(Int<4>{});
+        s = s + value(Int<5>{});
+        s = s + value(Int<6>{});
+        s = s + value(Int<7>{});
+        s = s + value(Int<8>{});
+        s = s + value(Int<9>{});
+        s = s + value(Int<10>{});
+        s = s + value(Int<11>{});
         if (p.real && k == 0) {
+            // the plane-0 'real' couplings, read in place (one plane)
             T x0 = T(0);
 #pragma unroll
             for (int m = kBaseKeys; m < kTerms; ++m) {
-                const int b = tt.blk[m];
-                T bv = up(b < kBaseKeys
-                              ? tg.blocks[(size_t)J * wrow + (size_t)b * W + I]
-                              : tg.rb[(size_t)J * 2 * W
-                                      + (size_t)(b - kBaseKeys) * W + I]);
-                T t = bv * val(m, 0);
-                x0 = (m == kBaseKeys) ? t : x0 + t;
+                const Term tm = term_of(TG, m);
+                int sa, r, sb, c;
+                halo_map(tm.src >> 1, J + tm.oj, H, sa, r);
+                halo_map(tm.src & 1, I + tm.oi, W, sb, c);
+                const T sv = (tm.dk < 0 || tm.dk >= nz)
+                    ? T(0) : src[2 * sa + sb][(size_t)tm.dk * P + r * W + c];
+                const uint32_t bo =
+                    ((uint32_t)tm.band * (nz + 2) + tm.bk + 1) * PB
+                    + (uint32_t)(J + tm.bj) * pitch + L::lpad + I + tm.bi;
+                const T tv = up(p.band[bo]) * sv;
+                x0 = (m == kBaseKeys) ? tv : x0 + tv;
             }
             s = s + x0;
         }
-        const size_t o = (size_t)k * P + col;
-        T rhs = tg.bq[o] - s;
-        x = (k == 0) ? rhs * tg.bet[o] : (rhs - tg.ud[o - P] * x) * tg.bet[o];
-        tg.out[o] = x;
+        const T* cv = sm.cv + (size_t)(k % kColStages) * 3 * nt + tid;
+        const T rhs = cv[0] - s;
+        const T bet = cv[nt];
+        x = (k == 0) ? rhs * bet : (rhs - udp * x) * bet;
+        sm.xs[(size_t)k * nt + tid] = x;
+        if (k < nz - 1) {
+            udp = cv[2 * nt];
+            sm.cs[(size_t)k * nt + tid] = udp * bet;
+        }
     }
+    cp_wait_all();
+    if (!active) return;
+    T* out = p.out[TG];
+    out[(size_t)(nz - 1) * P + col] = x;
     for (int k = nz - 2; k >= 0; --k) {
-        const size_t o = (size_t)k * P + col;
-        x = tg.out[o] - (tg.ud[o] * tg.bet[o]) * x;
-        tg.out[o] = x;
+        x = sm.xs[(size_t)k * nt + tid] - sm.cs[(size_t)k * nt + tid] * x;
+        out[(size_t)k * P + col] = x;
     }
 }
 
-// K4: one whole RB sweep.  `tt` holds the four targets' term tables
-// (_TKEYS order) in device memory; they are copied to shared memory.
+// K4: one whole RB sweep.
 template <typename T, typename B>
-__global__ void __launch_bounds__(kThreads)
-sweep_kernel(const Params<T, B> p, const Terms* __restrict__ tt) {
-    __shared__ Terms s_tt[4];
-    for (int i = threadIdx.x; i < (int)(4 * sizeof(Terms) / sizeof(int));
-         i += blockDim.x) {
-        reinterpret_cast<int*>(s_tt)[i] = reinterpret_cast<const int*>(tt)[i];
+__global__ void __launch_bounds__(kMaxThreads)
+sweep_kernel(const Params<T, B> p) {
+    __shared__ Tables<T> tb;
+    extern __shared__ __align__(16) unsigned char smem[];
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < 4; ++i) tb.src[0][i] = p.q[i];
+        // colour 1 reads colour 0's new quads and its own pre-sweep ones
+        tb.src[1][0] = p.out[0];
+        tb.src[1][1] = p.q[1];
+        tb.src[1][2] = p.q[2];
+        tb.src[1][3] = p.out[3];
     }
     __syncthreads();
-    const size_t HW = (size_t)p.H * p.W;
-    const size_t stride = (size_t)gridDim.x * blockDim.x;
-    const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    // colour 0: (0,0) and (1,1), from the pre-sweep quads
-    for (size_t i = first; i < 2 * HW; i += stride) {
-        const bool lo = i < HW;
-        const size_t c = lo ? i : i - HW;
-        update_column(p, lo ? target<0>(p) : target<3>(p), s_tt[lo ? 0 : 3],
-                      (int)(c / p.W), (int)(c % p.W), p.q[0], p.q[1], p.q[2],
-                      p.q[3]);
-    }
-    // every colour-0 value is written and visible grid-wide after this
-    cg::this_grid().sync();
-    // colour 1: (0,1) and (1,0), reading the colour-0 quads' new values
-    for (size_t i = first; i < 2 * HW; i += stride) {
-        const bool lo = i < HW;
-        const size_t c = lo ? i : i - HW;
-        update_column(p, lo ? target<1>(p) : target<2>(p), s_tt[lo ? 1 : 2],
-                      (int)(c / p.W), (int)(c % p.W), p.out[0], p.q[1],
-                      p.q[2], p.out[3]);
+    const Smem<T, B> sm(smem, p.nz, blockDim.x);
+    const int rows = blockDim.x / kCols;
+    const int tiles_j = (p.H + rows - 1) / rows;
+    const int tiles_i = (p.W + kCols - 1) / kCols;
+    const int per_target = tiles_j * tiles_i;
+    for (int colour = 0; colour < 2; ++colour) {
+        // every colour-0 value is written and visible grid-wide after this
+        if (colour) cg::this_grid().sync();
+        for (int tile = blockIdx.x; tile < 2 * per_target;
+             tile += gridDim.x) {
+            const int second = tile >= per_target;
+            const int rt = second ? tile - per_target : tile;
+            const int J0 = (rt / tiles_i) * rows, I0 = (rt % tiles_i) * kCols;
+            // the previous tile's last reads of every ring are done
+            __syncthreads();
+            // colour 0: (0,0) and (1,1); colour 1: (0,1) and (1,0)
+            if (colour == 0 && !second)
+                update_tile<T, B, 0>(p, tb, sm, colour, J0, I0);
+            else if (colour == 0)
+                update_tile<T, B, 3>(p, tb, sm, colour, J0, I0);
+            else if (!second)
+                update_tile<T, B, 1>(p, tb, sm, colour, J0, I0);
+            else
+                update_tile<T, B, 2>(p, tb, sm, colour, J0, I0);
+        }
     }
 }
 
 template <typename T, typename B>
 int launch_sweep(const SweepArgs* a, int nz, int H, int W, int real,
-                 const void* tt, void* stream) {
+                 void* stream) {
     Params<T, B> p;
     for (int i = 0; i < 4; ++i) {
         p.q[i] = static_cast<const T*>(a->q[i]);
         p.bq[i] = static_cast<const T*>(a->bq[i]);
-        p.blocks[i] = static_cast<const B*>(a->blocks[i]);
-        p.rb[i] = static_cast<const B*>(a->rb[i]);
         p.ud[i] = static_cast<const T*>(a->ud[i]);
         p.bet[i] = static_cast<const T*>(a->bet[i]);
         p.out[i] = static_cast<T*>(a->out[i]);
     }
+    p.band = static_cast<const B*>(a->band);
     p.nz = nz;
     p.H = H;
     p.W = W;
     p.real = real;
     const void* kern = reinterpret_cast<const void*>(&sweep_kernel<T, B>);
+    // the most threads (tile rows of kCols) whose columns fit a block
+    int nt = kMaxThreads;
+    while (nt > kCols && Smem<T, B>::bytes(nz, nt) > kMaxDynSmem) nt /= 2;
+    const size_t smem = Smem<T, B>::bytes(nz, nt);
+    if (smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     // a cooperative grid must be resident at once: at most the blocks the
-    // card holds, each thread walking its share of the columns
+    // card holds with this shared memory, each walking its share of tiles
     int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
         err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                      dev);
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                            kThreads, 0);
+                                                            nt, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    const long long want = (2LL * H * W + kThreads - 1) / kThreads;
-    const int grid = (int)(want < (long long)per_sm * sms
-                               ? want : (long long)per_sm * sms);
-    const Terms* tp = static_cast<const Terms*>(tt);
-    void* args[] = {&p, &tp};
-    err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(kThreads), args,
-                                      0, static_cast<cudaStream_t>(stream));
+    const int rows = nt / kCols;
+    const long long tiles = 2LL * ((H + rows - 1) / rows)
+                            * ((W + kCols - 1) / kCols);
+    const int grid = (int)(tiles < (long long)per_sm * sms
+                               ? tiles : (long long)per_sm * sms);
+    void* args[] = {&p};
+    err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(nt), args, smem,
+                                      static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
@@ -253,18 +566,32 @@ int launch_sweep(const SweepArgs* a, int nz, int H, int W, int real,
 extern "C" {
 
 int mg_sweep_fused_f32(const SweepArgs* a, int nz, int H, int W, int real,
-                       const void* tt, void* stream) {
-    return launch_sweep<float, float>(a, nz, H, W, real, tt, stream);
+                       void* stream) {
+    return launch_sweep<float, float>(a, nz, H, W, real, stream);
 }
 
 int mg_sweep_fused_f64(const SweepArgs* a, int nz, int H, int W, int real,
-                       const void* tt, void* stream) {
-    return launch_sweep<double, double>(a, nz, H, W, real, tt, stream);
+                       void* stream) {
+    return launch_sweep<double, double>(a, nz, H, W, real, stream);
 }
 
 int mg_sweep_fused_bf16(const SweepArgs* a, int nz, int H, int W, int real,
-                        const void* tt, void* stream) {
-    return launch_sweep<float, __nv_bfloat16>(a, nz, H, W, real, tt, stream);
+                        void* stream) {
+    return launch_sweep<float, __nv_bfloat16>(a, nz, H, W, real, stream);
+}
+
+// The compiled term recipe of target quad t (_TKEYS index): 16 rows of
+// (band, bk, bj, bi, src, dk, oj, oi), sweep_fused.band_term_table's
+// layout, for the tests to hold against it.
+int mg_sweep_terms(int t, int* out) {
+    if (t < 0 || t > 3) return (int)cudaErrorInvalidValue;
+    for (int m = 0; m < kTerms; ++m) {
+        const Term tm = term_of(t, m);
+        const int row[8] = {tm.band, tm.bk, tm.bj, tm.bi,
+                            tm.src, tm.dk, tm.oj, tm.oi};
+        for (int f = 0; f < 8; ++f) out[8 * m + f] = row[f];
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -66,8 +66,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [p] * 11 + [i] * 5 + [p, p]
         fn.restype = i
         fn = getattr(lib, f"mg_sweep_fused_{dt}")
-        # SweepArgs* | nz H W real | terms[4] stream
-        fn.argtypes = [p] + [i] * 4 + [p, p]
+        # SweepArgs* | nz H W real | stream
+        fn.argtypes = [p] + [i] * 4 + [p]
         fn.restype = i
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"mg_rr_zsum_{dt}")
@@ -101,6 +101,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.mg_dma_only, lib.mg_dma_only_bf16):
         fn.argtypes = [p] * 10 + [i] * 4 + [p, p]
         fn.restype = i
+    # target | out[16][8]: K4's compiled term recipe
+    lib.mg_sweep_terms.argtypes = [i, p]
+    lib.mg_sweep_terms.restype = i
     # stream pointers[nstreams] ProbeGeom* out | nsteps nzb | stream
     lib.mg_probe_staged.argtypes = [p, p, p, i, i, p]
     lib.mg_probe_staged.restype = i

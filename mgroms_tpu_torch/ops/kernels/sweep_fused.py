@@ -7,38 +7,39 @@ called by ``relax_fused_sweep``): one launch computes one whole RB sweep of a
 quad-parity level, colour 0 then colour 1, bitwise what
 relax_compact.relax_compact_quads computes with the same smoother operator.
 
-The TPU kernel's VMEM machinery (``SweepOperator`` band windows, lane
-chunks, ``_Plan``/``_pick_plan``/``supports``, ``VMEM_LIMIT``) has no
-counterpart: the kernel reads the smoother operator of
-relax_compact.smoother_operator — the pack's ``blocks``/``rblocks`` and
-``bet``, or their low-precision copies ``pack.lp`` — and ``ud``, and
-recomputes ``gam = ud * bet`` as K1 does (thomas_factor's ``gam`` is that
-same product, so the result is unchanged).  It takes any ``nz >= 2`` and any
-quad H, W.
+The kernel reads the operator as the TPU kernel does, as the 24
+halo-extended band quads of bands 3..8 (the stack of
+relax_compact.band_quads, the pack's ``ebands``, or ``pack.lp.ebands`` in
+bfloat16 beside the low-precision pivots): each gather term reads one
+band quad at its band offset (:func:`band_term_table`), so the 48 gather
+blocks, which hold the same values twice, are not read.  It reads ``ud`` and the smoother's
+``bet`` and recomputes ``gam = ud * bet`` as K1 does (thomas_factor's
+``gam`` is that same product, so the result is unchanged).  The TPU
+kernel's VMEM machinery (band windows, lane chunks, ``_Plan``/
+``_pick_plan``/``supports``, ``VMEM_LIMIT``) has no counterpart.  It takes
+any ``nz >= 2`` (up to what a block's shared memory holds) and any quad
+H, W.
 
 :func:`relax_fused_sweep` runs its plain version for tensors on the CPU
 only; for CUDA tensors it checks them, launches the kernel once per sweep
-or raises.  ``LAUNCHES`` counts kernel launches, by the type of the blocks
+or raises.  ``LAUNCHES`` counts kernel launches, by the type of the bands
 the kernel read.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
 from .relax_tiled import term_table
-from ..relax_compact import (_TKEYS, CompactPack, gather_keys,
+from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
+                             CompactPack, band_index, band_layout,
                              relax_compact_quads, smoother_operator)
 
 LAUNCHES = {"relax_fused_sweep": 0, "relax_fused_sweep_bf16": 0}
-
-_NKEYS = len(gather_keys(False))
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -53,18 +54,78 @@ def relax_fused_sweep_plain(q0, bq, pack: CompactPack, nsweeps: int):
 
 
 class _SweepArgs(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_void_p * 4)
-                for name in ("q", "bq", "blocks", "rb", "ud", "bet", "out")]
+    _fields_ = [("q", ctypes.c_void_p * 4), ("bq", ctypes.c_void_p * 4),
+                ("band", ctypes.c_void_p), ("ud", ctypes.c_void_p * 4),
+                ("bet", ctypes.c_void_p * 4), ("out", ctypes.c_void_p * 4)]
 
 
-@functools.cache
-def _term_tables(device) -> torch.Tensor:
-    """The four targets' term tables (relax_tiled.term_table over the four
-    quads in ``_TKEYS`` order) as one int32 (4, 5, 16) tensor on
-    ``device``, the layout of the kernel's ``Terms[4]``; made once per
-    device (a copy to the card per launch would wait on the host)."""
-    rows = [list(zip(*term_table(t, _TKEYS))) for t in _TKEYS]
-    return torch.tensor(rows, dtype=torch.int32, device=device)
+def band_term_table(target) -> list:
+    """Per gather term of target quad ``target`` (the 12 of
+    ``_BASE_TERMS``, then the 4 of ``_REAL_TERMS``):
+    ``(band, bk, bj, bi, src, dk, oj, oi)`` — the operator value is band
+    quad ``band`` (relax_compact.band_quads order) at plane k + ``bk``,
+    extended row J + ``bj`` and column I + ``bi`` (plane k + bk + 1 of
+    the stack, whose end planes are zero, as _kshift pads), the state
+    value as relax_tiled.term_table gives it
+    (quad ``src`` of ``_TKEYS`` at plane k + ``dk``, extended row
+    J + ``oj``, column I + ``oi``).  The band read is the index algebra of
+    the JAX kernel's ``band_read`` (sweep_fused.py:359-369)."""
+    a, b = target
+    rows = []
+    for (n, (bk, bj, bi), _), state in zip(_BASE_TERMS + _REAL_TERMS,
+                                           term_table(target, _TKEYS)):
+        kb = ((a + bj) % 2, (b + bi) % 2)
+        rows.append((band_index(n, kb), bk, 1 + (a + bj - kb[0]) // 2,
+                     1 + (b + bi - kb[1]) // 2) + tuple(state[:4]))
+    return rows
+
+
+def sweep_bands(pack: CompactPack, dtype):
+    """``(ebands, bet, band dtype)`` the kernel reads for state of type
+    ``dtype``: the smoother operator of relax_compact.smoother_operator
+    as the band stack (relax_compact.band_quads)."""
+    _, _, bet, band = smoother_operator(pack, dtype)
+    ebands = pack.ebands if pack.lp is None else pack.lp.ebands
+    if ebands is None:
+        raise ValueError("the pack carries no band quads for the sweep "
+                         "kernel (relax_compact.attach_bands)")
+    return ebands, bet, band
+
+
+def compiled_term_table(target) -> list:
+    """The kernel's own term recipe for ``target`` (compiled into
+    csrc/sweep_fused.cu, read through ``mg_sweep_terms``), rows as
+    :func:`band_term_table` gives them; needs the built kernels."""
+    out = (ctypes.c_int * (16 * 8))()
+    check_launch(_build.load().mg_sweep_terms(_TKEYS.index(target), out),
+                 "mg_sweep_terms")
+    return [tuple(out[8 * m:8 * m + 8]) for m in range(16)]
+
+
+def _check_stack(ebands, shape, dtype, device) -> None:
+    """The band stack is a view of rows of relax_compact.band_layout's
+    pitch over storage that holds every row whole (the kernel stages
+    aligned spans from the storage)."""
+    if not isinstance(ebands, torch.Tensor):
+        raise ValueError("the band stack must be one tensor "
+                         "(relax_compact.band_quads)")
+    if (ebands.dtype != dtype or ebands.device != device
+            or tuple(ebands.shape) != shape):
+        raise ValueError(f"band stack: {ebands.dtype} {tuple(ebands.shape)}"
+                         f" on {ebands.device}, expected {dtype} {shape} on "
+                         f"{device}")
+    isz = ebands.element_size()
+    lpad, pitch = band_layout(shape[3] - 2, isz)
+    rows = shape[0] * shape[1] * shape[2]
+    start = ebands.storage_offset() - lpad
+    if (ebands.stride() != (shape[1] * shape[2] * pitch, shape[2] * pitch,
+                            pitch, 1)
+            or start < 0 or (ebands.data_ptr() - lpad * isz) % 16
+            or ebands.untyped_storage().nbytes() < (start + rows * pitch) * isz
+            or rows * pitch >= 2 ** 32):
+        raise ValueError("the band stack must be a view of 16-byte aligned "
+                         "rows of relax_compact.band_layout's pitch, under "
+                         "2**32 values (relax_compact.band_quads)")
 
 
 def _launch(q, bq, pack: CompactPack):
@@ -73,36 +134,30 @@ def _launch(q, bq, pack: CompactPack):
     nz, H, W = q0.shape
     if nz < 2:
         raise ValueError("the sweep kernel needs nz >= 2")
-    real = pack.real_matrix
-    if real != (pack.rblocks is not None):
-        raise ValueError("rblocks are required exactly when real_matrix")
-    blocks, rblocks, bet, band = smoother_operator(pack, q0.dtype)
-    named, shapes, dtypes = {}, {}, {}
+    ebands, bet, band = sweep_bands(pack, q0.dtype)
+    _check_stack(ebands, (NBANDS, nz + 2, H + 2, W + 2), band, q0.device)
+    named, shapes = {}, {}
     for m, t in enumerate(_TKEYS):
-        fields = {"q": (q[t], (nz, H, W)), "bq": (bq[t], (nz, H, W)),
-                  "blocks": (blocks[m], (nz, H, _NKEYS * W)),
-                  "ud": (pack.ud[m], (nz - 1, H, W)),
-                  "bet": (bet[m], (nz, H, W))}
-        if real:
-            fields["rb"] = (rblocks[m], (1, H, 2 * W))
-        for f, (x, shape) in fields.items():
+        for f, (x, shape) in {"q": (q[t], (nz, H, W)),
+                              "bq": (bq[t], (nz, H, W)),
+                              "ud": (pack.ud[m], (nz - 1, H, W)),
+                              "bet": (bet[m], (nz, H, W))}.items():
             named[f"{f}{t}"] = x
             shapes[f"{f}{t}"] = shape
-            if f in ("blocks", "rb"):
-                dtypes[f"{f}{t}"] = band
-    check_tensors(named, shapes, q0.dtype, q0.device, dtypes)
+    check_tensors(named, shapes, q0.dtype, q0.device)
     out = {t: torch.empty_like(q0) for t in _TKEYS}
-    four = lambda xs: (ctypes.c_void_p * 4)(*(ptr(x) for x in xs))
-    args = _SweepArgs(four(q[t] for t in _TKEYS), four(bq[t] for t in _TKEYS),
-                      four(blocks), four(rblocks if real else [None] * 4),
-                      four(pack.ud), four(bet), four(out[t] for t in _TKEYS))
+    arr = lambda xs: (ctypes.c_void_p * len(xs))(*(ptr(x) for x in xs))
+    lpad, _ = band_layout(W, ebands.element_size())
+    args = _SweepArgs(arr([q[t] for t in _TKEYS]),
+                      arr([bq[t] for t in _TKEYS]),
+                      ebands.data_ptr() - lpad * ebands.element_size(),
+                      arr(pack.ud), arr(bet), arr([out[t] for t in _TKEYS]))
     lib = _build.load()
     fn = {torch.float64: lib.mg_sweep_fused_f64,
           torch.bfloat16: lib.mg_sweep_fused_bf16}.get(band,
                                                       lib.mg_sweep_fused_f32)
     with torch.cuda.device(q0.device):
-        rc = fn(ctypes.byref(args), nz, H, W, int(real),
-                ptr(_term_tables(q0.device)),
+        rc = fn(ctypes.byref(args), nz, H, W, int(pack.real_matrix),
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "relax_fused_sweep")
     return out, band

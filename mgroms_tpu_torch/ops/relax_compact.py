@@ -18,7 +18,10 @@ The low-precision smoother operator (``cfg.fused_bands_bf16``) is
 :func:`attach_lp`: the gather blocks rounded to bfloat16 beside
 row-sum-consistent Thomas pivots (:func:`consistent_pivots`), read by
 every smoothing path, plain or kernel, through :func:`smoother_operator`;
-residual paths keep the full-precision blocks.
+residual paths keep the full-precision blocks.  The colour-fused sweep's
+kernel reads the operator as its 24 halo-extended band quads instead
+(:func:`band_quads`, :func:`attach_bands`: ``pack.ebands``, or
+``pack.lp.ebands`` rounded as the blocks are).
 
 Orderings: 'RB' (two colours, each two target quads solved as one
 x-concatenated system) and 'FC' (four colours, one target quad each, the
@@ -200,6 +203,7 @@ class LowPrecision(NamedTuple):
     blocks: tuple    # per target: (nz, H, 12*W) bfloat16
     rblocks: object  # per target: (1, H, 2*W) bfloat16, None unless 'real'
     bet: tuple       # per target: (nz, H, W)
+    ebands: object = None   # band_quads in bfloat16, or None
 
 
 class CompactPack(NamedTuple):
@@ -214,7 +218,11 @@ class CompactPack(NamedTuple):
     thomas_factor; the back-substitution multipliers ud*bet are recomputed
     where used, as the kernels do); ``d``/``ud`` the in-column diagonal and
     off-diagonal.  ``lp`` holds the low-precision smoother operator
-    (:class:`LowPrecision`, :func:`attach_lp`) or None.
+    (:class:`LowPrecision`, :func:`attach_lp`) or None.  ``ebands``
+    holds the same operator as the 24 halo-extended band quads that the
+    colour-fused sweep's kernel reads (:func:`band_quads`,
+    :func:`attach_bands`) or None; it is a field of the levels that
+    kernel smooths, as the JAX package's ``pack.sweep`` is.
     """
 
     blocks: tuple    # per target: (nz, H, 12*W)
@@ -224,6 +232,7 @@ class CompactPack(NamedTuple):
     real_matrix: bool
     rblocks: object = None
     lp: object = None
+    ebands: object = None    # (24, nz+2, H+2, W+2), or None
 
 
 def wide_slices(wide: torch.Tensor, nkeys: int) -> tuple:
@@ -314,6 +323,76 @@ def attach_lp(pack: CompactPack, band_dtype=torch.bfloat16) -> CompactPack:
     return pack._replace(lp=LowPrecision(
         blocks=tuple(b.to(band_dtype) for b in pack.blocks), rblocks=rb,
         bet=consistent_pivots(pack, band_dtype)))
+
+
+GATHER_BANDS = range(3, 9)     # the bands the gather reads (cA[2] .. cA[7])
+NBANDS = len(GATHER_BANDS) * len(_TKEYS)
+
+
+def band_quads(cA: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The gather's operator as the 24 halo-extended band quads, stacked
+    (:func:`stack_bands`): entry :func:`band_index` (band n = 3..8, i.e.
+    ``cA[n - 1]``, then quad in ``_TKEYS`` order) holds
+    :func:`quad_ext_bands` of the band in its planes 1..nz, (H+2, W+2)
+    each, between two zero planes, the padding of a k-shifted read
+    (:func:`_kshift`); in ``dtype`` (default ``cA``'s; a narrower type
+    rounds as ``.to`` does).  ``ebands[i, 1:-1]`` is the content of the
+    JAX package's ``SweepOperator.ebands[0][i]`` without its padding row
+    and columns.  Gather block (n, boff) of target (a, b) is the slice
+    ``_qread`` takes of one of them, so each band quad holds the values of
+    two gather blocks."""
+    qes = [quad_ext_bands(cA[n - 1]) for n in GATHER_BANDS]
+    return stack_bands([qe[t] for qe in qes for t in _TKEYS],
+                       dtype or cA.dtype)
+
+
+BAND_TILE = 64    # columns of a tile of the sweep kernel (csrc kCols)
+
+
+def band_layout(W: int, itemsize: int) -> tuple:
+    """``(lpad, pitch)`` of a row of the band stack of a level W quads
+    wide: extended column C sits at storage column C + lpad (extended
+    column 1, a tile's first, on a 16-byte boundary) in rows of ``pitch``
+    values (16-byte multiples, with room for every tile's staged span of
+    BAND_TILE + 16 bytes of values)."""
+    e16 = 16 // itemsize
+    return e16 - 1, -(-W // BAND_TILE) * BAND_TILE + 2 * e16
+
+
+def stack_bands(quads, dtype) -> torch.Tensor:
+    """The 24 band quads ``quads`` ((nz, H+2, W+2) each, in
+    :func:`band_quads` order) as a (24, nz+2, H+2, W+2) tensor in
+    ``dtype``, planes 0 and nz+1 zero: a view of rows padded to
+    :func:`band_layout`'s pitch, so that the sweep kernel stages each
+    tile row of a band quad as one aligned span."""
+    nz, H2, W2 = quads[0].shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    lpad, pitch = band_layout(W2 - 2, itemsize)
+    buf = torch.zeros((NBANDS, nz + 2, H2, pitch), dtype=dtype,
+                      device=quads[0].device)
+    stack = buf[..., lpad:lpad + W2]
+    for i, x in enumerate(quads):
+        stack[i, 1:nz + 1] = x
+    return stack
+
+
+def band_index(n: int, quad) -> int:
+    """Position of band ``n``'s extended quad ``quad`` in
+    :func:`band_quads`."""
+    return (n - GATHER_BANDS[0]) * len(_TKEYS) + _TKEYS.index(quad)
+
+
+def attach_bands(pack: CompactPack, cA: torch.Tensor) -> CompactPack:
+    """Attach the band quads of ``cA`` (:func:`band_quads`) that the
+    smoother reads: in the state type as ``pack.ebands``, or, where the
+    pack carries the low-precision operator, rounded to its type as
+    ``pack.lp.ebands`` (rounding a band and slicing it equals slicing and
+    rounding, so the products equal those of the rounded blocks).
+    One-time build work."""
+    if pack.lp is None:
+        return pack._replace(ebands=band_quads(cA))
+    return pack._replace(lp=pack.lp._replace(
+        ebands=band_quads(cA, pack.lp.blocks[0].dtype)))
 
 
 def build_compact_pack(cA: torch.Tensor, real_matrix: bool) -> CompactPack:

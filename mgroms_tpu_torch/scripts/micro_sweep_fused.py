@@ -72,6 +72,8 @@ def routes(cA, pack, modes, tj, nchunks):
             q, bq, pack, n), pack)
     for name, pk in (("fused_f32", pack), ("fused_bf16", lp)):
         if name in modes:
+            # K4 reads the operator as the band stack
+            pk = rc.attach_bands(pk, cA)
             out[name] = (lambda q, bq, n=1, pk=pk: ksf.relax_fused_sweep(
                 q, bq, pk, n), pk)
     for name, bd, pk in (("packed_f32", None, pack),

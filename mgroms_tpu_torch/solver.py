@@ -69,8 +69,9 @@ from .ops import relax as relax_ops
 from .ops import stencil, transfer
 from .ops.kernels import relax_fused, stencil_tiled, sweep_fused
 from .ops.kernels import relax_tiled as kernels
-from .ops.relax_compact import (QuadField, attach_lp, build_compact_pack,
-                                residual_quads, restrict_quads_to_full)
+from .ops.relax_compact import (QuadField, attach_bands, attach_lp,
+                                build_compact_pack, residual_quads,
+                                restrict_quads_to_full)
 
 
 def fused_sweep_wanted(cfg: SolverConfig, on_card: bool) -> bool:
@@ -125,19 +126,25 @@ def build_relax_packs(levels, ops, cfg: SolverConfig) -> list:
 
     With ``fused_bands_bf16`` and a state of at most 4 bytes each pack
     also carries the low-precision smoother operator (``pack.lp``), the
-    one copy that K4 and K1 both read.  The JAX package keeps a second
-    bfloat16 copy inside its fused-sweep operator on K4 levels; the values
-    are the same, because rounding a band and then slicing it equals
-    slicing it and then rounding."""
+    one copy that K1 reads.
+
+    On the levels K4 smooths (:func:`fused_sweep_wanted`) the pack also
+    carries the operator as the 24 band quads K4 reads
+    (relax_compact.attach_bands; bfloat16 with ``pack.lp``), as the JAX
+    package keeps them in its fused-sweep operator; the gather blocks stay
+    for K3 (+1.9 GB at CUC in float32)."""
     lp = (cfg.fused_bands_bf16
           and getattr(torch, cfg.dtype).itemsize <= 4)
     packs = []
     for lev, spec in enumerate(levels):
         pack = None
         if lev < len(levels) - 1 and compact_eligible(spec, cfg):
-            pack = build_compact_pack(ops[lev].cA, cfg.cmatrix == "real")
+            cA = ops[lev].cA
+            pack = build_compact_pack(cA, cfg.cmatrix == "real")
             if lp:
                 pack = attach_lp(pack)
+            if fused_sweep_wanted(cfg, cA.is_cuda):
+                pack = attach_bands(pack, cA)
         packs.append(pack)
     return packs
 

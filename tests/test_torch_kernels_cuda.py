@@ -138,6 +138,29 @@ def test_seamount16_solve_runs_the_kernels(cuda, fused_sweep):
                                tol=1e-11, maxiter=12)
     np.testing.assert_allclose(info.history, ic.history, rtol=1e-6,
                                atol=1e-15)
+    if fused_sweep:
+        # one K4 launch per sweep: as many as the sweeps the CPU takes on
+        # the same route (pallas_interpret=True, K4's plain version)
+        sweeps = []
+        plain = ksf.relax_fused_sweep_plain
+
+        def count(q0, bq, pack, nsweeps):
+            sweeps.append(nsweeps)
+            return plain(q0, bq, pack, nsweeps)
+
+        ksf.relax_fused_sweep_plain = count
+        try:
+            mi = NHModel(n, n, n, cfg=SolverConfig(pallas_interpret=True),
+                         device="cpu")
+            mi.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
+                            theta_b=c.theta_b, theta_s=c.theta_s)
+            _, _, _, _, ii = mi.solve(*initial_velocities(n, n, n,
+                                                          device="cpu"),
+                                      tol=1e-11, maxiter=12)
+        finally:
+            ksf.relax_fused_sweep_plain = plain
+        assert ii.niter == info.niter
+        assert ksf.LAUNCHES["relax_fused_sweep"] == sum(sweeps), sweeps
 
 
 def _full_inputs(nz, ny, nx, dtype, device, seed):
@@ -288,16 +311,19 @@ def _sweep_inputs(nz, H, W, dtype, device, real, seed, lp):
     pack = rc.build_compact_pack(t(cA), real)
     if lp:
         pack = rc.attach_lp(pack)
+    pack = rc.attach_bands(pack, t(cA))
     q = rc.split_quads(t(rng.standard_normal((nz, 2 * H, 2 * W))))
     bq = rc.split_quads(t(rng.standard_normal((nz, 2 * H, 2 * W))))
     return pack, q, bq
 
 
-# quads: ragged, nz = 2, one column, a one-block grid, a 32-wide tile seam
-# and a level whose columns outnumber the resident threads (the grid-stride
-# loops wrap)
-K4_SHAPES = [(6, 5, 7), (2, 3, 4), (3, 1, 1), (8, 16, 33), (64, 8, 128),
-             (2, 512, 520)]
+# quads: ragged, nz = 2, one column, the smallest the wrapper takes
+# (nz 2, H = W = 1), a one-block grid, a W that is not a multiple of the
+# 32-column tile (33, 70; 520 over many tiles), the full 64 planes a block's
+# shared memory is sized for, and a level whose tiles outnumber the
+# resident blocks (the grid-stride loops wrap)
+K4_SHAPES = [(6, 5, 7), (2, 3, 4), (3, 1, 1), (2, 1, 1), (8, 16, 33),
+             (64, 8, 128), (64, 13, 70), (2, 512, 520)]
 BANDS = [(torch.float32, False), (torch.float64, False),
          (torch.float32, True)]
 
@@ -320,6 +346,13 @@ def test_sweep_fused_matches_plain(cuda, shape, band, real):
     for t in rc._TKEYS:
         assert torch.equal(q[t], q0[t])
         assert _maxdiff(got[t], want[t]) == 0.0
+
+
+def test_sweep_term_recipe_matches_python(cuda):
+    """K4's compiled term recipe equals sweep_fused.band_term_table, which
+    the CPU tests hold to the gather blocks and to JAX's band reads."""
+    for t in rc._TKEYS:
+        assert ksf.compiled_term_table(t) == ksf.band_term_table(t), t
 
 
 @pytest.mark.parametrize("shape", [(6, 5, 7), (64, 8, 128), (64, 32, 32)])
@@ -364,6 +397,16 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
             ksf.relax_fused_sweep(q, bq, bad, 1)
         with pytest.raises(ValueError):
             kt.relax_compact_tiled_quads(q, bq, bad, 1)
+    # K4 reads the band stack: a pack without it, with bands of the
+    # full-precision type beside the low-precision pivots, or with rows
+    # not at the stack's padded pitch, is refused
+    for bad in (pack._replace(lp=pack.lp._replace(ebands=None)),
+                pack._replace(lp=pack.lp._replace(
+                    ebands=pack.lp.ebands.float())),
+                pack._replace(lp=pack.lp._replace(
+                    ebands=pack.lp.ebands.contiguous()))):
+        with pytest.raises(ValueError):
+            ksf.relax_fused_sweep(q, bq, bad, 1)
     # K2, the emitting form, takes no low-precision blocks
     e = rc.extend_quads(q)
     with pytest.raises(ValueError):

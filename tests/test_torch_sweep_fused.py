@@ -3,9 +3,11 @@ JAX, on the CPU.
 
 JAX's K4 runs in Pallas interpret mode, as tests/test_sweep_fused.py runs
 it; K1 as tests/test_lp_blocks.py runs it.  The CUDA kernel cannot run
-here: its index recipe (the halo map of csrc/sweep_fused.cu and its two
-phases) is emulated below with flat addressing and held to the plain
-version to the last bit.
+here: its reads (the band stack at the band term table's offsets, the
+state windows through the halo map, its two phases and the on-chip
+Thomas recurrence) are emulated below with flat addressing and held to the
+plain version to the last bit; the band stack is held to JAX's band
+quads.
 
 Tolerances: 1e-12 x max|JAX| in float64 (same term order); in float32
 the JAX tests' own (2e-5 for K4 with bfloat16 bands, 1e-6 relative for
@@ -211,93 +213,190 @@ def _halo_map(a, X, n):
     return sa, x
 
 
-def _emulate_column_update(src, blocks, rb, ud, bet, bq, tt, real):
-    """update_column for every (J, I) of one target: ``src`` the four
-    quads this colour reads (_TKEYS order)."""
+def _storage(stack):
+    """The band stack's storage as the kernel addresses it: a flat array
+    from extended column 0's storage column minus lpad, and the pitch."""
+    lpad, pitch = trc.band_layout(stack.shape[3] - 2, stack.element_size())
+    assert stack.stride()[2] == pitch
+    n = stack.shape[0] * stack.shape[1] * stack.shape[2] * pitch
+    flat = torch.as_strided(stack, (n,), (1,), stack.storage_offset() - lpad)
+    return flat.float().numpy() if stack.dtype == torch.bfloat16 \
+        else flat.numpy(), lpad, pitch
+
+
+def _emulate_target(src, flat, lpad, pitch, ud, bet, bq, t, real):
+    """update_tile for every column of target ``t``: the band values from
+    the stack's storage at the band term table's offsets (plane k + bk + 1
+    of the stack, zero end planes), the state values from the window
+    planes k - 1 .. k + 1 of the two quads of the other colour, staged
+    through the halo map (zero planes -1 and nz), the plane-0 'real'
+    couplings in place, and the Thomas recurrence kept in xs / cs."""
     nz, H, W = bq.shape
     J, I = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     S = np.stack(src)
-    flat = [blocks.reshape(-1), None if rb is None else rb.reshape(-1)]
-    wrow = 12 * W
-    reads = []
-    for m in range(16):
-        src_m, dk, oj, oi, blk = tt[m]
-        sa, r = _halo_map(src_m >> 1, J + oj, H)
-        sb, c = _halo_map(src_m & 1, I + oi, W)
-        reads.append((2 * sa + sb, r, c, dk, blk))
-
-    def val(m, k):
-        qi, r, c, dk, _ = reads[m]
-        kk = k + dk
-        return (S[qi, kk, r, c] if 0 <= kk < nz
-                else np.zeros((H, W), S.dtype))
-
-    out = np.empty_like(bq)
-    x = None
+    PB = (H + 2) * pitch
+    a, b = t
+    wq = (2 * (1 - a) + b, 2 * a + (1 - b))
+    # the window planes: the two quads' extended planes, by the halo rule
+    R, C = np.meshgrid(np.arange(H + 2), np.arange(W + 2), indexing="ij")
+    zero = np.zeros((2, H + 2, W + 2), S.dtype)
+    win = {-1: zero, nz: zero}
+    for kk in range(nz):
+        planes = []
+        for q in wq:
+            sa, r = _halo_map(q >> 1, R, H)
+            sb, c = _halo_map(q & 1, C, W)
+            planes.append(S[2 * sa + sb, kk, r, c])
+        win[kk] = np.stack(planes)
+    tt = ksf.band_term_table(t)
+    xs, cs = np.empty_like(bq), np.empty_like(bq)
+    x = udp = None
     for k in range(nz):
-        base = (k * H + J) * wrow + I
-        s = flat[0][base] * val(0, k)
+        def term(m):
+            band, bk, bj, bi, s_, dk, oj, oi = tt[m]
+            bv = flat[((band * (nz + 2) + k + bk + 1) * (H + 2) + J + bj)
+                      * pitch + lpad + I + bi]
+            return bv * win[k + dk][wq.index(s_), J + oj, I + oi]
+        s = term(0)
         for m in range(1, 12):
-            s = s + flat[0][base + m * W] * val(m, k)
+            s = s + term(m)
         if real and k == 0:
             x0 = None
             for m in range(12, 16):
-                b = reads[m][4]
-                bv = (flat[0][J * wrow + b * W + I] if b < 12
-                      else flat[1][J * 2 * W + (b - 12) * W + I])
-                t = bv * val(m, 0)
-                x0 = t if x0 is None else x0 + t
+                band, bk, bj, bi, s_, dk, oj, oi = tt[m]
+                sa, r = _halo_map(s_ >> 1, J + oj, H)
+                sb, c = _halo_map(s_ & 1, I + oi, W)
+                bv = flat[((band * (nz + 2) + bk + 1) * (H + 2) + J + bj)
+                          * pitch + lpad + I + bi]
+                v = bv * S[2 * sa + sb, dk, r, c]
+                x0 = v if x0 is None else x0 + v
             s = s + x0
         rhs = bq[k] - s
-        x = rhs * bet[k] if k == 0 else (rhs - ud[k - 1] * x) * bet[k]
-        out[k] = x
+        x = rhs * bet[k] if k == 0 else (rhs - udp * x) * bet[k]
+        xs[k] = x
+        if k < nz - 1:
+            udp = ud[k]
+            cs[k] = udp * bet[k]
+    out = np.empty_like(bq)
+    out[nz - 1] = x
     for k in range(nz - 2, -1, -1):
-        x = out[k] - (ud[k] * bet[k]) * x
+        x = xs[k] - cs[k] * x
         out[k] = x
     return out
 
 
 def _emulate_sweep(q, bq, pack, real):
     """sweep_kernel: colour 0 from the pre-sweep quads, then colour 1 with
-    the colour-0 quads' new values."""
-    def n(x):
-        if x is None:
-            return None
-        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
-
-    blocks, rblocks, bet, _ = trc.smoother_operator(pack, q[(0, 0)].dtype)
-    qs = [n(q[t]) for t in trc._TKEYS]
+    the colour-0 quads' new values and the colour-1 quads' pre-sweep
+    ones."""
+    stack, bet, _ = ksf.sweep_bands(pack, q[(0, 0)].dtype)
+    flat, lpad, pitch = _storage(stack)
+    qs = [q[t].numpy() for t in trc._TKEYS]
     out = [None] * 4
     for phase, targets in ((0, (0, 3)), (1, (1, 2))):
         src = qs if phase == 0 else [out[0], qs[1], qs[2], out[3]]
         for m in targets:
             t = trc._TKEYS[m]
-            tt = kt.term_table(t, trc._TKEYS)
-            out[m] = _emulate_column_update(
-                src, n(blocks[m]), n(rblocks[m]) if real else None,
-                n(pack.ud[m]), n(bet[m]), n(bq[t]), tt, real)
+            out[m] = _emulate_target(src, flat, lpad, pitch,
+                                     pack.ud[m].numpy(), bet[m].numpy(),
+                                     bq[t].numpy(), t, real)
     return dict(zip(trc._TKEYS, out))
+
+
+BANDS = {"f64": (np.float64, False), "f32": (np.float32, False),
+         "bf16": (np.float32, True)}
 
 
 # quads: ragged, one row, odd both, and even; nz = 2 included
 @pytest.mark.parametrize("shape", [(6, 10, 14), (2, 2, 6), (3, 6, 2),
                                    (4, 8, 8)])
 @pytest.mark.parametrize("real", [True, False])
-@pytest.mark.parametrize("lp", [False, True])
-def test_cuda_recipe_emulation_matches_plain(shape, real, lp):
-    """The CUDA kernel's halo map, flat addressing and two phases (emulated
-    in numpy) give the plain sweep's values to the last bit, in float64
-    and (lp) in float32 with bfloat16 blocks."""
-    dtype = np.float32 if lp else np.float64
+@pytest.mark.parametrize("band", list(BANDS))
+def test_cuda_recipe_emulation_matches_plain(shape, real, band):
+    """The CUDA kernel's reads (emulated in numpy): the band stack at the
+    band term table's offsets, the state windows through the halo map, the
+    'real' couplings in place, the Thomas recurrence on chip, two colours
+    — give the plain sweep's values to the last bit, in float64, float32
+    and float32 with bfloat16 bands."""
+    dtype, lp = BANDS[band]
     cA, p, b = problem(*shape, seed=sum(shape), dtype=dtype)
-    tp = trc.build_compact_pack(torch.from_numpy(cA), real)
+    cA = torch.from_numpy(cA)
+    tp = trc.build_compact_pack(cA, real)
     if lp:
         tp = trc.attach_lp(tp)
+    tp = trc.attach_bands(tp, cA)
     q, bq = tquads(p), tquads(b)
     want = ksf.relax_fused_sweep_plain(q, bq, tp, 1)
     got = _emulate_sweep(q, bq, tp, real)
     for t in trc._TKEYS:
         close(got[t], want[t], 0)
+
+
+@pytest.mark.parametrize("t", trc._TKEYS)
+def test_band_terms_read_the_gather_blocks(t):
+    """Every gather term's band read (band_term_table) lands on the value
+    its gather block holds: block (n, boff) of target t at (k, J, I) is
+    band quad ``band`` at plane k + bk + 1 of the stack, row J + bj,
+    column I + bi, for every k (the zero end planes included)."""
+    cA, _, _ = problem(4, 10, 14, seed=9)
+    cA = torch.from_numpy(cA)
+    pack = trc.build_compact_pack(cA, True)
+    stack = trc.band_quads(cA)
+    views = trc.block_views(pack, trc._TKEYS.index(t))
+    keys = trc.gather_keys(True)
+    nz, H, W = pack.d[0].shape
+    for (n, boff, _), row in zip(trc._BASE_TERMS + trc._REAL_TERMS,
+                                 ksf.band_term_table(t)):
+        band, bk, bj, bi = row[:4]
+        want = views[keys.index((n, boff))]
+        got = stack[band, 1 + bk:1 + bk + nz, bj:bj + H, bi:bi + W]
+        if want.shape[0] == 1:           # the 'real' pair: plane 0 only
+            got = got[:1]
+        assert torch.equal(got, want), (t, n, boff)
+
+
+@pytest.mark.parametrize("real", [True, False])
+@pytest.mark.parametrize("lp", [False, True])
+def test_band_quads_match_jax(real, lp):
+    """The port's band stack equals JAX's quad_ext_bands(cA[n]) for
+    n = 2..7 and the content of JAX's SweepOperator.ebands (one chunk)
+    without its padding, bit for bit, float32 and bfloat16 (attach_lp's
+    rounding); planes 0 and nz+1 are zero; pack_from_numpy carries JAX's
+    bands into the same stack."""
+    nz, ny, nx = 4, 32, 32
+    cA, _, _ = problem(nz, ny, nx, seed=7, dtype=np.float32)
+    bd = jnp.bfloat16 if lp else None
+    jp = jax_sweep_pack(cA, real, band_dtype=bd)
+    tc = torch.from_numpy(cA)
+    tp = trc.build_compact_pack(tc, real)
+    if lp:
+        tp = trc.attach_lp(tp)
+    tp = trc.attach_bands(tp, tc)
+    stack, _, band = ksf.sweep_bands(tp, torch.float32)
+    assert stack.dtype == (torch.bfloat16 if lp else torch.float32)
+    H, W = ny // 2, nx // 2
+    f32 = lambda x: np.asarray(x, np.float32)
+    jb = [f32(jnp.asarray(jrc.quad_ext_bands(jnp.asarray(cA[n]))[t])
+              .astype(bd or jnp.float32))
+          for n in range(2, 8) for t in trc._TKEYS]
+    jsweep = [f32(x)[:, 1:H + 3, 1:W + 3] for x in jp.sweep.ebands[0]]
+    assert len(jp.sweep.ebands) == 1 and len(jsweep) == trc.NBANDS
+    for i in range(trc.NBANDS):
+        got = stack[i].float().numpy()
+        np.testing.assert_array_equal(got[1:-1], jb[i])
+        np.testing.assert_array_equal(got[1:-1], jsweep[i])
+        assert not got[0].any() and not got[-1].any()
+    key = "ebands_lp" if lp else "ebands"
+    fields = lp_fields(jrc.attach_lp(jp)) if lp else {
+        f: [np.asarray(x) for x in getattr(jp, f)]
+        for f in ("blocks", "d", "ud", "bet", "rblocks")
+        if real or f != "rblocks"}
+    fields[key] = jsweep
+    cp = pack_from_numpy(fields, real, device="cpu", dtype=torch.float32)
+    cstack = ksf.sweep_bands(cp, torch.float32)[0]
+    assert cstack.dtype == stack.dtype
+    assert cstack.stride() == stack.stride()
+    assert torch.equal(cstack, stack)
 
 
 # -------------------------------------------------------------------- (e)
@@ -316,8 +415,9 @@ def _port(cfg, n=N):
 @pytest.mark.parametrize("interpret", [True, False])
 def test_k4_route(monkeypatch, interpret):
     """With pallas_interpret=True the K4 wrapper smooths every quad level
-    (every level but the coarsest) and K1's orchestration none; without
-    it K4 never runs (the JAX package's CPU route)."""
+    (every level but the coarsest) and K1's orchestration none, and those
+    levels' packs carry the band stack; without it K4 never runs (the JAX
+    package's CPU route) and no band stack is built."""
     seen = {"k4": set(), "k1": set()}
 
     def spy(name, fn):
@@ -336,6 +436,9 @@ def test_k4_route(monkeypatch, interpret):
     quads = {(s.nzg, s.nyg // 2, s.nxg // 2) for s in m.levels[:-1]}
     assert seen["k4"] == (quads if interpret else set())
     assert seen["k1"] == (set() if interpret else quads)
+    # the band stack is built exactly on the levels K4 smooths
+    packs = m.backend.packs[:-1]
+    assert all((pk.ebands is not None) == interpret for pk in packs)
 
 
 # -------------------------------------------------------------------- (f)
