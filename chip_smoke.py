@@ -6,8 +6,12 @@ Phases (any failed check raises, so the exit code is non-zero):
 
 1. Build the CUDA kernels from mgroms_tpu_torch/csrc/ and hold each one to
    its plain torch version on the card, with the max ulp printed:
-   K1-K3 in float32 at the CUC level-0 quad shape (64, 512, 512) and at a
-   ragged shape, plus K1 once in float64; K4 (one sweep, float32 and
+   K1-K2 in float32 at the CUC level-0 quad shape (64, 512, 512) and at a
+   ragged shape, plus K1 once in float64; K3 (all four target quads a
+   launch) on the band stack and on the gather blocks, in its coarse-RHS,
+   residual and z-pair modes, to 0 ulp, at the CUC level-0 quads (timed),
+   its level-4 quads (4, 32, 32), ragged widths, nz 2 and in float64;
+   K4 (one sweep, float32 and
    bfloat16 bands) at the CUC level-0 quad shape (64, 512, 512), at the
    CUC level-4 quad shape (4, 32, 32), at a ragged shape and once in
    float64, its bytes counted as it reads them (the 24 band quads, its
@@ -19,7 +23,8 @@ Phases (any failed check raises, so the exit code is non-zero):
    ordering (RB, FC, GS), to 0 ulp, in its one-launch form with 40 sweeps
    at the coarsest levels of CUC (2, 32, 32) and seamount (4, 4, 4), at a
    ragged (3, 5, 7) and once in float64, and in its per-colour-step form
-   with 3 sweeps at (64, 64, 64) and at the CUC level-0 shape; K1 on each
+   with 3 sweeps at (64, 64, 64) and at the CUC level-0 shape (the floor
+   of a launch per colour step printed beside its bound); K1 on each
    of the four target quads at (64, 512, 512), as the FC route launches
    it, to 0 ulp.  Time each against its plain version
    (CUDA events, median of 20) beside its bound: the larger of its bytes
@@ -46,7 +51,8 @@ Phases (any failed check raises, so the exit code is non-zero):
    (nz 64, H 512, tj 16, ws 24), to 0 ulp, timed beside one PyTorch call
    of the same sum (library_ms).  Last, the asynchronous copies in the
    SASS of K11's staged_sum_kernel and wide_stream_kernel (bulk copies)
-   and of K4 (cp.async), per instance (cuobjdump -sass).
+   and of K4, K3 and K6's step form (cp.async), per instance (cuobjdump
+   -sass).
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -57,7 +63,8 @@ Phases (any failed check raises, so the exit code is non-zero):
    path at the full width of the flagship grid: <= 1e-4 within 8
    F-cycles, interior max|div| cut >= 100x, whole-grid ratio <= 2.5e-2
    (its wall-ring remnant grows with resolution, see below), K4 and K3
-   launched and no other kernel (counted in this run only).
+   launched and no other kernel (counted in this run only), K3 once per
+   down-leg restriction (15 a F-cycle) and once per level-0 residual.
 5. Seamount 64^3 with use_pallas=True: K6 on the coarsest level, one
    launch per call.
 6. CUC 1024^2 x 64 with use_pallas=True: the same.
@@ -100,6 +107,10 @@ Phases (any failed check raises, so the exit code is non-zero):
    True: every level in full layout, K6's GS form in both forms and K5;
    GS_CYCLES fixed F-cycles, each cutting the residual, mean factor >= 2.
 
+Every phase whose quad levels K4 smooths (2, 4, 5, 6, 9) checks that
+those levels hold the band stack only, no gather blocks; every phase
+prints its peak device memory (set-up and solve).
+
 Phases 5-10 and 12-16 run in float32.  Phases 5-8 hold their history to the
 matching default phase's (2 or 4) within rel 1e-6 (1e-3 with
 compact=False, whose sums round in another order, and for phase 8, whose
@@ -109,11 +120,12 @@ and launches every kernel of its path and no other.
 
 Phases 2, 4-10, 12 and 14-16 also trace one F-cycle with torch.profiler (device
 activity only): device ops, device busy time against the same traced
-step's wall time (the idle share), K4's launches and device time where it
-runs (phases 2, 4, 5, 6, 9), and the top device ops.
+step's wall time (the idle share), K4's and K3's launches and device time
+where they run, and the top device ops.
 
 The line before last is a JSON object with, for each kernel, its launches
-in the phase that is its path (4 for K4 and K3, 6 for K6's one-launch
+in the phase that is its path (4 for K4 and K3 in both its modes, 6 for
+K6's one-launch
 form, 7 for K5 and K6's per-colour-step form, 8 for K1 and K2, 9 for K4
 on bfloat16 blocks, 10 for K1 on bfloat16 blocks, 11 for K8-K11, 13 for
 K7, 15 for K6's FC forms, 16 for its GS forms), its error against the
@@ -168,8 +180,10 @@ KERNELS = {
                           "mgroms_tpu/ops/pallas/relax_tiled.py:147", 10),
     "color_update_emit": ("relax_tiled.cu",
                           "mgroms_tpu/ops/pallas/relax_tiled.py:247", 8),
-    "rr_zsum": ("relax_tiled.cu", "mgroms_tpu/ops/pallas/relax_tiled.py:340",
-                4),
+    "residual_restrict": ("rr_fused.cu",
+                          "mgroms_tpu/ops/pallas/relax_tiled.py:340", 4),
+    "residual_quads": ("rr_fused.cu", "mgroms_tpu/ops/relax_compact.py:615",
+                       4),
     "relax_fused_sweep": ("sweep_fused.cu",
                           "mgroms_tpu/ops/pallas/sweep_fused.py:509", 4),
     "relax_fused_sweep_bf16": ("sweep_fused.cu",
@@ -286,17 +300,15 @@ def kernel_inputs(nz, H, W, dtype, dev, seed, lp=False, bands=False):
 
 
 def kernel_calls(pack, q, bq, t=(0, 1)):
-    """(kernel, plain, residual scale, bytes, flops) of K1, K2, K3 on
+    """(kernel, plain, residual scale, bytes, flops) of K1 and K2 on
     target quad ``t``.  Bytes: every input read once, every output written
     once.  Flops per point: the 12-term gather (23), the RHS (1) and the
     Thomas substitution (6), plus the 8 plane-0 'real' flops per column;
-    K2 adds the 7-flop residual, K3 is the 30-flop residual and the
-    z-pair sum."""
+    K2 adds the 7-flop residual."""
     m = rc._TKEYS.index(t)
     e = rc.extend_quads(q)
     rb = pack.rblocks[m]
     e3 = tuple(e[k] for k in kt.gather_quads(t))
-    e4 = tuple(e[k] for k in rc._TKEYS)
     f = (pack.blocks[m], pack.ud[m], pack.bet[m])
     scale = float(bq[t].abs().max())
     n = bq[t].numel()
@@ -313,13 +325,6 @@ def kernel_calls(pack, q, bq, t=(0, 1)):
             lambda: kt.color_update_emit_plain(e3, bq[t], *f, pack.d[m], t,
                                                True, rb), scale,
             k1_bytes + nbytes(pack.d[m], bq[t]), 37 * n + 8 * col),
-        "rr_zsum": (
-            lambda: kt.rr_zsum(e4, bq[t], pack.blocks[m], pack.d[m],
-                               pack.ud[m], t, True, rb),
-            lambda: kt.rr_zsum_plain(e4, bq[t], pack.blocks[m], pack.d[m],
-                                     pack.ud[m], t, True, rb), scale,
-            nbytes(*e4, bq[t], pack.blocks[m], pack.d[m], pack.ud[m], rb)
-            + nbytes(bq[t]) // 2, 30 * n + n // 2 + 8 * col),
     }
 
 
@@ -354,8 +359,9 @@ def hold(results, name, shape, dtype, kern, plain, res_scale, nbytes_,
     PyTorch call computing the same function) and keep the numbers under
     ``name`` in ``results``."""
     got, want = kern(), plain()
-    if isinstance(got, dict):                 # K4: the four quads
-        got, want = (torch.stack([x[t] for t in rc._TKEYS])
+    if isinstance(got, dict):                 # K4, K3: per target quad
+        check(sorted(got) == sorted(want), f"{name}: targets differ")
+        got, want = (torch.stack([x[t] for t in sorted(got)])
                      for x in (got, want))
     elif isinstance(got, list):               # K8, K9: per chunk
         got, want = flat(got), flat(want)
@@ -401,6 +407,7 @@ def kernel_phase(dev):
                      None, exact=True)
         del pack, q, bq, calls
         torch.cuda.empty_cache()
+    rr_kernels(dev, results)
     sweep_kernels(dev, results)
     full_layout_kernels(dev, results)
     packed_kernels(dev, results)
@@ -409,6 +416,72 @@ def kernel_phase(dev):
     probe_kernels(dev, results)
     sass_async_copies()
     return results
+
+
+# K3 (quad shape, dtype, timed): "json" times the CUC level-0 quads
+# (phase 4's level 0), "print" its level-4 quads; ragged widths (33, 70
+# against the 64-column tile), one quad with nz 2, float64
+RR_CASES = [
+    ((64, 512, 512), torch.float32, "json"),
+    ((4, 32, 32), torch.float32, "print"),
+    ((6, 5, 7), torch.float32, None),
+    ((4, 3, 70), torch.float32, None),
+    ((3, 5, 33), torch.float32, None),
+    ((6, 5, 7), torch.float64, None),
+    ((2, 1, 1), torch.float64, None),
+]
+
+
+def rr_kernels(dev, results):
+    """K3 in both operator layouts (the band stack of the K4 levels, the
+    gather blocks of the K1-K2 route and the tiles) and its modes (the
+    coarse RHS; the residual of the four targets; the z-pair sums of two)
+    against its plain version, to 0 ulp.  Bytes as it reads them: the
+    operator (the 24 band quads' values, or the 48 gather blocks and the
+    'real' pairs), the four extended state quads, bq, d and ud of the four
+    targets, and the output.  Flops per point and target the 30-flop
+    residual, 8 'real' flops per column and target, and the z-pair and
+    coarse sums (3.5 per fine point)."""
+    for shape, dtype, timed in RR_CASES:
+        nz, H, W = shape
+        g = torch.Generator(device=dev).manual_seed(sum(shape) + 7)
+        u = lambda *sh: torch.rand(sh, generator=g, device=dev, dtype=dtype)
+        cA = 0.2 * u(8, nz, 2 * H + 2, 2 * W + 2) - 0.1
+        cA[0] -= 4.0
+        packs = {"bands": rc.build_band_pack(cA, True),
+                 "blocks": rc.build_compact_pack(cA, True)}
+        del cA
+        q = rc.split_quads(2 * u(nz, 2 * H, 2 * W) - 1)
+        bq = rc.split_quads(2 * u(nz, 2 * H, 2 * W) - 1)
+        e = rc.extend_quads(q)
+        e4 = tuple(e[k] for k in rc._TKEYS)
+        n = nz * H * W
+        scale = max(float(x.abs().max()) for x in bq.values())
+        for layout, pack in packs.items():
+            op = (rc.NBANDS * nz * (H + 2) * (W + 2) * pack.ebands
+                  .element_size() if layout == "bands"
+                  else nbytes(*pack.blocks, *pack.rblocks))
+            read = op + nbytes(*e4, *bq.values(), *pack.d, *pack.ud)
+            modes = [("residual", rc._TKEYS, 4 * n, 4 * 30 * n)]
+            if nz % 2 == 0:
+                modes = [("coarse", rc._TKEYS, n // 2,
+                          4 * 30 * n + 7 * (n // 2))] + modes \
+                    + [("zsum", ((0, 0), (1, 1)), n, 2 * 30 * n + n)]
+            for mode, targets, nout, flops in modes:
+                name = ("residual_quads" if mode == "residual"
+                        else "residual_restrict")
+                call = lambda: kt.residual_restrict(e4, bq, pack, mode,
+                                                    targets)
+                plain = lambda: kt.residual_restrict_plain(e4, bq, pack,
+                                                           mode, targets)
+                hold(results, name, f"{shape} {layout} {mode}", dtype, call,
+                     plain, scale, read + nout * dtype.itemsize,
+                     flops + 8 * len(targets) * H * W,
+                     (timed if layout == "bands" and mode != "zsum"
+                      else ("print" if timed and mode != "zsum" else None)),
+                     exact=True)
+        del packs, q, bq, e, e4
+        torch.cuda.empty_cache()
 
 
 # (shape, dtype, low-precision blocks, K4 timed, K1 timed).  "json" times
@@ -488,16 +561,19 @@ def sweep_kernels(dev, results):
 
 
 # kernel -> what its staging must show in the SASS: the bulk copies of
-# K11's ring, the asynchronous copies of K4's
+# K11's ring, the asynchronous copies of K4's, K3's and K6's step form
 SASS_ASYNC = {"staged_sum_kernel": ("UBLKCP", "UTMALDG"),
               "wide_stream_kernel": ("UBLKCP", "UTMALDG"),
-              "sweep_kernel": ("LDGSTS", "UBLKCP", "UTMALDG")}
+              "sweep_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
+              "rr_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
+              "relax_step": ("LDGSTS", "UBLKCP", "UTMALDG")}
 
 
 def sass_async_copies():
-    """Print, per instance of K11's two kernels and of K4, how many
-    asynchronous-copy instructions its SASS holds (cuobjdump -sass of the
-    built library), and check that each stages through them."""
+    """Print, per instance of K11's two kernels, of K4, of K3 and of K6's
+    step form, how many asynchronous-copy instructions its SASS holds
+    (cuobjdump -sass of the built library), and check that each stages
+    through them."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         print(f"  SASS: {tool} not found; the staging instructions are not "
@@ -553,6 +629,16 @@ FULL_LAYOUT_CASES = [
     (step, kind, (64, 1024, 1024), torch.float32, 3, "json"))]
 
 
+def step_bytes(cA, p, kind) -> int:
+    """The bytes one colour step of K6's per-step form must move: the
+    operator rows of its colour's columns (RB: all of cA, a sector holds
+    both colours; FC: the rows of its j-parity; GS: all), the state, and
+    b and the output of its columns."""
+    if kind == "FC":
+        return (nbytes(cA) + 2 * nbytes(p)) // 2 + nbytes(p)
+    return nbytes(cA) + 3 * nbytes(p)
+
+
 def full_layout_kernels(dev, results):
     """K5 and K6 (every ordering, both forms, to 0 ulp) against their
     plain versions.  Flops per point: K5 the 30-flop residual; K6 per
@@ -579,6 +665,10 @@ def full_layout_kernels(dev, results):
             cost = (nbytes(p, b, cA, p), ns * (35 * p.numel() + 8 * col))
         hold(results, name, shape, dtype, kern, plain, res_scale, *cost,
              timed, exact=kind is not None)
+        if name == kf.KINDS.get(kind, kf.KINDS["RB"]).step and timed:
+            floor = ns * kf.KINDS[kind].ncolor * step_bytes(cA, p, kind)
+            print(f"  {name} {shape}: floor of a launch per colour step "
+                  f"{bound(floor, 0)[0]:.6f} ms ({floor / 1e9:.4f} GB)")
         del cA, p, b, kern, plain
         torch.cuda.empty_cache()
 
@@ -820,6 +910,27 @@ def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
     return m, info, div / div0, inner / div0, setup_s, peak
 
 
+def check_band_levels(m):
+    """Every quad level that K4 smooths holds its operator as the band
+    stack only: no gather blocks of either precision.  Prints the levels
+    and the stacks' size."""
+    be = m.backend
+    if not be.fused_sweep:
+        return
+    levels = [lev for lev in range(be.nlevs) if be._use_sweep(lev)]
+    if not levels:              # compact=False: no quad level
+        return
+    stacks = 0
+    for lev in levels:
+        pk = be.packs[lev]
+        check(pk.blocks is None and pk.ebands is not None
+              and (pk.lp is None or pk.lp.blocks is None),
+              f"level {lev} holds gather blocks beside its band stack")
+        stacks += nbytes(pk.ebands, pk.lp.ebands if pk.lp else None)
+    print(f"  K4 levels {levels} hold the band stack only (no gather "
+          f"blocks): {stacks / 2**30:.3f} GiB of stacks")
+
+
 def fcycle_ms(m, reps=5):
     """Median time of one F-cycle + residual norm (solver.solve_step) at
     level 0 of model ``m`` (CUDA events), from a fresh solve start."""
@@ -873,11 +984,12 @@ def profile_fcycle(m, top=8):
     print(f"  profile: {len(dev)} device ops, device busy {busy_ms:.3f} ms "
           f"of {wall_ms:.3f} ms traced wall, idle share "
           f"{1 - busy_ms / wall_ms:.4f}")
-    k4 = [v for k, v in by_name.items() if "sweep_kernel<" in k]
-    if k4:
-        print(f"  profile: K4 {sum(n for n, _ in k4)} launches, "
-              f"{sum(us for _, us in k4) / 1e3:.3f} ms device time per "
-              "F-cycle")
+    for label, key in (("K4", "sweep_kernel<"), ("K3", "rr_kernel<")):
+        ks_ = [v for k, v in by_name.items() if key in k]
+        if ks_:
+            print(f"  profile: {label} {sum(n for n, _ in ks_)} launches, "
+                  f"{sum(us for _, us in ks_) / 1e3:.3f} ms device time "
+                  "per F-cycle")
     for name, (n, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
         print(f"    {us / 1e3:10.3f} ms {n:7d}x  {name[:90]}")
@@ -903,6 +1015,7 @@ def path_phase(title, grid, case, dev, maxiter, ref, rtol, div_limits, cfg,
                                             **cfg)
     counts = launches()
     print(f"  launches {counts}")
+    check_band_levels(m)
     if ref is not None:
         n = min(len(info.history), len(ref))
         dev_rel = max(abs(a / b - 1)
@@ -987,7 +1100,7 @@ def micro_phase(dev):
 # level is replicated, so K4 never runs, and the default config has no
 # K6 and no full-layout residual wide enough for K5.
 DIST_COMPACT_LEVELS = (0, 1, 2, 3, 4, 5)
-DIST_KERNELS = {"color_update", "color_update_emit", "rr_zsum"}
+DIST_KERNELS = {"color_update", "color_update_emit", "residual_restrict"}
 # phase 12's history against phase 8's (the single-device K1-K3 route):
 # the same kernels on the same levels, so the history is held to REL_TOL
 
@@ -1096,7 +1209,7 @@ def main() -> int:
     print("== phase 1: kernels vs plain versions")
     kres = kernel_phase(dev)
 
-    quad_k4 = {"relax_fused_sweep", "rr_zsum"}
+    quad_k4 = {"relax_fused_sweep", "residual_restrict", "residual_quads"}
     print("== phase 2: seamount 64^3 float32")
     case_seamount = setup_seamount(64, 64, 64)
     with open(os.path.join(HERE, "tests", "goldens",
@@ -1108,6 +1221,7 @@ def main() -> int:
                                             maxiter=6)
     counts = launches()
     print(f"  launches {counts}")
+    check_band_levels(m)
     seamount_history = info.history
     check(abs(info.history[1] / gold64[1] - 1) <= 0.02,
           f"first cycle {info.history[1]} vs golden {gold64[1]}")
@@ -1142,6 +1256,17 @@ def main() -> int:
     cuc_niter = info.niter
     check(info.res <= 1e-4, f"CUC: {info.res} after {info.niter} cycles")
     check_path(counts, quad_k4)
+    check_band_levels(m)
+    # K3: one launch per down-leg restriction, L (L - 1) / 2 an F-cycle;
+    # in its residual mode the level-0 residual of solve_init and of each
+    # F-cycle
+    L = len(m.levels)
+    print(f"  K3 launches: {counts['residual_restrict']} restrictions "
+          f"({counts['residual_restrict'] / info.niter:g} a F-cycle), "
+          f"{counts['residual_quads']} level-0 residuals")
+    check(counts["residual_restrict"] == L * (L - 1) // 2 * info.niter
+          and counts["residual_quads"] == 1 + info.niter,
+          f"K3 launches {counts}")
     # the whole-grid max sits on the wall ring, whose remnant is a property
     # of the reference's BC-in-halo discretization and grows with
     # resolution (JAX package = port: 3.7e-3 at 128^2 x 32, 7.2e-3 at
@@ -1176,12 +1301,13 @@ def main() -> int:
         "phase 8: CUC 1024^2 x 64 float32, pallas_fused_sweep=False", *cuc,
         maxiter=8, ref=cuc_history, rtol=1e-3, div_limits=(2.5e-2, 1e-2),
         cfg=dict(pallas_fused_sweep=False),
-        busy={"color_update", "color_update_emit", "rr_zsum"})
+        busy={"color_update", "color_update_emit", "residual_restrict"})
     phase_counts[9], info, _ = path_phase(
         "phase 9: CUC 1024^2 x 64 float32, perf mode (bfloat16 smoother "
         "blocks, V(1,1))", *cuc, maxiter=12, ref=cuc_history, rtol=None,
         div_limits=(2.5e-2, 1e-2), cfg=perf,
-        busy={"relax_fused_sweep_bf16", "rr_zsum"})
+        busy={"relax_fused_sweep_bf16", "residual_restrict",
+              "residual_quads"})
     print(f"  F-cycles to 1e-4: {info.niter} in perf mode, {cuc_niter} in "
           f"phase 4")
     phase_counts[10], info, _ = path_phase(
@@ -1189,7 +1315,7 @@ def main() -> int:
         "False", (64, 64, 64), case_seamount, dev, maxiter=6,
         ref=seamount_history, rtol=None, div_limits=(1e-2, 1e-2),
         cfg=dict(perf, pallas_fused_sweep=False),
-        busy={"color_update_bf16", "rr_zsum"})
+        busy={"color_update_bf16", "residual_restrict"})
     print(f"  F-cycles to 1e-4: {info.niter} in perf mode, "
           f"{len(seamount_history) - 1} in phase 2")
 
@@ -1209,7 +1335,8 @@ def main() -> int:
     phase_counts[14], info14, _ = path_phase(
         "phase 14: CUC 1024^2 x 64 float32, relax_method='FC'", *cuc,
         maxiter=FC_MAXITER, ref=None, rtol=None, div_limits=(2.5e-2, 1e-2),
-        cfg=dict(relax_method="FC"), busy={"color_update", "rr_zsum"})
+        cfg=dict(relax_method="FC"),
+        busy={"color_update", "residual_restrict"})
     # compact=False: the full-layout sums round in another order than the
     # quads', as for phase 7 against phase 4
     phase_counts[15], _, _ = path_phase(

@@ -61,17 +61,18 @@ def operators_from_numpy(levels, cA_list: Sequence, metrics: Mapping,
 
 def pack_from_numpy(fields: Mapping, real_matrix: bool, device="cuda",
                     dtype=torch.float64) -> CompactPack:
-    """A CompactPack from ``fields``: ``blocks``, ``d``, ``ud``, ``bet``
-    (and ``rblocks`` when ``real_matrix``), each a sequence of the four
-    target quads' arrays in ``_TKEYS`` order.
+    """A CompactPack from ``fields``: ``d``, ``ud``, ``bet`` and the gather
+    operator — ``blocks`` (and ``rblocks`` when ``real_matrix``), or only
+    ``ebands`` below, as a level K4 smooths holds it — each a sequence of
+    the four target quads' arrays in ``_TKEYS`` order.
 
-    With ``blocks_lp`` and ``bet_lp`` (and ``rblocks_lp`` when
-    ``real_matrix``) the pack also carries the low-precision smoother
-    operator (``pack.lp``, the JAX package's ``attach_lp``): the blocks
-    arrive as float32 arrays of bfloat16 values and are stored in bfloat16
-    (exact), the pivots in ``dtype``.  The Thomas multipliers ``gam`` are
-    not carried for either operator: the port recomputes them as
-    ``ud * bet``.
+    With ``bet_lp`` and ``blocks_lp`` (and ``rblocks_lp`` when
+    ``real_matrix``) or ``ebands_lp`` the pack also carries the
+    low-precision smoother operator (``pack.lp``, the JAX package's
+    ``attach_lp``): the blocks arrive as float32 arrays of bfloat16 values
+    and are stored in bfloat16 (exact), the pivots in ``dtype``.  The
+    Thomas multipliers ``gam`` are not carried for either operator: the
+    port recomputes them as ``ud * bet``.
 
     With ``ebands`` (or ``ebands_lp``, bfloat16 values as float32 arrays),
     the 24 band quads the colour-fused sweep reads (relax_compact.
@@ -80,18 +81,26 @@ def pack_from_numpy(fields: Mapping, real_matrix: bool, device="cuda",
     columns, ``ebands[0][i][:, 1:H+3, 1:W+3]``), the pack carries their
     stack (relax_compact.stack_bands)."""
     conv = {k: tuple(_t(a, device, dtype) for a in fields[k])
-            for k in ("blocks", "d", "ud", "bet")}
+            for k in ("d", "ud", "bet")}
+    blocks = "blocks" in fields
+    if not (blocks or "ebands" in fields):
+        raise ValueError("a pack needs its gather operator: blocks or "
+                         "ebands")
+    conv["blocks"] = (tuple(_t(a, device, dtype) for a in fields["blocks"])
+                      if blocks else None)
     rb = (tuple(_t(a, device, dtype) for a in fields["rblocks"])
-          if real_matrix else None)
+          if real_matrix and blocks else None)
     bf16 = lambda xs: tuple(_t(a, device, torch.float32)
                             .to(torch.bfloat16) for a in xs)
     stack = lambda xs, dt: stack_bands([_t(a, device, dtype) for a in xs],
                                        dt)
     lp = None
-    if "blocks_lp" in fields:
+    if "bet_lp" in fields:
+        lp_blocks = "blocks_lp" in fields
         lp = LowPrecision(
-            blocks=bf16(fields["blocks_lp"]),
-            rblocks=bf16(fields["rblocks_lp"]) if real_matrix else None,
+            blocks=bf16(fields["blocks_lp"]) if lp_blocks else None,
+            rblocks=(bf16(fields["rblocks_lp"])
+                     if real_matrix and lp_blocks else None),
             bet=tuple(_t(a, device, dtype) for a in fields["bet_lp"]),
             ebands=(stack(fields["ebands_lp"], torch.bfloat16)
                     if "ebands_lp" in fields else None))

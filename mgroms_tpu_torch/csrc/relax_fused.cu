@@ -18,38 +18,60 @@
 //       sweep), still committed as p + (sol - p), which in floating point
 //       is not sol.
 //
-// The TPU kept the whole level in VMEM for the whole call.  Here a colour
-// step reads one state buffer and writes the other (ping-pong): with the
-// 'real' matrix the RB plane-0 diagonal couplings join columns of the same
-// colour, and GS solves every column from the old state, so an in-place
-// update would race (FC columns of one colour never couple, not even
-// through the plane-0 terms; ping-pong is right for them too).  Two forms
-// share the column step:
+// The TPU kept the whole level in VMEM for the whole call.  Here two forms
+// solve the same colour steps:
 //
-//   relax_fused_block  one launch per call, one block: both state buffers,
-//                      b and the Thomas multipliers sit in shared memory,
+//   relax_fused_block  one launch per call, one block: two state buffers
+//                      (ping-pong: with the 'real' matrix the RB plane-0
+//                      diagonal couplings join columns of the same colour,
+//                      and GS solves every column from the old state), b
+//                      and the Thomas multipliers sit in shared memory,
 //                      __syncthreads() between colour steps.  For levels
 //                      whose four fields fit a block (the coarsest level
 //                      of every cell: 4^3, 32x32x2).
-//   relax_fused_step   one launch per colour step, one thread per column,
-//                      the buffers in device memory (larger levels).
+//   relax_step         one launch per colour step (larger levels).
 //
-// Bound on this card: at the coarsest level it is neither bytes nor
-// operations (the inputs are ~0.1 MB, read once) but the ncolor*nsweeps
-// serial colour steps and their barriers inside one launch; the one-block
-// form removes the ~100 torch launches per colour step of the plain
-// version.  The per-step form is memory-bound: each step reads the state,
-// b and the 8 bands (active and inactive columns alternate, so every cache
-// line is fetched although a half, a quarter or, for GS, all of the
-// columns solve), and writes the state and the multipliers.
+// Bound of the one-block form: neither bytes nor operations (the inputs
+// are ~0.1 MB, read once) but the ncolor*nsweeps serial colour steps and
+// their barriers inside one launch; it removes the ~100 torch launches per
+// colour step of the plain version.
+//
+// The per-step form is memory-bound: a step reads the operator rows of
+// its colour's columns (RB every sector of cA, since a sector holds both
+// colours; FC half the rows; GS all), the state and b, and writes the
+// solved columns.  Its design, per thing that held the first port back:
+//
+// - Inactive columns are left alone.  RB and FC copy p into out once per
+//   call and update the active columns of out in place: an active column
+//   reads only columns of the other colours (FC's never couple, not even
+//   through the plane-0 terms) and, at a domain edge, itself through the
+//   edge-copy halo (Clamped), which it reads before it writes.  The one
+//   same-colour coupling, RB's four plane-0 'real' diagonal terms, reads
+//   a snapshot of plane 0 taken before the step.  GS solves every column
+//   from the old state and keeps ping-pong.
+// - A thread per active column: RB's threads are its colour's columns
+//   only (no warp is half idle), FC launches only the rows of its
+//   colour's j-parity.
+// - The Thomas recurrence stays on chip: the forward values and the
+//   multipliers gam of a column live in shared memory, and out is written
+//   once, already committed as p + (sol - p).  The recurrence keeps its
+//   two IEEE divisions a plane (the plain version's arithmetic).
+// - Latency is hidden by asynchronous staging over k: each thread keeps
+//   the values plane k + 1 + kStepAhead needs in flight (cp.async,
+//   LDGSTS) into its own ring in shared memory while plane k is solved —
+//   its column's eight band values, the three of its j + 1 neighbour and
+//   the three of its i + 1 neighbour that the gather reads, b, and its
+//   four neighbours' state — so no load waits on the serial chain and no
+//   block barrier is needed.
 //
 // Rounding: built with -fmad=false and IEEE division, so every product,
 // sum and quotient rounds like the plain version's separate torch ops.
 //
 // Plain C interface (loaded with ctypes): the entry launches on the given
-// stream and returns cudaGetLastError().
+// stream and returns the first CUDA error code.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "stencil15.cuh"
 
@@ -74,9 +96,9 @@ __device__ __forceinline__ bool active(int kind, int c, int j, int i) {
     return true;
 }
 
-// One colour step of column (j, i): the active colour is solved from
-// `src` into `dst`, the other copied.  `gam` holds the Thomas multipliers
-// (nz - 1 per column, laid out like the state).
+// One colour step of column (j, i) in the one-block form: the active
+// colour is solved from `src` into `dst`, the other copied.  `gam` holds
+// the Thomas multipliers (nz - 1 per column, laid out like the state).
 template <typename T>
 __device__ __forceinline__ void column_step(const T* src, T* dst, const T* b,
                                             T* gam, const T* cA,
@@ -155,27 +177,228 @@ relax_fused_block(const T* __restrict__ p, const T* __restrict__ b,
     for (size_t o = threadIdx.x; o < n; o += blockDim.x) out[o] = src[o];
 }
 
-template <typename T>
-__global__ void relax_fused_step(const T* __restrict__ src,
-                                 T* __restrict__ dst,
-                                 const T* __restrict__ b,
-                                 T* __restrict__ gam,
-                                 const T* __restrict__ cA, Level g, int real,
-                                 int kind, int c) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const int j = blockIdx.y * blockDim.y + threadIdx.y;
-    if (i >= g.nx || j >= g.ny) return;
-    column_step(src, dst, b, gam, cA, g, real, kind, c, j, i);
+// ------------------------------------------------------- the step form
+
+constexpr int kStepThreads = 64;     // two warps: two rows of 32 columns
+constexpr int kStepAhead = 3;        // planes in flight beyond the next
+// a thread's ring: planes k - 1 .. k + 1 + kStepAhead
+constexpr int kStepStages = kStepAhead + 3;
+// the values of one plane in a thread's ring: the column's bands 0..7,
+// bands 2..4 of (j + 1, i), bands 5..7 of (j, i + 1), b, and the state of
+// (j - 1, i), (j + 1, i), (j, i - 1), (j, i + 1)
+constexpr int kOwn = 0, kSouth = 8, kEast = 11, kB = 14, kState = 15;
+constexpr int kStepVals = 19;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// one_block: relax_fused_block (out <- p after nsweeps; buf, gam unused);
-// else ncolor*nsweeps relax_fused_step launches through out and buf, the
-// last writing out.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "n"(sizeof(T))
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies of all but the newest kStepAhead groups landed
+__device__ __forceinline__ void cp_wait_ahead() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStepAhead)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// shared memory of a block of nt threads: the rings, then the forward
+// values and the multipliers of nz planes, value-major (a thread's own
+// values nt apart: no bank conflicts)
+template <typename T>
+size_t step_smem(int nz, int nt) {
+    return ((size_t)kStepStages * kStepVals + 2 * (size_t)nz) * nt
+           * sizeof(T);
+}
+
+// One colour step c of ordering KIND for one column per thread.  RB and
+// FC update `out` in place (`src` == out; `snap`: RB's plane-0 snapshot
+// for the 'real' diagonal terms); GS reads `src` and writes `out`.
+template <typename T, int KIND>
+__global__ void __launch_bounds__(kStepThreads)
+relax_step(const T* src, T* out, const T* __restrict__ b,
+           const T* __restrict__ cA, const T* snap, Level g, int real,
+           int c) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int nt = blockDim.x, tid = threadIdx.x;
+    const int m = blockIdx.x * 32 + tid % 32;
+    const int r = blockIdx.y * (nt / 32) + tid / 32;
+    // the column: RB (j + i + c) even; FC the rows of parity c % 2 and
+    // the columns of parity c / 2; GS every column
+    const int j = KIND == kFC ? 2 * r + (c & 1) : r;
+    const int i = KIND == kRB ? 2 * m + ((j + c) & 1)
+                              : (KIND == kFC ? 2 * m + (c >> 1) : m);
+    if (j >= g.ny || i >= g.nx) return;
+    const int nz = g.nz, nx = g.nx;
+    const size_t P = g.plane(), EP = g.eplane();
+    const size_t col = (size_t)j * nx + i;
+    T* const ring = reinterpret_cast<T*>(smem) + tid;
+    T* const xs = ring + (size_t)kStepStages * kStepVals * nt;
+    T* const gs = xs + (size_t)nz * nt;
+    auto slot = [&](int kk) -> T* {
+        return ring + (size_t)((kk + kStepStages) % kStepStages)
+                      * kStepVals * nt;
+    };
+    // the sources of a plane's values, plane 0 (Clamped's edge copy)
+    const T* own = cA + (size_t)(j + 1) * (nx + 2) + (i + 1);
+    const int jn = j > 0 ? j - 1 : 0, js = j < g.ny - 1 ? j + 1 : j;
+    const int iw = i > 0 ? i - 1 : 0, ie = i < nx - 1 ? i + 1 : i;
+    const size_t st[4] = {(size_t)jn * nx + i, (size_t)js * nx + i,
+                          (size_t)j * nx + iw, (size_t)j * nx + ie};
+    auto stage = [&](int kk) {
+        T* v = slot(kk);
+        if (kk < 0 || kk >= nz) {     // the zero planes of k +- 1 reads
+            if (kk < nz + 2)
+                for (int q = 0; q < kStepVals; ++q) v[q * nt] = T(0);
+            return;
+        }
+        const T* o = own + (size_t)kk * EP;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+            cp_async(v + (kOwn + n) * nt, o + (size_t)n * nz * EP);
+#pragma unroll
+        for (int n = 0; n < 3; ++n) {
+            cp_async(v + (kSouth + n) * nt,
+                     o + (size_t)(n + 2) * nz * EP + (nx + 2));
+            cp_async(v + (kEast + n) * nt, o + (size_t)(n + 5) * nz * EP + 1);
+        }
+        cp_async(v + kB * nt, b + (size_t)kk * P + col);
+        const T* sp = src + (size_t)kk * P;
+#pragma unroll
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            cp_async(v + (kState + q) * nt, sp + st[q]);
+    };
+    for (int kk = -1; kk <= kStepAhead; ++kk) {
+        stage(kk);
+        cp_commit();
+    }
+    T x = T(0), bet = T(0);
+    for (int k = 0; k < nz; ++k) {
+        stage(k + kStepAhead + 1);
+        cp_commit();
+        cp_wait_ahead();
+        const T* vm = slot(k - 1);
+        const T* v0 = slot(k);
+        const T* vp = slot(k + 1);
+        auto V = [&](const T* v, int q) -> T { return v[q * nt]; };
+        // stencil15.cuh offdiag, term for term (N, S, W, E: the state of
+        // (j - 1, i), (j + 1, i), (j, i - 1), (j, i + 1))
+        T s = V(v0, kOwn + 2) * V(vp, kState + 0);
+        s = s + V(vm, kSouth + 0) * V(vm, kState + 1);
+        s = s + V(v0, kOwn + 3) * V(v0, kState + 0);
+        s = s + V(v0, kSouth + 1) * V(v0, kState + 1);
+        s = s + V(v0, kOwn + 4) * V(vm, kState + 0);
+        s = s + V(vp, kSouth + 2) * V(vp, kState + 1);
+        s = s + V(v0, kOwn + 5) * V(vp, kState + 2);
+        s = s + V(vm, kEast + 0) * V(vm, kState + 3);
+        s = s + V(v0, kOwn + 6) * V(v0, kState + 2);
+        s = s + V(v0, kEast + 1) * V(v0, kState + 3);
+        s = s + V(v0, kOwn + 7) * V(vm, kState + 2);
+        s = s + V(vp, kEast + 2) * V(vp, kState + 3);
+        if (real && k == 0) {
+            // the plane-0 diagonal couplings: RB's join columns of its
+            // own colour, read from the snapshot of plane 0
+            const Clamped<T> d0{KIND == kRB ? snap : src, g};
+            T x0 = V(v0, kOwn + 4) * d0(0, j + 1, i - 1);
+            x0 = x0 + band(cA, g, 4, 0, j, i, -1, 1) * d0(0, j - 1, i + 1);
+            x0 = x0 + V(v0, kOwn + 7) * d0(0, j - 1, i - 1);
+            x0 = x0 + band(cA, g, 7, 0, j, i, 1, 1) * d0(0, j + 1, i + 1);
+            s = s + x0;
+        }
+        const T rhs = V(v0, kB) - s;
+        // ops/relax.tridiag: forward elimination
+        if (nz == 1) {
+            x = rhs / V(v0, kOwn + 0);
+        } else if (k == 0) {
+            bet = T(1) / V(v0, kOwn + 0);
+            x = rhs * bet;
+        } else {
+            const T dd = V(v0, kOwn + 1);    // ud(k-1) = cA2(k)
+            const T gm = dd * bet;
+            gs[(size_t)(k - 1) * nt] = gm;
+            bet = T(1) / (V(v0, kOwn + 0) - dd * gm);
+            x = (rhs - dd * x) * bet;
+        }
+        xs[(size_t)k * nt] = x;
+    }
+    cp_wait_all();
+    // the back substitution, each plane committed as p + (sol - p): the
+    // column's old values are read here, after its last staged read
+    for (int k = nz - 1; k >= 0; --k) {
+        if (k < nz - 1) x = xs[(size_t)k * nt] - gs[(size_t)k * nt] * x;
+        const size_t o = (size_t)k * P + col;
+        const T pk = src[o];
+        out[o] = pk + (x - pk);
+    }
+}
+
+template <typename T, int KIND>
+int launch_steps(const T* p, const T* b, const T* cA, T* out, T* scratch,
+                 const Level& g, int real, int nsweeps, cudaStream_t s) {
+    const void* kern = reinterpret_cast<const void*>(&relax_step<T, KIND>);
+    int nt = kStepThreads;
+    const size_t smem = step_smem<T>(g.nz, nt);
+    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const int ncolor = ncolors(KIND), nsteps = ncolor * nsweeps;
+    const size_t n = (size_t)g.nz * g.plane();
+    const int rows = nt / 32;
+    const int cols = KIND == kGS ? g.nx : (g.nx + 1) / 2;
+    const int nrows = KIND == kFC ? (g.ny + 1) / 2 : g.ny;
+    const dim3 grid((cols + 31) / 32, (nrows + rows - 1) / rows);
+    if (KIND == kGS) {
+        // ping-pong through out and scratch, the last step writing out
+        const T* src = p;
+        for (int step = 0; step < nsteps; ++step) {
+            T* dst = ((nsteps - 1 - step) % 2 == 0) ? out : scratch;
+            relax_step<T, KIND><<<grid, nt, smem, s>>>(src, dst, b, cA,
+                                                       nullptr, g, real, 0);
+            e = cudaGetLastError();
+            if (e != cudaSuccess) return (int)e;
+            src = dst;
+        }
+        return 0;
+    }
+    // RB, FC: p copied once, the active columns updated in place
+    e = cudaMemcpyAsync(out, p, n * sizeof(T), cudaMemcpyDeviceToDevice, s);
+    if (e != cudaSuccess) return (int)e;
+    for (int step = 0; step < nsteps; ++step) {
+        if (KIND == kRB && real) {
+            e = cudaMemcpyAsync(scratch, out, g.plane() * sizeof(T),
+                                cudaMemcpyDeviceToDevice, s);
+            if (e != cudaSuccess) return (int)e;
+        }
+        relax_step<T, KIND><<<grid, nt, smem, s>>>(out, out, b, cA, scratch,
+                                                   g, real, step % ncolor);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+}
+
+// one_block: relax_fused_block (out <- p after nsweeps; scratch unused);
+// else ncolor * nsweeps relax_step launches.  scratch: GS's second state
+// buffer (nz, ny, nx), RB's plane-0 snapshot (ny, nx), unused by FC.
 template <typename T>
 int launch_relax_fused(const void* p, const void* b, const void* cA,
-                       void* out, void* buf, void* gam, int nz, int ny,
-                       int nx, int real, int nsweeps, int kind,
-                       int one_block, void* stream) {
+                       void* out, void* scratch, int nz, int ny, int nx,
+                       int real, int nsweeps, int kind, int one_block,
+                       void* stream) {
     if (kind < kRB || kind > kGS) return (int)cudaErrorInvalidValue;
     const Level g{nz, ny, nx};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -195,22 +418,16 @@ int launch_relax_fused(const void* p, const void* b, const void* cA,
             nsweeps, kind);
         return (int)cudaGetLastError();
     }
-    const dim3 block(32, 8);
-    const dim3 grid((nx + block.x - 1) / block.x,
-                    (ny + block.y - 1) / block.y);
-    const int ncolor = ncolors(kind);
-    const int nsteps = ncolor * nsweeps;
-    const T* src = (const T*)p;
-    for (int step = 0; step < nsteps; ++step) {
-        T* dst = ((nsteps - 1 - step) % 2 == 0) ? (T*)out : (T*)buf;
-        relax_fused_step<T><<<grid, block, 0, s>>>(
-            src, dst, (const T*)b, (T*)gam, (const T*)cA, g, real, kind,
-            step % ncolor);
-        cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-        src = dst;
-    }
-    return 0;
+    const T* pt = (const T*)p;
+    const T* bt = (const T*)b;
+    const T* ct = (const T*)cA;
+    T* ot = (T*)out;
+    T* sc = (T*)scratch;
+    if (kind == kRB)
+        return launch_steps<T, kRB>(pt, bt, ct, ot, sc, g, real, nsweeps, s);
+    if (kind == kFC)
+        return launch_steps<T, kFC>(pt, bt, ct, ot, sc, g, real, nsweeps, s);
+    return launch_steps<T, kGS>(pt, bt, ct, ot, sc, g, real, nsweeps, s);
 }
 
 }  // namespace
@@ -218,18 +435,18 @@ int launch_relax_fused(const void* p, const void* b, const void* cA,
 extern "C" {
 
 int mg_relax_fused_f32(const void* p, const void* b, const void* cA,
-                       void* out, void* buf, void* gam, int nz, int ny,
-                       int nx, int real, int nsweeps, int kind,
-                       int one_block, void* stream) {
-    return launch_relax_fused<float>(p, b, cA, out, buf, gam, nz, ny, nx,
+                       void* out, void* scratch, int nz, int ny, int nx,
+                       int real, int nsweeps, int kind, int one_block,
+                       void* stream) {
+    return launch_relax_fused<float>(p, b, cA, out, scratch, nz, ny, nx,
                                      real, nsweeps, kind, one_block, stream);
 }
 
 int mg_relax_fused_f64(const void* p, const void* b, const void* cA,
-                       void* out, void* buf, void* gam, int nz, int ny,
-                       int nx, int real, int nsweeps, int kind,
-                       int one_block, void* stream) {
-    return launch_relax_fused<double>(p, b, cA, out, buf, gam, nz, ny, nx,
+                       void* out, void* scratch, int nz, int ny, int nx,
+                       int real, int nsweeps, int kind, int one_block,
+                       void* stream) {
+    return launch_relax_fused<double>(p, b, cA, out, scratch, nz, ny, nx,
                                       real, nsweeps, kind, one_block,
                                       stream);
 }

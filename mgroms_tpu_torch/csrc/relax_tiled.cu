@@ -1,6 +1,6 @@
 // Quad-parity red-black line-relaxation kernels for Hopper (sm_90a).
 //
-// Three kernels, one thread per (J, I) column of a target quad, looping
+// Two kernels, one thread per (J, I) column of a target quad, looping
 // over z.  They replace the Pallas TPU kernels of
 // mgroms_tpu/ops/pallas/relax_tiled.py and compute, term for term and in
 // the same operation order, what their plain torch versions in
@@ -8,7 +8,8 @@
 //
 //   color_update       <- relax_tiled.py:color_update_tiled (_kernel)
 //   color_update_emit  <- relax_tiled.py:color_update_tiled_emit (_kernel_emit)
-//   rr_zsum            <- relax_tiled.py:_rr_one (_rr_kernel)
+//
+// (K3, relax_tiled.py:_rr_one, is rr_fused.cu: all four targets a launch.)
 //
 // Bound: memory.  Per column and z-plane a kernel reads 12 operator blocks,
 // 12 state values (3 or 4 extended quads), the RHS and 1-3 pivot/diagonal
@@ -21,8 +22,8 @@
 //
 // K1 also reads the low-precision smoother operator (cfg.fused_bands_bf16):
 // bfloat16 blocks, upcast at read (exact), the compute in float32 — half
-// the bytes of the dominant block stream.  K2 and K3 are residual paths and
-// read only full-precision blocks.
+// the bytes of the dominant block stream.  K2 is a residual path and reads
+// only full-precision blocks.
 //
 // Rounding: built with -fmad=false, so every product and sum rounds on its
 // own like the separate torch ops of the plain versions (0 ulp apart).
@@ -137,47 +138,6 @@ __global__ void color_update_kernel(const T* __restrict__ e0,
     }
 }
 
-// K3: the fresh 16-term residual of one target quad, written only as its
-// z-pair sums r_{2K} + r_{2K+1} (the target's share of the coarse RHS).
-template <typename T>
-__global__ void rr_zsum_kernel(const T* __restrict__ e0,
-                               const T* __restrict__ e1,
-                               const T* __restrict__ e2,
-                               const T* __restrict__ e3,
-                               const T* __restrict__ blocks,
-                               const T* __restrict__ rb,
-                               const T* __restrict__ d,
-                               const T* __restrict__ ud,
-                               const T* __restrict__ bq,
-                               T* __restrict__ out,
-                               Geom g, int real, int own, Terms tt) {
-    const int I = blockIdx.x * blockDim.x + threadIdx.x;
-    const int J = blockIdx.y * blockDim.y + threadIdx.y;
-    if (I >= g.W || J >= g.H) return;
-    const T* eq[4] = {e0, e1, e2, e3};
-    const T* pq = eq[own] + (size_t)(J + 1) * (g.W + 2) + (I + 1);
-    const size_t P = g.plane();
-    const size_t EP = g.eplane();
-    const size_t c = (size_t)J * g.W + I;
-
-    T r_even = T(0);
-    for (int k = 0; k < g.nz; ++k) {
-        const size_t o = (size_t)k * P + c;
-        T p = pq[(size_t)k * EP];
-        T lo = k > 0 ? ud[o - P] : T(0);
-        T pm = k > 0 ? pq[(size_t)(k - 1) * EP] : T(0);
-        T hi = k < g.nz - 1 ? ud[o] : T(0);
-        T pp = k < g.nz - 1 ? pq[(size_t)(k + 1) * EP] : T(0);
-        T r = bq[o] - d[o] * p - lo * pm - hi * pp
-              - gather(eq, blocks, rb, real, tt, k, J, I, g);
-        if (k & 1) {
-            out[(size_t)(k / 2) * P + c] = r_even + r;
-        } else {
-            r_even = r;
-        }
-    }
-}
-
 dim3 grid_for(int H, int W, dim3 block) {
     return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
 }
@@ -211,21 +171,6 @@ int launch_color_update(const void* e0, const void* e1, const void* e2,
                 : launch_color_update<T, T, false>(
                       e0, e1, e2, blocks, rb, ud, bet, bq, d, out, res, nz,
                       H, W, real, tt, stream);
-}
-
-template <typename T>
-int launch_rr_zsum(const void* e0, const void* e1, const void* e2,
-                   const void* e3, const void* blocks, const void* rb,
-                   const void* d, const void* ud, const void* bq, void* out,
-                   int nz, int H, int W, int real, int own, const Terms* tt,
-                   void* stream) {
-    Geom g{nz, H, W};
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    rr_zsum_kernel<T><<<grid_for(H, W, kBlock), kBlock, 0, s>>>(
-        (const T*)e0, (const T*)e1, (const T*)e2, (const T*)e3,
-        (const T*)blocks, (const T*)rb, (const T*)d, (const T*)ud,
-        (const T*)bq, (T*)out, g, real, own, *tt);
-    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -263,24 +208,6 @@ int mg_color_update_bf16(const void* e0, const void* e1, const void* e2,
     return launch_color_update<float, __nv_bfloat16, false>(
         e0, e1, e2, blocks, rb, ud, bet, bq, d, out, res, nz, H, W, real, tt,
         stream);
-}
-
-int mg_rr_zsum_f32(const void* e0, const void* e1, const void* e2,
-                   const void* e3, const void* blocks, const void* rb,
-                   const void* d, const void* ud, const void* bq, void* out,
-                   int nz, int H, int W, int real, int own, const Terms* tt,
-                   void* stream) {
-    return launch_rr_zsum<float>(e0, e1, e2, e3, blocks, rb, d, ud, bq, out,
-                                 nz, H, W, real, own, tt, stream);
-}
-
-int mg_rr_zsum_f64(const void* e0, const void* e1, const void* e2,
-                   const void* e3, const void* blocks, const void* rb,
-                   const void* d, const void* ud, const void* bq, void* out,
-                   int nz, int H, int W, int real, int own, const Terms* tt,
-                   void* stream) {
-    return launch_rr_zsum<double>(e0, e1, e2, e3, blocks, rb, d, ud, bq, out,
-                                  nz, H, W, real, own, tt, stream);
 }
 
 }  // extern "C"

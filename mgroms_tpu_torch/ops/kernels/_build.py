@@ -70,14 +70,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [p] + [i] * 4 + [p]
         fn.restype = i
     for dt in ("f32", "f64"):
-        fn = getattr(lib, f"mg_rr_zsum_{dt}")
-        # e0 e1 e2 e3 blocks rb d ud bq out | nz H W real own | terms stream
-        fn.argtypes = [p] * 10 + [i] * 5 + [p, p]
+        fn = getattr(lib, f"mg_rr_{dt}")
+        # RRArgs* | nz H W real mask mode bands | stream
+        fn.argtypes = [p] + [i] * 7 + [p]
         fn.restype = i
         fn = getattr(lib, f"mg_relax_fused_{dt}")
-        # p b cA out buf gam | nz ny nx real nsweeps kind one_block |
+        # p b cA out scratch | nz ny nx real nsweeps kind one_block |
         # stream
-        fn.argtypes = [p] * 6 + [i] * 7 + [p]
+        fn.argtypes = [p] * 5 + [i] * 7 + [p]
         fn.restype = i
         fn = getattr(lib, f"mg_residual_{dt}")
         # pe b cA r | nz ny nx real | stream

@@ -11,7 +11,9 @@ column-Jacobi GS), each committing ``p + mask * (sol - p)``.  The kernel
                         shared memory (levels whose four fields fit
                         ``ONE_BLOCK_BYTES``: the coarsest level of every
                         cell);
-  ``fused_relax_step``  one launch per colour step (larger levels).
+  ``fused_relax_step``  one launch per colour step (larger levels), a
+                        thread per column of the step's colour; RB and FC
+                        update a copy of ``p`` in place, GS ping-pongs.
 
 ``LAUNCHES`` counts the kernel launches of each form and ordering under
 the names of :data:`KINDS`: RB under the form's name, FC and GS under it
@@ -79,6 +81,17 @@ def fused_relax_plain(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
                            extend_fn=extend_h1)
 
 
+def _step_scratch(p, kind: str, real_matrix: bool):
+    """The per-step form's scratch: GS's second state buffer; RB's
+    snapshot of plane 0 before each step (the 'real' diagonal couplings
+    join its own colour's columns); FC none (it updates in place)."""
+    if kind == "GS":
+        return torch.empty_like(p)
+    if kind == "RB" and real_matrix:
+        return torch.empty_like(p[0])
+    return None
+
+
 def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
     """``nsweeps`` line-relaxation sweeps of ordering ``kind`` ('RB',
     'FC' or 'GS') of a whole level (K6): ``p``, ``b`` interior
@@ -97,15 +110,14 @@ def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
         return p
     single = one_block(p)
     out = torch.empty_like(p)
-    buf = None if single else torch.empty_like(p)
-    gam = None if single else torch.empty_like(p)
+    scratch = None if single else _step_scratch(p, kind, real_matrix)
     lib = _build.load()
     fn = (lib.mg_relax_fused_f32 if p.dtype == torch.float32
           else lib.mg_relax_fused_f64)
     with torch.cuda.device(p.device):
-        rc = fn(ptr(p), ptr(b), ptr(cA), ptr(out), ptr(buf), ptr(gam), nz,
-                ny, nx, int(real_matrix), nsweeps, KINDS[kind].code,
-                int(single), torch.cuda.current_stream().cuda_stream)
+        rc = fn(ptr(p), ptr(b), ptr(cA), ptr(out), ptr(scratch), nz, ny, nx,
+                int(real_matrix), nsweeps, KINDS[kind].code, int(single),
+                torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "fused_relax")
     LAUNCHES[launch_name(p, kind)] += (1 if single
                                        else KINDS[kind].ncolor * nsweeps)

@@ -1,20 +1,32 @@
-"""The quad-parity smoother's three hand-written CUDA kernels, their plain
-torch versions, and the orchestration that runs them.
+"""The quad-parity smoother's hand-written CUDA kernels, their plain torch
+versions, and the orchestration that runs them.
 
-Port of ``mgroms_tpu/ops/pallas/relax_tiled.py``.  The kernels
-(``csrc/relax_tiled.cu``, one thread per column of a target quad) replace:
+Port of ``mgroms_tpu/ops/pallas/relax_tiled.py``.  The kernels replace:
 
   ``color_update``       <- ``color_update_tiled``      (relax_tiled.py:147)
   ``color_update_emit``  <- ``color_update_tiled_emit`` (relax_tiled.py:247)
-  ``rr_zsum``            <- ``_rr_one``                 (relax_tiled.py:340)
+  ``residual_restrict``  <- ``_rr_one`` on every target (relax_tiled.py:340,
+                            via residual_restrict_tiled_quads :426)
+
+K1 and K2 (``csrc/relax_tiled.cu``) take one thread per column of one
+target quad and read the gather blocks.  K3 (``csrc/rr_fused.cu``) takes
+all four target quads of a level in one launch and reads the operator in
+the layout the level holds it: the band stack (``pack.ebands``) or the
+gather blocks.  It has three modes: the coarse RHS restrict(b - A p), the
+z-pair sums of chosen targets (the fused down-leg's fresh colour), and the
+residual quads themselves (``residual_quads``, the level-0 residual of the
+K4 levels, whose JAX counterpart is relax_compact.residual_quads:615, XLA
+glue there).
 
 Each wrapper runs its plain version (written with ops/relax_compact.py)
 for tensors on the CPU only; for a CUDA tensor it checks device, dtype,
 shape and contiguity, launches the kernel or raises.  ``LAUNCHES`` counts
 kernel launches per wrapper (``color_update_bf16``: K1 on the
-low-precision smoother operator, bfloat16 blocks beside float32 state).
-The TPU kernels' row tiles, VMEM budgets and Element windows have no
-counterpart here: the kernels take any ``nz >= 2`` and any H, W.
+low-precision smoother operator, bfloat16 blocks beside float32 state;
+``residual_restrict``: K3 in its coarse-RHS and z-pair modes,
+``residual_quads``: K3 in its residual mode).  The TPU kernels' row tiles,
+VMEM budgets and Element windows have no counterpart here: the kernels
+take any ``nz >= 2`` and any H, W.
 """
 
 from __future__ import annotations
@@ -26,17 +38,22 @@ import torch
 from ..relax import thomas_factored_unrolled
 from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
-from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS,
-                             CompactPack, _residual_one_core, colour_targets,
-                             extend_quads,
-                             gather_blocks, gather_keys, merge_quads,
-                             relax_residual_compact_quads,
+from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
+                             CompactPack, _residual_one, band_layout,
+                             check_band_stack, colour_targets, extend_quads,
+                             gather_blocks, gather_keys, key_views,
+                             merge_quads, relax_residual_compact_quads,
                              relax_residual_restrict_compact_quads,
-                             key_views, residual_from_gather,
-                             smoother_operator, split_quads)
+                             residual_from_gather, smoother_operator,
+                             split_quads)
 
 LAUNCHES = {"color_update": 0, "color_update_bf16": 0,
-            "color_update_emit": 0, "rr_zsum": 0}
+            "color_update_emit": 0, "residual_restrict": 0,
+            "residual_quads": 0}
+
+# K3's modes (csrc/rr_fused.cu): the coarse RHS of all four targets, the
+# z-pair sums of chosen targets, the residual of chosen targets
+RR_MODES = {"coarse": 0, "zsum": 1, "residual": 2}
 
 _NKEYS = len(gather_keys(False))
 
@@ -108,12 +125,23 @@ def color_update_emit_plain(e3, bq, blocks_w, ud, bet, d, target,
     return sol, residual_from_gather(bq, sol, d, ud, g)
 
 
-def rr_zsum_plain(e4, bq, blocks_w, d, ud, target, real_matrix, rb=None):
-    """The fresh residual of one target quad from the 4 extended quads
-    ``e4`` (``_TKEYS`` order), as z-pair sums (nz/2, H, W)."""
-    r = _residual_one_core(dict(zip(_TKEYS, e4)), bq, d, ud,
-                           key_views(blocks_w, rb), target, real_matrix)
-    return r[0::2] + r[1::2]
+def residual_restrict_plain(e4, bq, pack: CompactPack, mode="coarse",
+                            targets=_TKEYS):
+    """The fresh residual of ``targets`` from the 4 extended quads ``e4``
+    (``_TKEYS`` order) with the pack's true operator in its own layout
+    (relax_compact.block_views), as ``mode`` gives it: ``"residual"``
+    {target: (nz, H, W)}; ``"zsum"`` {target: its z-pair sums (nz/2, H,
+    W)}; ``"coarse"`` the four targets' z-pair sums added in the order of
+    transfer.restrict_3d, (zs00 + zs10) + (zs01 + zs11): the coarse RHS."""
+    e = dict(zip(_TKEYS, e4))
+    r = {t: _residual_one(e, bq[t], pack, _TKEYS.index(t), t,
+                          pack.real_matrix) for t in targets}
+    if mode == "residual":
+        return r
+    zs = {t: x[0::2] + x[1::2] for t, x in r.items()}
+    if mode == "zsum":
+        return zs
+    return (zs[(0, 0)] + zs[(1, 0)]) + (zs[(0, 1)] + zs[(1, 1)])
 
 
 # ------------------------------------------------------------- wrappers
@@ -198,36 +226,85 @@ def color_update_emit(e3, bq, blocks_w, ud, bet, d, target, real_matrix,
     return out, res
 
 
-def rr_zsum(e4, bq, blocks_w, d, ud, target, real_matrix, rb=None):
-    """Fresh residual of one target quad as z-pair sums (K3): ``e4`` the
-    4 extended quads in ``_TKEYS`` order.  Returns (nz/2, H, W)."""
-    if on_cpu(bq):
-        return rr_zsum_plain(e4, bq, blocks_w, d, ud, target, real_matrix,
-                             rb)
-    nz, H, W = _geometry(bq, real_matrix, rb)
-    if nz % 2:
-        raise ValueError("rr_zsum needs even nz")
-    sh = _shapes(nz, H, W, real_matrix)
-    named = {"bq": bq, "blocks": blocks_w, "d": d, "ud": ud}
-    named.update({f"e{i}": x for i, x in enumerate(e4)})
-    sh.update({f"e{i}": sh["e"] for i in range(4)})
-    if real_matrix:
-        named["rb"] = rb
-    check_tensors(named, sh, bq.dtype, bq.device)
-    out = bq.new_empty((nz // 2, H, W))
-    lib = _build.load()
-    fn = lib.mg_rr_zsum_f32 if bq.dtype == torch.float32 \
-        else lib.mg_rr_zsum_f64
-    tt = _terms(target, _TKEYS)
-    with torch.cuda.device(bq.device):
-        rc = fn(*(ptr(x) for x in e4), ptr(blocks_w), ptr(rb), ptr(d),
-                ptr(ud), ptr(bq), ptr(out), nz, H, W, int(real_matrix),
-                _TKEYS.index(tuple(target)), ctypes.addressof(tt),
-                torch.cuda.current_stream().cuda_stream)
-    check_launch(rc, "rr_zsum")
-    LAUNCHES["rr_zsum"] += 1
-    return out
+class _RRArgs(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_void_p * 4)
+                for f in ("e", "bq", "d", "ud", "out", "blocks", "rb")] \
+        + [("band", ctypes.c_void_p)]
 
+
+def rr_operator(pack: CompactPack) -> str:
+    """The layout K3 reads a level's true operator in: ``"bands"`` where
+    the pack holds the band stack, else ``"blocks"``."""
+    return "bands" if pack.ebands is not None else "blocks"
+
+
+def residual_restrict(e4, bq, pack: CompactPack, mode="coarse",
+                      targets=_TKEYS):
+    """K3: the fresh residual of ``targets`` (all four for ``"coarse"``)
+    of a quad-parity level in one launch, from its 4 extended quads ``e4``
+    ((nz, H+2, W+2) each, ``_TKEYS`` order) and RHS quads ``bq``
+    (``_TKEYS``-keyed), the operator read as :func:`rr_operator` says;
+    returns what :func:`residual_restrict_plain` returns."""
+    if on_cpu(e4[0]):
+        return residual_restrict_plain(e4, bq, pack, mode, targets)
+    targets = tuple(targets)
+    if mode == "coarse" and sorted(targets) != sorted(_TKEYS):
+        raise ValueError("the coarse RHS needs all four targets")
+    q0 = bq[(0, 0)]
+    nz, H, W = q0.shape
+    if nz < 2 or (mode != "residual" and nz % 2):
+        raise ValueError(f"K3 mode {mode!r} needs nz >= 2"
+                         + ("" if mode == "residual" else ", even"))
+    real = pack.real_matrix
+    named, shapes = {}, {}
+    for m, t in enumerate(_TKEYS):
+        for f, (x, shape) in {"e": (e4[m], (nz, H + 2, W + 2)),
+                              "bq": (bq[t], (nz, H, W)),
+                              "d": (pack.d[m], (nz, H, W)),
+                              "ud": (pack.ud[m], (nz - 1, H, W))}.items():
+            named[f"{f}{t}"], shapes[f"{f}{t}"] = x, shape
+    layout = rr_operator(pack)
+    band = None
+    if layout == "bands":
+        check_band_stack(pack.ebands, (NBANDS, nz + 2, H + 2, W + 2),
+                         q0.dtype, q0.device)
+        lpad, _ = band_layout(W, pack.ebands.element_size())
+        band = pack.ebands.data_ptr() - lpad * pack.ebands.element_size()
+    else:
+        if pack.blocks is None or (real and pack.rblocks is None):
+            raise ValueError("the pack holds neither the band stack nor "
+                             "its gather blocks" + (" and 'real' pairs"
+                                                    if real else ""))
+        for m, t in enumerate(_TKEYS):
+            named[f"blocks{t}"] = pack.blocks[m]
+            shapes[f"blocks{t}"] = (nz, H, _NKEYS * W)
+            if real:
+                named[f"rb{t}"] = pack.rblocks[m]
+                shapes[f"rb{t}"] = (1, H, 2 * W)
+    check_tensors(named, shapes, q0.dtype, q0.device)
+    if mode == "coarse":
+        out = q0.new_empty((nz // 2, H, W))
+        outs = [out, None, None, None]
+    else:
+        shape = (nz // 2, H, W) if mode == "zsum" else (nz, H, W)
+        out = {t: q0.new_empty(shape) for t in targets}
+        outs = [out.get(t) for t in _TKEYS]
+    arr = lambda xs: (ctypes.c_void_p * 4)(*(ptr(x) for x in xs))
+    blocks = pack.blocks if layout == "blocks" else (None,) * 4
+    rbs = pack.rblocks if layout == "blocks" and real else (None,) * 4
+    args = _RRArgs(arr(e4), arr([bq[t] for t in _TKEYS]), arr(pack.d),
+                   arr(pack.ud), arr(outs), arr(blocks), arr(rbs), band)
+    mask = sum(1 << _TKEYS.index(t) for t in targets)
+    lib = _build.load()
+    fn = lib.mg_rr_f32 if q0.dtype == torch.float32 else lib.mg_rr_f64
+    with torch.cuda.device(q0.device):
+        rc = fn(ctypes.byref(args), nz, H, W, int(real), mask,
+                RR_MODES[mode], int(layout == "bands"),
+                torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "residual_restrict")
+    LAUNCHES["residual_quads" if mode == "residual"
+             else "residual_restrict"] += 1
+    return out
 
 
 # --------------------------------------------------------- orchestration
@@ -297,10 +374,9 @@ def _tiled_fused_parts(bq, pack: CompactPack, extend_fn=None):
                                     pack.bet[m], t, real, _rb(pack, m))
         return q, info
 
-    def rr_fn(e2, t):
-        m = ti[t]
-        return rr_zsum(tuple(e2[k] for k in _TKEYS), bq[t], pack.blocks[m],
-                       pack.d[m], pack.ud[m], t, real, _rb(pack, m))
+    def rr_fn(e2, targets):
+        return residual_restrict(tuple(e2[k] for k in _TKEYS), bq, pack,
+                                 "zsum", targets)
 
     return sweep_fn, color_update_fn, rr_fn
 
@@ -320,7 +396,8 @@ def relax_residual_restrict_tiled_quads(q0, bq, pack: CompactPack,
                                         nsweeps: int, extend_fn=None):
     """The V-cycle down-leg: ``nsweeps`` RB sweeps + restrict(b - A p), the
     last colour's residual from :func:`color_update_emit`, the first
-    colour's from :func:`rr_zsum`.  Returns ``(q, coarse_b)``."""
+    colour's z-pair sums from one :func:`residual_restrict` launch.
+    Returns ``(q, coarse_b)``."""
     sweep_fn, color_update_fn, rr_fn = _tiled_fused_parts(bq, pack,
                                                           extend_fn)
     return relax_residual_restrict_compact_quads(
@@ -330,13 +407,17 @@ def relax_residual_restrict_tiled_quads(q0, bq, pack: CompactPack,
 
 def residual_restrict_tiled_quads(q, bq, pack: CompactPack,
                                   extend_fn=None) -> torch.Tensor:
-    """Coarse b = restrict(b - A p) with :func:`rr_zsum` on all four
-    targets (the fine residual is never materialized); the four z-pair
-    sums at (J, I) are the 8 children of coarse cell (K, J, I)."""
+    """Coarse b = restrict(b - A p) by one :func:`residual_restrict`
+    launch on all four targets (the fine residual is never materialized);
+    the four z-pair sums at (J, I) are the 8 children of coarse cell
+    (K, J, I)."""
     e = (extend_fn or extend_quads)(q)
-    e4 = tuple(e[k] for k in _TKEYS)
-    zs = {}
-    for m, t in enumerate(_TKEYS):
-        zs[t] = rr_zsum(e4, bq[t], pack.blocks[m], pack.d[m], pack.ud[m], t,
-                        pack.real_matrix, _rb(pack, m))
-    return (zs[(0, 0)] + zs[(1, 0)]) + (zs[(0, 1)] + zs[(1, 1)])
+    return residual_restrict(tuple(e[k] for k in _TKEYS), bq, pack)
+
+
+def residual_tiled_quads(q, bq, pack: CompactPack, extend_fn=None) -> dict:
+    """r = b - A p in quad layout (relax_compact.residual_quads) by one
+    :func:`residual_restrict` launch in its residual mode."""
+    e = (extend_fn or extend_quads)(q)
+    return residual_restrict(tuple(e[k] for k in _TKEYS), bq, pack,
+                             "residual")

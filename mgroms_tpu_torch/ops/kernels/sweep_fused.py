@@ -37,7 +37,8 @@ from ._build import check_launch, check_tensors, on_cpu, ptr
 from .relax_tiled import term_table
 from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
                              CompactPack, band_index, band_layout,
-                             relax_compact_quads, smoother_operator)
+                             check_band_stack, relax_compact_quads,
+                             smoother_operator)
 
 LAUNCHES = {"relax_fused_sweep": 0, "relax_fused_sweep_bf16": 0}
 
@@ -102,32 +103,6 @@ def compiled_term_table(target) -> list:
     return [tuple(out[8 * m:8 * m + 8]) for m in range(16)]
 
 
-def _check_stack(ebands, shape, dtype, device) -> None:
-    """The band stack is a view of rows of relax_compact.band_layout's
-    pitch over storage that holds every row whole (the kernel stages
-    aligned spans from the storage)."""
-    if not isinstance(ebands, torch.Tensor):
-        raise ValueError("the band stack must be one tensor "
-                         "(relax_compact.band_quads)")
-    if (ebands.dtype != dtype or ebands.device != device
-            or tuple(ebands.shape) != shape):
-        raise ValueError(f"band stack: {ebands.dtype} {tuple(ebands.shape)}"
-                         f" on {ebands.device}, expected {dtype} {shape} on "
-                         f"{device}")
-    isz = ebands.element_size()
-    lpad, pitch = band_layout(shape[3] - 2, isz)
-    rows = shape[0] * shape[1] * shape[2]
-    start = ebands.storage_offset() - lpad
-    if (ebands.stride() != (shape[1] * shape[2] * pitch, shape[2] * pitch,
-                            pitch, 1)
-            or start < 0 or (ebands.data_ptr() - lpad * isz) % 16
-            or ebands.untyped_storage().nbytes() < (start + rows * pitch) * isz
-            or rows * pitch >= 2 ** 32):
-        raise ValueError("the band stack must be a view of 16-byte aligned "
-                         "rows of relax_compact.band_layout's pitch, under "
-                         "2**32 values (relax_compact.band_quads)")
-
-
 def _launch(q, bq, pack: CompactPack):
     """One K4 launch: the four new quads of one sweep of ``q``."""
     q0 = q[(0, 0)]
@@ -135,7 +110,7 @@ def _launch(q, bq, pack: CompactPack):
     if nz < 2:
         raise ValueError("the sweep kernel needs nz >= 2")
     ebands, bet, band = sweep_bands(pack, q0.dtype)
-    _check_stack(ebands, (NBANDS, nz + 2, H + 2, W + 2), band, q0.device)
+    check_band_stack(ebands, (NBANDS, nz + 2, H + 2, W + 2), band, q0.device)
     named, shapes = {}, {}
     for m, t in enumerate(_TKEYS):
         for f, (x, shape) in {"q": (q[t], (nz, H, W)),

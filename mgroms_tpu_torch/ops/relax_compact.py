@@ -15,13 +15,16 @@ slice of one extended quad (:func:`_qread`).  Quad halos (the mirror ring
 of bc.extend_h1) come from sibling quads (:func:`extend_quads`).
 
 The low-precision smoother operator (``cfg.fused_bands_bf16``) is
-:func:`attach_lp`: the gather blocks rounded to bfloat16 beside
+:func:`attach_lp`: the gather operator rounded to bfloat16 beside
 row-sum-consistent Thomas pivots (:func:`consistent_pivots`), read by
 every smoothing path, plain or kernel, through :func:`smoother_operator`;
-residual paths keep the full-precision blocks.  The colour-fused sweep's
-kernel reads the operator as its 24 halo-extended band quads instead
-(:func:`band_quads`, :func:`attach_bands`: ``pack.ebands``, or
-``pack.lp.ebands`` rounded as the blocks are).
+residual paths keep the full-precision operator.  The operator comes in
+one of two layouts: the 48 per-target gather blocks (``pack.blocks``,
+:func:`build_compact_pack`), or the 24 halo-extended band quads that
+hold the same values once (:func:`band_quads`, ``pack.ebands``), which
+the colour-fused sweep and the residual kernels read; a level with the
+band stack (:func:`build_band_pack`) holds no gather blocks, and its
+plain paths slice the stack (:func:`band_views`).
 
 Orderings: 'RB' (two colours, each two target quads solved as one
 x-concatenated system) and 'FC' (four colours, one target quad each, the
@@ -197,35 +200,50 @@ def real_only_keys() -> tuple:
 class LowPrecision(NamedTuple):
     """The low-precision smoother operator of a pack (:func:`attach_lp`),
     per target quad in ``_TKEYS`` order: the gather blocks and the 'real'
-    pair in bfloat16, and the Thomas pivots ``bet`` of the rounded
-    operator (state dtype)."""
+    pair in bfloat16 (None on a band-stack level), the Thomas pivots
+    ``bet`` of the rounded operator (state dtype), and the band stack in
+    bfloat16 where the pack has one."""
 
-    blocks: tuple    # per target: (nz, H, 12*W) bfloat16
+    blocks: object   # per target: (nz, H, 12*W) bfloat16, or None
     rblocks: object  # per target: (1, H, 2*W) bfloat16, None unless 'real'
     bet: tuple       # per target: (nz, H, W)
     ebands: object = None   # band_quads in bfloat16, or None
 
 
 class CompactPack(NamedTuple):
-    """Per-level smoother operator in quad-gather layout.  Every field is a
-    tuple over target quads (``_TKEYS`` order) of contiguous tensors.
+    """Per-level smoother operator in quad-gather layout.  Every field but
+    ``ebands`` is a tuple over target quads (``_TKEYS`` order) of
+    contiguous tensors.
 
-    ``blocks[m]`` holds the 12 base gather blocks of target m side by side
-    in one (nz, H, 12*W) array, in ``gather_keys(False)`` order; the two
-    real-only keys live in ``rblocks[m]`` (1, H, 2*W) as their k=1 plane
-    (the only plane read, mg_relax.f90:271-276), None unless 'real'.
+    The gather operator is held in one of two layouts:
+
+    - ``blocks[m]``: the 12 base gather blocks of target m side by side in
+      one (nz, H, 12*W) array, in ``gather_keys(False)`` order; the two
+      real-only keys live in ``rblocks[m]`` (1, H, 2*W) as their k=1
+      plane (the only plane read, mg_relax.f90:271-276), None unless
+      'real'.  The levels smoothed by K1 and the tiles of a distributed
+      level have them (:func:`build_compact_pack`): K1 and K2 read only
+      them, and a tile's halo is the seam exchange, not the stack's.
+    - ``ebands``: the 24 halo-extended band quads (:func:`band_quads`),
+      each value once where the blocks hold it twice.  The levels the
+      colour-fused sweep K4 smooths have only it (:func:`build_band_pack`,
+      blocks and rblocks None): K4, the residual + restriction kernel and
+      the plain versions (through :func:`band_views`) read it, and the
+      48 blocks (+3.2 GB at CUC level 0 in float32) are not built.
+      :func:`attach_bands` adds it beside the blocks.
+
     ``bet`` holds the precomputed reciprocal Thomas pivots (ops/relax.
     thomas_factor; the back-substitution multipliers ud*bet are recomputed
     where used, as the kernels do); ``d``/``ud`` the in-column diagonal and
     off-diagonal.  ``lp`` holds the low-precision smoother operator
-    (:class:`LowPrecision`, :func:`attach_lp`) or None.  ``ebands``
-    holds the same operator as the 24 halo-extended band quads that the
-    colour-fused sweep's kernel reads (:func:`band_quads`,
-    :func:`attach_bands`) or None; it is a field of the levels that
-    kernel smooths, as the JAX package's ``pack.sweep`` is.
+    (:class:`LowPrecision`, :func:`attach_lp`) or None: in the layout of
+    the pack's own operator (its ``blocks`` or its ``ebands`` rounded), and
+    always its pivots.  On a K4 level in perf mode the pack therefore holds
+    the band stack twice, in float32 (residuals need the true operator)
+    and in bfloat16 (``lp.ebands``, the smoother's).
     """
 
-    blocks: tuple    # per target: (nz, H, 12*W)
+    blocks: object   # per target: (nz, H, 12*W), or None
     d: tuple         # per target: (nz, H, W)
     ud: tuple        # per target: (nz-1, H, W)
     bet: tuple       # per target: (nz, H, W)
@@ -253,37 +271,63 @@ def key_views(blocks_w: torch.Tensor, rb=None) -> tuple:
     return base + (rb[:, :, :W], rb[:, :, W:])
 
 
+def band_views(ebands: torch.Tensor, m: int, real_matrix: bool) -> tuple:
+    """Per-key (nz, H, W) views of target ``m``'s gather operator in
+    gather_keys(real) order, sliced out of the band stack ``ebands``
+    (24, nz+2, H+2, W+2): key (n, (bk, bj, bi)) of target (a, b) is band
+    quad (n, ((a+bj)%2, (b+bi)%2)) at planes 1+bk .. nz+bk (the stack's
+    zero end planes are _kshift's padding), shifted in rows and columns
+    by the index algebra of :func:`_qread` — the values and shape of the
+    gather block :func:`build_compact_pack` cuts.  The real-only keys are
+    plane 0 only, as ``rblocks``' halves."""
+    a, b = _TKEYS[m]
+    nz, H, W = (s - 2 for s in ebands.shape[1:])
+    views = []
+    for n, (bk, bj, bi) in gather_keys(real_matrix):
+        a2, b2 = (a + bj) % 2, (b + bi) % 2
+        rj, ri = (a + bj - a2) // 2, (b + bi - b2) // 2
+        views.append(ebands[band_index(n, (a2, b2)), 1 + bk:1 + bk + nz,
+                            1 + rj:1 + rj + H, 1 + ri:1 + ri + W])
+    nbase = len(gather_keys(False))
+    return tuple(views[:nbase]) + tuple(v[:1] for v in views[nbase:])
+
+
 def block_views(pack: CompactPack, m: int, lp: bool = False) -> tuple:
-    """Per-key block views of target ``m`` in gather_keys(real) order;
-    ``lp`` selects the low-precision smoother copies (``pack.lp``)."""
+    """Per-key operator views of target ``m`` in gather_keys(real) order:
+    the gather blocks, or slices of the band stack on a level without
+    them (:func:`band_views`); ``lp`` selects the low-precision smoother
+    copies (``pack.lp``)."""
     src = pack.lp if lp else pack
+    if src.blocks is None:
+        return band_views(src.ebands, m, pack.real_matrix)
     return key_views(src.blocks[m],
                      src.rblocks[m] if pack.real_matrix else None)
 
 
 def smoother_operator(pack: CompactPack, dtype):
     """``(blocks, rblocks, bet, block dtype)`` the smoother uses, per target
-    in ``_TKEYS`` order, for state of type ``dtype``: the low-precision
-    consistent operator (bfloat16 blocks, float32 state) when the pack has
-    one, else the full-precision one.  Blocks of another type than the
+    in ``_TKEYS`` order (blocks and rblocks None on a band-stack level:
+    :func:`block_views` reads its stack), for state of type ``dtype``: the
+    low-precision consistent operator (bfloat16, float32 state) when the
+    pack has one, else the full-precision one.  Blocks of another type than the
     state come only with their consistent pivots, in ``pack.lp``: the
     full-precision pivots with rounded blocks break the operator's row
     sums (:func:`consistent_pivots`).  Residual paths never use this (they
     need the true A)."""
     lp = pack.lp
     if lp is None:
-        blocks, rblocks, bet, band = (pack.blocks, pack.rblocks, pack.bet,
-                                      dtype)
+        src, band = pack, dtype
     elif dtype != torch.float32:
         raise ValueError(f"low-precision blocks need float32 state, got "
                          f"{dtype}")
     else:
-        blocks, rblocks, bet, band = (lp.blocks, lp.rblocks, lp.bet,
-                                      torch.bfloat16)
-    if bet is None or any(b.dtype != band for b in blocks):
-        raise ValueError(f"{blocks[0].dtype} blocks for {dtype} state "
-                         "without their consistent pivots (pack.lp)")
-    return blocks, rblocks, bet, band
+        src, band = lp, torch.bfloat16
+    held = src.blocks if src.blocks is not None else (src.ebands,)
+    if src.bet is None or any(x is None or x.dtype != band for x in held):
+        raise ValueError(f"{held[0].dtype if held[0] is not None else None}"
+                         f" operator for {dtype} state without its "
+                         "consistent pivots (pack.lp)")
+    return src.blocks, src.rblocks, src.bet, band
 
 
 def consistent_pivots(pack: CompactPack, band_dtype) -> tuple:
@@ -314,15 +358,23 @@ def consistent_pivots(pack: CompactPack, band_dtype) -> tuple:
 
 
 def attach_lp(pack: CompactPack, band_dtype=torch.bfloat16) -> CompactPack:
-    """Attach the low-precision smoother operator: the blocks rounded to
-    ``band_dtype`` (round to nearest even) and the row-sum-consistent
-    pivots of the rounded operator (:func:`consistent_pivots`).  One-time
-    build work."""
+    """Attach the low-precision smoother operator: the gather operator
+    rounded to ``band_dtype`` (round to nearest even) and the
+    row-sum-consistent pivots of the rounded operator
+    (:func:`consistent_pivots`).  One-time build work.  On a band-stack
+    level (no blocks) the rounded operator is the stack rounded,
+    ``lp.ebands``."""
+    bet = consistent_pivots(pack, band_dtype)
+    if pack.blocks is None:
+        return pack._replace(lp=LowPrecision(
+            blocks=None, rblocks=None, bet=bet,
+            ebands=stack_bands([pack.ebands[i, 1:-1] for i in range(NBANDS)],
+                               band_dtype)))
     rb = (tuple(r.to(band_dtype) for r in pack.rblocks)
           if pack.real_matrix else None)
     return pack._replace(lp=LowPrecision(
         blocks=tuple(b.to(band_dtype) for b in pack.blocks), rblocks=rb,
-        bet=consistent_pivots(pack, band_dtype)))
+        bet=bet))
 
 
 GATHER_BANDS = range(3, 9)     # the bands the gather reads (cA[2] .. cA[7])
@@ -341,12 +393,16 @@ def band_quads(cA: torch.Tensor, dtype=None) -> torch.Tensor:
     and columns.  Gather block (n, boff) of target (a, b) is the slice
     ``_qread`` takes of one of them, so each band quad holds the values of
     two gather blocks."""
-    qes = [quad_ext_bands(cA[n - 1]) for n in GATHER_BANDS]
-    return stack_bands([qe[t] for qe in qes for t in _TKEYS],
-                       dtype or cA.dtype)
+    nz, H, W = cA.shape[1], cA.shape[2] // 2 - 1, cA.shape[3] // 2 - 1
+    stack = _empty_stack(nz, H, W, dtype or cA.dtype, cA.device)
+    for n in GATHER_BANDS:       # one band's quad temporaries at a time
+        qe = quad_ext_bands(cA[n - 1])
+        for t in _TKEYS:
+            stack[band_index(n, t), 1:nz + 1] = qe[t]
+    return stack
 
 
-BAND_TILE = 64    # columns of a tile of the sweep kernel (csrc kCols)
+BAND_TILE = 64    # columns of a tile of the stack (csrc kBandTile)
 
 
 def band_layout(W: int, itemsize: int) -> tuple:
@@ -359,6 +415,32 @@ def band_layout(W: int, itemsize: int) -> tuple:
     return e16 - 1, -(-W // BAND_TILE) * BAND_TILE + 2 * e16
 
 
+def check_band_stack(ebands, shape, dtype, device) -> None:
+    """A kernel's check of the band stack it reads: one tensor of ``shape``
+    and ``dtype`` on ``device``, a view of rows of :func:`band_layout`'s
+    pitch over storage that holds every row whole (the kernels address the
+    storage: K4 stages aligned spans of it), under 2**32 values."""
+    if not isinstance(ebands, torch.Tensor):
+        raise ValueError("the band stack must be one tensor (band_quads)")
+    if (ebands.dtype != dtype or ebands.device != device
+            or tuple(ebands.shape) != shape):
+        raise ValueError(f"band stack: {ebands.dtype} {tuple(ebands.shape)}"
+                         f" on {ebands.device}, expected {dtype} {shape} on "
+                         f"{device}")
+    isz = ebands.element_size()
+    lpad, pitch = band_layout(shape[3] - 2, isz)
+    rows = shape[0] * shape[1] * shape[2]
+    start = ebands.storage_offset() - lpad
+    if (ebands.stride() != (shape[1] * shape[2] * pitch, shape[2] * pitch,
+                            pitch, 1)
+            or start < 0 or (ebands.data_ptr() - lpad * isz) % 16
+            or ebands.untyped_storage().nbytes() < (start + rows * pitch) * isz
+            or rows * pitch >= 2 ** 32):
+        raise ValueError("the band stack must be a view of 16-byte aligned "
+                         "rows of band_layout's pitch, under 2**32 values "
+                         "(band_quads)")
+
+
 def stack_bands(quads, dtype) -> torch.Tensor:
     """The 24 band quads ``quads`` ((nz, H+2, W+2) each, in
     :func:`band_quads` order) as a (24, nz+2, H+2, W+2) tensor in
@@ -366,14 +448,20 @@ def stack_bands(quads, dtype) -> torch.Tensor:
     :func:`band_layout`'s pitch, so that the sweep kernel stages each
     tile row of a band quad as one aligned span."""
     nz, H2, W2 = quads[0].shape
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    lpad, pitch = band_layout(W2 - 2, itemsize)
-    buf = torch.zeros((NBANDS, nz + 2, H2, pitch), dtype=dtype,
-                      device=quads[0].device)
-    stack = buf[..., lpad:lpad + W2]
+    stack = _empty_stack(nz, H2 - 2, W2 - 2, dtype, quads[0].device)
     for i, x in enumerate(quads):
         stack[i, 1:nz + 1] = x
     return stack
+
+
+def _empty_stack(nz, H, W, dtype, device) -> torch.Tensor:
+    """A zero band stack (24, nz+2, H+2, W+2) in ``dtype``: a view of rows
+    of :func:`band_layout`'s pitch."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    lpad, pitch = band_layout(W, itemsize)
+    buf = torch.zeros((NBANDS, nz + 2, H + 2, pitch), dtype=dtype,
+                      device=device)
+    return buf[..., lpad:lpad + W + 2]
 
 
 def band_index(n: int, quad) -> int:
@@ -395,11 +483,35 @@ def attach_bands(pack: CompactPack, cA: torch.Tensor) -> CompactPack:
         ebands=band_quads(cA, pack.lp.blocks[0].dtype)))
 
 
+def _column_fields(cA: torch.Tensor):
+    """Per target (``_TKEYS`` order): the in-column diagonal ``d``, the
+    off-diagonal ``ud`` and the reciprocal Thomas pivots ``bet``."""
+    q1, q2 = quad_ext_bands(cA[0]), quad_ext_bands(cA[1])
+    ds, uds, bets = [], [], []
+    for t in _TKEYS:
+        d = q1[t][:, 1:-1, 1:-1].contiguous()
+        ud = q2[t][1:, 1:-1, 1:-1].contiguous()
+        ds.append(d)
+        uds.append(ud)
+        bets.append(thomas_factor(d, ud)[0])
+    return tuple(ds), tuple(uds), tuple(bets)
+
+
+def build_band_pack(cA: torch.Tensor, real_matrix: bool) -> CompactPack:
+    """The pack of a level whose gather operator is held only as the band
+    stack (:func:`band_quads`): ``d``, ``ud``, ``bet`` and ``ebands``, no
+    gather blocks.  One-time work per level; one band's quad-sampled
+    temporaries exist at a time."""
+    d, ud, bet = _column_fields(cA)
+    return CompactPack(blocks=None, d=d, ud=ud, bet=bet,
+                       real_matrix=real_matrix, ebands=band_quads(cA))
+
+
 def build_compact_pack(cA: torch.Tensor, real_matrix: bool) -> CompactPack:
     """Pre-slice the extended band stack into the gather-block layout.
     One-time work per level; the quad-sampled bands are temporaries."""
     qa = [quad_ext_bands(cA[n]) for n in range(cA.shape[0])]
-    blocks, rbs, ds, uds, bets = [], [], [], [], []
+    blocks, rbs = [], []
     for (a, b) in _TKEYS:
         blocks.append(torch.cat([
             _qread(qa[n - 1], a, b, bj, bi, bk)
@@ -408,14 +520,9 @@ def build_compact_pack(cA: torch.Tensor, real_matrix: bool) -> CompactPack:
             rbs.append(torch.cat([
                 _qread(qa[n - 1], a, b, bj, bi, bk)[:1]
                 for (n, (bk, bj, bi)) in real_only_keys()], dim=2))
-        d = qa[0][(a, b)][:, 1:-1, 1:-1].contiguous()
-        ud = qa[1][(a, b)][1:, 1:-1, 1:-1].contiguous()
-        bet, _ = thomas_factor(d, ud)
-        ds.append(d)
-        uds.append(ud)
-        bets.append(bet)
-    return CompactPack(blocks=tuple(blocks), d=tuple(ds), ud=tuple(uds),
-                       bet=tuple(bets), real_matrix=real_matrix,
+    d, ud, bet = _column_fields(cA)
+    return CompactPack(blocks=tuple(blocks), d=d, ud=ud, bet=bet,
+                       real_matrix=real_matrix,
                        rblocks=tuple(rbs) if real_matrix else None)
 
 
@@ -482,10 +589,10 @@ def plain_color_update(q: Quads, bq: Quads, pack: CompactPack, targets,
     W = q[(0, 0)].shape[2]
     e = (extend_fn or extend_quads)(q)
     dt = q[(0, 0)].dtype
-    blocks, rblocks, bet, _ = smoother_operator(pack, dt)
-    gs = {t: gather_blocks(e, tuple(v.to(dt) for v in key_views(
-        blocks[ti[t]], rblocks[ti[t]] if real_matrix else None)), t[0], t[1],
-        real_matrix) for t in targets}
+    _, _, bet, _ = smoother_operator(pack, dt)
+    lp = pack.lp is not None
+    gs = {t: gather_blocks(e, tuple(v.to(dt) for v in block_views(
+        pack, ti[t], lp=lp)), t[0], t[1], real_matrix) for t in targets}
     cat = lambda f: torch.cat([f[ti[t]] for t in targets], dim=-1)
     sol = thomas_factored_unrolled(
         cat(bet), None, cat(pack.ud),
@@ -780,19 +887,19 @@ def relax_residual_restrict_compact_quads(q0: Quads, bq: Quads,
     V-cycle down-leg.  Returns ``(q, coarse_b)`` with the full coarse
     array; the summation tree matches transfer.restrict_3d.
 
-    ``rr_fn(e2, t) -> (nz/2, H, W)`` computes a fresh target's residual
-    z-pair sums (the ``rr_zsum`` kernel); default: from the plain fresh
-    residual."""
+    ``rr_fn(e2, targets) -> {target: (nz/2, H, W)}`` computes fresh
+    targets' residual z-pair sums (the residual + restriction kernel in
+    its z-pair mode); default: from the plain fresh residual."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
     q, info = relax_emit_last_color(q0, bq, pack, nsweeps, real_matrix,
                                     extend_fn=extend_fn, sweep_fn=sweep_fn,
                                     color_update_fn=color_update_fn)
     e2 = (extend_fn or extend_quads)(q)
-    zs = {}
-    for t in _RB_TARGETS[0]:
-        if rr_fn is not None:
-            zs[t] = rr_fn(e2, t)
-        else:
+    if rr_fn is not None:
+        zs = dict(rr_fn(e2, _RB_TARGETS[0]))
+    else:
+        zs = {}
+        for t in _RB_TARGETS[0]:
             r = _residual_one(e2, bq[t], pack, ti[t], t, real_matrix)
             zs[t] = r[0::2] + r[1::2]
     for t in _RB_TARGETS[1]:

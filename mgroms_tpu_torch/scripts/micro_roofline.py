@@ -11,7 +11,9 @@ rows under the JAX script's names:
   patch_zsum_epilogue_ms,        the emitted residual's patch and z-pair
   patch_zsum_zfirst_ms           sum (relax_compact, plain torch)
   fresh_residual_one_target_ms   extend_quads + one fresh target residual
-  rr_one_target_ms               extend_quads + K3 (rr_zsum)
+  rr_four_targets_ms             extend_quads + K3 (residual_restrict: the
+                                 coarse RHS of all four targets, one
+                                 launch, on the gather blocks)
   fma_gflops                     K10 fma_run: the measured float32 FMA rate
   gather_flops_per_update_gflop, the colour update's flops, and their time
   implied_pure_flop_ms           at the measured rate
@@ -114,12 +116,12 @@ def timed(dev=None, nz=64, H=512, W=512, reps=20) -> dict:
     emit(rows, "fresh_residual_one_target_ms", ms(lambda: rc._residual_one(
         rc.extend_quads(q4), bq, pack1, 0, (0, 0), True)))
 
-    def rr_one():
+    def rr_four():
         e2 = rc.extend_quads(q4)
-        return kt.rr_zsum(tuple(e2[k] for k in rc._TKEYS), bq, blocks, d, ud,
-                          (0, 0), True, rb)
+        return kt.residual_restrict(tuple(e2[k] for k in rc._TKEYS), q4,
+                                    pack1)
 
-    emit(rows, "rr_one_target_ms", ms(rr_one))
+    emit(rows, "rr_four_targets_ms", ms(rr_four))
     # the JAX script's vpu_fma_gflops: here the card's float32 FMA rate
     x = torch.rand(rl.FMA_BLOCK, device=dev) + 0.5
     emit(rows, "fma_gflops",

@@ -17,9 +17,13 @@ levels:
   (ops/kernels/sweep_fused.py), one launch per sweep; else one K1 launch
   per (colour, target quad) (ops/kernels/relax_tiled.py: RB two targets
   per colour, FC one per each of four colours);
-- the down-leg residual and restriction: K3, fused with the last sweep
-  through K2 (``fused_residual``) on RB levels without K4 and without
-  ``fused_bands_bf16``, as in the JAX package.
+- the down-leg residual and restriction: K3, one launch for the four
+  target quads, fused with the last sweep through K2
+  (``fused_residual``) on RB levels without K4 and without
+  ``fused_bands_bf16``, as in the JAX package;
+- the operator: on the K4 levels only the band stack, which K4 and K3
+  read (and K3 in its residual mode gives the level's quad residual);
+  elsewhere the gather blocks of K1-K3 (:func:`build_relax_packs`).
 
 With ``fused_bands_bf16`` (float32) every quad level's pack carries the
 low-precision smoother operator (relax_compact.attach_lp), read by K4 or
@@ -69,7 +73,7 @@ from .ops import relax as relax_ops
 from .ops import stencil, transfer
 from .ops.kernels import relax_fused, stencil_tiled, sweep_fused
 from .ops.kernels import relax_tiled as kernels
-from .ops.relax_compact import (QuadField, attach_bands, attach_lp,
+from .ops.relax_compact import (QuadField, attach_lp, build_band_pack,
                                 build_compact_pack, residual_quads,
                                 restrict_quads_to_full)
 
@@ -118,33 +122,35 @@ def compact_eligible(spec: LevelSpec, cfg: SolverConfig) -> bool:
 
 
 def build_relax_packs(levels, ops, cfg: SolverConfig) -> list:
-    """Persisted gather-block operators (CompactPack) for the
-    quad-persistent levels (every compact-eligible level but the
-    coarsest); None elsewhere.  Built level by level, so only one level's
-    quad-sampled band temporaries exist at a time (~2 GB at CUC level 0
-    in float32).
+    """Persisted operators (CompactPack) for the quad-persistent levels
+    (every compact-eligible level but the coarsest); None elsewhere.  Built
+    level by level, so only one level's quad-sampled band temporaries
+    exist at a time.
+
+    On the levels K4 smooths (:func:`fused_sweep_wanted`) the gather
+    operator is held only as the 24 band quads (relax_compact.
+    build_band_pack): K4, K3 in both its modes and the plain versions read
+    it, and no gather blocks are built (3.2 GB at CUC level 0 in float32).
+    Elsewhere it is held as the gather blocks that K1 and K2 read
+    (relax_compact.build_compact_pack).
 
     With ``fused_bands_bf16`` and a state of at most 4 bytes each pack
-    also carries the low-precision smoother operator (``pack.lp``), the
-    one copy that K1 reads.
-
-    On the levels K4 smooths (:func:`fused_sweep_wanted`) the pack also
-    carries the operator as the 24 band quads K4 reads
-    (relax_compact.attach_bands; bfloat16 with ``pack.lp``), as the JAX
-    package keeps them in its fused-sweep operator; the gather blocks stay
-    for K3 (+1.9 GB at CUC in float32)."""
+    also carries the low-precision smoother operator (``pack.lp``) in the
+    layout of its own: bfloat16 blocks for K1, or a bfloat16 band stack
+    for K4 beside the float32 one that the residuals read."""
     lp = (cfg.fused_bands_bf16
           and getattr(torch, cfg.dtype).itemsize <= 4)
+    real = cfg.cmatrix == "real"
     packs = []
     for lev, spec in enumerate(levels):
         pack = None
         if lev < len(levels) - 1 and compact_eligible(spec, cfg):
             cA = ops[lev].cA
-            pack = build_compact_pack(cA, cfg.cmatrix == "real")
+            build = (build_band_pack if fused_sweep_wanted(cfg, cA.is_cuda)
+                     else build_compact_pack)
+            pack = build(cA, real)
             if lp:
                 pack = attach_lp(pack)
-            if fused_sweep_wanted(cfg, cA.is_cuda):
-                pack = attach_bands(pack, cA)
         packs.append(pack)
     return packs
 
@@ -271,8 +277,13 @@ class SingleDeviceBackend:
 
     def residual(self, lev: int, p, b):
         if isinstance(p, QuadField):
+            pack = self.packs[lev]
+            if pack.ebands is not None:
+                # a band-stack level: K3 in its residual mode
+                return QuadField.fromdict(kernels.residual_tiled_quads(
+                    p.asdict(), b.asdict(), pack))
             return QuadField.fromdict(residual_quads(
-                p.asdict(), b.asdict(), self.packs[lev], self.real))
+                p.asdict(), b.asdict(), pack, self.real))
         pe = self.extend(lev, p)
         if self._use_tiled(lev, "residual"):
             return stencil_tiled.residual_tiled(pe, b, self.ops[lev].cA,
@@ -290,8 +301,8 @@ class SingleDeviceBackend:
 
     def residual_restrict(self, lev: int, p, b, as_quads: bool = False):
         """Coarse b = restrict(b - A p) — the V-cycle down-leg pair
-        (mg_solvers.f90:137-140); one rr_zsum kernel per target quad on
-        quad-persistent levels with even nz."""
+        (mg_solvers.f90:137-140); one K3 launch for the four target quads
+        on quad-persistent levels with even nz."""
         if isinstance(p, QuadField) and self.levels[lev].nzg % 2 == 0:
             full = kernels.residual_restrict_tiled_quads(
                 p.asdict(), b.asdict(), self.packs[lev])

@@ -10,8 +10,8 @@ need not have.)
 
 Built with -fmad=false, the kernels round like the plain versions' separate
 torch ops, so the solution outputs (K1 with either block type, K2, K4,
-K6 in every ordering), K5's residual and K11's sums are held to 0 ulp;
-the raw residual outputs of K2 and K3, a cancellation, are held to
+K6 in every ordering), K3's and K5's residuals and K11's sums are held to
+0 ulp; the raw residual output of K2, a cancellation, is held to
 1e-6 x max|bq| (f32).
 """
 
@@ -64,7 +64,6 @@ def test_kernels_match_plain(cuda, shape, dtype, real):
     for m, t in enumerate(rc._TKEYS):
         rb = pack.rblocks[m] if real else None
         e3 = tuple(e[k] for k in kt.gather_quads(t))
-        e4 = tuple(e[k] for k in rc._TKEYS)
         f = (pack.blocks[m], pack.ud[m], pack.bet[m])
         before = dict(kt.LAUNCHES)
         got = kt.color_update(e3, bq[t], *f, t, real, rb)
@@ -75,16 +74,77 @@ def test_kernels_match_plain(cuda, shape, dtype, real):
                                             real, rb)
         assert _maxdiff(gs, ws) == 0.0
         assert _maxdiff(gr, wr) <= 1e-6 * float(bq[t].abs().max())
-        if nz % 2 == 0:
-            got = kt.rr_zsum(e4, bq[t], pack.blocks[m], pack.d[m],
-                             pack.ud[m], t, real, rb)
-            want = kt.rr_zsum_plain(e4, bq[t], pack.blocks[m], pack.d[m],
-                                    pack.ud[m], t, real, rb)
-            assert _maxdiff(got, want) <= 1e-6 * float(bq[t].abs().max())
         torch.cuda.synchronize()
         assert kt.LAUNCHES["color_update"] == before["color_update"] + 1
         assert (kt.LAUNCHES["color_update_emit"]
                 == before["color_update_emit"] + 1)
+
+
+# K3: widths that are not a multiple of its 64-column tile, one quad row
+# and column with nz 2, the seamount 64^3 level-0 quads, and a ragged one
+RR_SHAPES = [(6, 5, 7), (2, 1, 1), (4, 3, 33), (8, 16, 70), (3, 5, 33),
+             (64, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", RR_SHAPES)
+@pytest.mark.parametrize("real", [True, False])
+@pytest.mark.parametrize("layout", ["bands", "blocks"])
+def test_residual_restrict_matches_plain(cuda, shape, dtype, real, layout):
+    """K3 in both operator layouts and all three modes (the coarse RHS,
+    two targets' z-pair sums, the residual of all four targets and of
+    one): 0 ulp from its plain version, one launch each, counted under
+    its mode's name; odd nz takes the residual mode only."""
+    nz, H, W = shape
+    rng = np.random.default_rng(sum(shape))
+    cA = rng.uniform(-0.1, 0.1, (8, nz, 2 * H + 2, 2 * W + 2))
+    cA[0] -= 4.0
+    cA = torch.tensor(cA, dtype=dtype, device=cuda)
+    build = (rc.build_band_pack if layout == "bands"
+             else rc.build_compact_pack)
+    pack = build(cA, real)
+    assert kt.rr_operator(pack) == layout
+    q = rc.split_quads(torch.tensor(rng.standard_normal((nz, 2 * H, 2 * W)),
+                                    dtype=dtype, device=cuda))
+    bq = rc.split_quads(torch.tensor(rng.standard_normal((nz, 2 * H, 2 * W)),
+                                     dtype=dtype, device=cuda))
+    e = rc.extend_quads(q)
+    e4 = tuple(e[k] for k in rc._TKEYS)
+    cases = [("residual", rc._TKEYS), ("residual", ((1, 0),))]
+    if nz % 2 == 0:
+        cases += [("coarse", rc._TKEYS), ("zsum", ((0, 0), (1, 1)))]
+    for mode, targets in cases:
+        before = dict(kt.LAUNCHES)
+        got = kt.residual_restrict(e4, bq, pack, mode, targets)
+        want = kt.residual_restrict_plain(e4, bq, pack, mode, targets)
+        torch.cuda.synchronize()
+        key = "residual_quads" if mode == "residual" else "residual_restrict"
+        assert {k: v - before[k] for k, v in kt.LAUNCHES.items()} == {
+            k: int(k == key) for k in kt.LAUNCHES}
+        if mode == "coarse":
+            assert torch.equal(got, want)
+        else:
+            assert sorted(got) == sorted(targets)
+            assert all(torch.equal(got[t], want[t]) for t in targets)
+
+
+def test_residual_restrict_rejects_bad_input(cuda):
+    pack, e, bq = _inputs(4, 3, 5, torch.float32, cuda, True, seed=0)
+    e4 = tuple(e[k] for k in rc._TKEYS)
+    cA = torch.rand((8, 4, 8, 12), device=cuda)
+    cA[0] -= 4.0
+    band = rc.build_band_pack(cA, True)
+    for bad_e4, bad_bq, bad_pack, mode in (
+            (e4[:3] + (e4[3].double(),), bq, pack, "coarse"),      # dtype
+            (e4, {**bq, (0, 1): bq[(0, 1)].cpu()}, pack, "coarse"),  # device
+            (e4, bq, pack._replace(rblocks=None), "coarse"),   # no 'real' pair
+            (tuple(x[:3] for x in e4), bq, pack, "zsum"),      # odd nz
+            (e4, bq, band._replace(ebands=band.ebands.contiguous()),
+             "coarse")):                                       # stack pitch
+        with pytest.raises(ValueError):
+            kt.residual_restrict(bad_e4, bad_bq, bad_pack, mode)
+    with pytest.raises(ValueError):                    # coarse needs all four
+        kt.residual_restrict(e4, bq, pack, "coarse", ((0, 0),))
 
 
 def test_wrapper_rejects_bad_input(cuda):
@@ -122,7 +182,9 @@ def test_seamount16_solve_runs_the_kernels(cuda, fused_sweep):
     ksf.reset_launches()
     uc, vc, wc, p, info = m.solve(u, v, w, tol=1e-11, maxiter=12)
     k1_k2 = ("color_update", "color_update_emit")
-    assert kt.LAUNCHES["rr_zsum"] > 0, kt.LAUNCHES
+    assert kt.LAUNCHES["residual_restrict"] > 0, kt.LAUNCHES
+    # the K4 levels' level-0 residual is K3 in its residual mode
+    assert (kt.LAUNCHES["residual_quads"] > 0) == fused_sweep, kt.LAUNCHES
     assert all((kt.LAUNCHES[k] > 0) != fused_sweep for k in k1_k2), \
         kt.LAUNCHES
     assert (ksf.LAUNCHES["relax_fused_sweep"] > 0) == fused_sweep, \
@@ -252,6 +314,31 @@ def test_fused_relax_orderings_match_plain(cuda, case, kind, dtype):
         n = 1 if kf.one_block(p) else kf.KINDS[kind].ncolor * ns
         assert {k: v - before[k] for k, v in kf.LAUNCHES.items()} == {
             k: (n if k == key else 0) for k in kf.LAUNCHES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(3, 5, 33), (4, 9, 70), (2, 1, 1),
+                                   (5, 2, 3), (1, 6, 5)])
+@pytest.mark.parametrize("kind", ["RB", "FC", "GS"])
+def test_fused_relax_step_form_matches_plain(cuda, monkeypatch, shape, kind,
+                                             dtype):
+    """K6's per-colour-step form (forced at every shape) in each ordering,
+    with and without 'real', at widths that are not a multiple of its
+    32-column rows and on levels whose every column is an edge or a corner
+    (the edge-copy halo reads the column itself): 0 ulp, p, b and cA
+    unwritten, ncolor launches a sweep."""
+    monkeypatch.setattr(kf, "ONE_BLOCK_BYTES", 0)
+    cA, p, b = _full_inputs(*shape, dtype, cuda, seed=sum(shape) + 2)
+    inputs = tuple(x.clone() for x in (p, b, cA))
+    for real in (True, False):
+        before = kf.LAUNCHES[kf.KINDS[kind].step]
+        got = kf.fused_relax(p, b, cA, 3, kind, real)
+        want = kf.fused_relax_plain(p, b, cA, 3, kind, real)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(inputs, (p, b, cA)))
+        assert torch.equal(got, want)
+        assert (kf.LAUNCHES[kf.KINDS[kind].step]
+                == before + 3 * kf.KINDS[kind].ncolor)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -617,7 +704,7 @@ def test_distributed_solve_on_a_virtual_mesh(cuda):
     (p1, i1, l1, d1), (p2, i2, l2, d2) = out
     assert i2.niter == i1.niter == 3
     assert l2["color_update"] > 0 and l2["color_update_emit"] > 0
-    assert l2["rr_zsum"] > 0
+    assert l2["residual_restrict"] > 0
     np.testing.assert_allclose(i2.history, i1.history, rtol=1e-3)
     assert float((p2 - p1).abs().max()) <= 1e-4 * float(p1.abs().max())
     assert abs(d2 - d1) <= 1e-3 * d1

@@ -102,7 +102,7 @@ def test_fc_routing(monkeypatch):
     in the FC ordering, four K1 launches a sweep; K3 restricts; no K2."""
     sweeps = _record(monkeypatch, kt, "relax_compact_tiled_quads")
     counts = _counting(monkeypatch, kt, ("color_update", "color_update_emit",
-                                         "rr_zsum"))
+                                         "residual_restrict"))
     m = _port(dtype="float32", relax_method="FC")
     be = m.backend
     assert [be.state_quads(lev) for lev in range(be.nlevs)] == [
@@ -110,7 +110,8 @@ def test_fc_routing(monkeypatch):
     assert not be.fused_sweep and not be.supports_fused_residual(0)
     _one_fcycle(m)
     assert {k for _, k, _ in sweeps} == {"FC"}
-    assert counts["color_update_emit"] == 0 and counts["rr_zsum"] > 0
+    assert (counts["color_update_emit"] == 0
+            and counts["residual_restrict"] > 0)
     # every sweep is four single-target colour updates
     assert counts["color_update"] == 4 * sum(n for _, _, n in sweeps) > 0
 

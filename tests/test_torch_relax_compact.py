@@ -1,11 +1,12 @@
 """Quad-parity layer and the kernels' plain versions == JAX, in float64.
 
-The plain versions of the three kernels are held to the Pallas kernels run
-in interpret mode (as tests/test_pallas_tiled.py and
+The plain versions of K1-K3 are held to the Pallas kernels run in
+interpret mode (as tests/test_pallas_tiled.py and
 tests/test_fused_residual.py run them).  The CUDA kernels cannot run here;
-their index recipe (``term_table``) and their per-column loops are
-emulated below with flat-array addressing exactly as csrc/relax_tiled.cu
-writes them, and held to the plain versions.
+their index recipes (``term_table``, ``band_term_table``) and their loops
+are emulated below with flat-array addressing exactly as
+csrc/relax_tiled.cu (K1, K2) and csrc/rr_fused.cu (K3, on its staged
+window ring) write them, and held to the plain versions.
 
 Tolerance: 1e-12 x max|JAX| unless stated (same term order in f64).
 """
@@ -18,6 +19,7 @@ import torch
 import mgroms_tpu.ops.pallas.relax_tiled as jtiled
 import mgroms_tpu.ops.relax_compact as jrc
 import mgroms_tpu_torch.ops.kernels.relax_tiled as kt
+import mgroms_tpu_torch.ops.kernels.sweep_fused as ksf
 import mgroms_tpu_torch.ops.relax_compact as trc
 
 torch.set_num_threads(1)
@@ -117,7 +119,8 @@ def test_fused_residual_orchestrators(real):
 
 @pytest.mark.parametrize("real", [True, False])
 def test_kernel_plain_versions_match_pallas(real):
-    """K1/K2/K3 plain versions == the Pallas kernels (interpret mode)."""
+    """K1/K2 plain versions and K3's plain version in its z-pair mode, one
+    target at a time, == the Pallas kernels (interpret mode)."""
     cA, p, b = problem(8, 16, 16, seed=3)
     jp = jrc.build_compact_pack(jnp.asarray(cA), real)
     tp = trc.build_compact_pack(torch.from_numpy(cA), real)
@@ -144,8 +147,8 @@ def test_kernel_plain_versions_match_pallas(real):
         want = jtiled._rr_one(tuple(je[k] for k in jrc._TKEYS), jb[t],
                               jp.blocks[m], jp.d[m], jp.ud[m], t, real,
                               interpret=True, rb_t=jrb)
-        close(kt.rr_zsum(tuple(te[k] for k in trc._TKEYS), tb[t],
-                         tp.blocks[m], tp.d[m], tp.ud[m], t, real, trb), want)
+        close(kt.residual_restrict(tuple(te[k] for k in trc._TKEYS), tb, tp,
+                                   "zsum", (t,))[t], want)
 
 
 # ---- CPU emulation of csrc/relax_tiled.cu (flat addressing, per column) --
@@ -207,31 +210,103 @@ def _emulate_color_update(e3, bq, blocks, ud, bet, d, target, real, rb,
     return out, res
 
 
-def _emulate_rr(e4, bq, blocks, d, ud, target, real, rb):
-    nz, H, W = bq.shape
-    tt = kt.term_table(target, trc._TKEYS)
-    pq = e4[trc._TKEYS.index(target)][:, 1:-1, 1:-1]
-    z = np.zeros((H, W))
-    out = np.empty((nz // 2, H, W))
-    for k in range(nz):
-        lo = ud[k - 1] if k > 0 else z
-        pm = pq[k - 1] if k > 0 else z
-        hi = ud[k] if k < nz - 1 else z
-        pp = pq[k + 1] if k < nz - 1 else z
-        r = (bq[k] - d[k] * pq[k] - lo * pm - hi * pp
-             - _emulate_gather(e4, blocks, rb, real, tt, k, nz, H, W))
-        if k & 1:
-            out[k // 2] = r_even + r
-        else:
-            r_even = r
-    return out
+# csrc/rr_fused.cu's tile
+RR_COLS, RR_ROWS = 64, 4
+
+
+def _emulate_rr(e4, bq, pack, mode, targets):
+    """csrc/rr_fused.cu in numpy: per tile of RR_ROWS x RR_COLS columns and
+    plane, the window ring as the kernel stages it (the four extended
+    quads' (RR_ROWS + 2) x (RR_COLS + 2) windows, zero planes -1 and nz;
+    entries it does not stage are NaN), the operator read in place (the
+    band stack's flat storage at the band term table's offsets, or the
+    gather blocks), each column's four residuals, then the mode's
+    output."""
+    bands = pack.ebands is not None
+    nz, H, W = bq[(0, 0)].shape
+    tt = [ksf.band_term_table(t) for t in trc._TKEYS]
+    if bands:
+        st = pack.ebands
+        lpad, pitch = trc.band_layout(W, st.element_size())
+        flat = torch.as_strided(st, (trc.NBANDS * (nz + 2) * (H + 2) * pitch,),
+                                (1,), st.storage_offset() - lpad).numpy()
+        PB = (H + 2) * pitch
+    wr, ww = RR_ROWS + 2, RR_COLS + 2
+    ef = [x.numpy() for x in e4]
+    out = {t: np.full((nz, H, W), np.nan) for t in trc._TKEYS}
+    jj, ii = np.meshgrid(np.arange(RR_ROWS), np.arange(RR_COLS),
+                         indexing="ij")
+    for J0 in range(0, H, RR_ROWS):
+        for I0 in range(0, W, RR_COLS):
+            ring = {}
+            for kk in range(-1, nz + 1):
+                win = np.full((4, wr, ww), np.nan)
+                for w in range(4):
+                    for r in range(wr):
+                        R = J0 + r
+                        if R > H + 1:
+                            continue
+                        C = np.arange(I0, min(I0 + ww, W + 2))
+                        win[w, r, :len(C)] = (0.0 if kk in (-1, nz)
+                                              else ef[w][kk, R, C])
+                ring[kk] = win
+            Jg, Ig = J0 + jj, I0 + ii
+            act = (Jg < H) & (Ig < W)
+            Jc, Ic = np.minimum(Jg, H - 1), np.minimum(Ig, W - 1)
+
+            def band(row, k):
+                b, bk, bj, bi = row[:4]
+                return flat[(b * (nz + 2) + k + bk + 1) * PB
+                            + (Jc + bj) * pitch + lpad + Ic + bi]
+
+            for m, t in enumerate(trc._TKEYS):
+                if t not in targets:
+                    continue
+                views = trc.block_views(pack, m)
+                keys = trc.gather_keys(True)
+                for k in range(nz):
+                    win = ring[k]
+                    g = None
+                    for n, row in enumerate(tt[m][:12]):
+                        src, dk, oj, oi = row[4:]
+                        bv = (band(row, k) if bands
+                              else pack.blocks[m].numpy()[k, Jc, n * W + Ic])
+                        v = bv * ring[k + dk][src, jj + oj, ii + oi]
+                        g = v if g is None else g + v
+                    if pack.real_matrix and k == 0:
+                        x0 = None
+                        for (n, boff, _), row in zip(trc._REAL_TERMS,
+                                                     tt[m][12:]):
+                            src, dk, oj, oi = row[4:]
+                            bv = (band(row, 0) if bands else
+                                  views[keys.index((n, boff))].numpy()[
+                                      0, Jc, Ic])
+                            v = bv * win[src, jj + oj, ii + oi]
+                            x0 = v if x0 is None else x0 + v
+                        g = g + x0
+                    own = (m, jj + 1, ii + 1)
+                    lo_ = pack.ud[m].numpy()[k - 1, Jc, Ic] if k else 0.0
+                    hi = pack.ud[m].numpy()[k, Jc, Ic] if k < nz - 1 else 0.0
+                    r = (bq[t].numpy()[k, Jc, Ic]
+                         - pack.d[m].numpy()[k, Jc, Ic] * win[own]
+                         - lo_ * ring[k - 1][own]
+                         - hi * ring[k + 1][own] - g)
+                    out[t][k, Jc[act], Ic[act]] = r[act]
+    if mode == "residual":
+        return {t: out[t] for t in targets}
+    zs = {t: out[t][0::2] + out[t][1::2] for t in targets}
+    if mode == "zsum":
+        return zs
+    return (zs[(0, 0)] + zs[(1, 0)]) + (zs[(0, 1)] + zs[(1, 1)])
 
 
 @pytest.mark.parametrize("shape", [(6, 10, 14), (2, 6, 4)])
 @pytest.mark.parametrize("real", [True, False])
 def test_cuda_recipe_emulation_matches_plain(shape, real):
-    """The CUDA kernels' term table, flat addressing and loops (emulated in
-    numpy) give the plain versions' values to the last bit."""
+    """The CUDA kernels' term tables, flat addressing and loops (emulated
+    in numpy: K1 and K2 per target, K3 per tile on its staged window
+    ring, on the gather blocks and on the band stack, in its three modes)
+    give the plain versions' values to the last bit."""
     cA, p, b = problem(*shape, seed=4)
     tp = trc.build_compact_pack(torch.from_numpy(cA), real)
     te = trc.extend_quads(tquads(p))
@@ -255,13 +330,21 @@ def test_cuda_recipe_emulation_matches_plain(shape, real):
                                        emit=True)
         close(gs, ws, 0)
         close(gr, wr, 0)
-        e4 = tuple(te[k] for k in trc._TKEYS)
-        want = kt.rr_zsum_plain(e4, tb[t], tp.blocks[m], tp.d[m], tp.ud[m],
-                                t, real, rb)
-        got = _emulate_rr([x.numpy() for x in e4], tb[t].numpy(),
-                          tp.blocks[m].numpy(), tp.d[m].numpy(),
-                          tp.ud[m].numpy(), t, real, n(rb))
-        close(got, want, 0)
+    # K3, all four targets in one launch, on either operator layout
+    e4 = tuple(te[k] for k in trc._TKEYS)
+    for pack in (tp, trc.build_band_pack(torch.from_numpy(cA), real)):
+        for mode in kt.RR_MODES:
+            if mode != "residual" and shape[0] % 2:
+                continue
+            targets = ((0, 0), (1, 1)) if mode == "zsum" else trc._TKEYS
+            want = kt.residual_restrict_plain(e4, tb, pack, mode, targets)
+            got = _emulate_rr(e4, tb, pack, mode, targets)
+            if mode == "coarse":
+                close(got, want, 0)
+            else:
+                assert sorted(got) == sorted(want)
+                for t in want:
+                    close(got[t], want[t], 0)
 
 
 def test_tiled_orchestrators_match_plain():
@@ -283,6 +366,8 @@ def test_tiled_orchestrators_match_plain():
     close(kt.residual_restrict_tiled_quads(q0, bq, tp),
           trc.restrict_quads_to_full(trc.residual_quads(q0, bq, tp, True)),
           0)
+    close_quads(kt.residual_tiled_quads(q0, bq, tp),
+                trc.residual_quads(q0, bq, tp, True), 0)
 
 
 @pytest.mark.parametrize("real", [True, False])
