@@ -188,6 +188,8 @@ constexpr int kStepStages = kStepAhead + 3;
 // (j - 1, i), (j + 1, i), (j, i - 1), (j, i + 1)
 constexpr int kOwn = 0, kSouth = 8, kEast = 11, kB = 14, kState = 15;
 constexpr int kStepVals = 19;
+// planes of a column's old values loaded together in the back substitution
+constexpr int kBackChunk = 8;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -336,12 +338,21 @@ relax_step(const T* src, T* out, const T* __restrict__ b,
     }
     cp_wait_all();
     // the back substitution, each plane committed as p + (sol - p): the
-    // column's old values are read here, after its last staged read
-    for (int k = nz - 1; k >= 0; --k) {
-        if (k < nz - 1) x = xs[(size_t)k * nt] - gs[(size_t)k * nt] * x;
-        const size_t o = (size_t)k * P + col;
-        const T pk = src[o];
-        out[o] = pk + (x - pk);
+    // column's old values are read here, after its last staged read, a
+    // chunk of planes at a time before the chunk's stores (out may be
+    // src, so a load after a store would wait for it)
+    for (int k0 = nz - 1; k0 >= 0; k0 -= kBackChunk) {
+        T pk[kBackChunk];
+#pragma unroll
+        for (int c = 0; c < kBackChunk; ++c)
+            if (k0 - c >= 0) pk[c] = src[(size_t)(k0 - c) * P + col];
+#pragma unroll
+        for (int c = 0; c < kBackChunk; ++c) {
+            const int k = k0 - c;
+            if (k < 0) break;
+            if (k < nz - 1) x = xs[(size_t)k * nt] - gs[(size_t)k * nt] * x;
+            out[(size_t)k * P + col] = pk[c] + (x - pk[c]);
+        }
     }
 }
 
