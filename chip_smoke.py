@@ -6,8 +6,14 @@ Phases (any failed check raises, so the exit code is non-zero):
 
 1. Build the CUDA kernels from mgroms_tpu_torch/csrc/ and hold each one to
    its plain torch version on the card, with the max ulp printed:
-   K1-K2 in float32 at the CUC level-0 quad shape (64, 512, 512) and at a
-   ragged shape, plus K1 once in float64; K3 (all four target quads a
+   K1 on every colour of both orderings (one launch a colour: the two
+   targets of an RB colour, one of FC) and K2 on the RB colours, on the
+   band stack and on the gather blocks, in float32, float64 and (K1) on
+   the bfloat16 operator, to 0 ulp, at the CUC level-0 quads (timed, each
+   RB colour beside the same targets as two one-target launches), its
+   level-4 quads, every seamount 64^3 quad level, ragged widths (7, 33,
+   70 against the 64-column tile) and nz 2 with H = W = 1; K3 (all four
+   target quads a
    launch) on the band stack and on the gather blocks, in its coarse-RHS,
    residual and z-pair modes, to 0 ulp, at the CUC level-0 quads (timed),
    its level-4 quads (4, 32, 32), ragged widths, nz 2 and in float64;
@@ -15,26 +21,23 @@ Phases (any failed check raises, so the exit code is non-zero):
    bfloat16 bands) at the CUC level-0 quad shape (64, 512, 512), at the
    CUC level-4 quad shape (4, 32, 32), at a ragged shape and once in
    float64, its bytes counted as it reads them (the 24 band quads, its
-   bound on the 48 gather blocks printed beside); K1 on bfloat16 blocks, all four targets, at the seamount 64^3
-   quad shapes (64, 32, 32) ... (8, 4, 4), at (64, 512, 512) and at a
-   ragged shape; K4 and K1 on bfloat16 blocks held to 0 ulp; K5 at the
+   bound on the 48 gather blocks printed beside), held to 0 ulp; K5 at the
    CUC level-0 shape
    (64, 1024, 1024), at a ragged shape and once in float64; K6 in each
    ordering (RB, FC, GS), to 0 ulp, in its one-launch form with 40 sweeps
    at the coarsest levels of CUC (2, 32, 32) and seamount (4, 4, 4), at a
    ragged (3, 5, 7) and once in float64, and in its per-colour-step form
    with 3 sweeps at (64, 64, 64) and at the CUC level-0 shape (the floor
-   of a launch per colour step printed beside its bound); K1 on each
-   of the four target quads at (64, 512, 512), as the FC route launches
-   it, to 0 ulp.  Time each against its plain version
+   of a launch per colour step printed beside its bound).  Time each
+   against its plain version
    (CUDA events, median of 20) beside its bound: the larger of its bytes
    (each input read once, each output written once) over 3.35 TB/s and
    its operations over the float32 peak of 67 TFLOP/s; each kernel's
-   line in the json is timed at the shape its path gives it (K1 on
-   bfloat16 blocks at (64, 32, 32)).  At (64, 512, 512) one K4 sweep is
-   also timed against one sweep of four K1 launches and their two halo
-   extensions, with either block type, and K1 on bfloat16 blocks is timed
-   there too.  K8 (one packed sweep, every chunk) at the CUC level-0 quad
+   line in the json is timed at the shape its path gives it (K1 on the
+   bfloat16 stack at (64, 32, 32)).  At (64, 512, 512) one K4 sweep is
+   also timed against one sweep of two K1 launches and their two halo
+   extensions, with either operator type.  K8 (one packed sweep, every
+   chunk) at the CUC level-0 quad
    shape (64, 512, 512) with the card-default plan, f32 and bfloat16
    bands, at level 1 (32, 256, 256), at a shape with 3 chunks and 3
    tiles, without 'real' and once in float64, held to 0 ulp, its bound
@@ -51,8 +54,8 @@ Phases (any failed check raises, so the exit code is non-zero):
    (nz 64, H 512, tj 16, ws 24), to 0 ulp, timed beside one PyTorch call
    of the same sum (library_ms).  Last, the asynchronous copies in the
    SASS of K11's staged_sum_kernel and wide_stream_kernel (bulk copies)
-   and of K4, K3 and K6's step form (cp.async), per instance (cuobjdump
-   -sass).
+   and of K1-K2, K4, K3 and K6's step form (cp.async), per instance
+   (cuobjdump -sass).
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -73,12 +76,13 @@ Phases (any failed check raises, so the exit code is non-zero):
    coarsest level, one per colour step above) and K5 the residual on the
    levels at least 256 wide; no quad kernel is launched.
 8. CUC 1024^2 x 64 with pallas_fused_sweep=False: the per-colour route,
-   K1, K2 (the emitted residual) and K3.
+   K1, K2 (the emitted residual) and K3 (its level-0 residual too) on the
+   band stack.
 9. CUC 1024^2 x 64 in perf mode (fused_bands_bf16=True, V(1,1)): K4 on
    bfloat16 blocks and K3, the defect-form outer step; <= 1e-4 within 12
    F-cycles, its cycles printed beside phase 4's.
-10. Seamount 64^3 in perf mode with pallas_fused_sweep=False: K1 on
-   bfloat16 blocks and K3; <= 1e-4 within 6 F-cycles.
+10. Seamount 64^3 in perf mode with pallas_fused_sweep=False: K1 on the
+   bfloat16 band stack and K3; <= 1e-4 within 6 F-cycles.
 11. The level-0 smoother micro-benchmarks at the CUC level-0 shape, run
    in this process through their timing functions
    (mgroms_tpu_torch/scripts/): micro_sweep_fused (one sweep by the K1
@@ -86,8 +90,10 @@ Phases (any failed check raises, so the exit code is non-zero):
    turns; the packed iterates held to K4's after 2 sweeps and each route
    to the plain sweep; exactly the kernels of each route launched),
    micro_packed_parts and micro_roofline (K1 against K10's dma_only, the
-   FMA rate of K10's fma_run), and micro_dma_probe (K11's load rates by
-   pattern, every probe launched); their rows are printed.
+   FMA rate of K10's fma_run), micro_dma_probe (K11's load rates by
+   pattern, every probe launched) and micro_colour_update (K1 and K2 at
+   the CUC level-0 quads in every Thomas form and tile-row limit, both
+   layouts); their rows are printed.
 12. CUC 1024^2 x 64, default config, NHModel.distribute(2, 2,
    comm="shard_map") over a virtual mesh of four tiles on the one card
    (the reference's testcuc decomposition; no interconnect is measured):
@@ -100,16 +106,18 @@ Phases (any failed check raises, so the exit code is non-zero):
    backend's on the 2x2 tiles (K5 per tile) and K7 on a (1, 4) re-cut,
    bit for bit, four launches each.
 14. CUC 1024^2 x 64 with relax_method='FC' (four colours), default
-   config: K1 (one target quad per colour) and K3, no K2 and no K4.
+   config: K1 (one target quad per colour) and K3 on the band stack, no
+   K2 and no K4.
 15. CUC 1024^2 x 64, FC, use_pallas=True, compact=False: K6's FC form in
    both forms and K5; the history within 1e-3 of phase 14's.
 16. CUC 1024^2 x 64 with relax_method='GS' (column-Jacobi), use_pallas=
    True: every level in full layout, K6's GS form in both forms and K5;
    GS_CYCLES fixed F-cycles, each cutting the residual, mean factor >= 2.
 
-Every phase whose quad levels K4 smooths (2, 4, 5, 6, 9) checks that
-those levels hold the band stack only, no gather blocks; every phase
-prints its peak device memory (set-up and solve).
+Every phase with quad levels (2, 4-6, 8-10, 12, 14) checks that every
+quad level (every tile on phase 12's mesh) holds the band stack only, no
+gather blocks, whatever route smooths it; every phase prints its peak
+device memory (set-up and solve).
 
 Phases 5-10 and 12-16 run in float32.  Phases 5-8 hold their history to the
 matching default phase's (2 or 4) within rel 1e-6 (1e-3 with
@@ -120,14 +128,14 @@ and launches every kernel of its path and no other.
 
 Phases 2, 4-10, 12 and 14-16 also trace one F-cycle with torch.profiler (device
 activity only): device ops, device busy time against the same traced
-step's wall time (the idle share), K4's and K3's launches and device time
-where they run, and the top device ops.
+step's wall time (the idle share), K4's, K3's and K1-K2's launches and
+device time where they run, and the top device ops.
 
 The line before last is a JSON object with, for each kernel, its launches
 in the phase that is its path (4 for K4 and K3 in both its modes, 6 for
 K6's one-launch
 form, 7 for K5 and K6's per-colour-step form, 8 for K1 and K2, 9 for K4
-on bfloat16 blocks, 10 for K1 on bfloat16 blocks, 11 for K8-K11, 13 for
+on bfloat16 bands, 10 for K1 on the bfloat16 stack, 11 for K8-K11, 13 for
 K7, 15 for K6's FC forms, 16 for its GS forms), its error against the
 plain version, both times and its bound; the last line is
 {"ok": true, "device": {...}}.
@@ -163,6 +171,7 @@ from mgroms_tpu_torch.ops.kernels import sweep_fused as ksf
 from mgroms_tpu_torch.ops.kernels import sweep_packed as sp
 from mgroms_tpu_torch.parallel import mesh as pmesh
 from mgroms_tpu_torch.parallel.exchange import unblock_overlapped
+from mgroms_tpu_torch.scripts import micro_colour_update as mcu
 from mgroms_tpu_torch.scripts import micro_dma_probe as mdp
 from mgroms_tpu_torch.scripts import micro_packed_parts as mpp
 from mgroms_tpu_torch.scripts import micro_roofline as mr
@@ -299,35 +308,6 @@ def kernel_inputs(nz, H, W, dtype, dev, seed, lp=False, bands=False):
     return pack, q, bq
 
 
-def kernel_calls(pack, q, bq, t=(0, 1)):
-    """(kernel, plain, residual scale, bytes, flops) of K1 and K2 on
-    target quad ``t``.  Bytes: every input read once, every output written
-    once.  Flops per point: the 12-term gather (23), the RHS (1) and the
-    Thomas substitution (6), plus the 8 plane-0 'real' flops per column;
-    K2 adds the 7-flop residual."""
-    m = rc._TKEYS.index(t)
-    e = rc.extend_quads(q)
-    rb = pack.rblocks[m]
-    e3 = tuple(e[k] for k in kt.gather_quads(t))
-    f = (pack.blocks[m], pack.ud[m], pack.bet[m])
-    scale = float(bq[t].abs().max())
-    n = bq[t].numel()
-    col = n // bq[t].shape[0]
-    k1_bytes = nbytes(*e3, bq[t], *f, rb, bq[t])
-    return {
-        "color_update": (
-            lambda: kt.color_update(e3, bq[t], *f, t, True, rb),
-            lambda: kt.color_update_plain(e3, bq[t], *f, t, True, rb), None,
-            k1_bytes, 30 * n + 8 * col),
-        "color_update_emit": (
-            lambda: kt.color_update_emit(e3, bq[t], *f, pack.d[m], t, True,
-                                         rb),
-            lambda: kt.color_update_emit_plain(e3, bq[t], *f, pack.d[m], t,
-                                               True, rb), scale,
-            k1_bytes + nbytes(pack.d[m], bq[t]), 37 * n + 8 * col),
-    }
-
-
 def compare(name, got, want, res_scale):
     """max |kernel - plain| and max ulp, held to 1e-6 x max|plain| for
     solutions, 1e-6 x max|b| for residual outputs (a cancellation)."""
@@ -388,25 +368,7 @@ def hold(results, name, shape, dtype, kern, plain, res_scale, nbytes_,
 
 def kernel_phase(dev):
     results = {}
-    for shape, dtype, timed in (((6, 5, 7), torch.float32, None),
-                                ((6, 5, 7), torch.float64, None),
-                                ((64, 512, 512), torch.float32, "json"),
-                                ((64, 512, 512), torch.float64, None)):
-        pack, q, bq = kernel_inputs(*shape, dtype, dev, seed=sum(shape))
-        calls = kernel_calls(pack, q, bq)
-        if dtype == torch.float64:           # K1 once in f64
-            calls = {"color_update": calls["color_update"]}
-        for name, call in calls.items():
-            hold(results, name, shape, dtype, *call, timed)
-        if timed:
-            # the FC route launches K1 on each target quad alone, one
-            # colour each (phase 14): all four, to 0 ulp
-            for t in rc._TKEYS:
-                hold(results, "color_update", f"{shape} FC target {t}",
-                     dtype, *kernel_calls(pack, q, bq, t)["color_update"],
-                     None, exact=True)
-        del pack, q, bq, calls
-        torch.cuda.empty_cache()
+    colour_kernels(dev, results)
     rr_kernels(dev, results)
     sweep_kernels(dev, results)
     full_layout_kernels(dev, results)
@@ -416,6 +378,98 @@ def kernel_phase(dev):
     probe_kernels(dev, results)
     sass_async_copies()
     return results
+
+
+# K1 and K2, a colour a launch (quad shape, dtype, timed): "json" times the
+# CUC level-0 quads (phase 8's level 0; K1 on the bfloat16 operator at the
+# seamount 64^3 level-0 quads, phase 10's, "bf16"), "print" another
+# shape: the CUC level-4 quads; every seamount 64^3 quad level (phase 10's
+# path); widths 7, 33 and 70 against the 64-column tile, nz 2 with
+# H = W = 1; float64
+COLOUR_CASES = [
+    ((64, 512, 512), torch.float32, "json"),
+    ((4, 32, 32), torch.float32, "print"),
+    ((64, 32, 32), torch.float32, "bf16"),
+    ((32, 16, 16), torch.float32, None),
+    ((16, 8, 8), torch.float32, None),
+    ((8, 4, 4), torch.float32, None),
+    ((6, 5, 7), torch.float32, None),
+    ((2, 1, 1), torch.float32, None),
+    ((4, 3, 70), torch.float32, None),
+    ((3, 5, 33), torch.float32, None),
+    ((6, 5, 7), torch.float64, None),
+    ((2, 1, 1), torch.float64, None),
+    ((3, 5, 33), torch.float64, None),
+    ((64, 512, 512), torch.float64, None),
+]
+# every colour of both orderings: the RB pairs, then the FC single targets
+COLOURS = rc.colour_targets("RB") + rc.colour_targets("FC")
+
+
+def _stk(d) -> torch.Tensor:
+    """The per-target outputs of a colour update, stacked in key order."""
+    return torch.stack([d[t] for t in sorted(d)])
+
+
+def colour_kernels(dev, results):
+    """K1 on every colour of both orderings (a launch a colour: both
+    targets of an RB colour, one of FC) and K2 on the RB colours, on the
+    band stack and on the gather blocks, in float32, float64 and (K1) on
+    the bfloat16 operator beside float32 state: 0 ulp from the plain
+    versions at every COLOUR_CASES shape.  Bounds as
+    scripts/micro_colour_update.cost counts them: the operator as the
+    launch reads it, the two sibling quads, the diagonal siblings' plane
+    0, each target's column fields and outputs, each once.  Beside each
+    timed RB colour the same two targets as two one-target launches (the
+    FC form), as the per-target route launched them."""
+    for shape, dtype, timed in COLOUR_CASES:
+        nz, H, W = shape
+        for layout in ("bands", "blocks"):
+            lps = (False, True) if dtype == torch.float32 else (False,)
+            for lp in lps:
+                pack, e, bq = mcu.inputs(dev, nz, H, W, dtype, layout, lp,
+                                         seed=sum(shape))
+                main = layout == "bands" and (timed == "json" and not lp
+                                              or timed == "bf16" and lp)
+                json_ = "json" if main else ("print" if timed else None)
+                k1 = "color_update_bf16" if lp else "color_update"
+                for colour in COLOURS:
+                    rb = len(colour) == 2
+                    call = (lambda c=colour: _stk(kt.color_update(
+                        e, bq, pack, c)))
+                    plain = (lambda c=colour: _stk(kt.color_update_plain(
+                        e, bq, pack, c)))
+                    nb, fl = mcu.cost(pack, colour, False, dtype)
+                    t = json_ if colour == rc.colour_targets("RB")[0] \
+                        or (colour == rc.colour_targets("FC")[1]
+                            and timed and not lp) else None
+                    if t and not rb:
+                        t = "print"
+                    label = (f"{shape} {layout} {'RB' if rb else 'FC'} "
+                             f"{colour}" + (" bf16" if lp else ""))
+                    hold(results, k1, label, dtype, call, plain, None, nb,
+                         fl, t, exact=True)
+                    if t and rb:
+                        plan = kt.last_plan
+                        two = median_ms(lambda c=colour: [
+                            kt.color_update(e, bq, pack, (x,)) for x in c])
+                        print(f"  {label}: plan {plan}; the two targets as "
+                              f"two one-target launches {two:.4f} ms")
+                    if rb and not lp:
+                        nb, fl = mcu.cost(pack, colour, True, dtype)
+                        scale = max(float(bq[x].abs().max()) for x in colour)
+                        hold(results, "color_update_emit", label, dtype,
+                             lambda c=colour: tuple(_stk(d) for d in
+                                                    kt.color_update_emit(
+                                                        e, bq, pack, c)),
+                             lambda c=colour: tuple(_stk(d) for d in
+                                                    kt.color_update_emit_plain(
+                                                        e, bq, pack, c)),
+                             scale, nb, fl,
+                             json_ if colour == rc.colour_targets("RB")[1]
+                             else None, exact=True)
+                del pack, e, bq
+                torch.cuda.empty_cache()
 
 
 # K3 (quad shape, dtype, timed): "json" times the CUC level-0 quads
@@ -484,37 +538,31 @@ def rr_kernels(dev, results):
         torch.cuda.empty_cache()
 
 
-# (shape, dtype, low-precision blocks, K4 timed, K1 timed).  "json" times
-# the shape a kernel's main path gives it: K4 at the CUC level-0 quad
-# (phases 4 and 9), K1 on bfloat16 blocks at the seamount 64^3 level-0 quad
-# (phase 10); "print" times another shape.  Every low-precision case also
-# holds K1 on bfloat16 blocks, at each quad level of phase 10 and at the
-# CUC level-0 quad, where both are timed against K4.
+# (shape, dtype, low-precision operator, K4 timed).  "json" times the shape
+# a kernel's main path gives it: K4 at the CUC level-0 quad (phases 4 and
+# 9); "print" times another shape.  Where K4 is timed for the json line,
+# one K4 sweep is also timed against one sweep of two K1 launches.
 SWEEP_CASES = [
-    ((64, 512, 512), torch.float32, False, "json", None),
-    ((64, 512, 512), torch.float32, True, "json", "print"),
-    ((64, 32, 32), torch.float32, True, None, "json"),
-    ((32, 16, 16), torch.float32, True, None, None),
-    ((16, 8, 8), torch.float32, True, None, None),
-    ((8, 4, 4), torch.float32, True, None, None),
-    ((4, 32, 32), torch.float32, False, "print", None),
-    ((6, 5, 7), torch.float32, False, None, None),
-    ((6, 5, 7), torch.float32, True, None, None),
-    ((6, 5, 7), torch.float64, False, None, None),
+    ((64, 512, 512), torch.float32, False, "json"),
+    ((64, 512, 512), torch.float32, True, "json"),
+    ((4, 32, 32), torch.float32, False, "print"),
+    ((6, 5, 7), torch.float32, False, None),
+    ((6, 5, 7), torch.float32, True, None),
+    ((6, 5, 7), torch.float64, False, None),
 ]
 
 
 def sweep_kernels(dev, results):
-    """K4 (one sweep) and, on bfloat16 blocks, K1, each against its plain
-    version to 0 ulp.  Bytes of K4, each input read once as K4 reads it:
-    the four state and RHS quads, the 24 band quads (bands 3..8 of the
-    operator, the stack's content), ud and bet, and the four new quads; its
-    bound on the 48 gather blocks and the 'real' pair that the first port
-    read (and K1 reads) is printed beside.  Flops four times K1's.  Where
-    K4 is timed for the json line, one K4 sweep is also timed against one
-    sweep of four K1 launches and the two halo extensions
-    (relax_tiled.relax_compact_tiled_quads) on the same operator."""
-    for shape, dtype, lp, k4_timed, k1_timed in SWEEP_CASES:
+    """K4 (one sweep) against its plain version to 0 ulp.  Bytes of K4,
+    each input read once as K4 reads it: the four state and RHS quads, the
+    24 band quads (bands 3..8 of the operator, the stack's content), ud
+    and bet, and the four new quads; its bound on the 48 gather blocks and
+    the 'real' pair that the first port read is printed beside.  Flops
+    four times K1's on one target.  Where K4 is timed for the json line,
+    one K4 sweep is also timed against one sweep of the K1 route (two K1
+    launches, a colour each, and the two halo extensions: relax_tiled.
+    relax_compact_tiled_quads) on the same band stack."""
+    for shape, dtype, lp, k4_timed in SWEEP_CASES:
         nz, H, W = shape
         pack, q, bq = kernel_inputs(*shape, dtype, dev, seed=sum(shape),
                                     lp=lp, bands=True)
@@ -537,43 +585,32 @@ def sweep_kernels(dev, results):
                   f"{bound(state + band_bytes, 0)[0]:.6f} ms "
                   f"({(state + band_bytes) / 1e9:.4f} GB); on the gather "
                   f"blocks {bound(old, 0)[0]:.6f} ms ({old / 1e9:.4f} GB)")
-        if lp:
-            e = rc.extend_quads(q)
-            for m, t in enumerate(rc._TKEYS):
-                e3 = tuple(e[k] for k in kt.gather_quads(t))
-                f = (blocks[m], pack.ud[m], bet[m], t, True, rblocks[m])
-                hold(results, "color_update_bf16", shape, dtype,
-                     lambda: kt.color_update(e3, bq[t], *f),
-                     lambda: kt.color_update_plain(e3, bq[t], *f), None,
-                     nbytes(*e3, bq[t], *f[:3], f[-1], bq[t]),
-                     30 * n + 8 * col, k1_timed if t == (0, 1) else None,
-                     exact=True)
-            del e, e3, f
-        if k4_timed == "json":
             k4 = median_ms(lambda: ksf.relax_fused_sweep(q, bq, pack, 1))
             k1 = median_ms(lambda: kt.relax_compact_tiled_quads(q, bq, pack,
                                                                 1))
             print(f"  one sweep at {shape}, {'bfloat16' if lp else dtype} "
-                  f"blocks: K4 {k4:.4f} ms, four K1 launches + two halo "
+                  f"band stack: K4 {k4:.4f} ms, two K1 launches + two halo "
                   f"extensions {k1:.4f} ms")
         del pack, blocks, rblocks, bet, stack, q, bq
         torch.cuda.empty_cache()
 
 
 # kernel -> what its staging must show in the SASS: the bulk copies of
-# K11's ring, the asynchronous copies of K4's, K3's and K6's step form
+# K11's ring, the asynchronous copies of K1-K2's, K4's, K3's and K6's step
+# form
 SASS_ASYNC = {"staged_sum_kernel": ("UBLKCP", "UTMALDG"),
               "wide_stream_kernel": ("UBLKCP", "UTMALDG"),
+              "colour_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
               "sweep_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
               "rr_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
               "relax_step": ("LDGSTS", "UBLKCP", "UTMALDG")}
 
 
 def sass_async_copies():
-    """Print, per instance of K11's two kernels, of K4, of K3 and of K6's
-    step form, how many asynchronous-copy instructions its SASS holds
-    (cuobjdump -sass of the built library), and check that each stages
-    through them."""
+    """Print, per instance of K11's two kernels, of K1-K2, of K4, of K3 and
+    of K6's step form, how many asynchronous-copy instructions its SASS
+    holds (cuobjdump -sass of the built library), and check that each
+    stages through them."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         print(f"  SASS: {tool} not found; the staging instructions are not "
@@ -911,23 +948,24 @@ def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
 
 
 def check_band_levels(m):
-    """Every quad level that K4 smooths holds its operator as the band
-    stack only: no gather blocks of either precision.  Prints the levels
-    and the stacks' size."""
+    """Every quad level holds its operator as the band stack only, whatever
+    route smooths it (K4, or K1-K2), the tiles of a distributed level too:
+    no gather blocks of either precision.  Prints the levels and the
+    stacks' size."""
     be = m.backend
-    if not be.fused_sweep:
-        return
-    levels = [lev for lev in range(be.nlevs) if be._use_sweep(lev)]
-    if not levels:              # compact=False: no quad level
+    levels = [lev for lev in range(be.nlevs) if be.state_quads(lev)]
+    if not levels:              # compact=False or GS: no quad level
         return
     stacks = 0
     for lev in levels:
         pk = be.packs[lev]
-        check(pk.blocks is None and pk.ebands is not None
-              and (pk.lp is None or pk.lp.blocks is None),
-              f"level {lev} holds gather blocks beside its band stack")
-        stacks += nbytes(pk.ebands, pk.lp.ebands if pk.lp else None)
-    print(f"  K4 levels {levels} hold the band stack only (no gather "
+        for tile in (pk.flat() if hasattr(pk, "flat") else (pk,)):
+            check(tile.blocks is None and tile.ebands is not None
+                  and (tile.lp is None or tile.lp.blocks is None),
+                  f"level {lev} holds gather blocks beside its band stack")
+            stacks += nbytes(tile.ebands,
+                             tile.lp.ebands if tile.lp else None)
+    print(f"  quad levels {levels} hold the band stack only (no gather "
           f"blocks): {stacks / 2**30:.3f} GiB of stacks")
 
 
@@ -984,7 +1022,8 @@ def profile_fcycle(m, top=8):
     print(f"  profile: {len(dev)} device ops, device busy {busy_ms:.3f} ms "
           f"of {wall_ms:.3f} ms traced wall, idle share "
           f"{1 - busy_ms / wall_ms:.4f}")
-    for label, key in (("K4", "sweep_kernel<"), ("K3", "rr_kernel<")):
+    for label, key in (("K4", "sweep_kernel<"), ("K3", "rr_kernel<"),
+                       ("K1-K2", "colour_kernel<")):
         ks_ = [v for k, v in by_name.items() if key in k]
         if ks_:
             print(f"  profile: {label} {sum(n for n, _ in ks_)} launches, "
@@ -1005,7 +1044,8 @@ def path_phase(title, grid, case, dev, maxiter, ref, rtol, div_limits, cfg,
     phase's ``ref`` within it.  With use_pallas, K6's one-launch form (in
     the solve's ordering) once per coarsest relax (L per F-cycle); where
     K5 runs, 7 times per F-cycle plus once in solve_init.  Returns the
-    launch counts, the SolveInfo and the pressure."""
+    launch counts, the SolveInfo and the pressure, on the host (a later
+    phase's peak device memory holds nothing of this one)."""
     print(f"== {title}")
     t0 = time.perf_counter()
     nx, ny, nz = grid
@@ -1040,7 +1080,7 @@ def path_phase(title, grid, case, dev, maxiter, ref, rtol, div_limits, cfg,
               f"K5 {counts['residual_tiled']} times")
     print(f"  F-cycle median {fcycle_ms(m):.3f} ms")
     profile_fcycle(m)
-    p = m.p_solved
+    p = m.p_solved.cpu()
     del m
     torch.cuda.empty_cache()
     print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
@@ -1079,6 +1119,7 @@ def micro_phase(dev):
             check(val <= msf.CHECK_RTOL, f"{key} = {val}")
     print(json.dumps({"micro_packed_parts": mpp.timed(dev)}))
     print(json.dumps({"micro_roofline": mr.timed(dev)}))
+    print(json.dumps({"micro_colour_update": mcu.timed(dev)}))
     print(json.dumps({"micro_dma_probe": mdp.timed(dev)}))
     counts = launches()
     print(f"  launches {counts}")
@@ -1132,11 +1173,13 @@ def distributed_phase(case, dev, ref, p_ref):
                 if be._use_compact_shard(lev)) == DIST_COMPACT_LEVELS,
           "compact levels differ from the routing's premise")
     check_path(counts, DIST_KERNELS)
+    check_band_levels(m)
     n = min(len(info.history), len(ref))
     dev_rel = max(abs(a / b - 1) for a, b in zip(info.history[:n], ref[:n]))
     print(f"  history vs phase 8: max rel deviation {dev_rel:.3e} over {n} "
           f"entries (limit {REL_TOL})")
-    p_dev = float((m.p_solved - p_ref).abs().max() / p_ref.abs().max())
+    p_dev = float((m.p_solved.cpu() - p_ref).abs().max()
+                  / p_ref.abs().max())
     print(f"  pressure vs phase 8: max|p12 - p8| / max|p8| = {p_dev:.3e}")
     check(info.res <= 1e-4, f"{info.res} after {info.niter} cycles")
     check(ratio <= 2.5e-2 and inner <= 1e-2,
@@ -1301,7 +1344,8 @@ def main() -> int:
         "phase 8: CUC 1024^2 x 64 float32, pallas_fused_sweep=False", *cuc,
         maxiter=8, ref=cuc_history, rtol=1e-3, div_limits=(2.5e-2, 1e-2),
         cfg=dict(pallas_fused_sweep=False),
-        busy={"color_update", "color_update_emit", "residual_restrict"})
+        busy={"color_update", "color_update_emit", "residual_restrict",
+              "residual_quads"})
     phase_counts[9], info, _ = path_phase(
         "phase 9: CUC 1024^2 x 64 float32, perf mode (bfloat16 smoother "
         "blocks, V(1,1))", *cuc, maxiter=12, ref=cuc_history, rtol=None,
@@ -1315,7 +1359,7 @@ def main() -> int:
         "False", (64, 64, 64), case_seamount, dev, maxiter=6,
         ref=seamount_history, rtol=None, div_limits=(1e-2, 1e-2),
         cfg=dict(perf, pallas_fused_sweep=False),
-        busy={"color_update_bf16", "residual_restrict"})
+        busy={"color_update_bf16", "residual_restrict", "residual_quads"})
     print(f"  F-cycles to 1e-4: {info.niter} in perf mode, "
           f"{len(seamount_history) - 1} in phase 2")
 
@@ -1336,7 +1380,7 @@ def main() -> int:
         "phase 14: CUC 1024^2 x 64 float32, relax_method='FC'", *cuc,
         maxiter=FC_MAXITER, ref=None, rtol=None, div_limits=(2.5e-2, 1e-2),
         cfg=dict(relax_method="FC"),
-        busy={"color_update", "residual_restrict"})
+        busy={"color_update", "residual_restrict", "residual_quads"})
     # compact=False: the full-layout sums round in another order than the
     # quads', as for phase 7 against phase 4
     phase_counts[15], _, _ = path_phase(

@@ -60,10 +60,10 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64", "bf16"):
-        fn = getattr(lib, f"mg_color_update_{dt}")
-        # e0 e1 e2 blocks rb ud bet bq d out res | nz H W real emit |
-        # terms stream (bf16: float32 state, bfloat16 blocks, emit 0)
-        fn.argtypes = [p] * 11 + [i] * 5 + [p, p]
+        fn = getattr(lib, f"mg_colour_update_{dt}")
+        # ColourArgs* | nz H W real tg0 ntargets emit bands form rows_max |
+        # used stream (bf16: float32 state, bfloat16 operator, emit 0)
+        fn.argtypes = [p] + [i] * 10 + [p, p]
         fn.restype = i
         fn = getattr(lib, f"mg_sweep_fused_{dt}")
         # SweepArgs* | nz H W real | stream

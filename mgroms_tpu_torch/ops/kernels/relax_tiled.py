@@ -8,11 +8,13 @@ Port of ``mgroms_tpu/ops/pallas/relax_tiled.py``.  The kernels replace:
   ``residual_restrict``  <- ``_rr_one`` on every target (relax_tiled.py:340,
                             via residual_restrict_tiled_quads :426)
 
-K1 and K2 (``csrc/relax_tiled.cu``) take one thread per column of one
-target quad and read the gather blocks.  K3 (``csrc/rr_fused.cu``) takes
-all four target quads of a level in one launch and reads the operator in
-the layout the level holds it: the band stack (``pack.ebands``) or the
-gather blocks.  It has three modes: the coarse RHS restrict(b - A p), the
+K1 and K2 (``csrc/relax_tiled.cu``) update every target quad of one
+colour in one launch (both of an RB colour, one of an FC colour; K2, the
+emitting form, the RB colours), one thread per (J, I) column.  K3
+(``csrc/rr_fused.cu``) takes all four target quads of a level in one
+launch.  Each reads the operator in the layout the level holds it: the
+band stack (``pack.ebands``, or ``pack.lp.ebands`` for K1 in perf mode) or
+the gather blocks.  K3 has three modes: the coarse RHS restrict(b - A p), the
 z-pair sums of chosen targets (the fused down-leg's fresh colour), and the
 residual quads themselves (``residual_quads``, the level-0 residual of the
 K4 levels, whose JAX counterpart is relax_compact.residual_quads:615, XLA
@@ -22,7 +24,7 @@ Each wrapper runs its plain version (written with ops/relax_compact.py)
 for tensors on the CPU only; for a CUDA tensor it checks device, dtype,
 shape and contiguity, launches the kernel or raises.  ``LAUNCHES`` counts
 kernel launches per wrapper (``color_update_bf16``: K1 on the
-low-precision smoother operator, bfloat16 blocks beside float32 state;
+low-precision smoother operator, bfloat16 values beside float32 state;
 ``residual_restrict``: K3 in its coarse-RHS and z-pair modes,
 ``residual_quads``: K3 in its residual mode).  The TPU kernels' row tiles,
 VMEM budgets and Element windows have no counterpart here: the kernels
@@ -40,8 +42,8 @@ from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
 from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
                              CompactPack, _residual_one, band_layout,
-                             check_band_stack, colour_targets, extend_quads,
-                             gather_blocks, gather_keys, key_views,
+                             block_views, check_band_stack, colour_targets,
+                             extend_quads, gather_blocks, gather_keys,
                              merge_quads, relax_residual_compact_quads,
                              relax_residual_restrict_compact_quads,
                              residual_from_gather, smoother_operator,
@@ -64,9 +66,10 @@ def reset_launches() -> None:
 
 
 def gather_quads(target) -> tuple:
-    """The 3 quads a colour update's gather reads, in kernel argument
-    order: the y-sibling, the x-sibling and the diagonal sibling (every
-    off-column coupling flips at least one parity)."""
+    """The 3 quads a target's gather reads, in the order K10's
+    ``dma_only`` takes them (ops/kernels/roofline.py): the y-sibling, the
+    x-sibling and the diagonal sibling (every off-column coupling flips at
+    least one parity)."""
     a, b = target
     return ((1 - a, b), (a, 1 - b), (1 - a, 1 - b))
 
@@ -101,28 +104,61 @@ def _terms(target, quad_keys) -> _Terms:
 
 # --------------------------------------------------------------- plain
 
-def color_update_plain(e3, bq, blocks_w, ud, bet, target, real_matrix,
-                       rb=None):
-    """One RB colour update of target quad ``target``: gather from the 3
-    sibling extended quads ``e3`` (:func:`gather_quads` order), then the
-    factored Thomas solve with gam recomputed.  Blocks in bfloat16 are
-    upcast to the state type at read."""
-    e = dict(zip(gather_quads(target), e3))
-    g = gather_blocks(e, tuple(v.to(bq.dtype) for v in key_views(blocks_w,
-                                                                 rb)),
-                      target[0], target[1], real_matrix)
-    return thomas_factored_unrolled(bet, None, ud, bq - g)
+def colour_partner(target) -> tuple:
+    """The other target quad of ``target``'s RB colour (the diagonal
+    sibling, relax_compact.colour_targets)."""
+    return (1 - target[0], 1 - target[1])
 
 
-def color_update_emit_plain(e3, bq, blocks_w, ud, bet, d, target,
-                            real_matrix, rb=None):
-    """:func:`color_update_plain` plus the raw residual
-    bq - d x - lo x_- - hi x_+ - g from the same gather."""
-    e = dict(zip(gather_quads(target), e3))
-    g = gather_blocks(e, key_views(blocks_w, rb), target[0], target[1],
-                      real_matrix)
-    sol = thomas_factored_unrolled(bet, None, ud, bq - g)
-    return sol, residual_from_gather(bq, sol, d, ud, g)
+def _check_colour(targets) -> tuple:
+    """``targets`` as a colour: one target quad, or an RB pair in
+    ``_TKEYS`` order (the kernel's first target is (0,0) or (0,1))."""
+    targets = tuple(sorted(targets))
+    if not targets or len(targets) > 2 or any(t not in _TKEYS
+                                              for t in targets) \
+            or (len(targets) == 2 and targets[1] != colour_partner(
+                targets[0])):
+        raise ValueError(f"a colour is one target quad or an RB pair, got "
+                         f"{targets}")
+    return targets
+
+
+def color_update_plain(e, bq, pack: CompactPack, targets) -> dict:
+    """One colour update of ``targets`` (one target quad, or the two of an
+    RB colour): per target, the gather from the extended quads ``e``
+    (``_TKEYS``-keyed, all four) with the smoother operator
+    (relax_compact.smoother_operator, in the layout the pack holds it;
+    bfloat16 values upcast at read), then the factored Thomas solve with
+    gam recomputed.  Returns ``{target: new quad}``."""
+    dt = e[targets[0]].dtype
+    _, _, bet, _ = smoother_operator(pack, dt)
+    lp = pack.lp is not None
+    out = {}
+    for t in _check_colour(targets):
+        m = _TKEYS.index(t)
+        g = gather_blocks(e, tuple(v.to(dt) for v in block_views(pack, m,
+                                                                  lp=lp)),
+                          t[0], t[1], pack.real_matrix)
+        out[t] = thomas_factored_unrolled(bet[m], None, pack.ud[m],
+                                          bq[t] - g)
+    return out
+
+
+def color_update_emit_plain(e, bq, pack: CompactPack, targets) -> tuple:
+    """:func:`color_update_plain` with the true operator (the pack's own,
+    never ``pack.lp``), plus each target's raw residual
+    bq - d x - lo x_- - hi x_+ - g from the same gather:
+    ``({target: new quad}, {target: residual})``."""
+    sol, res = {}, {}
+    for t in _check_colour(targets):
+        m = _TKEYS.index(t)
+        g = gather_blocks(e, block_views(pack, m), t[0], t[1],
+                          pack.real_matrix)
+        sol[t] = thomas_factored_unrolled(pack.bet[m], None, pack.ud[m],
+                                          bq[t] - g)
+        res[t] = residual_from_gather(bq[t], sol[t], pack.d[m], pack.ud[m],
+                                      g)
+    return sol, res
 
 
 def residual_restrict_plain(e4, bq, pack: CompactPack, mode="coarse",
@@ -155,73 +191,143 @@ def _shapes(nz, H, W, real_matrix) -> dict:
     return s
 
 
-def _geometry(bq, real_matrix, rb):
-    nz, H, W = bq.shape
+# The Thomas forms of K1 and K2 (csrc/relax_tiled.cu): the forward values
+# and c = ud * bet in shared memory ("smem"), c only ("out": the forward
+# values in the output, re-read by the back substitution), or nothing on
+# chip ("none", any nz).  A launch asks for COLOUR_FORMS[number of targets]
+# and takes the first form from it on whose shared memory fits, and up to
+# COLOUR_ROWS tile rows a block (1, 2 or 4); ``last_plan`` is the (form,
+# tile rows) the last launch took.  The defaults are the fastest measured
+# at the CUC level-0 quads (PERF.md; scripts/micro_colour_update times
+# every form): an RB colour keeps nothing on chip, whose smaller blocks
+# let more warps share an SM, an FC colour keeps c.
+THOMAS_FORMS = ("smem", "out", "none")
+COLOUR_FORMS = {1: "out", 2: "none"}
+COLOUR_ROWS = 4
+last_plan = None
+
+
+class _ColourArgs(ctypes.Structure):
+    _fields_ = [("e", ctypes.c_void_p * 4)] + [
+        (f, ctypes.c_void_p * 2) for f in ("bq", "ud", "bet", "d", "out",
+                                           "res", "blocks", "rb")] \
+        + [("band", ctypes.c_void_p)]
+
+
+def colour_operator(pack: CompactPack, dt, emit: bool = False):
+    """``(layout, holder, bet, value dtype)`` of the operator a colour
+    update of state of type ``dt`` reads: the smoother operator for K1
+    (relax_compact.smoother_operator: ``pack.lp`` when present), the true
+    operator for K2; ``layout`` is ``"bands"`` where its holder has the
+    band stack, else ``"blocks"``."""
+    if emit:
+        holder, bet, band = pack, pack.bet, dt
+    else:
+        _, _, bet, band = smoother_operator(pack, dt)
+        holder = pack.lp if pack.lp is not None else pack
+    return ("bands" if holder.ebands is not None else "blocks", holder, bet,
+            band)
+
+
+def _launch_colour(e, bq, pack: CompactPack, targets, emit: bool):
+    global last_plan
+    targets = _check_colour(targets)
+    q0 = bq[targets[0]]
+    nz, H, W = q0.shape
     if nz < 2:
         raise ValueError("the kernels need nz >= 2")
-    if real_matrix != (rb is not None):
-        raise ValueError("rb is required exactly when real_matrix")
-    return nz, H, W
-
-
-def _launch_color_update(e3, bq, blocks_w, ud, bet, d, target, real_matrix,
-                         rb, emit):
-    nz, H, W = _geometry(bq, real_matrix, rb)
-    sh = _shapes(nz, H, W, real_matrix)
-    named = {"bq": bq, "blocks": blocks_w, "ud": ud, "bet": bet}
-    named.update({f"e{i}": x for i, x in enumerate(e3)})
-    sh.update({f"e{i}": sh["e"] for i in range(3)})
+    if nz * (H + 2) * (W + 2) >= 2 ** 32:
+        raise ValueError("a quad of 2**32 values or more")
+    layout, holder, bet, band = colour_operator(pack, q0.dtype, emit)
+    real = pack.real_matrix
+    ms = [_TKEYS.index(t) for t in targets]
+    named, shapes = {}, {}
+    for t in _TKEYS:
+        named[f"e{t}"], shapes[f"e{t}"] = e[t], (nz, H + 2, W + 2)
+    fields = {"bq": lambda m, t: bq[t], "ud": lambda m, t: pack.ud[m],
+              "bet": lambda m, t: bet[m]}
     if emit:
-        named["d"] = d
-    if real_matrix:
-        named["rb"] = rb
-    # the emitted residual needs the true operator: blocks of the state type
-    band = bq.dtype if emit else blocks_w.dtype
-    check_tensors(named, sh, bq.dtype, bq.device,
-                  {"blocks": band, "rb": band})
-    out = torch.empty_like(bq)
-    res = torch.empty_like(bq) if emit else None
+        fields["d"] = lambda m, t: pack.d[m]
+    for m, t in zip(ms, targets):
+        for f, get in fields.items():
+            named[f"{f}{t}"] = get(m, t)
+            shapes[f"{f}{t}"] = (nz - 1 if f == "ud" else nz, H, W)
+    dtypes = {}
+    bandp = None
+    if layout == "bands":
+        check_band_stack(holder.ebands, (NBANDS, nz + 2, H + 2, W + 2),
+                         band, q0.device)
+        lpad, _ = band_layout(W, holder.ebands.element_size())
+        bandp = (holder.ebands.data_ptr()
+                 - lpad * holder.ebands.element_size())
+    else:
+        if real and holder.rblocks is None:
+            raise ValueError("the pack holds neither the band stack nor "
+                             "its 'real' pairs")
+        for m, t in zip(ms, targets):
+            named[f"blocks{t}"] = holder.blocks[m]
+            shapes[f"blocks{t}"] = (nz, H, _NKEYS * W)
+            dtypes[f"blocks{t}"] = band
+            if real:
+                named[f"rb{t}"] = holder.rblocks[m]
+                shapes[f"rb{t}"] = (1, H, 2 * W)
+                dtypes[f"rb{t}"] = band
+    check_tensors(named, shapes, q0.dtype, q0.device, dtypes)
+    if band != q0.dtype and (emit or band != torch.bfloat16):
+        raise ValueError(f"{band} operator with {q0.dtype} state")
+    out = {t: torch.empty_like(q0) for t in targets}
+    res = {t: torch.empty_like(q0) for t in targets} if emit else {}
+    two = lambda xs: (ctypes.c_void_p * 2)(*(ptr(x) for x in xs),
+                                           *([None] * (2 - len(xs))))
+    per = lambda f: two([named[f"{f}{t}"] for t in targets])
+    args = _ColourArgs(
+        (ctypes.c_void_p * 4)(*(ptr(e[t]) for t in _TKEYS)), per("bq"),
+        per("ud"), per("bet"), per("d") if emit else two([]),
+        two([out[t] for t in targets]), two([res.get(t) for t in targets]),
+        two([holder.blocks[m] for m in ms]) if layout == "blocks"
+        else two([]),
+        two([holder.rblocks[m] for m in ms])
+        if layout == "blocks" and real else two([]), bandp)
     lib = _build.load()
-    fn = {torch.bfloat16: lib.mg_color_update_bf16,
-          torch.float64: lib.mg_color_update_f64}.get(band,
-                                                      lib.mg_color_update_f32)
-    tt = _terms(target, gather_quads(target))
-    with torch.cuda.device(bq.device):
-        rc = fn(*(ptr(x) for x in e3), ptr(blocks_w), ptr(rb), ptr(ud),
-                ptr(bet), ptr(bq), ptr(d if emit else None), ptr(out),
-                ptr(res), nz, H, W, int(real_matrix), int(emit),
-                ctypes.addressof(tt), torch.cuda.current_stream().cuda_stream)
-    check_launch(rc, "color_update")
-    return out, res
+    fn = {torch.bfloat16: lib.mg_colour_update_bf16,
+          torch.float64: lib.mg_colour_update_f64}.get(
+              band, lib.mg_colour_update_f32)
+    used = (ctypes.c_int * 2)()
+    with torch.cuda.device(q0.device):
+        rc = fn(ctypes.byref(args), nz, H, W, int(real), ms[0],
+                len(targets), int(emit), int(layout == "bands"),
+                THOMAS_FORMS.index(COLOUR_FORMS[len(targets)]), COLOUR_ROWS,
+                used,
+                torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "color_update_emit" if emit else "color_update")
+    last_plan = (THOMAS_FORMS[used[0]], used[1])
+    return out, res, band
 
 
-def color_update(e3, bq, blocks_w, ud, bet, target, real_matrix, rb=None):
-    """Colour update of one target quad (K1).  ``e3``: the 3 extended
-    sibling quads (nz, H+2, W+2) in :func:`gather_quads` order; ``bq`` the
-    target's RHS (nz, H, W); ``blocks_w`` (nz, H, 12W), ``ud``
-    (nz-1, H, W), ``bet`` (nz, H, W), ``rb`` (1, H, 2W) the target's
-    smoother operator fields (the blocks and ``rb`` in the state type, or
-    in bfloat16 with float32 state and the pack's ``lp.bet``).  Returns
-    the new quad."""
-    if on_cpu(bq):
-        return color_update_plain(e3, bq, blocks_w, ud, bet, target,
-                                  real_matrix, rb)
-    out, _ = _launch_color_update(e3, bq, blocks_w, ud, bet, None, target,
-                                  real_matrix, rb, emit=False)
-    LAUNCHES["color_update_bf16" if blocks_w.dtype == torch.bfloat16
+def color_update(e, bq, pack: CompactPack, targets) -> dict:
+    """K1: one colour update of ``targets`` (one target quad, or the two of
+    an RB colour, in one launch) from the four extended quads ``e``
+    ((nz, H+2, W+2), ``_TKEYS``-keyed) and the RHS quads ``bq``, with the
+    pack's smoother operator (:func:`colour_operator`: the band stack or
+    the gather blocks, in the state type or, with float32 state and the
+    pack's ``lp``, in bfloat16).  Returns ``{target: new quad}``."""
+    if on_cpu(bq[targets[0]]):
+        return color_update_plain(e, bq, pack, targets)
+    out, _, band = _launch_colour(e, bq, pack, targets, emit=False)
+    LAUNCHES["color_update_bf16" if band == torch.bfloat16
              else "color_update"] += 1
     return out
 
 
-def color_update_emit(e3, bq, blocks_w, ud, bet, d, target, real_matrix,
-                      rb=None):
-    """:func:`color_update` that also returns the raw residual of the
-    updated target from its own gather (K2): ``(new quad, residual)``."""
-    if on_cpu(bq):
-        return color_update_emit_plain(e3, bq, blocks_w, ud, bet, d, target,
-                                       real_matrix, rb)
-    out, res = _launch_color_update(e3, bq, blocks_w, ud, bet, d, target,
-                                    real_matrix, rb, emit=True)
+def color_update_emit(e, bq, pack: CompactPack, targets) -> tuple:
+    """K2: :func:`color_update` of an RB colour with the pack's true
+    operator that also returns each target's raw residual from its own
+    gather: ``({target: new quad}, {target: residual})``."""
+    if on_cpu(bq[targets[0]]):
+        return color_update_emit_plain(e, bq, pack, targets)
+    if len(tuple(targets)) != 2:
+        raise ValueError("K2 updates the two targets of an RB colour")
+    out, res, _ = _launch_colour(e, bq, pack, targets, emit=True)
     LAUNCHES["color_update_emit"] += 1
     return out, res
 
@@ -309,33 +415,20 @@ def residual_restrict(e4, bq, pack: CompactPack, mode="coarse",
 
 # --------------------------------------------------------- orchestration
 
-def _rb(pack: CompactPack, m: int):
-    return pack.rblocks[m] if pack.real_matrix else None
-
-
 def relax_compact_tiled_quads(q0, bq, pack: CompactPack, nsweeps: int,
                               kind: str = "RB", extend_fn=None):
-    """``nsweeps`` RB or FC sweeps, one :func:`color_update` per (colour,
-    target quad) (relax_compact.colour_targets: RB two colours of two
-    targets, FC four colours of one), with the smoother operator
-    (relax_compact.smoother_operator: ``pack.lp``'s blocks and pivots when
-    present); the quad halo extension before each colour (``extend_fn``,
-    default extend_quads; the seam exchange on a tile of a distributed
-    level) stays plain torch, and the targets of a colour read the same
-    pre-colour extension."""
-    ti = {t: i for i, t in enumerate(_TKEYS)}
-    blocks, rblocks, bet, _ = smoother_operator(pack, q0[(0, 0)].dtype)
+    """``nsweeps`` RB or FC sweeps, one :func:`color_update` launch per
+    colour (relax_compact.colour_targets: RB two colours of two targets,
+    FC four colours of one), with the smoother operator
+    (relax_compact.smoother_operator: ``pack.lp``'s operator and pivots
+    when present); the quad halo extension before each colour
+    (``extend_fn``, default extend_quads; the seam exchange on a tile of a
+    distributed level) stays plain torch."""
     extend = extend_fn or extend_quads
     q = dict(q0)
     for _ in range(nsweeps):
         for targets in colour_targets(kind):
-            e = extend(q)
-            for t in targets:
-                m = ti[t]
-                q[t] = color_update(tuple(e[k] for k in gather_quads(t)),
-                                    bq[t], blocks[m], pack.ud[m], bet[m], t,
-                                    pack.real_matrix,
-                                    rblocks[m] if pack.real_matrix else None)
+            q.update(color_update(extend(q), bq, pack, targets))
     return q
 
 
@@ -351,8 +444,6 @@ def relax_compact_tiled(p, b, pack: CompactPack, nsweeps: int,
 def _tiled_fused_parts(bq, pack: CompactPack, extend_fn=None):
     """The kernel ``sweep_fn`` / ``color_update_fn`` / ``rr_fn`` plugged
     into the relax_compact fused-residual orchestrators."""
-    ti = {t: i for i, t in enumerate(_TKEYS)}
-    real = pack.real_matrix
     extend = extend_fn or extend_quads
 
     def sweep_fn(q, n):
@@ -362,16 +453,11 @@ def _tiled_fused_parts(bq, pack: CompactPack, extend_fn=None):
         e = extend(q)
         q = dict(q)
         info = {}
-        for t in targets:
-            m = ti[t]
-            e3 = tuple(e[k] for k in gather_quads(t))
-            if emit:
-                q[t], info[t] = color_update_emit(
-                    e3, bq[t], pack.blocks[m], pack.ud[m], pack.bet[m],
-                    pack.d[m], t, real, _rb(pack, m))
-            else:
-                q[t] = color_update(e3, bq[t], pack.blocks[m], pack.ud[m],
-                                    pack.bet[m], t, real, _rb(pack, m))
+        if emit:
+            new, info = color_update_emit(e, bq, pack, targets)
+        else:
+            new = color_update(e, bq, pack, targets)
+        q.update(new)
         return q, info
 
     def rr_fn(e2, targets):

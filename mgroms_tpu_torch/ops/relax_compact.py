@@ -21,10 +21,10 @@ every smoothing path, plain or kernel, through :func:`smoother_operator`;
 residual paths keep the full-precision operator.  The operator comes in
 one of two layouts: the 48 per-target gather blocks (``pack.blocks``,
 :func:`build_compact_pack`), or the 24 halo-extended band quads that
-hold the same values once (:func:`band_quads`, ``pack.ebands``), which
-the colour-fused sweep and the residual kernels read; a level with the
-band stack (:func:`build_band_pack`) holds no gather blocks, and its
-plain paths slice the stack (:func:`band_views`).
+hold the same values once (:func:`band_quads`, ``pack.ebands``); every
+kernel reads either; a level with the band stack
+(:func:`build_band_pack`) holds no gather blocks, and its plain paths
+slice the stack (:func:`band_views`).
 
 Orderings: 'RB' (two colours, each two target quads solved as one
 x-concatenated system) and 'FC' (four colours, one target quad each, the
@@ -221,15 +221,17 @@ class CompactPack(NamedTuple):
       one (nz, H, 12*W) array, in ``gather_keys(False)`` order; the two
       real-only keys live in ``rblocks[m]`` (1, H, 2*W) as their k=1
       plane (the only plane read, mg_relax.f90:271-276), None unless
-      'real'.  The levels smoothed by K1 and the tiles of a distributed
-      level have them (:func:`build_compact_pack`): K1 and K2 read only
-      them, and a tile's halo is the seam exchange, not the stack's.
+      'real'.  On the CPU the levels smoothed by K1 and the tiles of a
+      distributed level have them (:func:`build_compact_pack`), as the
+      JAX package's do.
     - ``ebands``: the 24 halo-extended band quads (:func:`band_quads`),
-      each value once where the blocks hold it twice.  The levels the
-      colour-fused sweep K4 smooths have only it (:func:`build_band_pack`,
-      blocks and rblocks None): K4, the residual + restriction kernel and
-      the plain versions (through :func:`band_views`) read it, and the
-      48 blocks (+3.2 GB at CUC level 0 in float32) are not built.
+      each value once where the blocks hold it twice.  Every quad level
+      and tile on the card, and the levels the colour-fused sweep K4
+      smooths on the CPU, have only it (:func:`build_band_pack`, blocks
+      and rblocks None; solver.band_stack_wanted): the kernels and the
+      plain versions (through :func:`band_views`) read it, and the 48
+      blocks (+3.2 GB at CUC level 0 in float32) are not built.  A tile's
+      stack is cut from its extended cA, whose halo is the seam's.
       :func:`attach_bands` adds it beside the blocks.
 
     ``bet`` holds the precomputed reciprocal Thomas pivots (ops/relax.

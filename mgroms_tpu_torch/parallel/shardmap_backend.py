@@ -44,8 +44,9 @@ from ..ops import relax as relax_ops
 from ..ops import stencil, transfer
 from ..ops.kernels import relax_tiled as kernels
 from ..ops.kernels import stencil_tiled
-from ..ops.relax_compact import (QuadField, attach_lp, build_compact_pack,
-                                 residual_quads)
+from .. import solver
+from ..ops.relax_compact import (QuadField, attach_lp, build_band_pack,
+                                 build_compact_pack, residual_quads)
 from ..solver import compact_eligible, is_quads
 from .backend import DistributedBackend
 from .exchange import axis_offsets, extend_quads_shard, halo_extend
@@ -82,8 +83,11 @@ def default_comm(levels: List[LevelSpec], plan: MeshPlan,
 def shard_packs_blocked(levels: List[LevelSpec], ops_blocked, cfg,
                         plan: MeshPlan, backend: "ShardMapBackend") -> list:
     """Per-tile persisted CompactPacks for the SHARDED compact levels, built
-    from the per-tile extended cA (each tile keeps exactly its gather
-    blocks and pivots, the reference's per-rank operator economy).  With
+    from the per-tile extended cA (each tile keeps exactly its operator and
+    pivots, the reference's per-rank operator economy): the band stack
+    where solver.band_stack_wanted holds for the tile (on the card), else
+    the gather blocks; a tile's stack and its gather blocks are cut from
+    the same quad-sampled bands of its extended cA.  With
     ``fused_bands_bf16`` each also carries the low-precision smoother
     operator, as solver.build_relax_packs gives the single-device levels.
     One Tiles of packs or None per level."""
@@ -94,7 +98,9 @@ def shard_packs_blocked(levels: List[LevelSpec], ops_blocked, cfg,
         if not (plan.shards[lev].sharded and backend._use_compact_shard(lev)):
             packs.append(None)
             continue
-        build = lambda cA_l: build_compact_pack(cA_l, real)
+        build = lambda cA_l: (
+            build_band_pack if solver.band_stack_wanted(cfg, cA_l.is_cuda)
+            else build_compact_pack)(cA_l, real)
         tiles = ops_blocked[lev].cA.map(build)
         packs.append(tiles.map(attach_lp) if lp else tiles)
     return packs
@@ -160,8 +166,8 @@ class ShardMapBackend(DistributedBackend):
         return super().to_full(lev, x)
 
     def _relax_quads_shard(self, lev, p, b, nsweeps):
-        """Quad-native smoothing on a sharded level: K1 per (colour,
-        target) on every tile with the seam exchange per colour — the
+        """Quad-native smoothing on a sharded level: K1 per colour on
+        every tile with the seam exchange per colour — the
         fill_halo-per-colour protocol (mg_relax.f90:181) on QuadField
         state."""
         ext, kind = self._ext(lev), self.cfg.relax_kind

@@ -2,12 +2,14 @@
 512), float32), timed on the card.  Port of ``scripts/micro_roofline.py``;
 rows under the JAX script's names:
 
-  update_real_ms                 K1 (relax_tiled.color_update), 'real'
-  dma_only_{all,windows,blocks}_ms  K10 dma_only: K1's loads alone
+  update_real_ms                 K1 (relax_tiled.color_update) on one
+                                 target quad, 'real', gather blocks
+  dma_only_{all,windows,blocks}_ms  K10 dma_only: those loads alone
   update_real_bf16_ms,           the same two on bfloat16 blocks (K1 in
   dma_only_{all,blocks}_bf16_ms  perf mode; rows the JAX script lacks)
   bytes_{windows,blocks,pivots}_mb  what those loads move
-  update_emit_ms                 K2 (color_update_emit)
+  update_emit_ms                 K2 (color_update_emit) on one RB colour,
+                                 two target quads (no one-target form)
   patch_zsum_epilogue_ms,        the emitted residual's patch and z-pair
   patch_zsum_zfirst_ms           sum (relax_compact, plain torch)
   fresh_residual_one_target_ms   extend_quads + one fresh target residual
@@ -80,29 +82,37 @@ def timed(dev=None, nz=64, H=512, W=512, reps=20) -> dict:
         o[k] for k in ("e3", "bq", "blocks", "ud", "bet", "gam", "rb", "d"))
     t = rl.TARGET
     ms = lambda fn: median_ms(fn, reps=reps)
+    # K1 on target t alone reads its three siblings (the fourth quad of
+    # the launch's extended state is not read); every target of the pack
+    # holds the same operator
+    e = dict(zip(kt.gather_quads(t), e3))
+    e[t] = e3[0]
+    bqs = {k: bq for k in rc._TKEYS}
+    pack1 = rc.CompactPack(blocks=(blocks,) * 4, d=(d,) * 4, ud=(ud,) * 4,
+                           bet=(bet,) * 4, real_matrix=True,
+                           rblocks=(rb,) * 4)
     emit(rows, "update_real_ms", ms(
-        lambda: kt.color_update(e3, bq, blocks, ud, bet, t, True, rb)))
+        lambda: kt.color_update(e, bqs, pack1, (t,))))
     for which in rl.WHICH:
         emit(rows, f"dma_only_{which}_ms", ms(
             lambda: rl.dma_only(e3, bq, blocks, ud, bet, None, which, rb)))
     b16, rb16 = blocks.to(torch.bfloat16), rb.to(torch.bfloat16)
+    pack16 = pack1._replace(lp=rc.LowPrecision(
+        blocks=(b16,) * 4, rblocks=(rb16,) * 4, bet=(bet,) * 4))
     emit(rows, "update_real_bf16_ms", ms(
-        lambda: kt.color_update(e3, bq, b16, ud, bet, t, True, rb16)))
+        lambda: kt.color_update(e, bqs, pack16, (t,))))
     for which in ("all", "blocks"):
         emit(rows, f"dma_only_{which}_bf16_ms", ms(
             lambda: rl.dma_only(e3, bq, b16, ud, bet, None, which, rb16)))
-    del b16, rb16
+    del b16, rb16, pack16
     emit(rows, "bytes_windows_mb", 3 * nz * (H + 2) * (W + 2) * 4 / 1e6)
     emit(rows, "bytes_blocks_mb", (nz * H * 12 * W + 2 * H * W) * 4 / 1e6)
     # ud + bet + bq, as K1 loads them (the JAX row also counted gam)
     emit(rows, "bytes_pivots_mb", ((nz - 1) + 2 * nz) * H * W * 4 / 1e6)
     emit(rows, "update_emit_ms", ms(
-        lambda: kt.color_update_emit(e3, bq, blocks, ud, bet, d, t, True,
-                                     rb)))
+        lambda: kt.color_update_emit(e, bqs, pack1, (t, (1 - t[0],
+                                                         1 - t[1])))))
     q4 = {k: torch.rand((nz, H, W), device=dev) + 0.5 for k in rc._TKEYS}
-    pack1 = rc.CompactPack(blocks=(blocks,) * 4, d=(d,) * 4, ud=(ud,) * 4,
-                           bet=(bet,) * 4, real_matrix=True,
-                           rblocks=(rb,) * 4)
     r_raw = torch.rand((nz, H, W), device=dev) + 0.5
 
     def epilogue():

@@ -8,7 +8,8 @@ the timing depends only on the shapes).
 
 Modes (``--modes``, comma-separated; all by default):
 
-  tiled                   the K1 route (relax_tiled.relax_compact_tiled_quads)
+  tiled                   the K1 route (relax_tiled.relax_compact_tiled_quads,
+                          on the band stack)
   fused_f32, fused_bf16   K4 (sweep_fused.relax_fused_sweep), f32 or
                           bfloat16 blocks
   packed_f32, packed_bf16 K8 + K9 (sweep_packed.relax_packed_sweep) at the
@@ -68,8 +69,10 @@ def routes(cA, pack, modes, tj, nchunks):
         else None
     out = {}
     if "tiled" in modes:
+        # K1 reads the band stack, as the card's K1 levels hold it
+        bpk = rc.attach_bands(pack, cA)
         out["tiled"] = (lambda q, bq, n=1: kt.relax_compact_tiled_quads(
-            q, bq, pack, n), pack)
+            q, bq, bpk, n), pack)
     for name, pk in (("fused_f32", pack), ("fused_bf16", lp)):
         if name in modes:
             # K4 reads the operator as the band stack

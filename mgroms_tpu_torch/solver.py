@@ -15,15 +15,17 @@ levels:
   ``pallas_interpret`` set — the JAX package's ``platform != "cpu" or
   pallas_interpret``), the colour-fused sweep K4
   (ops/kernels/sweep_fused.py), one launch per sweep; else one K1 launch
-  per (colour, target quad) (ops/kernels/relax_tiled.py: RB two targets
-  per colour, FC one per each of four colours);
+  per colour (ops/kernels/relax_tiled.py: RB two colours of two target
+  quads, FC four colours of one);
 - the down-leg residual and restriction: K3, one launch for the four
   target quads, fused with the last sweep through K2
   (``fused_residual``) on RB levels without K4 and without
   ``fused_bands_bf16``, as in the JAX package;
-- the operator: on the K4 levels only the band stack, which K4 and K3
-  read (and K3 in its residual mode gives the level's quad residual);
-  elsewhere the gather blocks of K1-K3 (:func:`build_relax_packs`).
+- the operator: on the card every quad level holds only the band stack,
+  which K4, K1-K2 and K3 read (and K3 in its residual mode gives the
+  level's quad residual); on the CPU the K4 levels hold the stack and the
+  others the gather blocks, as the JAX package keeps them
+  (:func:`band_stack_wanted`, :func:`build_relax_packs`).
 
 With ``fused_bands_bf16`` (float32) every quad level's pack carries the
 low-precision smoother operator (relax_compact.attach_lp), read by K4 or
@@ -121,23 +123,32 @@ def compact_eligible(spec: LevelSpec, cfg: SolverConfig) -> bool:
             and spec.nyg % 2 == 0 and spec.nxg % 2 == 0)
 
 
+def band_stack_wanted(cfg: SolverConfig, on_card: bool) -> bool:
+    """A quad level holds its gather operator as the band stack only
+    (relax_compact.build_band_pack), no gather blocks: on the card every
+    quad level (K4, K1-K2 and K3 read the stack in place), on the CPU the
+    levels K4 smooths (:func:`fused_sweep_wanted`) — the JAX package's K1
+    reads the gather blocks, and the CPU parity tests hold the port to
+    it.  The tiles of a distributed level take the same rule."""
+    return on_card or fused_sweep_wanted(cfg, on_card)
+
+
 def build_relax_packs(levels, ops, cfg: SolverConfig) -> list:
     """Persisted operators (CompactPack) for the quad-persistent levels
     (every compact-eligible level but the coarsest); None elsewhere.  Built
     level by level, so only one level's quad-sampled band temporaries
     exist at a time.
 
-    On the levels K4 smooths (:func:`fused_sweep_wanted`) the gather
-    operator is held only as the 24 band quads (relax_compact.
-    build_band_pack): K4, K3 in both its modes and the plain versions read
-    it, and no gather blocks are built (3.2 GB at CUC level 0 in float32).
-    Elsewhere it is held as the gather blocks that K1 and K2 read
+    Where :func:`band_stack_wanted` holds the gather operator is held only
+    as the 24 band quads (relax_compact.build_band_pack): the kernels and
+    the plain versions read it, and no gather blocks are built (3.2 GB at
+    CUC level 0 in float32).  Elsewhere it is held as the gather blocks
     (relax_compact.build_compact_pack).
 
     With ``fused_bands_bf16`` and a state of at most 4 bytes each pack
     also carries the low-precision smoother operator (``pack.lp``) in the
-    layout of its own: bfloat16 blocks for K1, or a bfloat16 band stack
-    for K4 beside the float32 one that the residuals read."""
+    layout of its own: bfloat16 blocks, or a bfloat16 band stack beside
+    the float32 one that the residuals read."""
     lp = (cfg.fused_bands_bf16
           and getattr(torch, cfg.dtype).itemsize <= 4)
     real = cfg.cmatrix == "real"
@@ -146,7 +157,7 @@ def build_relax_packs(levels, ops, cfg: SolverConfig) -> list:
         pack = None
         if lev < len(levels) - 1 and compact_eligible(spec, cfg):
             cA = ops[lev].cA
-            build = (build_band_pack if fused_sweep_wanted(cfg, cA.is_cuda)
+            build = (build_band_pack if band_stack_wanted(cfg, cA.is_cuda)
                      else build_compact_pack)
             pack = build(cA, real)
             if lp:

@@ -36,12 +36,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(nz, H, W, dtype, device, real, seed):
+def _inputs(nz, H, W, dtype, device, real, seed, layout="blocks"):
     rng = np.random.default_rng(seed)
     cA = rng.uniform(-0.1, 0.1, (8, nz, 2 * H + 2, 2 * W + 2))
     cA[0] -= 4.0
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)
-    pack = rc.build_compact_pack(t(cA), real)
+    build = (rc.build_band_pack if layout == "bands"
+             else rc.build_compact_pack)
+    pack = build(t(cA), real)
     e = rc.extend_quads(rc.split_quads(t(rng.standard_normal(
         (nz, 2 * H, 2 * W)))))
     bq = rc.split_quads(t(rng.standard_normal((nz, 2 * H, 2 * W))))
@@ -52,32 +54,53 @@ def _maxdiff(a, b):
     return float((a - b).abs().max())
 
 
-SHAPES = [(6, 5, 7), (2, 3, 4), (8, 16, 33), (64, 8, 128)]
+# K1 and K2 a colour a launch: ragged quads, nz 2 with H = W = 1, widths
+# 7, 33 and 70 against the 64-column tile, a level of many tiles
+SHAPES = [(6, 5, 7), (2, 3, 4), (2, 1, 1), (4, 3, 70), (8, 16, 33),
+          (64, 8, 128)]
+# every colour of both orderings: the RB pairs, then the FC single targets
+COLOURS = rc.colour_targets("RB") + rc.colour_targets("FC")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("real", [True, False])
-def test_kernels_match_plain(cuda, shape, dtype, real):
+@pytest.mark.parametrize("layout", ["bands", "blocks"])
+def test_kernels_match_plain(cuda, shape, dtype, real, layout):
+    """K1 on every colour of both orderings (one launch each: the two
+    targets of an RB colour, one of FC) and K2 on the RB colours, in every
+    Thomas form, on either operator layout: 0 ulp from the plain versions,
+    one launch a colour, the inputs unwritten."""
     nz, H, W = shape
-    pack, e, bq = _inputs(nz, H, W, dtype, cuda, real, seed=sum(shape))
-    for m, t in enumerate(rc._TKEYS):
-        rb = pack.rblocks[m] if real else None
-        e3 = tuple(e[k] for k in kt.gather_quads(t))
-        f = (pack.blocks[m], pack.ud[m], pack.bet[m])
-        before = dict(kt.LAUNCHES)
-        got = kt.color_update(e3, bq[t], *f, t, real, rb)
-        want = kt.color_update_plain(e3, bq[t], *f, t, real, rb)
-        assert _maxdiff(got, want) == 0.0
-        gs, gr = kt.color_update_emit(e3, bq[t], *f, pack.d[m], t, real, rb)
-        ws, wr = kt.color_update_emit_plain(e3, bq[t], *f, pack.d[m], t,
-                                            real, rb)
-        assert _maxdiff(gs, ws) == 0.0
-        assert _maxdiff(gr, wr) <= 1e-6 * float(bq[t].abs().max())
-        torch.cuda.synchronize()
-        assert kt.LAUNCHES["color_update"] == before["color_update"] + 1
-        assert (kt.LAUNCHES["color_update_emit"]
-                == before["color_update_emit"] + 1)
+    pack, e, bq = _inputs(nz, H, W, dtype, cuda, real, sum(shape), layout)
+    assert kt.colour_operator(pack, dtype)[0] == layout
+    e0 = {k: x.clone() for k, x in e.items()}
+    forms0 = dict(kt.COLOUR_FORMS)
+    try:
+        for form in kt.THOMAS_FORMS:
+            kt.COLOUR_FORMS = {1: form, 2: form}
+            for colour in COLOURS:
+                before = dict(kt.LAUNCHES)
+                got = kt.color_update(e, bq, pack, colour)
+                want = kt.color_update_plain(e, bq, pack, colour)
+                torch.cuda.synchronize()
+                assert sorted(got) == sorted(colour)
+                for t in colour:
+                    assert torch.equal(got[t], want[t]), (form, colour, t)
+                key = ["color_update"]
+                if len(colour) == 2:
+                    gs, gr = kt.color_update_emit(e, bq, pack, colour)
+                    ws, wr = kt.color_update_emit_plain(e, bq, pack, colour)
+                    torch.cuda.synchronize()
+                    for t in colour:
+                        assert torch.equal(gs[t], ws[t]), (form, colour, t)
+                        assert torch.equal(gr[t], wr[t]), (form, colour, t)
+                    key.append("color_update_emit")
+                assert {k: v - before[k] for k, v in kt.LAUNCHES.items()} \
+                    == {k: int(k in key) for k in kt.LAUNCHES}
+    finally:
+        kt.COLOUR_FORMS = forms0
+    assert all(torch.equal(e[k], e0[k]) for k in e)
 
 
 # K3: widths that are not a multiple of its 64-column tile, one quad row
@@ -149,18 +172,75 @@ def test_residual_restrict_rejects_bad_input(cuda):
 
 def test_wrapper_rejects_bad_input(cuda):
     pack, e, bq = _inputs(4, 3, 5, torch.float32, cuda, True, seed=0)
-    t = (0, 0)
-    e3 = tuple(e[k] for k in kt.gather_quads(t))
-    f = dict(blocks_w=pack.blocks[0], ud=pack.ud[0], bet=pack.bet[0],
-             rb=pack.rblocks[0])
     nc = torch.empty((4, 5, 3), device=cuda).transpose(1, 2)
-    for bad in (dict(bet=pack.bet[0].double()),       # dtype
-                dict(blocks_w=pack.blocks[0].cpu()),   # device
-                dict(rb=None),                         # missing 'real' pair
-                dict(bet=nc)):                         # not contiguous
+    colour = ((0, 0), (1, 1))
+    bet = pack.bet
+    for bad_e, bad_bq, bad_pack, targets in (
+            (e, bq, pack._replace(bet=(bet[0].double(),) + bet[1:]),
+             colour),                                         # dtype
+            (e, bq, pack._replace(blocks=(pack.blocks[0].cpu(),)
+                                  + pack.blocks[1:]), colour),  # device
+            (e, bq, pack._replace(rblocks=None), colour),   # no 'real' pair
+            (e, bq, pack._replace(bet=(nc,) + bet[1:]), colour),  # layout
+            ({**e, (0, 1): e[(0, 1)][:, 1:]}, bq, pack, colour),  # shape
+            (e, bq, pack, ((0, 0), (0, 1))),                # not a colour
+            (e, bq, pack, ((0, 0), (1, 1), (0, 1)))):       # three targets
         with pytest.raises(ValueError):
-            kt.color_update(e3, bq[t], target=t, real_matrix=True,
-                            **{**f, **bad})
+            kt.color_update(bad_e, bad_bq, bad_pack, targets)
+    with pytest.raises(ValueError):                   # K2: the RB colours
+        kt.color_update_emit(e, bq, pack, ((0, 0),))
+    # the band stack: wrong pitch (a contiguous copy), type or device
+    cA = torch.rand((8, 4, 8, 12), device=cuda)
+    cA[0] -= 4.0
+    band = rc.build_band_pack(cA, True)
+    for bad in (band.ebands.contiguous(),
+                rc.band_quads(cA.double()),
+                band.ebands.cpu()):
+        with pytest.raises(ValueError):
+            kt.color_update(e, bq, band._replace(ebands=bad), colour)
+        with pytest.raises(ValueError):
+            kt.color_update_emit(e, bq, band._replace(ebands=bad), colour)
+    # the bfloat16 stack of the smoother operator
+    lp = rc.attach_lp(band)
+    for bad in (lp.lp.ebands.contiguous(), lp.lp.ebands.float()):
+        with pytest.raises(ValueError):
+            kt.color_update(e, bq, lp._replace(
+                lp=lp.lp._replace(ebands=bad)), colour)
+
+
+@pytest.mark.parametrize("route", ["K1-K2", "FC", "perf K4 off", "tiles"])
+def test_card_packs_hold_the_band_stack_only(cuda, route):
+    """On the card every quad level holds its operator as the band stack
+    only, on the K1-K2 route too (pallas_fused_sweep=False, FC, perf mode
+    with K4 off, the tiles of a distributed level): no gather blocks of
+    either precision; in perf mode the bfloat16 stack beside the float32
+    one."""
+    from mgroms_tpu_torch import NHModel, SolverConfig
+    from mgroms_tpu_torch.cases.seamount import setup_seamount
+    n = 16
+    cfg = {"K1-K2": dict(pallas_fused_sweep=False),
+           "FC": dict(relax_method="FC"),
+           "perf K4 off": dict(dtype="float32", fused_bands_bf16=True,
+                               ns_pre=1, ns_post=1,
+                               pallas_fused_sweep=False),
+           "tiles": dict(pallas_fused_sweep=False)}[route]
+    m = NHModel(n, n, n, cfg=SolverConfig(**cfg), device=cuda)
+    c = setup_seamount(n, n, n)
+    m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
+                   theta_b=c.theta_b, theta_s=c.theta_s)
+    if route == "tiles":
+        m.distribute(2, 2, devices=[cuda] * 4, comm="shard_map")
+    packs = [pk for pk in m.backend.packs if pk is not None]
+    assert packs and not m.backend.fused_sweep
+    tiles = [t for pk in packs
+             for t in (pk.flat() if hasattr(pk, "flat") else (pk,))]
+    assert any(hasattr(pk, "flat") for pk in packs) == (route == "tiles")
+    for pk in tiles:
+        assert pk.blocks is None and pk.rblocks is None
+        assert pk.ebands is not None and pk.ebands.is_cuda
+        if route.startswith("perf"):
+            assert pk.lp.blocks is None
+            assert pk.lp.ebands.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("fused_sweep", [True, False])
@@ -183,8 +263,9 @@ def test_seamount16_solve_runs_the_kernels(cuda, fused_sweep):
     uc, vc, wc, p, info = m.solve(u, v, w, tol=1e-11, maxiter=12)
     k1_k2 = ("color_update", "color_update_emit")
     assert kt.LAUNCHES["residual_restrict"] > 0, kt.LAUNCHES
-    # the K4 levels' level-0 residual is K3 in its residual mode
-    assert (kt.LAUNCHES["residual_quads"] > 0) == fused_sweep, kt.LAUNCHES
+    # every quad level on the card holds the band stack: its level-0
+    # residual is K3 in its residual mode on either route
+    assert kt.LAUNCHES["residual_quads"] > 0, kt.LAUNCHES
     assert all((kt.LAUNCHES[k] > 0) != fused_sweep for k in k1_k2), \
         kt.LAUNCHES
     assert (ksf.LAUNCHES["relax_fused_sweep"] > 0) == fused_sweep, \
@@ -342,20 +423,25 @@ def test_fused_relax_step_form_matches_plain(cuda, monkeypatch, shape, kind,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(6, 5, 7), (64, 8, 128)])
-def test_fc_sweep_of_single_targets_matches_plain(cuda, shape, dtype):
+@pytest.mark.parametrize("shape", [(6, 5, 7), (2, 1, 1), (3, 5, 33),
+                                   (4, 3, 70), (64, 8, 128)])
+@pytest.mark.parametrize("layout", ["bands", "blocks"])
+def test_fc_sweep_of_single_targets_matches_plain(cuda, shape, dtype,
+                                                  layout):
     """The FC route: K1 on one target quad a colour, four colours a sweep,
-    equals the plain FC quad sweep bit for bit."""
+    equals the plain FC quad sweep bit for bit, on either operator
+    layout; the RB route (a launch per colour of two targets) too."""
     nz, H, W = shape
-    pack, e, bq = _inputs(nz, H, W, dtype, cuda, True, seed=sum(shape))
+    pack, e, bq = _inputs(nz, H, W, dtype, cuda, True, sum(shape), layout)
     q = {k: v[:, 1:-1, 1:-1].contiguous() for k, v in e.items()}
-    before = kt.LAUNCHES["color_update"]
-    got = kt.relax_compact_tiled_quads(q, bq, pack, 2, kind="FC")
-    want = rc.relax_compact_quads(q, bq, pack, 2, "FC", True)
-    torch.cuda.synchronize()
-    assert kt.LAUNCHES["color_update"] == before + 8
-    for k in rc._TKEYS:
-        assert _maxdiff(got[k], want[k]) == 0.0
+    for kind, per_sweep in (("FC", 4), ("RB", 2)):
+        before = kt.LAUNCHES["color_update"]
+        got = kt.relax_compact_tiled_quads(q, bq, pack, 2, kind=kind)
+        want = rc.relax_compact_quads(q, bq, pack, 2, kind, True)
+        torch.cuda.synchronize()
+        assert kt.LAUNCHES["color_update"] == before + 2 * per_sweep
+        for k in rc._TKEYS:
+            assert torch.equal(got[k], want[k]), (kind, k)
 
 
 @pytest.mark.parametrize("compact", [True, False])
@@ -442,28 +528,41 @@ def test_sweep_term_recipe_matches_python(cuda):
         assert ksf.compiled_term_table(t) == ksf.band_term_table(t), t
 
 
-@pytest.mark.parametrize("shape", [(6, 5, 7), (64, 8, 128), (64, 32, 32)])
+@pytest.mark.parametrize("shape", [(6, 5, 7), (2, 1, 1), (3, 5, 33),
+                                   (4, 3, 70), (64, 8, 128), (64, 32, 32)])
 @pytest.mark.parametrize("real", [True, False])
-def test_bf16_color_update_matches_plain(cuda, shape, real):
-    """K1 reading the low-precision blocks == its plain version to 0 ulp,
-    per target and over two sweeps of the K1 orchestration."""
+@pytest.mark.parametrize("layout", ["bands", "blocks"])
+def test_bf16_color_update_matches_plain(cuda, shape, real, layout):
+    """K1 reading the low-precision operator (the bfloat16 band stack or
+    bfloat16 blocks) == its plain version to 0 ulp, a colour a launch in
+    every Thomas form, and over two sweeps of the K1 orchestration."""
     pack, q, bq = _sweep_inputs(*shape, torch.float32, cuda, real,
                                 sum(shape), True)
+    if layout == "blocks":
+        pack = pack._replace(ebands=None, lp=pack.lp._replace(ebands=None))
+    else:
+        pack = pack._replace(blocks=None, rblocks=None, lp=pack.lp._replace(
+            blocks=None, rblocks=None))
+    assert kt.colour_operator(pack, torch.float32)[0] == layout
     e = rc.extend_quads(q)
-    for m, t in enumerate(rc._TKEYS):
-        e3 = tuple(e[k] for k in kt.gather_quads(t))
-        f = (pack.lp.blocks[m], pack.ud[m], pack.lp.bet[m], t, real,
-             pack.lp.rblocks[m] if real else None)
-        before = kt.LAUNCHES["color_update_bf16"]
-        got = kt.color_update(e3, bq[t], *f)
-        want = kt.color_update_plain(e3, bq[t], *f)
-        torch.cuda.synchronize()
-        assert kt.LAUNCHES["color_update_bf16"] == before + 1
-        assert _maxdiff(got, want) == 0.0
+    forms0 = dict(kt.COLOUR_FORMS)
+    try:
+        for form in kt.THOMAS_FORMS:
+            kt.COLOUR_FORMS = {1: form, 2: form}
+            for colour in COLOURS:
+                before = kt.LAUNCHES["color_update_bf16"]
+                got = kt.color_update(e, bq, pack, colour)
+                want = kt.color_update_plain(e, bq, pack, colour)
+                torch.cuda.synchronize()
+                assert kt.LAUNCHES["color_update_bf16"] == before + 1
+                for t in colour:
+                    assert torch.equal(got[t], want[t]), (form, colour, t)
+    finally:
+        kt.COLOUR_FORMS = forms0
     got = kt.relax_compact_tiled_quads(q, bq, pack, 2)
     want = rc.relax_compact_quads(q, bq, pack, 2, "RB", real)
     for t in rc._TKEYS:
-        assert _maxdiff(got[t], want[t]) == 0.0
+        assert torch.equal(got[t], want[t])
 
 
 def test_sweep_wrapper_rejects_bad_input(cuda):
@@ -494,13 +593,12 @@ def test_sweep_wrapper_rejects_bad_input(cuda):
                     ebands=pack.lp.ebands.contiguous()))):
         with pytest.raises(ValueError):
             ksf.relax_fused_sweep(q, bq, bad, 1)
-    # K2, the emitting form, takes no low-precision blocks
+    # K2, the emitting form, reads the true operator: low-precision blocks
+    # in the pack's full-precision slots are refused
     e = rc.extend_quads(q)
     with pytest.raises(ValueError):
-        kt.color_update_emit(tuple(e[k] for k in kt.gather_quads((0, 0))),
-                             bq[(0, 0)], pack.lp.blocks[0], pack.ud[0],
-                             pack.lp.bet[0], pack.d[0], (0, 0), True,
-                             pack.lp.rblocks[0])
+        kt.color_update_emit(e, bq, no_pivots._replace(ebands=None),
+                             ((0, 0), (1, 1)))
 
 
 # ------------------------------------------------------- K8, K9 and K10

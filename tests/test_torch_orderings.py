@@ -9,7 +9,11 @@ solve, against the JAX package's, on the CPU.
 - the routing in float32: FC smooths its quad levels with K1 in four
   colours of one target and restricts with K3, never K2 or K4; GS keeps
   every level in full layout; with ``use_pallas`` K6 gets the solve's
-  ordering.
+  ordering;
+- the operator layout of the K1-K2 route: with the band stack on every
+  quad level (the card's rule, solver.band_stack_wanted) the RB
+  (pallas_fused_sweep=False), FC and perf-mode solves give the history
+  they give on the gather blocks, bit for bit.
 """
 
 import jax.numpy as jnp
@@ -20,7 +24,7 @@ import torch
 from mgroms_tpu import NHModel as JModel
 from mgroms_tpu import SolverConfig as JConfig
 from mgroms_tpu.cases.seamount import initial_velocities as jvel
-from mgroms_tpu_torch import NHModel, SolverConfig
+from mgroms_tpu_torch import NHModel, SolverConfig, solver
 from mgroms_tpu_torch.cases.seamount import initial_velocities, setup_seamount
 from mgroms_tpu_torch.ops.kernels import relax_fused as kf
 from mgroms_tpu_torch.ops.kernels import relax_tiled as kt
@@ -132,3 +136,34 @@ def test_use_pallas_runs_k6_in_the_solve_ordering(monkeypatch, kind):
         assert shapes == {(4, 4, 4), (8, 8, 8), (16, 16, 16)}
         assert not any(m.backend.state_quads(lev)
                        for lev in range(m.backend.nlevs))
+
+
+@pytest.mark.parametrize("route", ["RB", "FC", "perf"])
+def test_band_packs_keep_the_k1_route_history(monkeypatch, route):
+    """The K1-K2 route with every quad level holding the band stack only
+    (the card's rule, forced here through solver.band_stack_wanted): RB
+    with pallas_fused_sweep=False (K1, K2's emitted residual, K3), FC (K1
+    a target a colour, K3) and perf mode with K4 off (K1 on the bfloat16
+    stack) give, over 3 F-cycles, the history of the same solve on the
+    gather blocks, bit for bit."""
+    cfg = {"RB": dict(pallas_fused_sweep=False),
+           "FC": dict(relax_method="FC"),
+           "perf": dict(dtype="float32", fused_bands_bf16=True, ns_pre=1,
+                        ns_post=1, pallas_fused_sweep=False)}[route]
+    hist = []
+    for bands in (False, True):
+        monkeypatch.setattr(solver, "band_stack_wanted",
+                            lambda cfg, on_card, b=bands: b)
+        m = _port(**cfg)
+        packs = [pk for pk in m.backend.packs if pk is not None]
+        assert packs and not m.backend.fused_sweep
+        for pk in packs:
+            assert (pk.blocks is None) == bands
+            assert (pk.ebands is not None) == bands
+            if route == "perf":
+                assert (pk.lp.ebands is not None) == bands
+        *_, info = m.solve(*initial_velocities(N, N, N, dtype=m.dtype,
+                                               device="cpu"),
+                           tol=0.0, maxiter=3)
+        hist.append(info.history)
+    assert len(hist[0]) == 4 and hist[1] == hist[0]

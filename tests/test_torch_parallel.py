@@ -31,7 +31,7 @@ from mgroms_tpu import SolverConfig as JConfig
 from mgroms_tpu.cases.seamount import initial_velocities as jvel
 from mgroms_tpu.parallel import make_mesh as jmesh
 from mgroms_tpu.parallel import physics as jphys
-from mgroms_tpu_torch import NHModel, SolverConfig
+from mgroms_tpu_torch import NHModel, SolverConfig, solver
 from mgroms_tpu_torch import levels as tlev
 from mgroms_tpu_torch.cases.seamount import initial_velocities, setup_seamount
 from mgroms_tpu_torch.ops.relax_compact import relax_compact, split_quads
@@ -186,17 +186,36 @@ def test_velocity_blocking_round_trips():
 
 # ------------------------------------------------------------- physics
 
+def _port_model(nx, ny, nz, mesh, cfg=None):
+    c = setup_seamount(nx, ny, nz)
+    m = NHModel(nx, ny, nz, cfg=SolverConfig(**(cfg or {})), device="cpu")
+    m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc, theta_b=c.theta_b,
+                   theta_s=c.theta_s)
+    m.distribute(*mesh, devices=CPU8, comm="shard_map")
+    return m
+
+
 def _models(nx, ny, nz, mesh, cfg=None):
     c = setup_seamount(nx, ny, nz)
     j = JModel(nx, ny, nz, cfg=JConfig(**(cfg or {})))
     j.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc, theta_b=c.theta_b,
                    theta_s=c.theta_s)
     j.distribute(*mesh, comm="shard_map")
-    m = NHModel(nx, ny, nz, cfg=SolverConfig(**(cfg or {})), device="cpu")
-    m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc, theta_b=c.theta_b,
-                   theta_s=c.theta_s)
-    m.distribute(*mesh, devices=CPU8, comm="shard_map")
-    return j, m
+    return j, _port_model(nx, ny, nz, mesh, cfg)
+
+
+def _band_tiles(monkeypatch, m_fn):
+    """A port model built by ``m_fn`` with every quad level and tile
+    holding the band stack only (the card's rule, forced here through
+    solver.band_stack_wanted); its per-tile packs are checked."""
+    monkeypatch.setattr(solver, "band_stack_wanted", lambda cfg, on_card: True)
+    m = m_fn()
+    tiles = [tl for pk in m.backend.packs if pk is not None
+             for tl in (pk.flat() if isinstance(pk, tmesh.Tiles) else (pk,))]
+    assert any(isinstance(pk, tmesh.Tiles) for pk in m.backend.packs)
+    assert tiles and all(tl.blocks is None and tl.ebands is not None
+                         for tl in tiles)
+    return m
 
 
 @pytest.fixture(scope="module")
@@ -245,9 +264,19 @@ def seamount_4x2(models_4x2):
                 single=(ps.numpy(), is_), model=m)
 
 
-@pytest.mark.parametrize("other", ["jax", "single"])
-def test_distributed_solve_matches(seamount_4x2, other):
+@pytest.mark.parametrize("other", ["jax", "single", "band tiles"])
+def test_distributed_solve_matches(monkeypatch, seamount_4x2, other):
+    """The port's distributed solve against JAX's and the port's
+    single-device one; and, with the band stack on every tile (the card's
+    rule), JAX's and bit for bit the gather-block tiles' history."""
     p, info = seamount_4x2["port"]
+    if other == "band tiles":
+        m = _band_tiles(monkeypatch, lambda: _port_model(32, 16, 8, (4, 2)))
+        ut, vt, wt = initial_velocities(32, 16, 8, device="cpu")
+        pb, ib = m.pressure_solve(m.rhs(ut, vt, wt), tol=1e-10, maxiter=4)
+        assert ib.history == info.history and torch.equal(pb, t(p))
+        p, info = pb.numpy(), ib
+        other = "jax"
     p_ref, i_ref = seamount_4x2[other]
     assert info.niter == i_ref.niter == 4
     assert info.history[-1] < 1e-2 * info.history[0]
@@ -269,15 +298,31 @@ def test_distributed_routing(seamount_4x2):
     assert be.state_quads(1) and not isinstance(be.packs[1], tmesh.Tiles)
 
 
-def test_distributed_fc_solve_matches_jax():
+@pytest.fixture(scope="module")
+def fc_jax_4x2():
+    """JAX's distributed FC solve of seamount 32x16x8 on (4, 2), 2
+    F-cycles: (pressure, SolveInfo)."""
+    nx, ny, nz = 32, 16, 8
+    c = setup_seamount(nx, ny, nz)
+    j = JModel(nx, ny, nz, cfg=JConfig(relax_method="FC"))
+    j.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc, theta_b=c.theta_b,
+                   theta_s=c.theta_s)
+    j.distribute(4, 2, comm="shard_map")
+    return j.pressure_solve(j.rhs(*jvel(nx, ny, nz)), tol=1e-10, maxiter=2)
+
+
+@pytest.mark.parametrize("layout", ["blocks", "bands"])
+def test_distributed_fc_solve_matches_jax(monkeypatch, fc_jax_4x2, layout):
     """The four-colour ordering through the tiles: K1's FC orchestration
     per tile with the seam exchange before each colour, seamount 32x16x8
-    on (4, 2), 2 F-cycles: JAX's distributed pressure to rtol 1e-9."""
+    on (4, 2), 2 F-cycles: JAX's distributed pressure to rtol 1e-9, with
+    the tiles holding the gather blocks or the band stack."""
     nx, ny, nz = 32, 16, 8
-    j, m = _models(nx, ny, nz, (4, 2), cfg=dict(relax_method="FC"))
+    build = lambda: _port_model(nx, ny, nz, (4, 2),
+                                cfg=dict(relax_method="FC"))
+    m = _band_tiles(monkeypatch, build) if layout == "bands" else build()
     assert m.backend.state_quads(0) and m.backend._use_compact_shard(0)
-    pj, ij = j.pressure_solve(j.rhs(*jvel(nx, ny, nz)), tol=1e-10,
-                              maxiter=2)
+    pj, ij = fc_jax_4x2
     u, v, w = initial_velocities(nx, ny, nz, device="cpu")
     p, info = m.pressure_solve(m.rhs(u, v, w), tol=1e-10, maxiter=2)
     pj = np.asarray(pj)

@@ -2,11 +2,12 @@
 
 The plain versions of K1-K3 are held to the Pallas kernels run in
 interpret mode (as tests/test_pallas_tiled.py and
-tests/test_fused_residual.py run them).  The CUDA kernels cannot run here;
-their index recipes (``term_table``, ``band_term_table``) and their loops
-are emulated below with flat-array addressing exactly as
-csrc/relax_tiled.cu (K1, K2) and csrc/rr_fused.cu (K3, on its staged
-window ring) write them, and held to the plain versions.
+tests/test_fused_residual.py run them), on the gather blocks and on the
+band stack (equal bit for bit).  The CUDA kernels cannot run here; their
+index recipe (``band_term_table``) and their loops are emulated below with
+flat-array addressing exactly as csrc/relax_tiled.cu (K1, K2: a colour a
+launch, on its staged window ring) and csrc/rr_fused.cu (K3, on its
+staged window ring) write them, and held to the plain versions.
 
 Tolerance: 1e-12 x max|JAX| unless stated (same term order in f64).
 """
@@ -117,96 +118,174 @@ def test_fused_residual_orchestrators(real):
                                                         jquads(b), jp, real)))
 
 
+BUILD = {"blocks": trc.build_compact_pack, "bands": trc.build_band_pack}
+# every colour of both orderings: the RB pairs, then the FC single targets
+COLOURS = trc.colour_targets("RB") + trc.colour_targets("FC")
+
+
+@pytest.mark.parametrize("layout", list(BUILD))
 @pytest.mark.parametrize("real", [True, False])
-def test_kernel_plain_versions_match_pallas(real):
-    """K1/K2 plain versions and K3's plain version in its z-pair mode, one
-    target at a time, == the Pallas kernels (interpret mode)."""
+def test_kernel_plain_versions_match_pallas(real, layout):
+    """K1/K2 plain versions, a colour at a time (the RB pairs and the FC
+    single targets; K2 the RB pairs), and K3's plain version in its
+    z-pair mode, one target at a time, == the Pallas kernels per target
+    (interpret mode), on either operator layout; on the band stack K1 and
+    K2 equal their gather-block results bit for bit."""
     cA, p, b = problem(8, 16, 16, seed=3)
     jp = jrc.build_compact_pack(jnp.asarray(cA), real)
-    tp = trc.build_compact_pack(torch.from_numpy(cA), real)
+    tp = BUILD[layout](torch.from_numpy(cA), real)
+    gp = trc.build_compact_pack(torch.from_numpy(cA), real)
+    assert (tp.blocks is None) == (layout == "bands")
     je, te = jrc.extend_quads(jquads(p)), trc.extend_quads(tquads(p))
     jb, tb = jquads(b), tquads(b)
+    want, wemit = {}, {}
     for m, t in enumerate(trc._TKEYS):
         jrb = jp.rblocks[m] if real else None
-        trb = tp.rblocks[m] if real else None
         je3 = tuple(je[k] for k in jtiled._gather_quads(t))
-        te3 = tuple(te[k] for k in kt.gather_quads(t))
-        want = jtiled.color_update_tiled(je3, jb[t], jp.blocks[m], jp.ud[m],
-                                         jp.bet[m], t, real, interpret=True,
-                                         rb_t=jrb)
-        close(kt.color_update(te3, tb[t], tp.blocks[m], tp.ud[m], tp.bet[m],
-                              t, real, trb), want)
-        ws, wr = jtiled.color_update_tiled_emit(
+        want[t] = jtiled.color_update_tiled(je3, jb[t], jp.blocks[m],
+                                            jp.ud[m], jp.bet[m], t, real,
+                                            interpret=True, rb_t=jrb)
+        wemit[t] = jtiled.color_update_tiled_emit(
             je3, jb[t], jp.blocks[m], jp.ud[m], jp.bet[m], jp.d[m], t, real,
             interpret=True, rb_t=jrb)
-        gs, gr = kt.color_update_emit(te3, tb[t], tp.blocks[m], tp.ud[m],
-                                      tp.bet[m], tp.d[m], t, real, trb)
-        close(gs, ws)
-        close(gr, wr, 1e-12 * np.abs(np.asarray(jb[t])).max()
-              / np.abs(np.asarray(wr)).max())
-        want = jtiled._rr_one(tuple(je[k] for k in jrc._TKEYS), jb[t],
-                              jp.blocks[m], jp.d[m], jp.ud[m], t, real,
-                              interpret=True, rb_t=jrb)
+        w = jtiled._rr_one(tuple(je[k] for k in jrc._TKEYS), jb[t],
+                           jp.blocks[m], jp.d[m], jp.ud[m], t, real,
+                           interpret=True, rb_t=jrb)
         close(kt.residual_restrict(tuple(te[k] for k in trc._TKEYS), tb, tp,
-                                   "zsum", (t,))[t], want)
+                                   "zsum", (t,))[t], w)
+    for colour in COLOURS:
+        got = kt.color_update(te, tb, tp, colour)
+        ref = kt.color_update(te, tb, gp, colour)
+        assert sorted(got) == sorted(colour)
+        for t in colour:
+            close(got[t], want[t])
+            assert torch.equal(got[t], ref[t])
+        if len(colour) == 1:
+            continue
+        gs, gr = kt.color_update_emit(te, tb, tp, colour)
+        rs, rr = kt.color_update_emit(te, tb, gp, colour)
+        for t in colour:
+            ws, wr = wemit[t]
+            close(gs[t], ws)
+            close(gr[t], wr, 1e-12 * np.abs(np.asarray(jb[t])).max()
+                  / np.abs(np.asarray(wr)).max())
+            assert torch.equal(gs[t], rs[t]) and torch.equal(gr[t], rr[t])
 
 
-# ---- CPU emulation of csrc/relax_tiled.cu (flat addressing, per column) --
+# ---- CPU emulation of csrc/relax_tiled.cu (flat addressing, per tile) ----
 
-def _emulate_gather(eq, blocks, rb, real, tt, k, nz, H, W):
-    """csrc gather(): returns g at plane k for every (J, I) column."""
-    J, I = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
-    eflat = [e.reshape(-1) for e in eq]
-    bflat = blocks.reshape(-1)
-    wrow = 12 * W
-
-    def state(m):
-        kk = k + tt[m][1]
-        if kk < 0 or kk >= nz:
-            return np.zeros((H, W))
-        return eflat[tt[m][0]][kk * (H + 2) * (W + 2)
-                               + (J + tt[m][2]) * (W + 2) + (I + tt[m][3])]
-
-    s = bflat[(k * H + J) * wrow + I] * state(0)
-    for m in range(1, 12):
-        s = s + bflat[(k * H + J) * wrow + m * W + I] * state(m)
-    if real and k == 0:
-        x0 = None
-        for m in range(12, 16):
-            blk = tt[m][4]
-            bv = (bflat[J * wrow + blk * W + I] if blk < 12
-                  else rb.reshape(-1)[J * 2 * W + (blk - 12) * W + I])
-            t = bv * state(m)
-            x0 = t if x0 is None else x0 + t
-        s = s + x0
-    return s
+# csrc/relax_tiled.cu's tile width (its rows per tile: 1, 2 or 4)
+K1_COLS = 64
 
 
-def _emulate_color_update(e3, bq, blocks, ud, bet, d, target, real, rb,
-                          emit):
-    nz, H, W = bq.shape
-    tt = kt.term_table(target, kt.gather_quads(target))
-    out = np.empty_like(bq)
-    res = np.empty_like(bq)
-    x = None
-    for k in range(nz):
-        g = _emulate_gather(e3, blocks, rb, real, tt, k, nz, H, W)
-        res[k] = g
-        rhs = bq[k] - g
-        x = rhs * bet[k] if k == 0 else (rhs - ud[k - 1] * x) * bet[k]
-        out[k] = x
-    for k in range(nz - 2, -1, -1):
-        x = out[k] - (ud[k] * bet[k]) * x
-        out[k] = x
-    if not emit:
-        return out
-    z = np.zeros((H, W))
-    for k in range(nz):
-        lo = ud[k - 1] if k > 0 else z
-        xm = out[k - 1] if k > 0 else z
-        hi = ud[k] if k < nz - 1 else z
-        xp = out[k + 1] if k < nz - 1 else z
-        res[k] = bq[k] - d[k] * out[k] - lo * xm - hi * xp - res[k]
+def _stack_storage(st, nz, H, W):
+    """The band stack's flat storage from its first storage column, as
+    the kernels address it: (flat, lpad, pitch)."""
+    lpad, pitch = trc.band_layout(W, st.element_size())
+    flat = torch.as_strided(st, (trc.NBANDS * (nz + 2) * (H + 2) * pitch,),
+                            (1,), st.storage_offset() - lpad)
+    if flat.dtype == torch.bfloat16:
+        flat = flat.float()      # the upcast at read, exact
+    return flat.numpy(), lpad, pitch
+
+
+def _emulate_colour(e4, bq, pack, targets, emit, rows):
+    """csrc/relax_tiled.cu in numpy: per tile of rows x K1_COLS columns,
+    the window ring of the two sibling quads as the kernel stages it
+    (entries it does not stage are NaN, zero planes -1 and nz), the
+    operator read in place (the band stack's flat storage at the band term
+    table's offsets, or the gather blocks; bfloat16 upcast), the plane-0
+    'real' terms from the diagonal sibling in place; the forward pass
+    keeps c = ud * bet and g per plane, the back substitution emits
+    r_{k+1} once x_k is known, then r_0.  Returns ({t: x}, {t: r})."""
+    t0 = targets[0]
+    nz, H, W = bq[t0].shape
+    layout, holder, bet, _ = kt.colour_operator(pack, bq[t0].dtype, emit)
+    a0, b0 = t0
+    w0, w1 = 2 * (1 - a0) + b0, 2 * a0 + (1 - b0)
+    ef = [x.numpy() for x in e4]
+    if layout == "bands":
+        flat, lpad, pitch = _stack_storage(holder.ebands, nz, H, W)
+        PB = (H + 2) * pitch
+    wr, ww = rows + 2, K1_COLS + 2
+    out = {t: np.full((nz, H, W), np.nan) for t in targets}
+    res = {t: np.full((nz, H, W), np.nan) for t in targets}
+    jj, ii = np.meshgrid(np.arange(rows), np.arange(K1_COLS), indexing="ij")
+    keys = trc.gather_keys(True)
+    for J0 in range(0, H, rows):
+        for I0 in range(0, W, K1_COLS):
+            ring = {}
+            for kk in range(-1, nz + 1):
+                win = np.full((wr, 2, ww), np.nan, ef[0].dtype)
+                for r in range(wr):
+                    R = J0 + r
+                    if R > H + 1:
+                        continue
+                    C = np.arange(I0, min(I0 + ww, W + 2))
+                    for w, qd in enumerate((w0, w1)):
+                        win[r, w, :len(C)] = (0.0 if kk in (-1, nz)
+                                              else ef[qd][kk, R, C])
+                ring[kk] = win
+            Jg, Ig = J0 + jj, I0 + ii
+            act = (Jg < H) & (Ig < W)
+            Jc, Ic = np.minimum(Jg, H - 1), np.minimum(Ig, W - 1)
+            for t in targets:
+                m = trc._TKEYS.index(t)
+                col = lambda x: x.float().numpy()[:, Jc, Ic] \
+                    if x.dtype == torch.bfloat16 else x.numpy()[:, Jc, Ic]
+                bq_, ud_, bet_, d_ = (col(bq[t]), col(pack.ud[m]),
+                                      col(bet[m]), col(pack.d[m]))
+                if layout == "blocks":
+                    views = [col(v) for v in trc.block_views(
+                        pack, m, lp=holder is not pack)]
+
+                def band(row, k, n):
+                    if layout == "blocks":
+                        return views[n][k]
+                    bi_, bk, bj, bi = row[:4]
+                    return flat[(bi_ * (nz + 2) + k + bk + 1) * PB
+                                + (Jc + bj) * pitch + lpad + Ic + bi]
+
+                tt = ksf.band_term_table(t)
+                x, xs, cs, gs = None, [], [], []
+                for k in range(nz):
+                    g = None
+                    for n, row in enumerate(tt[:12]):
+                        src, dk, oj, oi = row[4:]
+                        assert src in (w0, w1)
+                        v = band(row, k, n) * ring[k + dk][
+                            jj + oj, 0 if src == w0 else 1, ii + oi]
+                        g = v if g is None else g + v
+                    if pack.real_matrix and k == 0:
+                        x0 = None
+                        for (nb, boff, _), row in zip(trc._REAL_TERMS,
+                                                      tt[12:]):
+                            src, dk, oj, oi = row[4:]
+                            assert src == 3 - m and dk == 0
+                            v = band(row, 0, keys.index((nb, boff))) \
+                                * ef[src][0, Jc + oj, Ic + oi]
+                            x0 = v if x0 is None else x0 + v
+                        g = g + x0
+                    rhs = bq_[k] - g
+                    x = (rhs * bet_[k] if k == 0
+                         else (rhs - ud_[k - 1] * x) * bet_[k])
+                    xs.append(x)
+                    gs.append(g)
+                    if k < nz - 1:
+                        cs.append(ud_[k] * bet_[k])
+                sol, r = np.empty((nz,) + Jc.shape), np.empty((nz,) + Jc.shape)
+                sol[nz - 1] = x1 = x
+                x2 = hi = 0.0
+                for k in range(nz - 2, -1, -1):
+                    x0 = xs[k] - cs[k] * x1
+                    sol[k] = x0
+                    r[k + 1] = (bq_[k + 1] - d_[k + 1] * x1 - ud_[k] * x0
+                                - hi * x2 - gs[k + 1])
+                    hi = ud_[k]
+                    x2, x1 = x1, x0
+                r[0] = bq_[0] - d_[0] * x1 - 0.0 * 0.0 - hi * x2 - gs[0]
+                out[t][:, Jc[act], Ic[act]] = sol[:, act]
+                res[t][:, Jc[act], Ic[act]] = r[:, act]
     return out, res
 
 
@@ -300,58 +379,64 @@ def _emulate_rr(e4, bq, pack, mode, targets):
     return (zs[(0, 0)] + zs[(1, 0)]) + (zs[(0, 1)] + zs[(1, 1)])
 
 
+@pytest.mark.parametrize("layout", ["blocks", "bands", "bands bf16"])
 @pytest.mark.parametrize("shape", [(6, 10, 14), (2, 6, 4)])
 @pytest.mark.parametrize("real", [True, False])
-def test_cuda_recipe_emulation_matches_plain(shape, real):
+def test_cuda_recipe_emulation_matches_plain(shape, real, layout):
     """The CUDA kernels' term tables, flat addressing and loops (emulated
-    in numpy: K1 and K2 per target, K3 per tile on its staged window
-    ring, on the gather blocks and on the band stack, in its three modes)
-    give the plain versions' values to the last bit."""
+    in numpy: K1 a colour a launch, the two targets of an RB colour or one
+    of FC, and K2 on the RB colours, on tiles of 1 and 4 rows with their
+    staged window ring; K3 per tile on its staged window ring; on the
+    gather blocks and on the band stack, K1 also on the bfloat16 stack
+    beside float32 state; K3 in its three modes) give the plain versions'
+    values to the last bit."""
     cA, p, b = problem(*shape, seed=4)
-    tp = trc.build_compact_pack(torch.from_numpy(cA), real)
+    lp = layout.endswith("bf16")
+    if lp:
+        cA, p, b = (x.astype(np.float32) for x in (cA, p, b))
+    tp = BUILD[layout.split()[0]](torch.from_numpy(cA), real)
+    if lp:
+        tp = trc.attach_lp(tp)
     te = trc.extend_quads(tquads(p))
     tb = tquads(b)
-    n = lambda x: None if x is None else x.numpy()
-    for m, t in enumerate(trc._TKEYS):
-        rb = tp.rblocks[m] if real else None
-        e3 = tuple(te[k] for k in kt.gather_quads(t))
-        args = (tp.blocks[m], tp.ud[m], tp.bet[m])
-        want = kt.color_update_plain(e3, tb[t], *args, t, real, rb)
-        got = _emulate_color_update([x.numpy() for x in e3], tb[t].numpy(),
-                                    *(x.numpy() for x in args), None, t,
-                                    real, n(rb), emit=False)
-        close(got, want, 0)
-        ws, wr = kt.color_update_emit_plain(e3, tb[t], *args, tp.d[m], t,
-                                            real, rb)
-        gs, gr = _emulate_color_update([x.numpy() for x in e3],
-                                       tb[t].numpy(),
-                                       *(x.numpy() for x in args),
-                                       tp.d[m].numpy(), t, real, n(rb),
-                                       emit=True)
-        close(gs, ws, 0)
-        close(gr, wr, 0)
-    # K3, all four targets in one launch, on either operator layout
     e4 = tuple(te[k] for k in trc._TKEYS)
-    for pack in (tp, trc.build_band_pack(torch.from_numpy(cA), real)):
-        for mode in kt.RR_MODES:
-            if mode != "residual" and shape[0] % 2:
-                continue
-            targets = ((0, 0), (1, 1)) if mode == "zsum" else trc._TKEYS
-            want = kt.residual_restrict_plain(e4, tb, pack, mode, targets)
-            got = _emulate_rr(e4, tb, pack, mode, targets)
-            if mode == "coarse":
-                close(got, want, 0)
-            else:
-                assert sorted(got) == sorted(want)
-                for t in want:
-                    close(got[t], want[t], 0)
+    for colour in COLOURS:
+        want = kt.color_update_plain(te, tb, tp, colour)
+        emit = len(colour) == 2 and not lp
+        if emit:
+            ws, wr = kt.color_update_emit_plain(te, tb, tp, colour)
+            assert all(torch.equal(ws[t], want[t]) for t in colour)
+        for rows in (1, 4):
+            got, res = _emulate_colour(e4, tb, tp, colour, False, rows)
+            for t in colour:
+                close(got[t], want[t], 0)
+            if emit:
+                _, res = _emulate_colour(e4, tb, tp, colour, True, rows)
+                for t in colour:
+                    close(res[t], wr[t], 0)
+    if lp:
+        return
+    # K3, all four targets in one launch, on the pack's operator layout
+    for mode in kt.RR_MODES:
+        if mode != "residual" and shape[0] % 2:
+            continue
+        targets = ((0, 0), (1, 1)) if mode == "zsum" else trc._TKEYS
+        want = kt.residual_restrict_plain(e4, tb, tp, mode, targets)
+        got = _emulate_rr(e4, tb, tp, mode, targets)
+        if mode == "coarse":
+            close(got, want, 0)
+        else:
+            assert sorted(got) == sorted(want)
+            for t in want:
+                close(got[t], want[t], 0)
 
 
-def test_tiled_orchestrators_match_plain():
+@pytest.mark.parametrize("layout", list(BUILD))
+def test_tiled_orchestrators_match_plain(layout):
     """The kernel orchestration (plain versions on the CPU) == the plain
-    relax_compact orchestrators."""
+    relax_compact orchestrators, on either operator layout."""
     cA, p, b = problem(6, 10, 14, seed=5)
-    tp = trc.build_compact_pack(torch.from_numpy(cA), True)
+    tp = BUILD[layout](torch.from_numpy(cA), True)
     q0, bq = tquads(p), tquads(b)
     close_quads(kt.relax_compact_tiled_quads(q0, bq, tp, 2),
                 trc.relax_compact_quads(q0, bq, tp, 2, "RB", True), 0)

@@ -164,9 +164,7 @@ def test_bf16_color_update_plain_matches_jax_kernel():
         want = jtiled.color_update_tiled(
             tuple(je[k] for k in jtiled._gather_quads(t)), jb[t], jp.lp[0][m],
             jp.ud[m], jp.lp[2][m], t, True, interpret=True, rb_t=jp.lp[1][m])
-        got = kt.color_update(tuple(te[k] for k in kt.gather_quads(t)),
-                              tb[t], tp.lp.blocks[m], tp.ud[m], tp.lp.bet[m],
-                              t, True, tp.lp.rblocks[m])
+        got = kt.color_update(te, tb, tp, (t,))[t]
         close(got, want, 1e-6)
     want = jtiled.relax_compact_tiled_quads(jquads(p), jb, jp, 2, "RB", True,
                                             interpret=True)
