@@ -92,8 +92,8 @@ Phases (any failed check raises, so the exit code is non-zero):
    micro_packed_parts and micro_roofline (K1 against K10's dma_only, the
    FMA rate of K10's fma_run), micro_dma_probe (K11's load rates by
    pattern, every probe launched) and micro_colour_update (K1 and K2 at
-   the CUC level-0 quads in every Thomas form and tile-row limit, both
-   layouts); their rows are printed.
+   the CUC level-0 quads in both Thomas forms, both layouts); their rows
+   are printed.
 12. CUC 1024^2 x 64, default config, NHModel.distribute(2, 2,
    comm="shard_map") over a virtual mesh of four tiles on the one card
    (the reference's testcuc decomposition; no interconnect is measured):

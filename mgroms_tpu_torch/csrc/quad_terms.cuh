@@ -1,8 +1,9 @@
 // Shared by the quad-parity kernels (relax_tiled.cu, sweep_fused.cu,
-// rr_fused.cu): the term counts of the 16-term neighbour gather, the band
-// stack's row layout, relax_tiled.cu's per-term read recipe (built in
-// Python), the compiled recipe on the band quads (term_of) and the upcast
-// of an operator value to the state type.
+// rr_fused.cu, roofline.cu): the term counts of the 16-term neighbour
+// gather, the band stack's row layout, the per-term read recipe of the
+// gather blocks built in Python (roofline.cu's dma_only), the compiled
+// recipe on the band quads (term_of) and the upcast of an operator value
+// to the state type.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -41,20 +41,21 @@
 //   state in place.
 // - Resident warps over bytes moved.  What sets the time is the loads in
 //   flight per SM: the registers are capped at two blocks of kMaxRows
-//   tile rows an SM, and the Thomas recurrence's home is a runtime form,
-//   chosen per launch.  kFormSmem keeps the forward values and c_k =
-//   ud_k bet_k (computed once, in the forward pass) in shared memory,
-//   kFormOut keeps c there and the forward values in `out`, re-read by the
-//   back substitution; kFormNone keeps nothing on chip (the forward values
-//   in `out`, c recomputed from ud and bet re-read, K2's gather in `res`)
-//   and takes any nz.  Shared memory of nz planes a column halves the
-//   resident blocks, and that costs more than the re-reads save: the
-//   wrapper asks for kFormNone on an RB colour and kFormOut on an FC
-//   colour (the fastest measured, PERF.md); the launcher takes the first
-//   form from the requested one on whose shared memory fits.
+//   tile rows an SM, and the forward values of the Thomas recurrence go
+//   to `out`, re-read by the back substitution.  Its multipliers c_k =
+//   ud_k bet_k stay on chip or not, a runtime form: kFormOut keeps them in
+//   shared memory (computed once, in the forward pass), kFormNone
+//   recomputes them from ud and bet re-read, takes no shared memory of nz
+//   planes and so any nz.  Shared memory of nz planes a column halves the
+//   resident blocks, and on an RB colour that costs more than the
+//   re-reads save: the wrapper asks for kFormNone on an RB colour and
+//   kFormOut on an FC colour (the fastest measured, PERF.md, also against
+//   the forward values kept on chip too); the launcher falls back to
+//   kFormNone where c does not fit.
 // - K2's residual is written from the back substitution: r_{k+1} is final
-//   once x_k is known (g_{k+1} from shared memory or `res`, bq and ud
-//   re-read, d read there, a plane ahead).  No third pass over k.
+//   once x_k is known (g_{k+1} read back from `res`, where the forward
+//   pass left it, bq and ud re-read, d read there, a plane ahead).  No
+//   third pass over k.
 //
 // Instances: (float, float), (double, double) and (float, bfloat16: the
 // low-precision smoother operator, upcast at read, K1 only), in both
@@ -65,7 +66,7 @@
 //
 // Plain C interface (loaded with ctypes): the entry launches on the given
 // stream and returns the launch's CUDA error code (cudaErrorInvalidValue
-// for an instance that does not exist or an nz that fits no form).
+// for an instance that does not exist).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,9 +111,8 @@ constexpr size_t kMaxDynSmem = 227 * 1024;
 // most tile rows under it are taken
 constexpr size_t kBlockSmem = 64 * 1024;
 
-constexpr int kFormSmem = 0;   // forward values and c (K2: g) on chip
-constexpr int kFormOut = 1;    // c (K2: g) on chip, forward values in out
-constexpr int kFormNone = 2;   // nothing on chip
+constexpr int kFormOut = 0;    // c on chip
+constexpr int kFormNone = 1;   // nothing of the recurrence on chip
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -169,9 +169,8 @@ struct Target {
 };
 
 // Shared memory of a block of nt = rows * kCols threads: the window ring
-// (kStages planes of [rows + 2][2 quads][kWW]), then per target slot the
-// form's Thomas arrays, [nz][nt] each: c (forms Smem and Out), the forward
-// values (form Smem) and K2's gather (forms Smem and Out).
+// (kStages planes of [rows + 2][2 quads][kWW]), then, in form kFormOut,
+// per target slot c_k at [k][nt].
 template <typename T>
 struct Smem {
     __host__ __device__ static int win_plane(int rows) {
@@ -180,13 +179,9 @@ struct Smem {
     __host__ __device__ static size_t ring_bytes(int rows) {
         return ((size_t)kStages * win_plane(rows) * sizeof(T) + 15) / 16 * 16;
     }
-    __host__ __device__ static int arrays(int form, bool emit) {
-        return form == kFormSmem ? 2 + emit : (form == kFormOut ? 1 + emit
-                                                                : 0);
-    }
-    static size_t bytes(int nz, int rows, int form, bool emit, int nt_targets) {
-        return ring_bytes(rows) + (size_t)nt_targets * arrays(form, emit)
-                                      * nz * rows * kCols * sizeof(T);
+    static size_t bytes(int nz, int rows, int form, int nt_targets) {
+        return ring_bytes(rows) + (form == kFormOut
+            ? (size_t)nt_targets * nz * rows * kCols * sizeof(T) : 0);
     }
 };
 
@@ -218,18 +213,9 @@ colour_kernel(const Params<T, B> p) {
     auto wslot = [&](int kk) -> T* {
         return ring + (size_t)((kk + kStages) % kStages) * wplane;
     };
-    // the Thomas arrays of target slot s: array a at [k][tid]
-    const int narr = Smem<T>::arrays(p.form, EMIT);
-    T* const arr = reinterpret_cast<T*>(smem + Smem<T>::ring_bytes(rows));
-    auto thomas = [&](int s, int a) -> T* {
-        return arr + (size_t)(s * narr + a) * nz * nt + tid;
-    };
-    // c is array 0, K2's gather array 1, the forward values the last
-    // (pointers of arrays the form does not hold are never read)
-    const int xa = narr > 0 ? narr - 1 : 0;
-    T* const cs[2] = {thomas(0, 0), thomas(1, 0)};
-    T* const gs[2] = {thomas(0, 1), thomas(1, 1)};
-    T* const xs[2] = {thomas(0, xa), thomas(1, xa)};
+    // kFormOut: c of target slot s at [k][tid] (not read in kFormNone)
+    T* const carr = reinterpret_cast<T*>(smem + Smem<T>::ring_bytes(rows));
+    T* const cs[2] = {carr + tid, carr + (size_t)nz * nt + tid};
 
     // this thread's share of a window plane: quad (0: W0, 1: W1, -1:
     // outside the extended quad, never read) and offset in the plane
@@ -369,24 +355,18 @@ colour_kernel(const Params<T, B> p) {
         return g;
     };
 
-    // the forward substitution of slot S at plane k, its values kept as
-    // the form says
+    // the forward substitution of slot S at plane k: the forward value to
+    // `out`, K2's gather to `res`, c as the form says
     auto forward = [&](auto si, const T* const* wk, int k, const Plane& c) {
         constexpr int S = decltype(si)::value;
         const T g = gather(si, wk, k, c);
         const T rhs = c.bq - g;
         xf[S] = (k == 0) ? rhs * c.bet : (rhs - udp[S] * xf[S]) * c.bet;
-        const size_t kt = (size_t)k * nt;
-        if (p.form == kFormSmem)
-            xs[S][kt] = xf[S];
-        else
-            p.out[S][(size_t)k * P + col] = xf[S];
-        if (p.form != kFormNone) {
-            if (k < nz - 1) cs[S][kt] = c.ud * c.bet;
-            if (EMIT) gs[S][kt] = g;
-        } else if (EMIT) {
-            p.res[S][(size_t)k * P + col] = g;
-        }
+        const size_t o = (size_t)k * P + col;
+        p.out[S][o] = xf[S];
+        if (EMIT) p.res[S][o] = g;
+        if (p.form == kFormOut && k < nz - 1)
+            cs[S][(size_t)k * nt] = c.ud * c.bet;
         udp[S] = c.ud;
     };
 
@@ -426,9 +406,9 @@ colour_kernel(const Params<T, B> p) {
     if (!active) return;
 
     // The back substitution, every slot in one loop: x_k = xs_k - c_k
-    // x_{k+1}; K2 emits r_{k+1} once x_k is known (lo = ud_k, hi =
-    // ud_{k+1}, 0 at the top plane), then r_0.  Each plane's loads are
-    // issued a plane ahead.
+    // x_{k+1}, xs_k the forward value in `out`; K2 emits r_{k+1} once x_k
+    // is known (lo = ud_k, hi = ud_{k+1}, 0 at the top plane), then r_0.
+    // Each plane's loads are issued a plane ahead.
     struct Back {
         T x1, x2;               // x_{k+1}, x_{k+2}
         T xs, c, ud, bet;       // plane k's: forward value, c (or ud, bet)
@@ -436,11 +416,10 @@ colour_kernel(const Params<T, B> p) {
     };
     Back bk[NT], nx[NT];
     auto bload = [&](int s, int k, Back& b) {
-        const size_t kt = (size_t)k * nt;
         const uint32_t o = (uint32_t)k * P + col;
-        b.xs = p.form == kFormSmem ? xs[s][kt] : p.out[s][o];
-        if (p.form != kFormNone) {
-            b.c = cs[s][kt];
+        b.xs = p.out[s][o];
+        if (p.form == kFormOut) {
+            b.c = cs[s][(size_t)k * nt];
             if (EMIT) b.ud = p.ud[s][o];
         } else {
             b.ud = p.ud[s][o];
@@ -450,7 +429,7 @@ colour_kernel(const Params<T, B> p) {
             const uint32_t o1 = o + P;
             b.bq = p.bq[s][o1];
             b.d = p.d[s][o1];
-            b.g = p.form != kFormNone ? gs[s][kt + nt] : p.res[s][o1];
+            b.g = p.res[s][o1];
         }
     };
 #pragma unroll
@@ -458,7 +437,6 @@ colour_kernel(const Params<T, B> p) {
         bk[s].x1 = xf[s];
         bk[s].x2 = T(0);
         bk[s].hi = T(0);
-        p.out[s][(uint32_t)(nz - 1) * P + col] = xf[s];
         bload(s, nz - 2, nx[s]);
     }
     for (int k = nz - 2; k >= 0; --k) {
@@ -466,7 +444,7 @@ colour_kernel(const Params<T, B> p) {
         for (int s = 0; s < NT; ++s) {
             const Back b = nx[s];
             if (k > 0) bload(s, k - 1, nx[s]);
-            const T c = p.form != kFormNone ? b.c : b.ud * b.bet;
+            const T c = p.form == kFormOut ? b.c : b.ud * b.bet;
             const T x0 = b.xs - c * bk[s].x1;
             const uint32_t o = (uint32_t)k * P + col;
             p.out[s][o] = x0;
@@ -483,10 +461,9 @@ colour_kernel(const Params<T, B> p) {
     if (EMIT) {
 #pragma unroll
         for (int s = 0; s < NT; ++s) {
-            const T g0 = p.form != kFormNone ? gs[s][0] : p.res[s][col];
             const T lo = T(0), xm = T(0);
             p.res[s][col] = p.bq[s][col] - p.d[s][col] * bk[s].x1 - lo * xm
-                            - bk[s].hi * bk[s].x2 - g0;
+                            - bk[s].hi * bk[s].x2 - p.res[s][col];
         }
     }
 }
@@ -495,7 +472,7 @@ template <typename T, typename B, bool BANDS, bool EMIT, int TG0, int NT>
 int launch(const Params<T, B>& p, int rows, cudaStream_t s) {
     const void* kern = reinterpret_cast<const void*>(
         &colour_kernel<T, B, BANDS, EMIT, TG0, NT>);
-    const size_t smem = Smem<T>::bytes(p.nz, rows, p.form, EMIT, NT);
+    const size_t smem = Smem<T>::bytes(p.nz, rows, p.form, NT);
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -528,35 +505,29 @@ int dispatch(const Params<T, B>& p, int tg0, int ntargets, int rows,
     }
 }
 
-// The form and tile rows a launch takes: from the requested form on, the
-// first whose shared memory fits a block of one tile row; then the most
-// tile rows (up to `rows_max`) under kBlockSmem (one row if none is).
+// The form and tile rows a launch takes: the requested form where its
+// shared memory fits a block of one tile row, else kFormNone; then the
+// most tile rows under kBlockSmem (one row if none is).
 template <typename T>
-bool plan(int nz, bool emit, int ntargets, int form, int rows_max,
-          int& form_out, int& rows_out) {
-    for (int f = form; f <= kFormNone; ++f) {
-        if (Smem<T>::bytes(nz, 1, f, emit, ntargets) > kMaxDynSmem) continue;
-        int rows = 1;
-        for (int r = rows_max; r > 1; r /= 2) {
-            if (Smem<T>::bytes(nz, r, f, emit, ntargets) <= kBlockSmem) {
-                rows = r;
-                break;
-            }
+void plan(int nz, int ntargets, int form, int& form_out, int& rows_out) {
+    if (Smem<T>::bytes(nz, 1, form, ntargets) > kMaxDynSmem) form = kFormNone;
+    int rows = 1;
+    for (int r = kMaxRows; r > 1; r /= 2) {
+        if (Smem<T>::bytes(nz, r, form, ntargets) <= kBlockSmem) {
+            rows = r;
+            break;
         }
-        form_out = f;
-        rows_out = rows;
-        return true;
     }
-    return false;
+    form_out = form;
+    rows_out = rows;
 }
 
 template <typename T, typename B>
 int launch_colour(const ColourArgs* a, int nz, int H, int W, int real,
                   int tg0, int ntargets, int emit, int bands, int form,
-                  int rows_max, int* used, void* stream) {
+                  int* used, void* stream) {
     if (nz < 2 || tg0 < 0 || tg0 > 3 || ntargets < 1 || ntargets > 2
-        || form < kFormSmem || form > kFormNone || rows_max < 1
-        || rows_max > kMaxRows || (rows_max & (rows_max - 1)))
+        || form < kFormOut || form > kFormNone)
         return (int)cudaErrorInvalidValue;
     Params<T, B> p;
     for (int i = 0; i < 4; ++i) p.e[i] = static_cast<const T*>(a->e[i]);
@@ -576,8 +547,7 @@ int launch_colour(const ColourArgs* a, int nz, int H, int W, int real,
     p.W = W;
     p.real = real;
     int rows = 1;
-    if (!plan<T>(nz, emit, ntargets, form, rows_max, p.form, rows))
-        return (int)cudaErrorInvalidValue;
+    plan<T>(nz, ntargets, form, p.form, rows);
     if (used) {
         used[0] = p.form;
         used[1] = rows;
@@ -596,34 +566,31 @@ extern "C" {
 
 // One colour update: targets tg0 (and, with ntargets 2, its RB partner
 // 3 - tg0); emit: K2; bands: the band-stack layout; form: the Thomas form
-// asked for (kFormSmem .. kFormNone); rows_max: the most tile rows a block
-// takes.  used (may be null): the form and tile rows the launch took.
+// asked for (kFormOut or kFormNone).  used (may be null): the form and
+// tile rows the launch took.
 int mg_colour_update_f32(const ColourArgs* a, int nz, int H, int W, int real,
                          int tg0, int ntargets, int emit, int bands,
-                         int form, int rows_max, int* used, void* stream) {
+                         int form, int* used, void* stream) {
     return launch_colour<float, float>(a, nz, H, W, real, tg0, ntargets,
-                                       emit, bands, form, rows_max, used,
-                                       stream);
+                                       emit, bands, form, used, stream);
 }
 
 int mg_colour_update_f64(const ColourArgs* a, int nz, int H, int W, int real,
                          int tg0, int ntargets, int emit, int bands,
-                         int form, int rows_max, int* used, void* stream) {
+                         int form, int* used, void* stream) {
     return launch_colour<double, double>(a, nz, H, W, real, tg0, ntargets,
-                                         emit, bands, form, rows_max, used,
-                                         stream);
+                                         emit, bands, form, used, stream);
 }
 
 // K1 on the low-precision smoother operator: float32 state, bfloat16
 // operator (no emit form: the emitted residual needs the true operator).
 int mg_colour_update_bf16(const ColourArgs* a, int nz, int H, int W,
                           int real, int tg0, int ntargets, int emit,
-                          int bands, int form, int rows_max, int* used,
-                          void* stream) {
+                          int bands, int form, int* used, void* stream) {
     if (emit) return (int)cudaErrorInvalidValue;
     return launch_colour<float, __nv_bfloat16>(a, nz, H, W, real, tg0,
                                                ntargets, 0, bands, form,
-                                               rows_max, used, stream);
+                                               used, stream);
 }
 
 }  // extern "C"

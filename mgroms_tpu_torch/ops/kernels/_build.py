@@ -61,9 +61,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64", "bf16"):
         fn = getattr(lib, f"mg_colour_update_{dt}")
-        # ColourArgs* | nz H W real tg0 ntargets emit bands form rows_max |
-        # used stream (bf16: float32 state, bfloat16 operator, emit 0)
-        fn.argtypes = [p] + [i] * 10 + [p, p]
+        # ColourArgs* | nz H W real tg0 ntargets emit bands form | used
+        # stream (bf16: float32 state, bfloat16 operator, emit 0)
+        fn.argtypes = [p] + [i] * 9 + [p, p]
         fn.restype = i
         fn = getattr(lib, f"mg_sweep_fused_{dt}")
         # SweepArgs* | nz H W real | stream

@@ -191,19 +191,17 @@ def _shapes(nz, H, W, real_matrix) -> dict:
     return s
 
 
-# The Thomas forms of K1 and K2 (csrc/relax_tiled.cu): the forward values
-# and c = ud * bet in shared memory ("smem"), c only ("out": the forward
-# values in the output, re-read by the back substitution), or nothing on
-# chip ("none", any nz).  A launch asks for COLOUR_FORMS[number of targets]
-# and takes the first form from it on whose shared memory fits, and up to
-# COLOUR_ROWS tile rows a block (1, 2 or 4); ``last_plan`` is the (form,
-# tile rows) the last launch took.  The defaults are the fastest measured
-# at the CUC level-0 quads (PERF.md; scripts/micro_colour_update times
-# every form): an RB colour keeps nothing on chip, whose smaller blocks
-# let more warps share an SM, an FC colour keeps c.
-THOMAS_FORMS = ("smem", "out", "none")
+# The Thomas forms of K1 and K2 (csrc/relax_tiled.cu), the forward values
+# in the output either way: the multipliers c = ud * bet in shared memory
+# ("out"), or recomputed from ud and bet re-read ("none", any nz).  A
+# launch asks for COLOUR_FORMS[number of targets] and falls back to "none"
+# where c does not fit; ``last_plan`` is the (form, tile rows) the last
+# launch took.  The defaults are the fastest measured at the CUC level-0
+# quads (PERF.md; scripts/micro_colour_update times both): an RB colour
+# keeps nothing on chip, whose smaller blocks let more warps share an SM,
+# an FC colour keeps c.
+THOMAS_FORMS = ("out", "none")
 COLOUR_FORMS = {1: "out", 2: "none"}
-COLOUR_ROWS = 4
 last_plan = None
 
 
@@ -273,8 +271,6 @@ def _launch_colour(e, bq, pack: CompactPack, targets, emit: bool):
                 shapes[f"rb{t}"] = (1, H, 2 * W)
                 dtypes[f"rb{t}"] = band
     check_tensors(named, shapes, q0.dtype, q0.device, dtypes)
-    if band != q0.dtype and (emit or band != torch.bfloat16):
-        raise ValueError(f"{band} operator with {q0.dtype} state")
     out = {t: torch.empty_like(q0) for t in targets}
     res = {t: torch.empty_like(q0) for t in targets} if emit else {}
     two = lambda xs: (ctypes.c_void_p * 2)(*(ptr(x) for x in xs),
@@ -296,8 +292,7 @@ def _launch_colour(e, bq, pack: CompactPack, targets, emit: bool):
     with torch.cuda.device(q0.device):
         rc = fn(ctypes.byref(args), nz, H, W, int(real), ms[0],
                 len(targets), int(emit), int(layout == "bands"),
-                THOMAS_FORMS.index(COLOUR_FORMS[len(targets)]), COLOUR_ROWS,
-                used,
+                THOMAS_FORMS.index(COLOUR_FORMS[len(targets)]), used,
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "color_update_emit" if emit else "color_update")
     last_plan = (THOMAS_FORMS[used[0]], used[1])

@@ -1,9 +1,9 @@
 """K1 and K2 (csrc/relax_tiled.cu, a colour a launch) at the CUC level-0
-quads (64, 512, 512), timed on the card beside their bounds, in every
-Thomas form and tile-row limit (ops/kernels/relax_tiled.COLOUR_FORMS,
-COLOUR_ROWS), on the band stack and on the gather blocks:
+quads (64, 512, 512), timed on the card beside their bounds, in each
+Thomas form (ops/kernels/relax_tiled.COLOUR_FORMS), on the band stack and
+on the gather blocks:
 
-  k1_rb_{layout}_{form}_r{rows}_ms   K1 on one RB colour (both targets)
+  k1_rb_{layout}_{form}_ms           K1 on one RB colour (both targets)
   k1_rb_{layout}_two_launches_ms     the same two targets as two
                                      one-target launches (the FC form)
   k1_fc_{layout}_{form}_ms           K1 on one FC colour (one target)
@@ -129,22 +129,19 @@ def _timed_row(rows, name, fn, pack, targets, emit_=False,
 
 def timed(dev=None, nz=64, H=512, W=512, reps=20) -> dict:
     """The rows of the module docstring at quad shape (nz, H, W); the
-    module's forms and row limit are restored after."""
+    module's forms are restored after."""
     dev = card(dev)
     print(card_line(), flush=True)
     rows = {}
-    forms0, rows0 = dict(kt.COLOUR_FORMS), kt.COLOUR_ROWS
+    forms0 = dict(kt.COLOUR_FORMS)
     try:
         for layout in ("bands", "blocks"):
             pack, e, bq = inputs(dev, nz, H, W, layout=layout)
             for form in kt.THOMAS_FORMS:
                 kt.COLOUR_FORMS = {1: form, 2: form}
-                for r in (1, 4):
-                    kt.COLOUR_ROWS = r
-                    _timed_row(rows, f"k1_rb_{layout}_{form}_r{r}",
-                               lambda: kt.color_update(e, bq, pack, RB0),
-                               pack, RB0, reps=reps)
-                kt.COLOUR_ROWS = rows0
+                _timed_row(rows, f"k1_rb_{layout}_{form}",
+                           lambda: kt.color_update(e, bq, pack, RB0), pack,
+                           RB0, reps=reps)
                 _timed_row(rows, f"k2_rb_{layout}_{form}",
                            lambda: kt.color_update_emit(e, bq, pack, RB1),
                            pack, RB1, True, reps=reps)
@@ -166,7 +163,7 @@ def timed(dev=None, nz=64, H=512, W=512, reps=20) -> dict:
             del pack, e, bq
             torch.cuda.empty_cache()
     finally:
-        kt.COLOUR_FORMS, kt.COLOUR_ROWS = forms0, rows0
+        kt.COLOUR_FORMS = forms0
     return rows
 
 
