@@ -45,8 +45,9 @@ Phases (any failed check raises, so the exit code is non-zero):
    colour-0 stores; K9 in both modes at the
    level-0 state and RHS shapes, exact, beside one strided PyTorch copy
    (library_ms); K10's dma_only in its three variants at (64, 512, 512)
-   and on bfloat16 blocks (all, blocks), exact, and fma_run within its
-   stated tolerance.  K7 at CUC level 0 split over a virtual (1, 4) mesh
+   and on bfloat16 blocks (all, blocks), and on an RB colour's float32
+   and bfloat16 band stacks (dma_only_bands), exact, and fma_run within
+   its stated tolerance.  K7 at CUC level 0 split over a virtual (1, 4) mesh
    (four (64, 1024, 256) tiles, both real_matrix values), 0 ulp from its
    plain version and from K5 on the whole grid.  K11, the load-rate
    probes (windows, blocks, j-lead windows, one wide stream), every row
@@ -92,8 +93,8 @@ Phases (any failed check raises, so the exit code is non-zero):
    micro_packed_parts and micro_roofline (K1 against K10's dma_only, the
    FMA rate of K10's fma_run), micro_dma_probe (K11's load rates by
    pattern, every probe launched) and micro_colour_update (K1 and K2 at
-   the CUC level-0 quads in both Thomas forms, both layouts); their rows
-   are printed.
+   the CUC level-0 quads, both layouts, and an RB colour as two
+   one-target launches); their rows are printed.
 12. CUC 1024^2 x 64, default config, NHModel.distribute(2, 2,
    comm="shard_map") over a virtual mesh of four tiles on the one card
    (the reference's testcuc decomposition; no interconnect is measured):
@@ -450,11 +451,10 @@ def colour_kernels(dev, results):
                     hold(results, k1, label, dtype, call, plain, None, nb,
                          fl, t, exact=True)
                     if t and rb:
-                        plan = kt.last_plan
                         two = median_ms(lambda c=colour: [
                             kt.color_update(e, bq, pack, (x,)) for x in c])
-                        print(f"  {label}: plan {plan}; the two targets as "
-                              f"two one-target launches {two:.4f} ms")
+                        print(f"  {label}: the two targets as two "
+                              f"one-target launches {two:.4f} ms")
                     if rb and not lp:
                         nb, fl = mcu.cost(pack, colour, True, dtype)
                         scale = max(float(bq[x].abs().max()) for x in colour)
@@ -790,9 +790,10 @@ def packed_kernels(dev, results):
 
 def roofline_kernels(dev, results):
     """K10: dma_only in its three variants at the CUC level-0 quad shape
-    on K1's operands with the 'real' pair, and on bfloat16 blocks in two
-    (exact; bytes: each loaded array read once, the output written once;
-    flops: one add per value loaded),
+    on K1's operands with the 'real' pair, and on bfloat16 blocks in two,
+    and on an RB colour's float32 and bfloat16 band stacks
+    (dma_only_bands) (exact; bytes: each loaded array read once, the
+    output written once; flops: one add per value loaded),
     and fma_run (within roofline.FMA_RTOL of its float64 plain version)."""
     nz, H, W = 64, 512, 512
     o = mr.operands(dev, nz, H, W)
@@ -811,6 +812,17 @@ def roofline_kernels(dev, results):
              adds[which][0] * n + adds[which][1] * col,
              "json" if which == "all" and not lp else "print", exact=True)
     del o, a, b16, cases
+    colour = rc.colour_targets("RB")[0]
+    for lp in (False, True):
+        pack, e, bq = mcu.inputs(dev, nz, H, W, lp=lp)
+        hold(results, "dma_only", f"{(nz, H, W)} bands"
+             + (" bf16" if lp else ""), torch.float32,
+             lambda: rl.dma_only_bands(e, bq, pack, colour),
+             lambda: rl.dma_only_bands_plain(e, bq, pack, colour), None,
+             rl.dma_only_bands_bytes(nz, H, W, colour, lp), 30 * n,
+             "print", exact=True)
+        del pack, e, bq
+    torch.cuda.empty_cache()
     x = torch.rand(rl.FMA_BLOCK, device=dev) + 0.5
     scale = float(rl.fma_run_plain(x).abs().max())
     hold(results, "fma_run", f"{rl.FMA_BLOCK} x {rl.FMA_TILES}",

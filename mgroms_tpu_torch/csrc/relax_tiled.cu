@@ -43,15 +43,12 @@
 //   flight per SM: the registers are capped at two blocks of kMaxRows
 //   tile rows an SM, and the forward values of the Thomas recurrence go
 //   to `out`, re-read by the back substitution.  Its multipliers c_k =
-//   ud_k bet_k stay on chip or not, a runtime form: kFormOut keeps them in
-//   shared memory (computed once, in the forward pass), kFormNone
-//   recomputes them from ud and bet re-read, takes no shared memory of nz
-//   planes and so any nz.  Shared memory of nz planes a column halves the
-//   resident blocks, and on an RB colour that costs more than the
-//   re-reads save: the wrapper asks for kFormNone on an RB colour and
-//   kFormOut on an FC colour (the fastest measured, PERF.md, also against
-//   the forward values kept on chip too); the launcher falls back to
-//   kFormNone where c does not fit.
+//   ud_k bet_k are fixed by the target count: an FC colour (one target)
+//   keeps them in shared memory, computed once in the forward pass, and
+//   recomputes them from ud and bet re-read only where nz planes of them
+//   do not fit; an RB colour (two targets) always recomputes them, since
+//   shared memory of nz planes a column would halve its resident blocks,
+//   which costs it more than the re-reads save (PERF.md).
 // - K2's residual is written from the back substitution: r_{k+1} is final
 //   once x_k is known (g_{k+1} read back from `res`, where the forward
 //   pass left it, bq and ud re-read, d read there, a plane ahead).  No
@@ -111,9 +108,6 @@ constexpr size_t kMaxDynSmem = 227 * 1024;
 // most tile rows under it are taken
 constexpr size_t kBlockSmem = 64 * 1024;
 
-constexpr int kFormOut = 0;    // c on chip
-constexpr int kFormNone = 1;   // nothing of the recurrence on chip
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -149,7 +143,8 @@ struct Params {
     const B* blocks[2];
     const B* rb[2];
     const B* band;
-    int nz, H, W, real, form;
+    int nz, H, W, real;
+    int keep_c;     // an FC colour's c in shared memory (plan())
 };
 
 // the 'real' pair's gather_keys(True) index per 'real' term (12..15)
@@ -169,8 +164,8 @@ struct Target {
 };
 
 // Shared memory of a block of nt = rows * kCols threads: the window ring
-// (kStages planes of [rows + 2][2 quads][kWW]), then, in form kFormOut,
-// per target slot c_k at [k][nt].
+// (kStages planes of [rows + 2][2 quads][kWW]), then, where an FC colour
+// keeps them, c_k at [k][nt].
 template <typename T>
 struct Smem {
     __host__ __device__ static int win_plane(int rows) {
@@ -179,9 +174,9 @@ struct Smem {
     __host__ __device__ static size_t ring_bytes(int rows) {
         return ((size_t)kStages * win_plane(rows) * sizeof(T) + 15) / 16 * 16;
     }
-    static size_t bytes(int nz, int rows, int form, int nt_targets) {
-        return ring_bytes(rows) + (form == kFormOut
-            ? (size_t)nt_targets * nz * rows * kCols * sizeof(T) : 0);
+    static size_t bytes(int nz, int rows, bool keep_c) {
+        return ring_bytes(rows)
+               + (keep_c ? (size_t)nz * rows * kCols * sizeof(T) : 0);
     }
 };
 
@@ -213,9 +208,10 @@ colour_kernel(const Params<T, B> p) {
     auto wslot = [&](int kk) -> T* {
         return ring + (size_t)((kk + kStages) % kStages) * wplane;
     };
-    // kFormOut: c of target slot s at [k][tid] (not read in kFormNone)
-    T* const carr = reinterpret_cast<T*>(smem + Smem<T>::ring_bytes(rows));
-    T* const cs[2] = {carr + tid, carr + (size_t)nz * nt + tid};
+    // c on chip: an FC colour's, where it fits (at [k][tid])
+    const bool keep_c = NT == 1 && p.keep_c;
+    T* const cs = reinterpret_cast<T*>(smem + Smem<T>::ring_bytes(rows))
+                  + tid;
 
     // this thread's share of a window plane: quad (0: W0, 1: W1, -1:
     // outside the extended quad, never read) and offset in the plane
@@ -356,7 +352,7 @@ colour_kernel(const Params<T, B> p) {
     };
 
     // the forward substitution of slot S at plane k: the forward value to
-    // `out`, K2's gather to `res`, c as the form says
+    // `out`, K2's gather to `res`, c to shared memory where it is kept
     auto forward = [&](auto si, const T* const* wk, int k, const Plane& c) {
         constexpr int S = decltype(si)::value;
         const T g = gather(si, wk, k, c);
@@ -365,8 +361,7 @@ colour_kernel(const Params<T, B> p) {
         const size_t o = (size_t)k * P + col;
         p.out[S][o] = xf[S];
         if (EMIT) p.res[S][o] = g;
-        if (p.form == kFormOut && k < nz - 1)
-            cs[S][(size_t)k * nt] = c.ud * c.bet;
+        if (keep_c && k < nz - 1) cs[(size_t)k * nt] = c.ud * c.bet;
         udp[S] = c.ud;
     };
 
@@ -418,8 +413,8 @@ colour_kernel(const Params<T, B> p) {
     auto bload = [&](int s, int k, Back& b) {
         const uint32_t o = (uint32_t)k * P + col;
         b.xs = p.out[s][o];
-        if (p.form == kFormOut) {
-            b.c = cs[s][(size_t)k * nt];
+        if (keep_c) {
+            b.c = cs[(size_t)k * nt];
             if (EMIT) b.ud = p.ud[s][o];
         } else {
             b.ud = p.ud[s][o];
@@ -444,7 +439,7 @@ colour_kernel(const Params<T, B> p) {
         for (int s = 0; s < NT; ++s) {
             const Back b = nx[s];
             if (k > 0) bload(s, k - 1, nx[s]);
-            const T c = p.form == kFormOut ? b.c : b.ud * b.bet;
+            const T c = keep_c ? b.c : b.ud * b.bet;
             const T x0 = b.xs - c * bk[s].x1;
             const uint32_t o = (uint32_t)k * P + col;
             p.out[s][o] = x0;
@@ -472,7 +467,7 @@ template <typename T, typename B, bool BANDS, bool EMIT, int TG0, int NT>
 int launch(const Params<T, B>& p, int rows, cudaStream_t s) {
     const void* kern = reinterpret_cast<const void*>(
         &colour_kernel<T, B, BANDS, EMIT, TG0, NT>);
-    const size_t smem = Smem<T>::bytes(p.nz, rows, p.form, NT);
+    const size_t smem = Smem<T>::bytes(p.nz, rows, p.keep_c);
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -505,29 +500,26 @@ int dispatch(const Params<T, B>& p, int tg0, int ntargets, int rows,
     }
 }
 
-// The form and tile rows a launch takes: the requested form where its
-// shared memory fits a block of one tile row, else kFormNone; then the
-// most tile rows under kBlockSmem (one row if none is).
+// Whether a launch keeps c on chip (an FC colour, where nz planes of c fit
+// a block of one tile row), and its tile rows: the most under kBlockSmem
+// (one row if none is).
 template <typename T>
-void plan(int nz, int ntargets, int form, int& form_out, int& rows_out) {
-    if (Smem<T>::bytes(nz, 1, form, ntargets) > kMaxDynSmem) form = kFormNone;
+void plan(int nz, int ntargets, int& keep_c, int& rows_out) {
+    keep_c = ntargets == 1 && Smem<T>::bytes(nz, 1, true) <= kMaxDynSmem;
     int rows = 1;
     for (int r = kMaxRows; r > 1; r /= 2) {
-        if (Smem<T>::bytes(nz, r, form, ntargets) <= kBlockSmem) {
+        if (Smem<T>::bytes(nz, r, keep_c) <= kBlockSmem) {
             rows = r;
             break;
         }
     }
-    form_out = form;
     rows_out = rows;
 }
 
 template <typename T, typename B>
 int launch_colour(const ColourArgs* a, int nz, int H, int W, int real,
-                  int tg0, int ntargets, int emit, int bands, int form,
-                  int* used, void* stream) {
-    if (nz < 2 || tg0 < 0 || tg0 > 3 || ntargets < 1 || ntargets > 2
-        || form < kFormOut || form > kFormNone)
+                  int tg0, int ntargets, int emit, int bands, void* stream) {
+    if (nz < 2 || tg0 < 0 || tg0 > 3 || ntargets < 1 || ntargets > 2)
         return (int)cudaErrorInvalidValue;
     Params<T, B> p;
     for (int i = 0; i < 4; ++i) p.e[i] = static_cast<const T*>(a->e[i]);
@@ -547,11 +539,7 @@ int launch_colour(const ColourArgs* a, int nz, int H, int W, int real,
     p.W = W;
     p.real = real;
     int rows = 1;
-    plan<T>(nz, ntargets, form, p.form, rows);
-    if (used) {
-        used[0] = p.form;
-        used[1] = rows;
-    }
+    plan<T>(nz, ntargets, p.keep_c, rows);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (bands)
         return emit ? dispatch<T, B, true, true>(p, tg0, ntargets, rows, s)
@@ -565,32 +553,29 @@ int launch_colour(const ColourArgs* a, int nz, int H, int W, int real,
 extern "C" {
 
 // One colour update: targets tg0 (and, with ntargets 2, its RB partner
-// 3 - tg0); emit: K2; bands: the band-stack layout; form: the Thomas form
-// asked for (kFormOut or kFormNone).  used (may be null): the form and
-// tile rows the launch took.
+// 3 - tg0); emit: K2; bands: the band-stack layout.
 int mg_colour_update_f32(const ColourArgs* a, int nz, int H, int W, int real,
                          int tg0, int ntargets, int emit, int bands,
-                         int form, int* used, void* stream) {
+                         void* stream) {
     return launch_colour<float, float>(a, nz, H, W, real, tg0, ntargets,
-                                       emit, bands, form, used, stream);
+                                       emit, bands, stream);
 }
 
 int mg_colour_update_f64(const ColourArgs* a, int nz, int H, int W, int real,
                          int tg0, int ntargets, int emit, int bands,
-                         int form, int* used, void* stream) {
+                         void* stream) {
     return launch_colour<double, double>(a, nz, H, W, real, tg0, ntargets,
-                                         emit, bands, form, used, stream);
+                                         emit, bands, stream);
 }
 
 // K1 on the low-precision smoother operator: float32 state, bfloat16
 // operator (no emit form: the emitted residual needs the true operator).
 int mg_colour_update_bf16(const ColourArgs* a, int nz, int H, int W,
                           int real, int tg0, int ntargets, int emit,
-                          int bands, int form, int* used, void* stream) {
+                          int bands, void* stream) {
     if (emit) return (int)cudaErrorInvalidValue;
     return launch_colour<float, __nv_bfloat16>(a, nz, H, W, real, tg0,
-                                               ntargets, 0, bands, form,
-                                               used, stream);
+                                               ntargets, 0, bands, stream);
 }
 
 }  // extern "C"

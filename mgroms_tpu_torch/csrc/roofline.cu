@@ -1,8 +1,10 @@
 // Roofline probes of the level-0 smoother for Hopper (sm_90a): how long K1's
 // loads alone take, and the card's float32 FMA rate.
 //
-//   dma_only  <- scripts/micro_roofline.py:dma_only (copy_kernel)
-//   fma_run   <- scripts/micro_roofline.py:fma_run (fma_kernel)
+//   dma_only        <- scripts/micro_roofline.py:dma_only (copy_kernel)
+//   dma_only_bands     the same, on the band stack (no JAX counterpart:
+//                      the JAX K1 reads gather blocks)
+//   fma_run         <- scripts/micro_roofline.py:fma_run (fma_kernel)
 //
 // dma_only takes K1's operands at K1's shapes (ops/kernels/relax_tiled.py
 // _shapes), K1's grid (32 x 8 threads per block, one thread per (J, I)
@@ -18,6 +20,19 @@
 // for bit.  K1's time against this one's says whether K1 is bound by its
 // bytes.  Bound: memory.
 //
+// dma_only_bands: the same probe for K1 as the card's solver launches it
+// on an RB colour (relax_tiled.cu colour_kernel<float, B, true, false,
+// TG0, 2>): the band stack read in place, K1's block of kMaxRows x 64
+// threads, a thread per (J, I) updating both targets.  Per plane, target
+// TG0 then its partner 3 - TG0: the RHS, the 12 band values of the
+// target's base terms (term_of; float32 or bfloat16, upcast at load),
+// for the first target the two sibling quads' own value at (J, I) (the
+// bytes K1 stages once), ud (below the top plane) and bet, added in that
+// order into the target's output.  The 'real' terms (plane 0 only) are
+// left out.  K1's time against this one's says how much of K1 its loads
+// alone take, and the float32 stack against the bfloat16 one how the
+// time follows the bytes.
+//
 // fma_run: 8 independent chains x 64 chained fused multiply-adds per
 // element of a (8, 8, 512) block, over 256 tiles (every tile recomputes the
 // block and writes the same values), then the 8 chains summed.  The build
@@ -28,6 +43,7 @@
 // stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "quad_terms.cuh"
 
@@ -93,6 +109,61 @@ __global__ void dma_only_kernel(const float* __restrict__ e0,
     }
 }
 
+constexpr int kProbeRows = 4;      // relax_tiled.cu kMaxRows
+
+template <typename B, int TG0>
+__global__ void __launch_bounds__(kBandTile * kProbeRows)
+dma_only_bands_kernel(const float* __restrict__ s0,
+                      const float* __restrict__ s1,
+                      const float* __restrict__ bq0,
+                      const float* __restrict__ bq1,
+                      const float* __restrict__ ud0,
+                      const float* __restrict__ ud1,
+                      const float* __restrict__ bet0,
+                      const float* __restrict__ bet1,
+                      const B* __restrict__ band, float* __restrict__ out0,
+                      float* __restrict__ out1, int nz, int H, int W) {
+    using L = BandLayout<B>;
+    constexpr int TG1 = 3 - TG0;
+    const int tiles_i = (W + kBandTile - 1) / kBandTile;
+    const int J = (blockIdx.x / tiles_i) * kProbeRows
+                  + threadIdx.x / kBandTile;
+    const int I = (blockIdx.x % tiles_i) * kBandTile
+                  + threadIdx.x % kBandTile;
+    if (J >= H || I >= W) return;
+    const uint32_t P = (uint32_t)H * W;
+    const uint32_t EP = (uint32_t)(H + 2) * (W + 2);
+    const uint32_t col = (uint32_t)J * W + I;
+    const uint32_t ecol = (uint32_t)(J + 1) * (W + 2) + I + 1;
+    const int pitch = L::pitch(W);
+    const uint32_t PB = (uint32_t)(H + 2) * pitch;
+    const uint32_t bcol = (uint32_t)J * pitch + L::lpad + I;
+    auto bands = [&](auto tg, uint32_t kb, float acc) {
+        constexpr int TG = decltype(tg)::value;
+#pragma unroll
+        for (int m = 0; m < kBaseKeys; ++m) {
+            const Term tm = term_of(TG, m);
+            acc = acc + up(__ldg(band + kb
+                                 + ((uint32_t)tm.band * (nz + 2) + tm.bk + 1)
+                                       * PB
+                                 + (uint32_t)tm.bj * pitch + tm.bi));
+        }
+        return acc;
+    };
+    for (int k = 0; k < nz; ++k) {
+        const uint32_t o = (uint32_t)k * P + col;
+        const uint32_t kb = (uint32_t)k * PB + bcol;
+        float a0 = bands(Int<TG0>{}, kb, bq0[o]);
+        a0 = a0 + s0[(uint32_t)k * EP + ecol];
+        a0 = a0 + s1[(uint32_t)k * EP + ecol];
+        if (k < nz - 1) a0 = a0 + ud0[o];
+        out0[o] = a0 + bet0[o];
+        float a1 = bands(Int<TG1>{}, kb, bq1[o]);
+        if (k < nz - 1) a1 = a1 + ud1[o];
+        out1[o] = a1 + bet1[o];
+    }
+}
+
 __global__ void fma_kernel(const float* __restrict__ x, float* __restrict__ out,
                            int n) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -129,6 +200,20 @@ int launch_dma_only(const void* e0, const void* e1, const void* e2,
     return (int)cudaGetLastError();
 }
 
+template <typename B, int TG0>
+int launch_bands(const void* const* a, void* out0, void* out1, int nz,
+                 int H, int W, cudaStream_t s) {
+    const long long tiles = (long long)((H + kProbeRows - 1) / kProbeRows)
+                            * ((W + kBandTile - 1) / kBandTile);
+    dma_only_bands_kernel<B, TG0><<<(unsigned)tiles, kBandTile * kProbeRows,
+                                    0, s>>>(
+        (const float*)a[0], (const float*)a[1], (const float*)a[2],
+        (const float*)a[3], (const float*)a[4], (const float*)a[5],
+        (const float*)a[6], (const float*)a[7], (const B*)a[8],
+        (float*)out0, (float*)out1, nz, H, W);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -152,6 +237,25 @@ int mg_dma_only_bf16(const void* e0, const void* e1, const void* e2,
     return launch_dma_only<__nv_bfloat16>(e0, e1, e2, blocks, rb, ud, bet,
                                           gam, bq, out, nz, H, W, which, tt,
                                           stream);
+}
+
+// dma_only_bands on the RB colour of first target tg0 (0 or 1): s0, s1 the
+// two sibling quads (nz, H+2, W+2), per target bq, ud, bet and the output;
+// band: the stack's storage start less lpad values, as relax_tiled.py
+// passes it; bf16: a bfloat16 stack
+int mg_dma_only_bands(const void* s0, const void* s1, const void* bq0,
+                      const void* bq1, const void* ud0, const void* ud1,
+                      const void* bet0, const void* bet1, const void* band,
+                      void* out0, void* out1, int nz, int H, int W, int tg0,
+                      int bf16, void* stream) {
+    if (nz < 2 || tg0 < 0 || tg0 > 1) return (int)cudaErrorInvalidValue;
+    const void* a[] = {s0, s1, bq0, bq1, ud0, ud1, bet0, bet1, band};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (bf16)
+        return tg0 ? launch_bands<__nv_bfloat16, 1>(a, out0, out1, nz, H, W, s)
+                   : launch_bands<__nv_bfloat16, 0>(a, out0, out1, nz, H, W, s);
+    return tg0 ? launch_bands<float, 1>(a, out0, out1, nz, H, W, s)
+               : launch_bands<float, 0>(a, out0, out1, nz, H, W, s);
 }
 
 int mg_fma_run(const void* x, void* out, int n, int ntiles, void* stream) {

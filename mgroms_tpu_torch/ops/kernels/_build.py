@@ -61,9 +61,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in ("f32", "f64", "bf16"):
         fn = getattr(lib, f"mg_colour_update_{dt}")
-        # ColourArgs* | nz H W real tg0 ntargets emit bands form | used
-        # stream (bf16: float32 state, bfloat16 operator, emit 0)
-        fn.argtypes = [p] + [i] * 9 + [p, p]
+        # ColourArgs* | nz H W real tg0 ntargets emit bands | stream
+        # (bf16: float32 state, bfloat16 operator, emit 0)
+        fn.argtypes = [p] + [i] * 8 + [p]
         fn.restype = i
         fn = getattr(lib, f"mg_sweep_fused_{dt}")
         # SweepArgs* | nz H W real | stream
@@ -112,6 +112,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mg_probe_wide.restype = i
     lib.mg_enable_peer.argtypes = [i]
     lib.mg_enable_peer.restype = i
+    # s0 s1 bq0 bq1 ud0 ud1 bet0 bet1 band out0 out1 | nz H W tg0 bf16 |
+    # stream
+    lib.mg_dma_only_bands.argtypes = [p] * 11 + [i] * 5 + [p]
+    lib.mg_dma_only_bands.restype = i
     # x out | n ntiles | stream
     lib.mg_fma_run.argtypes = [p, p, i, i, p]
     lib.mg_fma_run.restype = i

@@ -191,20 +191,6 @@ def _shapes(nz, H, W, real_matrix) -> dict:
     return s
 
 
-# The Thomas forms of K1 and K2 (csrc/relax_tiled.cu), the forward values
-# in the output either way: the multipliers c = ud * bet in shared memory
-# ("out"), or recomputed from ud and bet re-read ("none", any nz).  A
-# launch asks for COLOUR_FORMS[number of targets] and falls back to "none"
-# where c does not fit; ``last_plan`` is the (form, tile rows) the last
-# launch took.  The defaults are the fastest measured at the CUC level-0
-# quads (PERF.md; scripts/micro_colour_update times both): an RB colour
-# keeps nothing on chip, whose smaller blocks let more warps share an SM,
-# an FC colour keeps c.
-THOMAS_FORMS = ("out", "none")
-COLOUR_FORMS = {1: "out", 2: "none"}
-last_plan = None
-
-
 class _ColourArgs(ctypes.Structure):
     _fields_ = [("e", ctypes.c_void_p * 4)] + [
         (f, ctypes.c_void_p * 2) for f in ("bq", "ud", "bet", "d", "out",
@@ -228,7 +214,6 @@ def colour_operator(pack: CompactPack, dt, emit: bool = False):
 
 
 def _launch_colour(e, bq, pack: CompactPack, targets, emit: bool):
-    global last_plan
     targets = _check_colour(targets)
     q0 = bq[targets[0]]
     nz, H, W = q0.shape
@@ -288,14 +273,11 @@ def _launch_colour(e, bq, pack: CompactPack, targets, emit: bool):
     fn = {torch.bfloat16: lib.mg_colour_update_bf16,
           torch.float64: lib.mg_colour_update_f64}.get(
               band, lib.mg_colour_update_f32)
-    used = (ctypes.c_int * 2)()
     with torch.cuda.device(q0.device):
         rc = fn(ctypes.byref(args), nz, H, W, int(real), ms[0],
                 len(targets), int(emit), int(layout == "bands"),
-                THOMAS_FORMS.index(COLOUR_FORMS[len(targets)]), used,
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "color_update_emit" if emit else "color_update")
-    last_plan = (THOMAS_FORMS[used[0]], used[1])
     return out, res, band
 
 

@@ -7,9 +7,11 @@ Port of the two Pallas probes of ``scripts/micro_roofline.py``
   ``dma_only``  <- ``dma_only`` (micro_roofline.py:123, pallas_call :135)
   ``fma_run``   <- ``fma_run``  (micro_roofline.py:266, pallas_call :267)
 
-``dma_only`` loads what K1 (relax_tiled.color_update) loads, in K1's
-pattern and grid, and only adds it up; ``fma_run`` measures the card's
-float32 FMA rate.  Each wrapper runs its plain version for CPU tensors
+``dma_only`` loads what K1 (relax_tiled.color_update) loads on one target
+quad's gather blocks, in the pattern and grid of the JAX script's K1, and
+only adds it up; ``dma_only_bands`` does the same for K1 as the card's
+solver launches it, on an RB colour's band stack (counted as
+``dma_only``); ``fma_run`` measures the card's float32 FMA rate.  Each wrapper runs its plain version for CPU tensors
 only; for a CUDA tensor it launches the kernel or raises.  ``LAUNCHES``
 counts kernel launches.
 """
@@ -23,8 +25,11 @@ import torch
 
 from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
-from .relax_tiled import _shapes, _terms, gather_quads
-from ..relax_compact import _BASE_TERMS, _REAL_TERMS, _qread
+from .relax_tiled import _check_colour, _shapes, _terms, gather_quads
+from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
+                             _qread, band_index, band_layout, block_views,
+                             check_band_stack, gather_keys,
+                             smoother_operator)
 
 LAUNCHES = {"dma_only": 0, "fma_run": 0}
 
@@ -133,6 +138,97 @@ def dma_only(e3, bq, blocks_w, ud, bet, gam, which, rb=None):
                              nz, H, W, WHICH.index(which),
                              ctypes.addressof(tt),
                              torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "dma_only")
+    LAUNCHES["dma_only"] += 1
+    return out
+
+
+def _rb_colour(targets) -> tuple:
+    targets = _check_colour(targets)
+    if len(targets) != 2:
+        raise ValueError(f"dma_only_bands takes an RB colour, got {targets}")
+    return targets
+
+
+def dma_only_bands_bytes(nz, H, W, targets, lp=False) -> int:
+    """The bytes ``dma_only_bands`` must move (float32 state, the stack in
+    bfloat16 with ``lp``): the band quads the colour's base terms read,
+    planes 1..nz of each, the two sibling quads' own values, per target
+    bq, ud and bet, each read once, and the outputs written once."""
+    bands = {band_index(n, ((a + bj) % 2, (b + bi) % 2))
+             for a, b in _rb_colour(targets)
+             for n, (_, bj, bi) in gather_keys(False)}
+    col = nz * H * W
+    return (len(bands) * nz * (H + 2) * (W + 2) * (2 if lp else 4)
+            + 4 * (2 * col + 2 * (3 * col - H * W) + 2 * col))
+
+
+def dma_only_bands_plain(e, bq, pack, targets):
+    """Per plane, per target of the RB colour ``targets`` in turn: the RHS,
+    the target's 12 base-term operator values (relax_compact.block_views
+    of the smoother operator, upcast), for the first target the two
+    sibling quads' (:func:`relax_tiled.gather_quads`) own values at
+    (J, I), ud below the top plane and bet — each added in turn.
+    ``{target: sums}``."""
+    targets = _rb_colour(targets)
+    _, _, bet, _ = smoother_operator(pack, torch.float32)
+    out = {}
+    for s, t in enumerate(targets):
+        m = _TKEYS.index(t)
+        acc = bq[t]
+        for v in block_views(pack, m, lp=pack.lp is not None)[:12]:
+            acc = acc + v.to(torch.float32)
+        if s == 0:
+            for q in gather_quads(t)[:2]:
+                acc = acc + e[q][:, 1:-1, 1:-1]
+        acc = torch.cat([acc[:-1] + pack.ud[m], acc[-1:]])
+        out[t] = acc + bet[m]
+    return out
+
+
+def dma_only_bands(e, bq, pack, targets):
+    """``dma_only`` on the band stack (csrc/roofline.cu
+    dma_only_bands_kernel): :func:`dma_only_bands_plain` for float32 state
+    ``e`` (extended quads, ``_TKEYS``-keyed) and ``bq``, the RB colour
+    ``targets`` and a pack holding the band stack in float32 (or, with
+    ``pack.lp``, in bfloat16)."""
+    targets = _rb_colour(targets)
+    q0 = bq[targets[0]]
+    if on_cpu(q0):
+        return dma_only_bands_plain(e, bq, pack, targets)
+    nz, H, W = q0.shape
+    if nz < 2:
+        raise ValueError("dma_only_bands needs nz >= 2")
+    _, _, bet, band = smoother_operator(pack, q0.dtype)
+    holder = pack.lp if pack.lp is not None else pack
+    if holder.ebands is None:
+        raise ValueError("dma_only_bands reads the band stack; the pack "
+                         "holds none")
+    check_band_stack(holder.ebands, (NBANDS, nz + 2, H + 2, W + 2), band,
+                     q0.device)
+    sib = gather_quads(targets[0])[:2]
+    named = {f"s{i}": e[q] for i, q in enumerate(sib)}
+    shapes = {f"s{i}": (nz, H + 2, W + 2) for i in range(2)}
+    for t in targets:
+        m = _TKEYS.index(t)
+        for f, x in (("bq", bq[t]), ("ud", pack.ud[m]), ("bet", bet[m])):
+            named[f"{f}{t}"] = x
+            shapes[f"{f}{t}"] = (nz - 1 if f == "ud" else nz, H, W)
+    if q0.dtype != torch.float32:
+        raise ValueError(f"dma_only_bands takes float32, got {q0.dtype}")
+    check_tensors(named, shapes, q0.dtype, q0.device)
+    out = {t: torch.empty_like(q0) for t in targets}
+    isz = holder.ebands.element_size()
+    lpad, _ = band_layout(W, isz)
+    per = lambda f: [ptr(named[f"{f}{t}"]) for t in targets]
+    lib = _build.load()
+    with torch.cuda.device(q0.device):
+        rc = lib.mg_dma_only_bands(
+            ptr(named["s0"]), ptr(named["s1"]), *per("bq"), *per("ud"),
+            *per("bet"), holder.ebands.data_ptr() - lpad * isz,
+            *(ptr(out[t]) for t in targets), nz, H, W,
+            _TKEYS.index(targets[0]), int(band == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "dma_only")
     LAUNCHES["dma_only"] += 1
     return out

@@ -1,17 +1,17 @@
 """K1 and K2 (csrc/relax_tiled.cu, a colour a launch) at the CUC level-0
-quads (64, 512, 512), timed on the card beside their bounds, in each
-Thomas form (ops/kernels/relax_tiled.COLOUR_FORMS), on the band stack and
-on the gather blocks:
+quads (64, 512, 512), timed on the card beside their bounds, on the band
+stack and on the gather blocks:
 
-  k1_rb_{layout}_{form}_ms           K1 on one RB colour (both targets)
+  k1_rb_{layout}_ms                  K1 on one RB colour (both targets;
+                                     the Thomas multipliers recomputed)
   k1_rb_{layout}_two_launches_ms     the same two targets as two
                                      one-target launches (the FC form)
-  k1_fc_{layout}_{form}_ms           K1 on one FC colour (one target)
-  k1_rb_bf16_{layout}_{form}_ms      K1 on the bfloat16 operator
-  k2_rb_{layout}_{form}_ms           K2 on one RB colour
+  k1_fc_{layout}_ms                  K1 on one FC colour (one target; the
+                                     multipliers in shared memory)
+  k1_rb_bf16_{layout}_ms             K1 on the bfloat16 operator
+  k2_rb_{layout}_ms                  K2 on one RB colour
   *_bound_ms, *_gb                   what cost() counts: every input read
                                      once, every output written once
-  *_plan                             the (form, tile rows) a launch took
 
     python -m mgroms_tpu_torch.scripts.micro_colour_update [--nz --H --W]
 
@@ -121,49 +121,37 @@ def _timed_row(rows, name, fn, pack, targets, emit_=False,
     ms = median_ms(fn, reps=reps)
     nb, fl = cost(pack, targets, emit_, dtype)
     emit(rows, f"{name}_ms", ms)
-    emit(rows, f"{name}_plan", kt.last_plan)
     emit(rows, f"{name}_bound_ms", bound_ms(nb, fl))
     emit(rows, f"{name}_gb", nb / 1e9)
     return ms
 
 
 def timed(dev=None, nz=64, H=512, W=512, reps=20) -> dict:
-    """The rows of the module docstring at quad shape (nz, H, W); the
-    module's forms are restored after."""
+    """The rows of the module docstring at quad shape (nz, H, W)."""
     dev = card(dev)
     print(card_line(), flush=True)
     rows = {}
-    forms0 = dict(kt.COLOUR_FORMS)
-    try:
-        for layout in ("bands", "blocks"):
-            pack, e, bq = inputs(dev, nz, H, W, layout=layout)
-            for form in kt.THOMAS_FORMS:
-                kt.COLOUR_FORMS = {1: form, 2: form}
-                _timed_row(rows, f"k1_rb_{layout}_{form}",
-                           lambda: kt.color_update(e, bq, pack, RB0), pack,
-                           RB0, reps=reps)
-                _timed_row(rows, f"k2_rb_{layout}_{form}",
-                           lambda: kt.color_update_emit(e, bq, pack, RB1),
-                           pack, RB1, True, reps=reps)
-                _timed_row(rows, f"k1_fc_{layout}_{form}",
-                           lambda: kt.color_update(e, bq, pack, FC0), pack,
-                           FC0, reps=reps)
-            kt.COLOUR_FORMS = dict(forms0)
-            _timed_row(rows, f"k1_rb_{layout}_two_launches",
-                       lambda: [kt.color_update(e, bq, pack, (t,))
-                                for t in RB0], pack, RB0, reps=reps)
-            del pack
-            pack, e, bq = inputs(dev, nz, H, W, layout=layout, lp=True)
-            for form in kt.THOMAS_FORMS:
-                kt.COLOUR_FORMS = {1: form, 2: form}
-                _timed_row(rows, f"k1_rb_bf16_{layout}_{form}",
-                           lambda: kt.color_update(e, bq, pack, RB0), pack,
-                           RB0, reps=reps)
-            kt.COLOUR_FORMS = dict(forms0)
-            del pack, e, bq
-            torch.cuda.empty_cache()
-    finally:
-        kt.COLOUR_FORMS = forms0
+    for layout in ("bands", "blocks"):
+        pack, e, bq = inputs(dev, nz, H, W, layout=layout)
+        _timed_row(rows, f"k1_rb_{layout}",
+                   lambda: kt.color_update(e, bq, pack, RB0), pack, RB0,
+                   reps=reps)
+        _timed_row(rows, f"k2_rb_{layout}",
+                   lambda: kt.color_update_emit(e, bq, pack, RB1), pack,
+                   RB1, True, reps=reps)
+        _timed_row(rows, f"k1_fc_{layout}",
+                   lambda: kt.color_update(e, bq, pack, FC0), pack, FC0,
+                   reps=reps)
+        _timed_row(rows, f"k1_rb_{layout}_two_launches",
+                   lambda: [kt.color_update(e, bq, pack, (t,))
+                            for t in RB0], pack, RB0, reps=reps)
+        del pack
+        pack, e, bq = inputs(dev, nz, H, W, layout=layout, lp=True)
+        _timed_row(rows, f"k1_rb_bf16_{layout}",
+                   lambda: kt.color_update(e, bq, pack, RB0), pack, RB0,
+                   reps=reps)
+        del pack, e, bq
+        torch.cuda.empty_cache()
     return rows
 
 

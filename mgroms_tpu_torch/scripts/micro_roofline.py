@@ -3,11 +3,22 @@
 rows under the JAX script's names:
 
   update_real_ms                 K1 (relax_tiled.color_update) on one
-                                 target quad, 'real', gather blocks
+                                 target quad, 'real', gather blocks: the
+                                 one-target launch (an FC colour's form),
+                                 as the JAX script times K1; the card's
+                                 RB route launches K1 a colour at a time
+                                 on the band stack (the update_rb rows)
   dma_only_{all,windows,blocks}_ms  K10 dma_only: those loads alone
   update_real_bf16_ms,           the same two on bfloat16 blocks (K1 in
   dma_only_{all,blocks}_bf16_ms  perf mode; rows the JAX script lacks)
   bytes_{windows,blocks,pivots}_mb  what those loads move
+  update_rb_bands{,_bf16}_ms     K1 on one RB colour (both targets, one
+                                 launch) on the float32 / bfloat16 band
+                                 stack, as the card's RB route runs it
+  dma_only_bands{,_bf16}_ms      K10 dma_only_bands: its loads alone, in
+                                 its launch shape (rows the JAX script
+                                 lacks)
+  bytes_bands{,_bf16}_mb         what those loads move
   update_emit_ms                 K2 (color_update_emit) on one RB colour,
                                  two target quads (no one-target form)
   patch_zsum_epilogue_ms,        the emitted residual's patch and z-pair
@@ -37,6 +48,7 @@ import torch
 from ..ops import relax_compact as rc
 from ..ops.kernels import relax_tiled as kt
 from ..ops.kernels import roofline as rl
+from . import micro_colour_update as mcu
 from ._timing import card, card_line, emit, median_ms
 
 
@@ -68,6 +80,13 @@ def check(dev, nz=4, H=6, W=40) -> dict:
     want = rl.fma_run_plain(x)
     rows["fma_run"] = float((rl.fma_run(x) - want).abs().max()
                             / want.abs().max())
+    colour = rc.colour_targets("RB")[0]
+    for lp in (False, True):
+        pack, e, bq4 = mcu.inputs(dev, nz, H, W, lp=lp)
+        got = rl.dma_only_bands(e, bq4, pack, colour)
+        want = rl.dma_only_bands_plain(e, bq4, pack, colour)
+        rows["dma_only_bands" + ("_bf16" if lp else "")] = max(
+            float((got[t] - want[t]).abs().max()) for t in colour)
     return rows
 
 
@@ -105,6 +124,18 @@ def timed(dev=None, nz=64, H=512, W=512, reps=20) -> dict:
         emit(rows, f"dma_only_{which}_bf16_ms", ms(
             lambda: rl.dma_only(e3, bq, b16, ud, bet, None, which, rb16)))
     del b16, rb16, pack16
+    colour = rc.colour_targets("RB")[0]
+    for lp in (False, True):
+        sfx = "_bf16" if lp else ""
+        pack, eb, bqb = mcu.inputs(dev, nz, H, W, lp=lp)
+        emit(rows, f"update_rb_bands{sfx}_ms", ms(
+            lambda: kt.color_update(eb, bqb, pack, colour)))
+        emit(rows, f"dma_only_bands{sfx}_ms", ms(
+            lambda: rl.dma_only_bands(eb, bqb, pack, colour)))
+        emit(rows, f"bytes_bands{sfx}_mb",
+             rl.dma_only_bands_bytes(nz, H, W, colour, lp) / 1e6)
+        del pack, eb, bqb
+        torch.cuda.empty_cache()
     emit(rows, "bytes_windows_mb", 3 * nz * (H + 2) * (W + 2) * 4 / 1e6)
     emit(rows, "bytes_blocks_mb", (nz * H * 12 * W + 2 * H * W) * 4 / 1e6)
     # ud + bet + bq, as K1 loads them (the JAX row also counted gam)

@@ -55,9 +55,11 @@ def _maxdiff(a, b):
 
 
 # K1 and K2 a colour a launch: ragged quads, nz 2 with H = W = 1, widths
-# 7, 33 and 70 against the 64-column tile, a level of many tiles
+# 7, 33 and 70 against the 64-column tile, a level of many tiles, and nz
+# 880, whose multipliers do not fit an FC colour's shared memory in either
+# type (it recomputes them, as an RB colour always does)
 SHAPES = [(6, 5, 7), (2, 3, 4), (2, 1, 1), (4, 3, 70), (8, 16, 33),
-          (64, 8, 128)]
+          (64, 8, 128), (880, 1, 3)]
 # every colour of both orderings: the RB pairs, then the FC single targets
 COLOURS = rc.colour_targets("RB") + rc.colour_targets("FC")
 
@@ -68,38 +70,32 @@ COLOURS = rc.colour_targets("RB") + rc.colour_targets("FC")
 @pytest.mark.parametrize("layout", ["bands", "blocks"])
 def test_kernels_match_plain(cuda, shape, dtype, real, layout):
     """K1 on every colour of both orderings (one launch each: the two
-    targets of an RB colour, one of FC) and K2 on the RB colours, in every
-    Thomas form, on either operator layout: 0 ulp from the plain versions,
-    one launch a colour, the inputs unwritten."""
+    targets of an RB colour, one of FC) and K2 on the RB colours, on
+    either operator layout: 0 ulp from the plain versions, one launch a
+    colour, the inputs unwritten."""
     nz, H, W = shape
     pack, e, bq = _inputs(nz, H, W, dtype, cuda, real, sum(shape), layout)
     assert kt.colour_operator(pack, dtype)[0] == layout
     e0 = {k: x.clone() for k, x in e.items()}
-    forms0 = dict(kt.COLOUR_FORMS)
-    try:
-        for form in kt.THOMAS_FORMS:
-            kt.COLOUR_FORMS = {1: form, 2: form}
-            for colour in COLOURS:
-                before = dict(kt.LAUNCHES)
-                got = kt.color_update(e, bq, pack, colour)
-                want = kt.color_update_plain(e, bq, pack, colour)
-                torch.cuda.synchronize()
-                assert sorted(got) == sorted(colour)
-                for t in colour:
-                    assert torch.equal(got[t], want[t]), (form, colour, t)
-                key = ["color_update"]
-                if len(colour) == 2:
-                    gs, gr = kt.color_update_emit(e, bq, pack, colour)
-                    ws, wr = kt.color_update_emit_plain(e, bq, pack, colour)
-                    torch.cuda.synchronize()
-                    for t in colour:
-                        assert torch.equal(gs[t], ws[t]), (form, colour, t)
-                        assert torch.equal(gr[t], wr[t]), (form, colour, t)
-                    key.append("color_update_emit")
-                assert {k: v - before[k] for k, v in kt.LAUNCHES.items()} \
-                    == {k: int(k in key) for k in kt.LAUNCHES}
-    finally:
-        kt.COLOUR_FORMS = forms0
+    for colour in COLOURS:
+        before = dict(kt.LAUNCHES)
+        got = kt.color_update(e, bq, pack, colour)
+        want = kt.color_update_plain(e, bq, pack, colour)
+        torch.cuda.synchronize()
+        assert sorted(got) == sorted(colour)
+        for t in colour:
+            assert torch.equal(got[t], want[t]), (colour, t)
+        key = ["color_update"]
+        if len(colour) == 2:
+            gs, gr = kt.color_update_emit(e, bq, pack, colour)
+            ws, wr = kt.color_update_emit_plain(e, bq, pack, colour)
+            torch.cuda.synchronize()
+            for t in colour:
+                assert torch.equal(gs[t], ws[t]), (colour, t)
+                assert torch.equal(gr[t], wr[t]), (colour, t)
+            key.append("color_update_emit")
+        assert {k: v - before[k] for k, v in kt.LAUNCHES.items()} \
+            == {k: int(k in key) for k in kt.LAUNCHES}
     assert all(torch.equal(e[k], e0[k]) for k in e)
 
 
@@ -529,13 +525,14 @@ def test_sweep_term_recipe_matches_python(cuda):
 
 
 @pytest.mark.parametrize("shape", [(6, 5, 7), (2, 1, 1), (3, 5, 33),
-                                   (4, 3, 70), (64, 8, 128), (64, 32, 32)])
+                                   (4, 3, 70), (64, 8, 128), (64, 32, 32),
+                                   (880, 1, 3)])
 @pytest.mark.parametrize("real", [True, False])
 @pytest.mark.parametrize("layout", ["bands", "blocks"])
 def test_bf16_color_update_matches_plain(cuda, shape, real, layout):
     """K1 reading the low-precision operator (the bfloat16 band stack or
-    bfloat16 blocks) == its plain version to 0 ulp, a colour a launch in
-    every Thomas form, and over two sweeps of the K1 orchestration."""
+    bfloat16 blocks) == its plain version to 0 ulp, a colour a launch,
+    and over two sweeps of the K1 orchestration."""
     pack, q, bq = _sweep_inputs(*shape, torch.float32, cuda, real,
                                 sum(shape), True)
     if layout == "blocks":
@@ -545,20 +542,14 @@ def test_bf16_color_update_matches_plain(cuda, shape, real, layout):
             blocks=None, rblocks=None))
     assert kt.colour_operator(pack, torch.float32)[0] == layout
     e = rc.extend_quads(q)
-    forms0 = dict(kt.COLOUR_FORMS)
-    try:
-        for form in kt.THOMAS_FORMS:
-            kt.COLOUR_FORMS = {1: form, 2: form}
-            for colour in COLOURS:
-                before = kt.LAUNCHES["color_update_bf16"]
-                got = kt.color_update(e, bq, pack, colour)
-                want = kt.color_update_plain(e, bq, pack, colour)
-                torch.cuda.synchronize()
-                assert kt.LAUNCHES["color_update_bf16"] == before + 1
-                for t in colour:
-                    assert torch.equal(got[t], want[t]), (form, colour, t)
-    finally:
-        kt.COLOUR_FORMS = forms0
+    for colour in COLOURS:
+        before = kt.LAUNCHES["color_update_bf16"]
+        got = kt.color_update(e, bq, pack, colour)
+        want = kt.color_update_plain(e, bq, pack, colour)
+        torch.cuda.synchronize()
+        assert kt.LAUNCHES["color_update_bf16"] == before + 1
+        for t in colour:
+            assert torch.equal(got[t], want[t]), (colour, t)
     got = kt.relax_compact_tiled_quads(q, bq, pack, 2)
     want = rc.relax_compact_quads(q, bq, pack, 2, "RB", real)
     for t in rc._TKEYS:
@@ -712,6 +703,31 @@ def test_dma_only_matches_plain(cuda, shape, which):
         assert torch.equal(got, want)
     with pytest.raises(ValueError):
         rl.dma_only(e3, ops[0].double(), *ops[1:], None, which)
+
+
+@pytest.mark.parametrize("shape", [(6, 5, 7), (2, 1, 1), (3, 5, 70),
+                                   (64, 32, 32)])
+@pytest.mark.parametrize("lp", [False, True])
+def test_dma_only_bands_matches_plain(cuda, shape, lp):
+    """dma_only_bands == its plain version exactly on both RB colours, on
+    the float32 and the bfloat16 band stack, one launch each; it refuses
+    a pack without the stack and an FC colour."""
+    from mgroms_tpu_torch.scripts import micro_colour_update as mcu
+    pack, e, bq = mcu.inputs(cuda, *shape, lp=lp, seed=sum(shape))
+    for colour in rc.colour_targets("RB"):
+        before = rl.LAUNCHES["dma_only"]
+        got = rl.dma_only_bands(e, bq, pack, colour)
+        want = rl.dma_only_bands_plain(e, bq, pack, colour)
+        torch.cuda.synchronize()
+        assert rl.LAUNCHES["dma_only"] == before + 1
+        for t in colour:
+            assert torch.equal(got[t], want[t]), (colour, t)
+    with pytest.raises(ValueError):
+        rl.dma_only_bands(e, bq, pack, rc.colour_targets("FC")[0])
+    nob = pack._replace(ebands=None, lp=pack.lp._replace(ebands=None)
+                        if lp else None)
+    with pytest.raises(ValueError):
+        rl.dma_only_bands(e, bq, nob, rc.colour_targets("RB")[0])
 
 
 def test_fma_run_within_tolerance(cuda):

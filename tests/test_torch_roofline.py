@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import mgroms_tpu_torch.ops.kernels.roofline as rl
+from mgroms_tpu_torch.ops import relax_compact as rc
 from mgroms_tpu_torch.ops.kernels.relax_tiled import gather_quads, term_table
 
 torch.set_num_threads(1)
@@ -98,6 +99,60 @@ def test_dma_only_rejects_unknown_variant():
                     "state")
 
 
+def np_dma_only_bands(cp, e, bq, colour):
+    """dma_only_bands's sums from the gather-block pack ``cp`` (numpy):
+    per target of the RB colour, the RHS, its 12 base-term blocks in
+    gather-key order (upcast), for the first target the two sibling
+    quads' own values, ud below the top plane, then bet."""
+    lp = cp.lp is not None
+    blocks = cp.lp.blocks if lp else cp.blocks
+    bet = cp.lp.bet if lp else cp.bet
+    out = {}
+    for s, t in enumerate(colour):
+        m = rc._TKEYS.index(t)
+        nz, H, W = bq[t].shape
+        blk = blocks[m].float().numpy()
+        acc = bq[t].numpy().copy()
+        for k in range(12):
+            acc = acc + blk[:, :, k * W:(k + 1) * W]
+        if s == 0:
+            for q in gather_quads(t)[:2]:
+                acc = acc + e[q].numpy()[:, 1:-1, 1:-1]
+        acc[:-1] = acc[:-1] + cp.ud[m].numpy()
+        out[t] = acc + bet[m].numpy()
+    return out
+
+
+@pytest.mark.parametrize("colour", [0, 1])
+@pytest.mark.parametrize("real", [True, False])
+@pytest.mark.parametrize("lp", [False, True])
+def test_dma_only_bands_plain_matches_numpy(colour, real, lp):
+    """dma_only_bands_plain (and the CPU wrapper) on the band stack == the
+    numpy sums over the same level's gather blocks, bit for bit, for each
+    RB colour at a ragged quad shape (nz = 5, 3 x 7), with the float32 or
+    (lp) the bfloat16 operator."""
+    rng = np.random.default_rng(colour + 2 * real + 4 * lp)
+    nz, H, W = 5, 3, 7
+    cA = torch.from_numpy(rng.uniform(-0.1, 0.1, (8, nz, 2 * H + 2,
+                                                 2 * W + 2)).astype(
+        np.float32))
+    cA[0] -= 4.0
+    bp, cp = rc.build_band_pack(cA, real), rc.build_compact_pack(cA, real)
+    if lp:
+        bp, cp = rc.attach_lp(bp), rc.attach_lp(cp)
+    assert bp.blocks is None and (not lp or bp.lp.blocks is None)
+    f = lambda: torch.from_numpy(rng.standard_normal(
+        (nz, 2 * H, 2 * W)).astype(np.float32))
+    e, bq = rc.extend_quads(rc.split_quads(f())), rc.split_quads(f())
+    col = rc.colour_targets("RB")[colour]
+    want = np_dma_only_bands(cp, e, bq, col)
+    for got in (rl.dma_only_bands_plain(e, bq, bp, col),
+                rl.dma_only_bands(e, bq, bp, col)):
+        assert sorted(got) == sorted(col)
+        for t in col:
+            np.testing.assert_array_equal(got[t].numpy(), want[t])
+
+
 def np_fma_kernel(x):
     """micro_roofline.py:251-260 in float32 numpy."""
     accs = [x * np.float32(1.0 + 0.001 * i) for i in range(rl.FMA_CHAINS)]
@@ -136,6 +191,12 @@ def test_counts():
         2 * q + 12 * q + 2 * H * W * 4
     assert rl.dma_only_bytes(nz, H, W, "all", real=False) == \
         2 * q + 3 * e + 12 * q + (nz - 1) * H * W * 4 + q
+    # an RB colour reads all 24 band quads, each once
+    for lp, vb in ((False, 4), (True, 2)):
+        assert rl.dma_only_bands_bytes(
+            nz, H, W, rc.colour_targets("RB")[0], lp) == \
+            24 * nz * (H + 2) * (W + 2) * vb + 2 * q \
+            + 2 * (3 * q - H * W * 4) + 2 * q
 
 
 def test_micro_roofline_check_on_cpu():
@@ -143,5 +204,6 @@ def test_micro_roofline_check_on_cpu():
     from mgroms_tpu_torch.scripts import micro_roofline as mr
     rows = mr.check(torch.device("cpu"))
     assert set(rows) == {"dma_only_all", "dma_only_windows",
-                         "dma_only_blocks", "fma_run"}
+                         "dma_only_blocks", "dma_only_bands",
+                         "dma_only_bands_bf16", "fma_run"}
     assert all(v == 0.0 for v in rows.values()), rows
