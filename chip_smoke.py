@@ -24,11 +24,16 @@ Phases (any failed check raises, so the exit code is non-zero):
    bound on the 48 gather blocks printed beside), held to 0 ulp; K5 at the
    CUC level-0 shape
    (64, 1024, 1024), at a ragged shape and once in float64; K6 in each
-   ordering (RB, FC, GS), to 0 ulp, in its one-launch form with 40 sweeps
-   at the coarsest levels of CUC (2, 32, 32) and seamount (4, 4, 4), at a
-   ragged (3, 5, 7) and once in float64, and in its per-colour-step form
-   with 3 sweeps at (64, 64, 64) and at the CUC level-0 shape (the floor
-   of a launch per colour step printed beside its bound).  Time each
+   ordering (RB, FC, GS), to 0 ulp, in each of its three forms (forced):
+   one block with 40 sweeps at the coarsest levels of CUC (2, 32, 32) and
+   seamount (4, 4, 4), at a ragged (3, 5, 7) and once in float64; a
+   thread block cluster with 3 sweeps at CUC levels 4 (4, 64, 64) and 3
+   (8, 128, 128) and at a ragged (3, 17, 9) in float64; a launch per
+   colour step with 3 sweeps at (64, 64, 64) and at the CUC level-0 shape
+   (the floor of a launch per colour step printed beside its bound); each
+   timed one-launch form printed with its device time, the step floor of
+   K10's step_floor (ncolor x sweeps steps in one launch of the same
+   form) and the step form's times at the same shape.  Time each
    against its plain version
    (CUDA events, median of 20) beside its bound: the larger of its bytes
    (each input read once, each output written once) over 3.35 TB/s and
@@ -70,11 +75,13 @@ Phases (any failed check raises, so the exit code is non-zero):
    launched and no other kernel (counted in this run only), K3 once per
    down-leg restriction (15 a F-cycle) and once per level-0 residual.
 5. Seamount 64^3 with use_pallas=True: K6 on the coarsest level, one
-   launch per call.
+   launch per call (one block).
 6. CUC 1024^2 x 64 with use_pallas=True: the same.
 7. CUC 1024^2 x 64 with use_pallas=True, compact=False: every level in
-   full layout, K6 does all relaxation (one launch per call on the
-   coarsest level, one per colour step above) and K5 the residual on the
+   full layout, K6 does all relaxation in the form its gate names per
+   level (relax_fused.form: one block on the coarsest level, a cluster
+   on level 4, one launch per colour step above), each form launched
+   exactly as often as the gate predicts, and K5 the residual on the
    levels at least 256 wide; no quad kernel is launched.
 8. CUC 1024^2 x 64 with pallas_fused_sweep=False: the per-colour route,
    K1, K2 (the emitted residual) and K3 (its level-0 residual too) on the
@@ -110,10 +117,12 @@ Phases (any failed check raises, so the exit code is non-zero):
    config: K1 (one target quad per colour) and K3 on the band stack, no
    K2 and no K4.
 15. CUC 1024^2 x 64, FC, use_pallas=True, compact=False: K6's FC form in
-   both forms and K5; the history within 1e-3 of phase 14's.
+   its three forms (as in phase 7) and K5; the history within 1e-3 of
+   phase 14's.
 16. CUC 1024^2 x 64 with relax_method='GS' (column-Jacobi), use_pallas=
-   True: every level in full layout, K6's GS form in both forms and K5;
-   GS_CYCLES fixed F-cycles, each cutting the residual, mean factor >= 2.
+   True: every level in full layout, K6's GS form in its three forms and
+   K5; GS_CYCLES fixed F-cycles, each cutting the residual, mean factor
+   >= 2.
 
 Every phase with quad levels (2, 4-6, 8-10, 12, 14) checks that every
 quad level (every tile on phase 12's mesh) holds the band stack only, no
@@ -129,16 +138,16 @@ and launches every kernel of its path and no other.
 
 Phases 2, 4-10, 12 and 14-16 also trace one F-cycle with torch.profiler (device
 activity only): device ops, device busy time against the same traced
-step's wall time (the idle share), K4's, K3's and K1-K2's launches and
-device time where they run, and the top device ops.
+step's wall time (the idle share), K4's, K3's, K1-K2's and each K6
+form's launches and device time where they run, and the top device ops.
 
 The line before last is a JSON object with, for each kernel, its launches
 in the phase that is its path (4 for K4 and K3 in both its modes, 6 for
-K6's one-launch
-form, 7 for K5 and K6's per-colour-step form, 8 for K1 and K2, 9 for K4
-on bfloat16 bands, 10 for K1 on the bfloat16 stack, 11 for K8-K11, 13 for
-K7, 15 for K6's FC forms, 16 for its GS forms), its error against the
-plain version, both times and its bound; the last line is
+K6's one-block form, 7 for K5 and K6's cluster and per-colour-step
+forms, 8 for K1 and K2, 9 for K4 on bfloat16 bands, 10 for K1 on the
+bfloat16 stack, 11 for K8-K11, 13 for K7, 15 for K6's FC forms, 16 for
+its GS forms), its error against the plain version, both times and its
+bound (K6's one-launch forms also their device time); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -175,6 +184,7 @@ from mgroms_tpu_torch.parallel.exchange import unblock_overlapped
 from mgroms_tpu_torch.scripts import micro_colour_update as mcu
 from mgroms_tpu_torch.scripts import micro_dma_probe as mdp
 from mgroms_tpu_torch.scripts import micro_packed_parts as mpp
+from mgroms_tpu_torch.scripts import micro_relax_fused as mrf
 from mgroms_tpu_torch.scripts import micro_roofline as mr
 from mgroms_tpu_torch.scripts import micro_sweep_fused as msf
 from mgroms_tpu_torch.scripts._timing import card_line, median_ms
@@ -202,14 +212,20 @@ KERNELS = {
                        "mgroms_tpu/ops/pallas/stencil_tiled.py:75", 7),
     "fused_relax": ("relax_fused.cu",
                     "mgroms_tpu/ops/pallas/relax_fused.py:99", 6),
+    "fused_relax_cluster": ("relax_fused.cu",
+                            "mgroms_tpu/ops/pallas/relax_fused.py:99", 7),
     "fused_relax_step": ("relax_fused.cu",
                          "mgroms_tpu/ops/pallas/relax_fused.py:99", 7),
     "fused_relax_fc": ("relax_fused.cu",
                        "mgroms_tpu/ops/pallas/relax_fused.py:99", 15),
+    "fused_relax_cluster_fc": ("relax_fused.cu",
+                               "mgroms_tpu/ops/pallas/relax_fused.py:99", 15),
     "fused_relax_step_fc": ("relax_fused.cu",
                             "mgroms_tpu/ops/pallas/relax_fused.py:99", 15),
     "fused_relax_gs": ("relax_fused.cu",
                        "mgroms_tpu/ops/pallas/relax_fused.py:99", 16),
+    "fused_relax_cluster_gs": ("relax_fused.cu",
+                               "mgroms_tpu/ops/pallas/relax_fused.py:99", 16),
     "fused_relax_step_gs": ("relax_fused.cu",
                             "mgroms_tpu/ops/pallas/relax_fused.py:99", 16),
     "sweep_packed": ("sweep_packed.cu",
@@ -650,20 +666,26 @@ def full_inputs(nz, ny, nx, dtype, dev, seed):
 
 # (kernel, ordering, shape, dtype, sweeps, timed): "json" times the shape
 # the main path gives the kernel (CUC), "print" times another path's
-# shape; K6 in each ordering at the coarsest levels of CUC (2, 32, 32) and
-# seamount (4, 4, 4), at a ragged shape, once in float64, and in its
-# per-colour-step form at (64, 64, 64) and at CUC level 0
+# shape; K6 in each ordering and form, forced whatever the gate says (the
+# "json" shapes are the gate's): one block at the coarsest levels of CUC
+# (2, 32, 32) and seamount (4, 4, 4), at a ragged shape and in float64; a
+# cluster at CUC levels 4 (4, 64, 64) and 3 (8, 128, 128), at a ragged
+# shape in float64; the per-colour step form at (64, 64, 64) and at CUC
+# level 0
 FULL_LAYOUT_CASES = [
     ("residual_tiled", None, (64, 1024, 1024), torch.float32, None, "json"),
     ("residual_tiled", None, (3, 5, 7), torch.float32, None, None),
     ("residual_tiled", None, (8, 16, 33), torch.float64, None, None),
-] + [case for kind, (_, _, block, step) in kf.KINDS.items() for case in (
-    (block, kind, (2, 32, 32), torch.float32, 40, "json"),
-    (block, kind, (4, 4, 4), torch.float32, 40, "print"),
-    (block, kind, (3, 5, 7), torch.float32, 3, None),
-    (block, kind, (2, 32, 32), torch.float64, 40, None),
-    (step, kind, (64, 64, 64), torch.float32, 3, "print"),
-    (step, kind, (64, 1024, 1024), torch.float32, 3, "json"))]
+] + [case for kind, k in kf.KINDS.items() for case in (
+    (k.block, kind, (2, 32, 32), torch.float32, 40, "json"),
+    (k.block, kind, (4, 4, 4), torch.float32, 40, "print"),
+    (k.block, kind, (3, 5, 7), torch.float32, 3, None),
+    (k.block, kind, (2, 32, 32), torch.float64, 40, None),
+    (k.cluster, kind, (4, 64, 64), torch.float32, 3, "json"),
+    (k.cluster, kind, (8, 128, 128), torch.float32, 3, "print"),
+    (k.cluster, kind, (3, 17, 9), torch.float64, 3, None),
+    (k.step, kind, (64, 64, 64), torch.float32, 3, "print"),
+    (k.step, kind, (64, 1024, 1024), torch.float32, 3, "json"))]
 
 
 def step_bytes(cA, p, kind) -> int:
@@ -676,13 +698,22 @@ def step_bytes(cA, p, kind) -> int:
     return nbytes(cA) + 3 * nbytes(p)
 
 
+def k6_form(name) -> str:
+    """The form of a K6 ``LAUNCHES`` name."""
+    return next(f for k in kf.KINDS.values() for f in kf.FORMS
+                if k.name(f) == name)
+
+
 def full_layout_kernels(dev, results):
-    """K5 and K6 (every ordering, both forms, to 0 ulp) against their
+    """K5 and K6 (every ordering, every form, to 0 ulp) against their
     plain versions.  Flops per point: K5 the 30-flop residual; K6 per
     sweep (each column is solved once a sweep in every ordering) the
     gather (23), RHS (1), the Thomas recurrence with its two divisions (7
     forward, 2 back) and the commit (2); both add 8 plane-0 'real' flops
-    per column (per sweep for K6)."""
+    per column (per sweep for K6).  A timed one-launch form is printed
+    with its device time (torch.profiler), the step floor (K10
+    step_floor, ncolor x sweeps steps in the same form) and the step
+    form's times at the same shape."""
     for name, kind, shape, dtype, ns, timed in FULL_LAYOUT_CASES:
         nz, ny, nx = shape
         cA, p, b = full_inputs(*shape, dtype, dev, seed=sum(shape))
@@ -694,18 +725,41 @@ def full_layout_kernels(dev, results):
             res_scale = float(b.abs().max())
             cost = (nbytes(pe, b, cA, b), 30 * p.numel() + 8 * col)
         else:
-            check(kf.launch_name(p, kind) == name,
+            form = k6_form(name)
+            check(timed != "json" or kf.launch_name(p, kind) == name,
                   f"{shape} {dtype} does not take {name}")
-            kern = lambda: kf.fused_relax(p, b, cA, ns, kind, True)
+            kern = lambda: kf.fused_relax_form(p, b, cA, ns, kind, True,
+                                               form)
             plain = lambda: kf.fused_relax_plain(p, b, cA, ns, kind, True)
             res_scale = None
             cost = (nbytes(p, b, cA, p), ns * (35 * p.numel() + 8 * col))
         hold(results, name, shape, dtype, kern, plain, res_scale, *cost,
              timed, exact=kind is not None)
-        if name == kf.KINDS.get(kind, kf.KINDS["RB"]).step and timed:
-            floor = ns * kf.KINDS[kind].ncolor * step_bytes(cA, p, kind)
-            print(f"  {name} {shape}: floor of a launch per colour step "
-                  f"{bound(floor, 0)[0]:.6f} ms ({floor / 1e9:.4f} GB)")
+        if kind is not None and timed:
+            nsteps = ns * kf.KINDS[kind].ncolor
+            if form == "step":
+                floor = nsteps * step_bytes(cA, p, kind)
+                print(f"  {name} {shape}: floor of a launch per colour step "
+                      f"{bound(floor, 0)[0]:.6f} ms ({floor / 1e9:.4f} GB)")
+            else:
+                plan = {}
+                kf.fused_relax_form(p, b, cA, ns, kind, True, form, plan)
+                x = p.contiguous()
+                fl = lambda: rl.step_floor(x, nsteps, form == "cluster")
+                step = lambda: kf.fused_relax_form(p, b, cA, ns, kind, True,
+                                                   "step")
+                dev_ms = mrf.device_ms(kern)
+                floor_dev = mrf.device_ms(fl)
+                if timed == "json":
+                    results[name]["dev_ms"] = dev_ms
+                print(f"  {name} {shape} x {ns}: {plan}; device "
+                      f"{dev_ms:.4f} ms; step floor ({nsteps} steps) "
+                      f"device {floor_dev:.4f} ms, events "
+                      f"{median_ms(fl):.4f} ms: kernel / floor "
+                      f"{dev_ms / floor_dev:.2f}; the step form at this "
+                      f"shape: events {median_ms(step):.4f} ms, device "
+                      f"{mrf.device_ms(step):.4f} ms; the gate's form "
+                      f"{kf.form(shape, dtype)}")
         del cA, p, b, kern, plain
         torch.cuda.empty_cache()
 
@@ -1034,9 +1088,12 @@ def profile_fcycle(m, top=8):
     print(f"  profile: {len(dev)} device ops, device busy {busy_ms:.3f} ms "
           f"of {wall_ms:.3f} ms traced wall, idle share "
           f"{1 - busy_ms / wall_ms:.4f}")
-    for label, key in (("K4", "sweep_kernel<"), ("K3", "rr_kernel<"),
-                       ("K1-K2", "colour_kernel<")):
-        ks_ = [v for k, v in by_name.items() if key in k]
+    for label, match in (("K4", ("sweep_kernel<",)), ("K3", ("rr_kernel<",)),
+                         ("K1-K2", ("colour_kernel<",)),
+                         ("K6 one block", ("relax_resident<", "false>")),
+                         ("K6 cluster", ("relax_resident<", "true>")),
+                         ("K6 step", ("relax_step<",))):
+        ks_ = [v for k, v in by_name.items() if all(x in k for x in match)]
         if ks_:
             print(f"  profile: {label} {sum(n for n, _ in ks_)} launches, "
                   f"{sum(us for _, us in ks_) / 1e3:.3f} ms device time "
@@ -1046,16 +1103,37 @@ def profile_fcycle(m, top=8):
         print(f"    {us / 1e3:10.3f} ms {n:7d}x  {name[:90]}")
 
 
+def k6_expected(m) -> collections.Counter:
+    """K6's launches a F-cycle by ``LAUNCHES`` name, from the gate: on
+    every full-layout level K6 smooths, the coarsest relaxed L times a
+    F-cycle (ns_coarsest sweeps), level lev < L-1 lev + 1 times before
+    and after its coarse correction (ns_pre, ns_post sweeps); one launch a
+    call in the one-launch forms, ncolor a sweep in the step form."""
+    be, cfg = m.backend, m.cfg
+    k = kf.KINDS[cfg.relax_kind]
+    L = len(m.levels)
+    out = collections.Counter()
+    for lev, spec in enumerate(m.levels):
+        if be.state_quads(lev) or not be._use_pallas(lev):
+            continue
+        form = kf.form((spec.nzg, spec.nyg, spec.nxg), torch.float32)
+        calls = ([(L, cfg.ns_coarsest)] if lev == L - 1 else
+                 [(lev + 1, cfg.ns_pre), (lev + 1, cfg.ns_post)])
+        for n, ns in calls:
+            out[k.name(form)] += n * (k.ncolor * ns if form == "step" else 1)
+    return out
+
+
 def path_phase(title, grid, case, dev, maxiter, ref, rtol, div_limits, cfg,
                busy, tol=1e-4):
     """One float32 phase at the case's full size, on the path that
     ``cfg`` selects, solved to ``tol`` (0: exactly ``maxiter`` cycles):
     <= 1e-4 within ``maxiter`` cycles, the whole-grid and
     interior max|div| ratios within ``div_limits``, exactly the kernels
-    ``busy`` launched; with ``rtol`` the history against the default
-    phase's ``ref`` within it.  With use_pallas, K6's one-launch form (in
-    the solve's ordering) once per coarsest relax (L per F-cycle); where
-    K5 runs, 7 times per F-cycle plus once in solve_init.  Returns the
+    ``busy`` launched, and with use_pallas K6 in the forms the gate names
+    (``k6_expected``), each exactly as often; with ``rtol`` the history
+    against the default phase's ``ref`` within it.  Where K5 runs, 7
+    times per F-cycle plus once in solve_init.  Returns the
     launch counts, the SolveInfo and the pressure, on the host (a later
     phase's peak device memory holds nothing of this one)."""
     print(f"== {title}")
@@ -1080,13 +1158,12 @@ def path_phase(title, grid, case, dev, maxiter, ref, rtol, div_limits, cfg,
           f"{info.res} after {info.niter} cycles")
     check(ratio <= div_limits[0] and inner <= div_limits[1],
           f"max|div| cut only to {ratio} (interior {inner})")
-    check_path(counts, busy)
-    L = len(m.levels)
-    for block in (k.block for k in kf.KINDS.values()):
-        if block in busy:
-            check(counts[block] == L * info.niter,
-                  f"K6 one-launch form {counts[block]} times, expected "
-                  f"{L} per F-cycle")
+    k6 = k6_expected(m)
+    print(f"  K6 launches a F-cycle by form (the gate): {dict(k6)}")
+    check_path(counts, set(busy) | set(k6))
+    for name, n in k6.items():
+        check(counts[name] == n * info.niter,
+              f"K6 {name} {counts[name]} times, expected {n} a F-cycle")
     if "residual_tiled" in busy:
         check(counts["residual_tiled"] == 7 * info.niter + 1,
               f"K5 {counts['residual_tiled']} times")
@@ -1342,16 +1419,16 @@ def main() -> int:
         "phase 5: seamount 64^3 float32, use_pallas=True", (64, 64, 64),
         case_seamount, dev, maxiter=3, ref=seamount_history, rtol=1e-6,
         div_limits=(1e-2, 1e-2), cfg=dict(use_pallas=True),
-        busy=quad_k4 | {"fused_relax"})
+        busy=quad_k4)
     phase_counts[6], _, _ = path_phase(
         "phase 6: CUC 1024^2 x 64 float32, use_pallas=True", *cuc,
         maxiter=8, ref=cuc_history, rtol=1e-6, div_limits=(2.5e-2, 1e-2),
-        cfg=dict(use_pallas=True), busy=quad_k4 | {"fused_relax"})
+        cfg=dict(use_pallas=True), busy=quad_k4)
     phase_counts[7], _, _ = path_phase(
         "phase 7: CUC 1024^2 x 64 float32, use_pallas=True, compact=False",
         *cuc, maxiter=8, ref=cuc_history, rtol=1e-3,
         div_limits=(2.5e-2, 1e-2), cfg=dict(use_pallas=True, compact=False),
-        busy={"fused_relax", "fused_relax_step", "residual_tiled"})
+        busy={"residual_tiled"})
     phase_counts[8], info8, p8 = path_phase(
         "phase 8: CUC 1024^2 x 64 float32, pallas_fused_sweep=False", *cuc,
         maxiter=8, ref=cuc_history, rtol=1e-3, div_limits=(2.5e-2, 1e-2),
@@ -1400,13 +1477,13 @@ def main() -> int:
         "use_pallas=True, compact=False", *cuc, maxiter=FC_MAXITER,
         ref=info14.history, rtol=1e-3, div_limits=(2.5e-2, 1e-2),
         cfg=dict(relax_method="FC", use_pallas=True, compact=False),
-        busy={"fused_relax_fc", "fused_relax_step_fc", "residual_tiled"})
+        busy={"residual_tiled"})
     phase_counts[16], info16, _ = path_phase(
         "phase 16: CUC 1024^2 x 64 float32, relax_method='GS', "
         "use_pallas=True", *cuc, maxiter=GS_CYCLES, ref=None, rtol=None,
         div_limits=(2.5e-2, 1e-2),
         cfg=dict(relax_method="GS", use_pallas=True),
-        busy={"fused_relax_gs", "fused_relax_step_gs", "residual_tiled"},
+        busy={"residual_tiled"},
         tol=0.0)
     h = info16.history
     factor = (h[0] / h[-1]) ** (1.0 / info16.niter)

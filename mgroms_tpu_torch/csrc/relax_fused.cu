@@ -7,9 +7,9 @@
 // nsweeps, kind, real, extend_fn=extend_h1) computes: nsweeps * ncolor
 // colour steps (ncolor 2, 4, 1), colour 0 first; in step c every column of
 // the colour gathers its couplings from the pre-step state
-// (stencil15.cuh), runs the Thomas recurrence of ops/relax.tridiag with its
-// divisions, and commits p + (sol - p); the other columns keep p.  The
-// colours (relax_fused.py:72-80):
+// (stencil15.cuh), runs the Thomas recurrence of ops/relax.tridiag, and
+// commits p + (sol - p); the other columns keep p.  The colours
+// (relax_fused.py:72-80):
 //   RB  (j + i + c) even;
 //   FC  (i % 2 == c / 2) and (j % 2 == c % 2): (i even, j even), (i even,
 //       j odd), (i odd, j even), (i odd, j odd), the reference order;
@@ -18,23 +18,47 @@
 //       sweep), still committed as p + (sol - p), which in floating point
 //       is not sol.
 //
-// The TPU kept the whole level in VMEM for the whole call.  Here two forms
-// solve the same colour steps:
+// The TPU kept the whole level in VMEM for the whole call.  Three forms
+// solve the same colour steps here; ops/kernels/relax_fused.py `form`
+// names one per shape and type (the gate, thresholds from the card's
+// timings in PERF.md):
 //
-//   relax_fused_block  one launch per call, one block: two state buffers
-//                      (ping-pong: with the 'real' matrix the RB plane-0
-//                      diagonal couplings join columns of the same colour,
-//                      and GS solves every column from the old state), b
-//                      and the Thomas multipliers sit in shared memory,
-//                      __syncthreads() between colour steps.  For levels
-//                      whose four fields fit a block (the coarsest level
-//                      of every cell: 4^3, 32x32x2).
-//   relax_step         one launch per colour step (larger levels).
+//   one block   one launch per call, one block: the coarsest level of
+//               every cell (32x32x2, 4^3).
+//   cluster     one launch per call, a thread block cluster of up to 16
+//               blocks (8 where 16 cannot be resident), each owning a band
+//               of rows: the mid levels whose state one block cannot hold.
+//   step        one launch per colour step: the larger levels.
 //
-// Bound of the one-block form: neither bytes nor operations (the inputs
-// are ~0.1 MB, read once) but the ncolor*nsweeps serial colour steps and
-// their barriers inside one launch; it removes the ~100 torch launches per
-// colour step of the plain version.
+// The one-launch forms (relax_resident).  Their time is not bytes or
+// operations (the inputs are read once) but the ncolor * nsweeps serial
+// colour steps, each a barrier and an nz-deep dependent chain; the design
+// keeps everything that is not on that chain off it:
+//
+// - What is constant across the steps is computed once a call: each
+//   thread owns one column of each colour (slot) for the whole call and
+//   holds its 12 coupling coefficients, ud, the Thomas factors bet and gam
+//   (ops/relax.thomas_factor, the plain version's divisions) and b of
+//   every plane, and the two plane-0 'real' coefficients not among them,
+//   in registers (nz 2 or 4, where they fit), or in shared memory, or
+//   where neither holds them in device memory (L2).  A step has no
+//   division (nz 1 keeps the plain version's b / d).
+// - The state lives in shared memory, a band of rows a block; a cluster
+//   block reads the rows next to its band from its neighbours' shared
+//   memory (distributed shared memory), and a cluster barrier separates
+//   the steps (one block: __syncthreads()).
+// - In place, a thread per active column: RB and FC update the state in
+//   place and touch only the columns of the step's colour (an active
+//   column reads only columns of the other colours, and itself through
+//   the edge copy before it writes).  RB's four plane-0 'real' diagonal
+//   couplings join columns of its own colour: they read a snapshot of
+//   plane 0, to which each thread writes its column's new value one step
+//   later (no step reads a column's snapshot until its colour's next
+//   turn; a diagonal clamped onto a column of the other colour reads the
+//   state).  GS solves every column from the old state: two buffers.
+// - One pass over nz: the 4 neighbours' state in a 3-plane window, the
+//   forward values in registers (nz 2, 4) or shared memory, then the back
+//   substitution commits each plane.
 //
 // The per-step form is memory-bound: a step reads the operator rows of
 // its colour's columns (RB every sector of cA, since a sector holds both
@@ -70,14 +94,15 @@
 // Plain C interface (loaded with ctypes): the entry launches on the given
 // stream and returns the first CUDA error code.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "stencil15.cuh"
 
 namespace {
-
-constexpr int kBlockThreads = 512;
 
 // The orderings and their colour steps per sweep (the code and ncolor of
 // each entry of ops/kernels/relax_fused.py KINDS).
@@ -89,92 +114,503 @@ __host__ __device__ __forceinline__ int ncolors(int kind) {
     return kind == kRB ? 2 : (kind == kFC ? 4 : 1);
 }
 
-// Whether column (j, i) is of colour c.
-__device__ __forceinline__ bool active(int kind, int c, int j, int i) {
-    if (kind == kRB) return ((j + i + c) & 1) == 0;
-    if (kind == kFC) return (i & 1) == (c >> 1) && (j & 1) == (c & 1);
-    return true;
+// ---------------------------------------------- the one-launch forms
+
+// A plane record: the 16 values that are constant across the steps of one
+// column at plane k, in the order the step reads them (stencil15.cuh
+// offdiag's twelve coefficients, ud, bet, gam, b):
+//   0 band 2 (k)          1 band 2 (k-1, j+1)   2 band 3 (k)
+//   3 band 3 (k, j+1)     4 band 4 (k)          5 band 4 (k+1, j+1)
+//   6 band 5 (k)          7 band 5 (k-1, i+1)   8 band 6 (k)
+//   9 band 6 (k, i+1)    10 band 7 (k)         11 band 7 (k+1, i+1)
+//  12 ud(k-1) = band 1 (k)   13 bet(k) (nz 1: the diagonal itself, the
+//  plain version divides by it)   14 gam(k)   15 b(k)
+// and one 16-byte vector of the two plane-0 'real' coefficients that are
+// not in plane 0's record: band 4 (0, j-1, i+1), band 7 (0, j+1, i+1).
+constexpr int kRec = 16;
+constexpr int kMaxSmem = 232448;       // a block's shared memory, H100
+constexpr int kMaxClusterBlocks = 16;  // non-portable cluster size
+constexpr int kSlots = 2;              // columns a thread owns
+
+template <typename T> struct Vec;
+template <> struct Vec<float> { using type = float4; static constexpr int n = 4; };
+template <> struct Vec<double> { using type = double2; static constexpr int n = 2; };
+
+// 32-bit registers of a thread's records when they are held in registers
+// (NZ planes, both slots), and the threads a block of that kernel may have
+template <typename T, int NZ>
+__host__ __device__ constexpr int record_regs() {
+    return kSlots * (kRec * NZ + 2) * (int)sizeof(T) / 4;
+}
+constexpr int kMaxRecordRegs = 160;
+template <typename T, int NZ>
+__host__ __device__ constexpr int max_threads() {
+    return NZ == 0 ? 1024
+        : (65536 / (record_regs<T, NZ>() + 48) / 32 * 32 < 1024
+               ? 65536 / (record_regs<T, NZ>() + 48) / 32 * 32
+               : 1024);
 }
 
-// One colour step of column (j, i) in the one-block form: the active
-// colour is solved from `src` into `dst`, the other copied.  `gam` holds
-// the Thomas multipliers (nz - 1 per column, laid out like the state).
-template <typename T>
-__device__ __forceinline__ void column_step(const T* src, T* dst, const T* b,
-                                            T* gam, const T* cA,
-                                            const Level& g, int real,
-                                            int kind, int c, int j, int i) {
-    const size_t P = g.plane();
-    const size_t col = (size_t)j * g.nx + i;
-    if (!active(kind, c, j, i)) {
-        for (int k = 0; k < g.nz; ++k) dst[k * P + col] = src[k * P + col];
-        return;
-    }
-    const Clamped<T> st{src, g};
-    T rhs = b[col] - offdiag(cA, st, g, real, 0, j, i);
-    if (g.nz == 1) {
-        T sol = rhs / band(cA, g, 0, 0, j, i);
-        dst[col] = src[col] + (sol - src[col]);
-        return;
-    }
-    // ops/relax.tridiag: forward elimination, then back substitution
-    T bet = T(1) / band(cA, g, 0, 0, j, i);
-    T x = rhs * bet;
-    dst[col] = x;
-    for (int k = 1; k < g.nz; ++k) {
-        const size_t o = k * P + col;
-        const T dd = band(cA, g, 1, k, j, i);    // ud(k-1) = cA2(k)
-        const T gm = dd * bet;
-        gam[o - P] = gm;
-        bet = T(1) / (band(cA, g, 0, k, j, i) - dd * gm);
-        rhs = b[o] - offdiag(cA, st, g, real, k, j, i);
-        x = (rhs - dd * x) * bet;
-        dst[o] = x;
-    }
-    for (int k = g.nz - 2; k >= 0; --k) {
-        const size_t o = k * P + col;
-        x = dst[o] - gam[o] * x;
-        dst[o] = x;
-    }
-    for (int k = 0; k < g.nz; ++k) {
-        const size_t o = k * P + col;
-        dst[o] = src[o] + (dst[o] - src[o]);
-    }
+__host__ __device__ constexpr size_t up16(size_t x) {
+    return (x + 15) / 16 * 16;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBlockThreads)
-relax_fused_block(const T* __restrict__ p, const T* __restrict__ b,
-                  const T* __restrict__ cA, T* __restrict__ out, Level g,
-                  int real, int nsweeps, int kind) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const size_t n = (size_t)g.nz * g.plane();
-    T* buf0 = reinterpret_cast<T*>(smem);
-    T* buf1 = buf0 + n;
-    T* sb = buf1 + n;
-    T* sgam = sb + n;
-    for (size_t o = threadIdx.x; o < n; o += blockDim.x) {
-        buf0[o] = p[o];
-        sb[o] = b[o];
+// One block's share of a level and the block's shared memory.  A block
+// owns the rows [j0, j1) of a band (the whole level in the one-block
+// form); each thread owns two columns (slots) for the whole call: RB slot
+// s the column of colour s, GS the same two (both solved every step);
+// FC's threads are two groups, group g owning colours 2g and 2g + 1.
+// Thread t of group g (tl = t - g * nt0): lr = tl / hx, m = tl % hx; RB
+// and GS column (j0 + lr, 2m + ((j + s) & 1)); FC colour c's column (the
+// first row of parity c & 1 in the band + 2 lr, 2m + (c >> 1)).
+struct ResPlan {
+    int nz, ny, nx, hx, nb, rows_max, nt0, nt;
+    bool reg;          // records in registers (NZ-templated kernel)
+    bool resident;     // else records in shared memory (or device memory)
+    size_t a, b, s0, fwd, rec, total;   // byte offsets, and the size
+
+    __host__ __device__ ResPlan() {}
+    __host__ __device__ ResPlan(int kind, int elem, int nz_, int ny_,
+                                int nx_, int nb_, bool reg_, bool res_)
+        : nz(nz_), ny(ny_), nx(nx_), nb(nb_), reg(reg_), resident(res_) {
+        hx = (nx + 1) / 2;
+        rows_max = (ny + nb - 1) / nb;
+        nt0 = (kind == kFC ? (rows_max + 1) / 2 : rows_max) * hx;
+        nt = (kind == kFC ? 2 : 1) * nt0;
+        const size_t plane = (size_t)rows_max * nx * elem;
+        a = 0;
+        b = up16(a + (size_t)nz * plane);
+        s0 = up16(b + (kind == kGS ? (size_t)nz * plane : 0));
+        fwd = up16(s0 + (kind == kRB ? plane : 0));
+        rec = up16(fwd + (reg ? 0 : (size_t)(kind == kGS ? 2 : 1) * nz * nt
+                                  * elem));
+        total = rec + (reg || !resident ? 0
+                       : (size_t)kSlots * (nz * kRec * elem / 16 + 1) * nt
+                             * 16);
     }
-    __syncthreads();
-    const int ncols = g.ny * g.nx;
-    const int ncolor = ncolors(kind);
-    T* src = buf0;
-    T* dst = buf1;
-    for (int step = 0; step < ncolor * nsweeps; ++step) {
-        // every column's step reads src only and writes its own dst
-        // column: the barrier below orders the steps
-        for (int col = threadIdx.x; col < ncols; col += blockDim.x) {
-            column_step(src, dst, sb, sgam, cA, g, real, kind, step % ncolor,
-                        col / g.nx, col % g.nx);
+};
+
+template <typename T>
+struct ResArgs {
+    const T* p;
+    const T* b;
+    const T* cA;
+    T* out;
+    T* grec;           // the records in device memory (unless resident)
+    ResPlan pl;
+    int real, nsweeps;
+};
+
+// nsweeps * ncolor colour steps of ordering KIND on the rows of one block
+// (CLUSTER: one block of a thread block cluster that holds the level, the
+// rows next to its band read from the neighbour blocks' shared memory).
+// NZ > 0: nz == NZ and the records live in registers; NZ == 0: any nz, the
+// records in shared memory (resident) or in device memory (grec, L2).
+template <typename T, int KIND, int NZ, bool CLUSTER>
+struct Resident {
+    using V = typename Vec<T>::type;
+    static constexpr bool REG = NZ > 0;
+    static constexpr int NCOLOR = KIND == kRB ? 2 : (KIND == kFC ? 4 : 1);
+    static constexpr int VPR = kRec / Vec<T>::n;   // vectors a plane record
+
+    const ResArgs<T> a;
+    const ResPlan pl;
+    int nz_, ny, nx, hx, nb, j0, j1, j0u, t, NT, gr, lr, m;
+    size_t PS, P, G, NV;
+    T *bufA, *bufB, *S0, *fw;
+    V* srec;
+    T *upA = nullptr, *dnA = nullptr, *upB = nullptr, *dnB = nullptr,
+      *upS = nullptr, *dnS = nullptr;
+    T rec[REG ? kSlots : 1][REG ? NZ : 1][kRec];
+    T rre[REG ? kSlots : 1][2];
+
+    __device__ __forceinline__ Resident(const ResArgs<T>& a_,
+                                        unsigned char* smem)
+        : a(a_), pl(a_.pl) {
+        nz_ = REG ? NZ : pl.nz;
+        ny = pl.ny;
+        nx = pl.nx;
+        hx = pl.hx;
+        nb = pl.nb;
+        int r = 0;
+        if constexpr (CLUSTER)
+            r = (int)cooperative_groups::this_cluster().block_rank();
+        j0 = (int)((long long)r * ny / nb);
+        j1 = (int)((long long)(r + 1) * ny / nb);
+        j0u = (int)((long long)(r - 1) * ny / nb);   // the block above
+        t = threadIdx.x;
+        NT = blockDim.x;
+        gr = t / pl.nt0;
+        const int tl = t - gr * pl.nt0;
+        lr = tl / hx;
+        m = tl % hx;
+        PS = (size_t)pl.rows_max * nx;     // a plane of the band buffers
+        P = (size_t)ny * nx;
+        G = (size_t)ny * hx;               // global slots of one class
+        NV = (size_t)nz_ * VPR + 1;         // vectors of a slot's records
+        bufA = reinterpret_cast<T*>(smem + pl.a);
+        bufB = reinterpret_cast<T*>(smem + pl.b);
+        S0 = reinterpret_cast<T*>(smem + pl.s0);
+        fw = reinterpret_cast<T*>(smem + pl.fwd);
+        srec = reinterpret_cast<V*>(smem + pl.rec);
+        if constexpr (CLUSTER) {
+            auto cl = cooperative_groups::this_cluster();
+            if (r > 0) {
+                upA = cl.map_shared_rank(bufA, r - 1);
+                upB = cl.map_shared_rank(bufB, r - 1);
+                upS = cl.map_shared_rank(S0, r - 1);
+            }
+            if (r < nb - 1) {
+                dnA = cl.map_shared_rank(bufA, r + 1);
+                dnB = cl.map_shared_rank(bufB, r + 1);
+                dnS = cl.map_shared_rank(S0, r + 1);
+            }
         }
-        __syncthreads();
-        T* t = src;
-        src = dst;
-        dst = t;
     }
-    for (size_t o = threadIdx.x; o < n; o += blockDim.x) out[o] = src[o];
+
+    __device__ __forceinline__ void barrier() const {
+        if constexpr (CLUSTER) {
+            cooperative_groups::this_cluster().sync();
+        } else {
+            __syncthreads();
+        }
+    }
+
+    // the slot (0..3) of local slot ls of this thread
+    __device__ __forceinline__ int slot(int ls) const {
+        return KIND == kFC ? 2 * gr + ls : ls;
+    }
+
+    // the column of slot s; false where this thread has none
+    __device__ __forceinline__ bool column(int s, int& j, int& i) const {
+        if (KIND == kFC) {
+            j = j0 + ((j0 + (s & 1)) & 1) + 2 * lr;
+            i = 2 * m + (s >> 1);
+        } else {
+            j = j0 + lr;
+            i = 2 * m + ((j + s) & 1);
+        }
+        return j < j1 && i < nx;
+    }
+
+    // plane 0 of row jj (of this band or next to it), column ii, of a
+    // buffer given here and at the neighbour blocks
+    __device__ __forceinline__ T* at(T* loc, T* up, T* dn, int jj,
+                                     int ii) const {
+        if (CLUSTER && jj < j0) return up + (size_t)(jj - j0u) * nx + ii;
+        if (CLUSTER && jj >= j1) return dn + (size_t)(jj - j1) * nx + ii;
+        return loc + (size_t)(jj - j0) * nx + ii;
+    }
+
+    // vector q of the records of local slot ls (slot s, row j) in memory
+    __device__ __forceinline__ V* recv(int ls, int s, int j, size_t q) const {
+        if (pl.resident) return srec + ((size_t)ls * NV + q) * NT + t;
+        return reinterpret_cast<V*>(a.grec)
+               + ((size_t)s * NV + q) * G + (size_t)j * hx + m;
+    }
+
+    template <int LS>
+    __device__ __forceinline__ void put(int s, int j, int k, const T* v) {
+        if constexpr (REG) {
+#pragma unroll
+            for (int q = 0; q < kRec; ++q) rec[LS][k][q] = v[q];
+        } else {
+            const V* src = reinterpret_cast<const V*>(v);
+#pragma unroll
+            for (int q = 0; q < VPR; ++q)
+                *recv(LS, s, j, (size_t)k * VPR + q) = src[q];
+        }
+    }
+
+    // the records of local slot LS: the coefficients, and the Thomas
+    // factors with ops/relax.tridiag's divisions, once a call
+    template <int LS>
+    __device__ __forceinline__ void records() {
+        const int nz = REG ? NZ : nz_;     // a constant where REG
+        const int s = slot(LS);
+        int j, i;
+        if (!column(s, j, i)) return;
+        const Level g{nz, ny, nx};
+        auto bandv = [&](int n, int kk, int dj, int di) -> T {
+            return band(a.cA, g, n, kk, j, i, dj, di);
+        };
+        __align__(16) T cur[kRec];
+        T bet = T(0);
+#pragma unroll (REG ? NZ : 1)
+        for (int k = 0; k < nz; ++k) {
+            __align__(16) T v[kRec];
+            v[0] = bandv(2, k, 0, 0);
+            v[1] = bandv(2, k - 1, 1, 0);
+            v[2] = bandv(3, k, 0, 0);
+            v[3] = bandv(3, k, 1, 0);
+            v[4] = bandv(4, k, 0, 0);
+            v[5] = bandv(4, k + 1, 1, 0);
+            v[6] = bandv(5, k, 0, 0);
+            v[7] = bandv(5, k - 1, 0, 1);
+            v[8] = bandv(6, k, 0, 0);
+            v[9] = bandv(6, k, 0, 1);
+            v[10] = bandv(7, k, 0, 0);
+            v[11] = bandv(7, k + 1, 0, 1);
+            const T dd = k > 0 ? bandv(1, k, 0, 0) : T(0);
+            v[12] = dd;
+            if (nz == 1) {
+                bet = bandv(0, 0, 0, 0);
+            } else if (k == 0) {
+                bet = T(1) / bandv(0, 0, 0, 0);
+            } else {
+                const T gm = dd * bet;
+                cur[14] = gm;                 // gam(k - 1)
+                put<LS>(s, j, k - 1, cur);
+                bet = T(1) / (bandv(0, k, 0, 0) - dd * gm);
+            }
+            v[13] = bet;
+            v[14] = T(0);
+            v[15] = a.b[(size_t)k * P + (size_t)j * nx + i];
+#pragma unroll
+            for (int q = 0; q < kRec; ++q) cur[q] = v[q];
+        }
+        put<LS>(s, j, nz - 1, cur);
+        __align__(16) T rr[Vec<T>::n];
+#pragma unroll
+        for (int q = 0; q < Vec<T>::n; ++q) rr[q] = T(0);
+        rr[0] = bandv(4, 0, -1, 1);
+        rr[1] = bandv(7, 0, 1, 1);
+        if constexpr (REG) {
+            rre[LS][0] = rr[0];
+            rre[LS][1] = rr[1];
+        } else {
+            *recv(LS, s, j, NV - 1) = *reinterpret_cast<const V*>(rr);
+        }
+    }
+
+    template <int LS>
+    __device__ __forceinline__ void load_plane(int s, int j, int k,
+                                               T* v) const {
+        if constexpr (REG) {
+#pragma unroll
+            for (int q = 0; q < kRec; ++q) v[q] = rec[LS][k][q];
+        } else {
+            V* dst = reinterpret_cast<V*>(v);
+#pragma unroll
+            for (int q = 0; q < VPR; ++q)
+                dst[q] = *recv(LS, s, j, (size_t)k * VPR + q);
+        }
+    }
+
+    // The forward pass of the column of local slot LS on buffer (rl, ru,
+    // rd): its gather and the factored Thomas forward step, the values
+    // into xf (REG) or the shared forward values at place sa (GS solves
+    // two columns a step).  Loads only: GS's two columns' chains overlap.
+    template <int LS>
+    __device__ __forceinline__ void forward(int sa, T* rl, T* ru, T* rd,
+                                            T* xf, T* po) const {
+        const int nz = REG ? NZ : nz_;
+        const int s = slot(LS);
+        int j, i;
+        if (!column(s, j, i)) return;
+        const int jn = j > 0 ? j - 1 : 0, js = j < ny - 1 ? j + 1 : j;
+        const int iw = i > 0 ? i - 1 : 0, ie = i < nx - 1 ? i + 1 : i;
+        // N, S, W, E (stencil15.cuh: (j-1, i), (j+1, i), (j, i-1),
+        // (j, i+1), the edge copy clamped to the column itself)
+        const T* nbr[4] = {at(rl, ru, rd, jn, i), at(rl, ru, rd, js, i),
+                           at(rl, ru, rd, j, iw), at(rl, ru, rd, j, ie)};
+        T wm[4], w0[4], wp[4];
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+            wm[d] = T(0);
+            w0[d] = nbr[d][0];
+            wp[d] = nz > 1 ? nbr[d][PS] : T(0);
+        }
+        T x = T(0);
+        __align__(16) T nv[kRec];          // the next plane's record
+        load_plane<LS>(s, j, 0, nv);
+#pragma unroll (REG ? NZ : 1)
+        for (int k = 0; k < nz; ++k) {
+            __align__(16) T v[kRec];
+#pragma unroll
+            for (int q = 0; q < kRec; ++q) v[q] = nv[q];
+            if (k + 1 < nz) load_plane<LS>(s, j, k + 1, nv);
+            // stencil15.cuh offdiag, term for term
+            T sum = v[0] * wp[0];
+            sum = sum + v[1] * wm[1];
+            sum = sum + v[2] * w0[0];
+            sum = sum + v[3] * w0[1];
+            sum = sum + v[4] * wm[0];
+            sum = sum + v[5] * wp[1];
+            sum = sum + v[6] * wp[2];
+            sum = sum + v[7] * wm[3];
+            sum = sum + v[8] * w0[2];
+            sum = sum + v[9] * w0[3];
+            sum = sum + v[10] * wm[2];
+            sum = sum + v[11] * wp[3];
+            if (a.real && k == 0) {
+                T r0, r1;
+                if constexpr (REG) {
+                    r0 = rre[LS][0];
+                    r1 = rre[LS][1];
+                } else {
+                    const V rv = *recv(LS, s, j, NV - 1);
+                    r0 = reinterpret_cast<const T*>(&rv)[0];
+                    r1 = reinterpret_cast<const T*>(&rv)[1];
+                }
+                T x0 = v[4] * diag(rl, ru, rd, j, i, j + 1, i - 1);
+                x0 = x0 + r0 * diag(rl, ru, rd, j, i, j - 1, i + 1);
+                x0 = x0 + v[10] * diag(rl, ru, rd, j, i, j - 1, i - 1);
+                x0 = x0 + r1 * diag(rl, ru, rd, j, i, j + 1, i + 1);
+                sum = sum + x0;
+            }
+            const T rhs = v[15] - sum;
+            // the factored Thomas forward step (ops/relax.tridiag_factored)
+            if (nz == 1) x = rhs / v[13];
+            else if (k == 0) x = rhs * v[13];
+            else x = (rhs - v[12] * x) * v[13];
+            if constexpr (REG) {
+                xf[k] = x;
+                po[k] = rl[(size_t)k * PS + (j - j0) * nx + i];
+            } else {
+                fw[((size_t)sa * nz + k) * NT + t] = x;
+            }
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+                wm[d] = w0[d];
+                w0[d] = wp[d];
+                wp[d] = k + 2 < nz ? nbr[d][(size_t)(k + 2) * PS] : T(0);
+            }
+        }
+    }
+
+    // The back substitution of the same column, each plane committed as
+    // p + (sol - p) from rl into wl (RB and FC: in place, wl == rl; GS:
+    // the other buffer).  Returns the new plane-0 value's index in the
+    // band (RB's snapshot is written a step later), -1 where this thread
+    // has no column.
+    template <int LS>
+    __device__ __forceinline__ int back(int sa, const T* rl, T* wl,
+                                        const T* xf, const T* po,
+                                        T& p0) const {
+        const int nz = REG ? NZ : nz_;
+        const int s = slot(LS);
+        int j, i;
+        if (!column(s, j, i)) return -1;
+        const int own = (j - j0) * nx + i;
+        T x = T(0);
+#pragma unroll (REG ? NZ : 1)
+        for (int kk = 0; kk < nz; ++kk) {
+            const int k = nz - 1 - kk;
+            const T xk = REG ? xf[k] : fw[((size_t)sa * nz + k) * NT + t];
+            if (k < nz - 1) {
+                T gk;
+                if constexpr (REG) {
+                    gk = rec[LS][k][14];
+                } else {
+                    const V gv = *recv(LS, s, j,
+                                       (size_t)k * VPR + 14 / Vec<T>::n);
+                    gk = reinterpret_cast<const T*>(&gv)[14 % Vec<T>::n];
+                }
+                x = xk - gk * x;
+            } else {
+                x = xk;
+            }
+            const T pk = REG ? po[k] : rl[(size_t)k * PS + own];
+            const T nw = pk + (x - pk);
+            wl[(size_t)k * PS + own] = nw;
+            p0 = nw;
+        }
+        return own;
+    }
+
+    // a plane-0 diagonal coupling of column (j, i): RB reads the columns
+    // of its own colour from the snapshot taken before the step
+    __device__ __forceinline__ T diag(T* rl, T* ru, T* rd, int j, int i,
+                                      int jj, int ii) const {
+        jj = jj < 0 ? 0 : (jj >= ny ? ny - 1 : jj);
+        ii = ii < 0 ? 0 : (ii >= nx ? nx - 1 : ii);
+        if (KIND == kRB && ((jj + ii + j + i) & 1) == 0)
+            return *at(S0, upS, dnS, jj, ii);
+        return *at(rl, ru, rd, jj, ii);
+    }
+
+    // colour step C of every sweep, then the ones after it
+    template <int C>
+    __device__ __forceinline__ void steps(T*& rA, T*& rU, T*& rD, T*& wA,
+                                          T*& wU, T*& wD, T& pend,
+                                          int& pend_i) {
+        if constexpr (C < NCOLOR) {
+            if (KIND == kRB && a.real && pend_i >= 0) {
+                S0[pend_i] = pend;      // no step reads it until its
+                pend_i = -1;            // colour's next turn
+            }
+            T p0 = T(0);
+            // the forward values and (REG) the old state of the step's
+            // columns, loaded before any store
+            T xf0[REG ? NZ : 1], xf1[REG ? NZ : 1];
+            T po0[REG ? NZ : 1], po1[REG ? NZ : 1];
+            if constexpr (KIND == kGS) {
+                forward<0>(0, rA, rU, rD, xf0, po0);
+                forward<1>(1, rA, rU, rD, xf1, po1);
+                back<0>(0, rA, wA, xf0, po0, p0);
+                back<1>(1, rA, wA, xf1, po1, p0);
+                T* x = rA; rA = wA; wA = x;
+                x = rU; rU = wU; wU = x;
+                x = rD; rD = wD; wD = x;
+            } else if (KIND == kRB || gr == (C >> 1)) {
+                constexpr int LS = KIND == kRB ? C : (C & 1);
+                forward<LS>(0, rA, rU, rD, xf0, po0);
+                const int own = back<LS>(0, rA, rA, xf0, po0, p0);
+                if (KIND == kRB && own >= 0) {
+                    pend = p0;
+                    pend_i = own;
+                }
+            }
+            barrier();
+            steps<C + 1>(rA, rU, rD, wA, wU, wD, pend, pend_i);
+        }
+    }
+
+    template <int LS>
+    __device__ __forceinline__ void all_records() {
+        if constexpr (LS < kSlots) {
+            records<LS>();
+            all_records<LS + 1>();
+        }
+    }
+
+    __device__ __forceinline__ void run() {
+        const int nz = REG ? NZ : nz_;
+        // the state and RB's plane-0 snapshot of this band, the records
+        const size_t nband = (size_t)(j1 - j0) * nx;
+        for (size_t o = t; o < (size_t)nz * nband; o += NT) {
+            const size_t k = o / nband, rest = o % nband;
+            const T v = a.p[k * P + (size_t)j0 * nx + rest];
+            bufA[k * PS + rest] = v;
+            if (KIND == kRB && a.real && k == 0) S0[rest] = v;
+        }
+        all_records<0>();
+        barrier();
+        T* rA = bufA;          // the buffer steps read (GS: ping-pong)
+        T* rU = upA;
+        T* rD = dnA;
+        T* wA = KIND == kGS ? bufB : bufA;
+        T* wU = KIND == kGS ? upB : upA;
+        T* wD = KIND == kGS ? dnB : dnA;
+        T pend = T(0);         // RB 'real': this thread's last plane-0
+        int pend_i = -1;       // value, for the snapshot
+        for (int sw = 0; sw < a.nsweeps; ++sw)
+            steps<0>(rA, rU, rD, wA, wU, wD, pend, pend_i);
+        // the result: this band of the last state
+        for (size_t o = t; o < (size_t)nz * nband; o += NT) {
+            const size_t k = o / nband, rest = o % nband;
+            a.out[k * P + (size_t)j0 * nx + rest] = rA[k * PS + rest];
+        }
+    }
+};
+
+template <typename T, int KIND, int NZ, bool CLUSTER>
+__global__ void __launch_bounds__(max_threads<T, NZ>())
+relax_resident(ResArgs<T> a) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    Resident<T, KIND, NZ, CLUSTER> res(a, smem);
+    res.run();
 }
 
 // ------------------------------------------------------- the step form
@@ -402,38 +838,168 @@ int launch_steps(const T* p, const T* b, const T* cA, T* out, T* scratch,
     return 0;
 }
 
-// one_block: relax_fused_block (out <- p after nsweeps; scratch unused);
-// else ncolor * nsweeps relax_step launches.  scratch: GS's second state
-// buffer (nz, ny, nx), RB's plane-0 snapshot (ny, nx), unused by FC.
+// ------------------------------------------------ the one-launch launch
+
+constexpr int kNoCluster = -1;       // this cluster size cannot be resident
+
+// What the card was told and answered for one kernel, per device: the
+// shared memory its attribute allows, and the clusters that can be
+// resident at a (blocks, threads, shared memory) shape; asked once, not at
+// every call (the host's time a call counts on the host-bound levels).
+struct KernelCache {
+    size_t smem[16] = {};
+    struct Query { int dev, nb, nt; size_t smem; int nclusters; };
+    Query q[16];
+    int nq = 0;
+};
+
+template <typename T, int KIND, int NZ, bool CLUSTER>
+int run_resident(const ResArgs<T>& a, cudaStream_t s) {
+    if constexpr (NZ > 0 && record_regs<T, NZ>() > kMaxRecordRegs) {
+        return (int)cudaErrorInvalidValue;     // never planned
+    } else {
+        static KernelCache cache;
+        auto kern = relax_resident<T, KIND, NZ, CLUSTER>;
+        const ResPlan& pl = a.pl;
+        int dev = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e != cudaSuccess) return (int)e;
+        if (dev >= 16) return (int)cudaErrorInvalidDevice;
+        if (cache.smem[dev] < pl.total) {
+            e = cudaFuncSetAttribute(
+                kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)pl.total);
+            if (e == cudaSuccess && CLUSTER)
+                e = cudaFuncSetAttribute(
+                    kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            if (e != cudaSuccess) return (int)e;
+            cache.smem[dev] = pl.total;
+        }
+        if constexpr (!CLUSTER) {
+            kern<<<1, pl.nt, pl.total, s>>>(a);
+            return (int)cudaGetLastError();
+        } else {
+            cudaLaunchConfig_t cfg = {};
+            cfg.gridDim = dim3(pl.nb);
+            cfg.blockDim = dim3(pl.nt);
+            cfg.dynamicSmemBytes = pl.total;
+            cfg.stream = s;
+            cudaLaunchAttribute attr[1];
+            attr[0].id = cudaLaunchAttributeClusterDimension;
+            attr[0].val.clusterDim.x = pl.nb;
+            attr[0].val.clusterDim.y = 1;
+            attr[0].val.clusterDim.z = 1;
+            cfg.attrs = attr;
+            cfg.numAttrs = 1;
+            int nclusters = -1;
+            for (int i = 0; i < cache.nq; ++i) {
+                const KernelCache::Query& q = cache.q[i];
+                if (q.dev == dev && q.nb == pl.nb && q.nt == pl.nt
+                    && q.smem == pl.total)
+                    nclusters = q.nclusters;
+            }
+            if (nclusters < 0) {
+                e = cudaOccupancyMaxActiveClusters(&nclusters, kern, &cfg);
+                if (e != cudaSuccess) return (int)e;
+                cache.q[cache.nq % 16] = {dev, pl.nb, pl.nt, pl.total,
+                                          nclusters};
+                cache.nq = cache.nq < 16 ? cache.nq + 1 : 16;
+            }
+            if (nclusters < 1) return kNoCluster;
+            return (int)cudaLaunchKernelEx(&cfg, kern, a);
+        }
+    }
+}
+
+// The plan of a block of nb: records in registers where nz is 2 or 4 and
+// they fit (kMaxRecordRegs, the kernel's thread bound), else in shared
+// memory where they fit beside the state, else in device memory
+template <typename T, int KIND>
+ResPlan plan_resident(int nz, int ny, int nx, int nb) {
+    const int e = (int)sizeof(T);
+    ResPlan pl(KIND, e, nz, ny, nx, nb, false, true);
+    const bool reg =
+        (nz == 2 && record_regs<T, 2>() <= kMaxRecordRegs
+         && pl.nt <= max_threads<T, 2>())
+        || (nz == 4 && record_regs<T, 4>() <= kMaxRecordRegs
+            && pl.nt <= max_threads<T, 4>());
+    if (reg) return ResPlan(KIND, e, nz, ny, nx, nb, true, true);
+    if (pl.total > (size_t)kMaxSmem)
+        pl = ResPlan(KIND, e, nz, ny, nx, nb, false, false);
+    return pl;
+}
+
+// One launch for the whole call: one block (cluster == 0), or a cluster
+// of min(16, ny) blocks, of min(8, ny) where 16 cannot be resident.  recs:
+// device memory for the records ((FC 4, else 2) * (nz * 16 / (16 /
+// sizeof(T)) + 1) * ny * ((nx + 1) / 2) vectors of 16 bytes).  info (may be null):
+// blocks, threads a block, where the records live (0 registers, 1 shared
+// memory, 2 device memory), shared memory bytes a block.
+template <typename T, int KIND>
+int launch_resident(const T* p, const T* b, const T* cA, T* out, T* recs,
+                    int nz, int ny, int nx, int real, int nsweeps,
+                    int cluster, int* info, cudaStream_t s) {
+    const int cands[2] = {cluster ? (ny < kMaxClusterBlocks
+                                     ? ny : kMaxClusterBlocks) : 1,
+                          ny < 8 ? ny : 8};
+    int rc = (int)cudaErrorInvalidConfiguration;
+    for (int c = 0; c < (cluster ? 2 : 1); ++c) {
+        const ResPlan pl = plan_resident<T, KIND>(nz, ny, nx, cands[c]);
+        if (pl.total > (size_t)kMaxSmem || pl.nt > 1024 || pl.nt < 1
+            || (!pl.reg && !pl.resident && recs == nullptr))
+            return (int)cudaErrorInvalidValue;
+        const ResArgs<T> a{p, b, cA, out, recs, pl, real, nsweeps};
+        if (pl.reg) {
+            rc = nz == 2 ? (cluster ? run_resident<T, KIND, 2, true>(a, s)
+                                    : run_resident<T, KIND, 2, false>(a, s))
+                         : (cluster ? run_resident<T, KIND, 4, true>(a, s)
+                                    : run_resident<T, KIND, 4, false>(a, s));
+        } else {
+            rc = cluster ? run_resident<T, KIND, 0, true>(a, s)
+                         : run_resident<T, KIND, 0, false>(a, s);
+        }
+        if (rc == kNoCluster) continue;
+        if (info) {
+            info[0] = pl.nb;
+            info[1] = pl.nt;
+            info[2] = pl.reg ? 0 : (pl.resident ? 1 : 2);
+            info[3] = (int)pl.total;
+        }
+        return rc;
+    }
+    return rc == kNoCluster ? (int)cudaErrorLaunchOutOfResources : rc;
+}
+
+// form 0: a launch per colour step (scratch: GS's second state buffer,
+// RB's plane-0 snapshot, unused by FC); 1: one launch, one block; 2: one
+// launch, a thread block cluster (scratch: the records).  Out <- p after
+// nsweeps sweeps of ordering kind.
 template <typename T>
 int launch_relax_fused(const void* p, const void* b, const void* cA,
                        void* out, void* scratch, int nz, int ny, int nx,
-                       int real, int nsweeps, int kind, int one_block,
+                       int real, int nsweeps, int kind, int form, int* info,
                        void* stream) {
-    if (kind < kRB || kind > kGS) return (int)cudaErrorInvalidValue;
+    if (kind < kRB || kind > kGS || form < 0 || form > 2 || nz < 1
+        || ny < 1 || nx < 1)
+        return (int)cudaErrorInvalidValue;
     const Level g{nz, ny, nx};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (one_block) {
-        const size_t smem = 4 * (size_t)nz * g.plane() * sizeof(T);
-        if (smem > 48 * 1024) {
-            cudaError_t e = cudaFuncSetAttribute(
-                relax_fused_block<T>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-            if (e != cudaSuccess) return (int)e;
-        }
-        int ncols = ny * nx;
-        int threads = ncols < kBlockThreads ? (ncols + 31) / 32 * 32
-                                            : kBlockThreads;
-        relax_fused_block<T><<<1, threads, smem, s>>>(
-            (const T*)p, (const T*)b, (const T*)cA, (T*)out, g, real,
-            nsweeps, kind);
-        return (int)cudaGetLastError();
-    }
     const T* pt = (const T*)p;
     const T* bt = (const T*)b;
     const T* ct = (const T*)cA;
     T* ot = (T*)out;
     T* sc = (T*)scratch;
+    if (form > 0) {
+        const int cl = form == 2;
+        if (kind == kRB)
+            return launch_resident<T, kRB>(pt, bt, ct, ot, sc, nz, ny, nx,
+                                           real, nsweeps, cl, info, s);
+        if (kind == kFC)
+            return launch_resident<T, kFC>(pt, bt, ct, ot, sc, nz, ny, nx,
+                                           real, nsweeps, cl, info, s);
+        return launch_resident<T, kGS>(pt, bt, ct, ot, sc, nz, ny, nx, real,
+                                       nsweeps, cl, info, s);
+    }
     if (kind == kRB)
         return launch_steps<T, kRB>(pt, bt, ct, ot, sc, g, real, nsweeps, s);
     if (kind == kFC)
@@ -447,18 +1013,19 @@ extern "C" {
 
 int mg_relax_fused_f32(const void* p, const void* b, const void* cA,
                        void* out, void* scratch, int nz, int ny, int nx,
-                       int real, int nsweeps, int kind, int one_block,
+                       int real, int nsweeps, int kind, int form, int* info,
                        void* stream) {
     return launch_relax_fused<float>(p, b, cA, out, scratch, nz, ny, nx,
-                                     real, nsweeps, kind, one_block, stream);
+                                     real, nsweeps, kind, form, info,
+                                     stream);
 }
 
 int mg_relax_fused_f64(const void* p, const void* b, const void* cA,
                        void* out, void* scratch, int nz, int ny, int nx,
-                       int real, int nsweeps, int kind, int one_block,
+                       int real, int nsweeps, int kind, int form, int* info,
                        void* stream) {
     return launch_relax_fused<double>(p, b, cA, out, scratch, nz, ny, nx,
-                                      real, nsweeps, kind, one_block,
+                                      real, nsweeps, kind, form, info,
                                       stream);
 }
 

@@ -33,6 +33,20 @@
 // alone take, and the float32 stack against the bfloat16 one how the
 // time follows the bytes.
 //
+// step_floor: the floor of K6's one-launch forms (relax_fused.cu
+// relax_resident), whose time is their serial colour steps.  nsteps steps
+// in one launch on a (nz, ny, nx) state in shared memory, a thread per
+// column of the step's parity colour ((j + i + step) even), as K6's RB
+// step: the column reads its (j - 1, i) neighbour's plane 0 (the other
+// colour; the edge clamped to itself) and runs an nz-deep dependent chain
+// of one shared-memory load and one multiply and add a plane, acc = acc *
+// h + x[k], then writes plane 0; a barrier ends the step.  One block, or
+// a cluster of up to 16 blocks (8 where 16 cannot be resident), a band of
+// rows each, the first row reading its neighbour from the block above
+// through distributed shared memory, a cluster barrier a step.  Bound:
+// neither bytes nor operations but the chain and the barrier; K6's time
+// over this one's says how far a one-launch form is from its floor.
+//
 // fma_run: 8 independent chains x 64 chained fused multiply-adds per
 // element of a (8, 8, 512) block, over 256 tiles (every tile recomputes the
 // block and writes the same values), then the 8 chains summed.  The build
@@ -42,6 +56,7 @@
 // Plain C interface (loaded with ctypes): each entry launches on the given
 // stream and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -184,6 +199,111 @@ __global__ void fma_kernel(const float* __restrict__ x, float* __restrict__ out,
     out[i] = s;
 }
 
+constexpr float kFloorH = 0.5f;
+
+template <bool CLUSTER>
+__global__ void __launch_bounds__(1024)
+step_floor_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  int nz, int ny, int nx, int nb, int nsteps) {
+    extern __shared__ __align__(16) float sx[];
+    int r = 0;
+    if constexpr (CLUSTER) r = (int)cooperative_groups::this_cluster()
+                                   .block_rank();
+    const int j0 = (int)((long long)r * ny / nb);
+    const int j1 = (int)((long long)(r + 1) * ny / nb);
+    const int j0u = (int)((long long)(r - 1) * ny / nb);
+    const size_t PS = (size_t)((ny + nb - 1) / nb) * nx;
+    const size_t P = (size_t)ny * nx;
+    const int hx = (nx + 1) / 2, t = threadIdx.x;
+    const int lr = t / hx, m = t % hx;
+    const int rows = j1 - j0;
+    for (size_t o = t; o < (size_t)nz * rows * nx; o += blockDim.x) {
+        const size_t k = o / ((size_t)rows * nx), rest = o % ((size_t)rows * nx);
+        sx[k * PS + rest] = x[k * P + (size_t)j0 * nx + rest];
+    }
+    const float* up = sx;
+    if constexpr (CLUSTER) {
+        if (r > 0)
+            up = cooperative_groups::this_cluster().map_shared_rank(sx,
+                                                                    r - 1);
+        cooperative_groups::this_cluster().sync();
+    } else {
+        __syncthreads();
+    }
+    for (int step = 0; step < nsteps; ++step) {
+        const int j = j0 + lr, i = 2 * m + ((j + step) & 1);
+        if (j < j1 && i < nx) {
+            const int jn = j > 0 ? j - 1 : 0;
+            const float nv = (CLUSTER && jn < j0)
+                                 ? up[(size_t)(jn - j0u) * nx + i]
+                                 : sx[(size_t)(jn - j0) * nx + i];
+            const size_t own = (size_t)(j - j0) * nx + i;
+            float acc = nv * kFloorH;
+            for (int k = 0; k < nz; ++k) acc = acc * kFloorH + sx[k * PS + own];
+            sx[own] = acc;
+        }
+        if constexpr (CLUSTER) {
+            cooperative_groups::this_cluster().sync();
+        } else {
+            __syncthreads();
+        }
+    }
+    for (size_t o = t; o < (size_t)nz * rows * nx; o += blockDim.x) {
+        const size_t k = o / ((size_t)rows * nx), rest = o % ((size_t)rows * nx);
+        out[k * P + (size_t)j0 * nx + rest] = sx[k * PS + rest];
+    }
+}
+
+// step_floor in one block (cluster 0) or a cluster; blocks[0] <- the
+// blocks launched
+int launch_step_floor(const float* x, float* out, int nz, int ny, int nx,
+                      int nsteps, int cluster, int* blocks, cudaStream_t s) {
+    const int cands[2] = {cluster ? (ny < 16 ? ny : 16) : 1, ny < 8 ? ny : 8};
+    for (int c = 0; c < (cluster ? 2 : 1); ++c) {
+        const int nb = cands[c];
+        const int rows = (ny + nb - 1) / nb, nt = rows * ((nx + 1) / 2);
+        const size_t smem = (size_t)nz * rows * nx * sizeof(float);
+        if (nt > 1024 || smem > 232448) return (int)cudaErrorInvalidValue;
+        if (!cluster) {
+            cudaError_t e = cudaFuncSetAttribute(
+                step_floor_kernel<false>,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return (int)e;
+            step_floor_kernel<false><<<1, nt, smem, s>>>(x, out, nz, ny, nx,
+                                                          1, nsteps);
+            *blocks = 1;
+            return (int)cudaGetLastError();
+        }
+        auto kern = step_floor_kernel<true>;
+        cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(
+                kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return (int)e;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3(nb);
+        cfg.blockDim = dim3(nt);
+        cfg.dynamicSmemBytes = smem;
+        cfg.stream = s;
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = nb;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        int nclusters = 0;
+        e = cudaOccupancyMaxActiveClusters(&nclusters, kern, &cfg);
+        if (e != cudaSuccess) return (int)e;
+        if (nclusters < 1) continue;
+        *blocks = nb;
+        return (int)cudaLaunchKernelEx(&cfg, kern, x, out, nz, ny, nx, nb,
+                                       nsteps);
+    }
+    return (int)cudaErrorLaunchOutOfResources;
+}
+
 template <typename B>
 int launch_dma_only(const void* e0, const void* e1, const void* e2,
                     const void* blocks, const void* rb, const void* ud,
@@ -256,6 +376,14 @@ int mg_dma_only_bands(const void* s0, const void* s1, const void* bq0,
                    : launch_bands<__nv_bfloat16, 0>(a, out0, out1, nz, H, W, s);
     return tg0 ? launch_bands<float, 1>(a, out0, out1, nz, H, W, s)
                : launch_bands<float, 0>(a, out0, out1, nz, H, W, s);
+}
+
+// x out (nz, ny, nx) float32 | nz ny nx nsteps cluster | blocks (int*)
+int mg_step_floor(const void* x, void* out, int nz, int ny, int nx,
+                  int nsteps, int cluster, int* blocks, void* stream) {
+    return launch_step_floor((const float*)x, (float*)out, nz, ny, nx,
+                             nsteps, cluster, blocks,
+                             static_cast<cudaStream_t>(stream));
 }
 
 int mg_fma_run(const void* x, void* out, int n, int ntiles, void* stream) {

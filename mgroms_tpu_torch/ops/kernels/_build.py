@@ -75,9 +75,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [p] + [i] * 7 + [p]
         fn.restype = i
         fn = getattr(lib, f"mg_relax_fused_{dt}")
-        # p b cA out scratch | nz ny nx real nsweeps kind one_block |
+        # p b cA out scratch | nz ny nx real nsweeps kind form | info
         # stream
-        fn.argtypes = [p] * 5 + [i] * 7 + [p]
+        fn.argtypes = [p] * 5 + [i] * 7 + [p, p]
         fn.restype = i
         fn = getattr(lib, f"mg_residual_{dt}")
         # pe b cA r | nz ny nx real | stream
@@ -116,6 +116,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # stream
     lib.mg_dma_only_bands.argtypes = [p] * 11 + [i] * 5 + [p]
     lib.mg_dma_only_bands.restype = i
+    # x out | nz ny nx nsteps cluster | blocks stream
+    lib.mg_step_floor.argtypes = [p, p] + [i] * 5 + [p, p]
+    lib.mg_step_floor.restype = i
     # x out | n ntiles | stream
     lib.mg_fma_run.argtypes = [p, p, i, i, p]
     lib.mg_fma_run.restype = i

@@ -5,27 +5,33 @@ Port of ``mgroms_tpu/ops/pallas/relax_fused.py:fused_relax``: ``nsweeps``
 sweeps of ``ncolor`` colour steps (:data:`KINDS`: 'RB' two parity
 colours, 'FC' four, 'GS' one all-ones step, the JAX package's
 column-Jacobi GS), each committing ``p + mask * (sol - p)``.  The kernel
-(``csrc/relax_fused.cu``) has two forms, chosen by the level's size:
+(``csrc/relax_fused.cu``) has three forms; :func:`form` names the one a
+level takes from its shape and dtype alone:
 
-  ``fused_relax``       one launch per call, the level in one block's
-                        shared memory (levels whose four fields fit
-                        ``ONE_BLOCK_BYTES``: the coarsest level of every
-                        cell);
-  ``fused_relax_step``  one launch per colour step (larger levels), a
-                        thread per column of the step's colour; RB and FC
-                        update a copy of ``p`` in place, GS ping-pongs.
+  ``block``    one launch per call, one block holding the level (its
+               state in shared memory, each column's coefficients,
+               Thomas factors and b computed once and held by its thread):
+               the coarsest level of every cell;
+  ``cluster``  the same in a thread block cluster of up to 16 blocks, a
+               band of rows each, the rows next to a band read from the
+               neighbour block's shared memory: the mid levels;
+  ``step``     one launch per colour step (larger levels), a thread per
+               column of the step's colour; RB and FC update a copy of
+               ``p`` in place, GS ping-pongs.
 
 ``LAUNCHES`` counts the kernel launches of each form and ordering under
 the names of :data:`KINDS`: RB under the form's name, FC and GS under it
 with ``_fc`` / ``_gs`` added.
 The wrapper runs the plain version for tensors on the CPU only; for a CUDA
 tensor it checks device, dtype, shape and contiguity, launches the kernel
-or raises.  The TPU's VMEM gate (``fits_vmem``) has no counterpart: the
-kernel takes any level.
+or raises (a cluster the card cannot schedule raises too).  The TPU's
+VMEM gate (``fits_vmem``) has no counterpart: the step form takes any
+level.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -35,28 +41,45 @@ from .. import relax as relax_ops
 from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
 
+FORMS = ("step", "block", "cluster")     # the kernel's form codes
 
 
 class Kind(NamedTuple):
     """One ordering: the kernel's code for it (relax_fused.cu), its
-    colour steps per sweep, and the ``LAUNCHES`` names of its one-launch
-    and per-step forms."""
+    colour steps per sweep, and the ``LAUNCHES`` names of its one-block,
+    cluster and per-step forms."""
     code: int
     ncolor: int
     block: str
+    cluster: str
     step: str
+
+    def name(self, form_: str) -> str:
+        return getattr(self, form_)
 
 
 KINDS = {kind: Kind(code, ncolor, f"fused_relax{sfx}",
-                    f"fused_relax_step{sfx}")
+                    f"fused_relax_cluster{sfx}", f"fused_relax_step{sfx}")
          for kind, code, ncolor, sfx in (("RB", 0, 2, ""), ("FC", 1, 4, "_fc"),
                                          ("GS", 2, 1, "_gs"))}
 
-LAUNCHES = {name: 0 for k in KINDS.values() for name in (k.block, k.step)}
+LAUNCHES = {k.name(f): 0 for k in KINDS.values() for f in FORMS}
 
-# shared memory of the one-block form: two state buffers, b and the Thomas
-# multipliers (the H100 gives a block up to 227 KB)
-ONE_BLOCK_BYTES = 160 * 1024
+# the H100's shared memory and threads a block; the cluster form's blocks
+# (16, non-portable; 8 where 16 cannot be resident)
+SMEM_BYTES = 232448
+MAX_THREADS = 1024
+CLUSTER_BLOCKS = (16, 8)
+# the gate's thresholds, from the card's timings of the three forms at the
+# levels of seamount 64^3 and CUC 1024^2 x 64 (PERF.md,
+# scripts/micro_relax_fused.py): the points (nz * ny * nx) of the largest
+# level each one-launch form takes; the cluster form only where each
+# thread holds its two columns' records in registers (csrc/relax_fused.cu
+# record_regs, kMaxRecordRegs: nz 2 or 4), which is where it beat the step
+# form
+BLOCK_POINTS = 2 * 32 * 32
+CLUSTER_POINTS = 4 * 64 * 64
+RECORD_REGS = 160
 
 
 def reset_launches() -> None:
@@ -64,14 +87,52 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def one_block(p: torch.Tensor) -> bool:
-    """Whether a level of ``p``'s shape and dtype runs in one launch."""
-    return 4 * p.numel() * p.element_size() <= ONE_BLOCK_BYTES
+def fits(shape, itemsize: int, nblocks: int) -> bool:
+    """Whether ``nblocks`` blocks of a one-launch form hold a level of
+    ``shape``: a thread per two columns of the largest band of rows (FC:
+    per two colours of a row pair), and in shared memory two state
+    buffers, the plane-0 snapshot and the forward values of two columns a
+    thread (the most any ordering takes)."""
+    nz, ny, nx = shape
+    rows = -(-ny // nblocks)
+    threads = (rows + 1) // 2 * 2 * ((nx + 1) // 2)
+    smem = (2 * nz * rows * nx + rows * nx + 2 * nz * threads) * itemsize
+    return nblocks <= ny and threads <= MAX_THREADS and smem + 64 <= SMEM_BYTES
+
+
+def records_in_registers(shape, itemsize: int, nblocks: int) -> bool:
+    """Whether the threads of ``nblocks`` blocks hold their columns'
+    records in registers (relax_fused.cu plan_resident: nz 2 or 4, at
+    most RECORD_REGS registers of records, the kernel's thread bound)."""
+    nz, ny, nx = shape
+    regs = 2 * (16 * nz + 2) * itemsize // 4
+    rows = -(-ny // nblocks)
+    threads = (rows + 1) // 2 * 2 * ((nx + 1) // 2)
+    return (nz in (2, 4) and regs <= RECORD_REGS
+            and threads <= 65536 // (regs + 48) // 32 * 32)
+
+
+def form(shape, dtype) -> str:
+    """The form a level of ``shape`` and ``dtype`` takes: 'block' where
+    one block holds it, up to :data:`BLOCK_POINTS`; else 'cluster' where
+    a cluster of 16 blocks, and of 8, holds it with the records in
+    registers, up to :data:`CLUSTER_POINTS`; else 'step'."""
+    nz, ny, nx = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    points = nz * ny * nx
+    if points <= BLOCK_POINTS and fits(shape, itemsize, 1):
+        return "block"
+    if points <= CLUSTER_POINTS and all(
+            fits(shape, itemsize, min(n, ny))
+            and records_in_registers(shape, itemsize, min(n, ny))
+            for n in CLUSTER_BLOCKS):
+        return "cluster"
+    return "step"
 
 
 def launch_name(p: torch.Tensor, kind: str) -> str:
     """The ``LAUNCHES`` key of the form ``p`` takes in ordering ``kind``."""
-    return KINDS[kind].block if one_block(p) else KINDS[kind].step
+    return KINDS[kind].name(form(p.shape, p.dtype))
 
 
 def fused_relax_plain(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
@@ -92,14 +153,39 @@ def _step_scratch(p, kind: str, real_matrix: bool):
     return None
 
 
+def record_scratch(p, kind: str):
+    """Device memory for the one-launch forms' per-column records where
+    neither registers nor shared memory hold them: per slot (RB, GS two,
+    FC four) and global slot (ny x (nx+1)//2), nz plane records of 16
+    values and one 16-byte vector of the two 'real' coefficients."""
+    nz, ny, nx = p.shape
+    isz = p.element_size()
+    slots = 4 if kind == "FC" else 2
+    nbytes = slots * (nz * 16 * isz + 16) * ny * ((nx + 1) // 2)
+    return torch.empty(nbytes // isz, dtype=p.dtype, device=p.device)
+
+
 def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
     """``nsweeps`` line-relaxation sweeps of ordering ``kind`` ('RB',
-    'FC' or 'GS') of a whole level (K6): ``p``, ``b`` interior
-    (nz, ny, nx), ``cA`` extended (8, nz, ny+2, nx+2), the physical
-    boundary on every side.  Returns the new ``p``; the inputs are not
-    written."""
+    'FC' or 'GS') of a whole level (K6) in the form :func:`form` names:
+    ``p``, ``b`` interior (nz, ny, nx), ``cA`` extended (8, nz, ny+2,
+    nx+2), the physical boundary on every side.  Returns the new ``p``;
+    the inputs are not written."""
+    return fused_relax_form(p, b, cA, nsweeps, kind, real_matrix,
+                            form(p.shape, p.dtype))
+
+
+def fused_relax_form(p, b, cA, nsweeps: int, kind: str, real_matrix: bool,
+                     form_: str, plan: dict | None = None):
+    """:func:`fused_relax` in the form ``form_`` (one of :data:`FORMS`,
+    whatever the gate says: the tests and the timings).  ``plan``, where
+    given, receives a one-launch form's blocks, threads a block, where
+    the records live ('registers', 'shared', 'device') and its shared
+    memory bytes a block."""
     if kind not in KINDS:
         raise ValueError(f"unknown relax kind {kind!r}")
+    if form_ not in FORMS:
+        raise ValueError(f"unknown form {form_!r}")
     if on_cpu(p):
         return fused_relax_plain(p, b, cA, nsweeps, kind, real_matrix)
     nz, ny, nx = p.shape
@@ -108,17 +194,23 @@ def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
                    "cA": (8, nz, ny + 2, nx + 2)}, p.dtype, p.device)
     if nsweeps <= 0:
         return p
-    single = one_block(p)
     out = torch.empty_like(p)
-    scratch = None if single else _step_scratch(p, kind, real_matrix)
+    scratch = (_step_scratch(p, kind, real_matrix) if form_ == "step"
+               else record_scratch(p, kind))
+    info = (ctypes.c_int * 4)()
     lib = _build.load()
     fn = (lib.mg_relax_fused_f32 if p.dtype == torch.float32
           else lib.mg_relax_fused_f64)
     with torch.cuda.device(p.device):
         rc = fn(ptr(p), ptr(b), ptr(cA), ptr(out), ptr(scratch), nz, ny, nx,
-                int(real_matrix), nsweeps, KINDS[kind].code, int(single),
+                int(real_matrix), nsweeps, KINDS[kind].code,
+                FORMS.index(form_), info,
                 torch.cuda.current_stream().cuda_stream)
-    check_launch(rc, "fused_relax")
-    LAUNCHES[launch_name(p, kind)] += (1 if single
-                                       else KINDS[kind].ncolor * nsweeps)
+    check_launch(rc, f"fused_relax ({form_})")
+    if plan is not None and form_ != "step":
+        plan.update(blocks=info[0], threads=info[1],
+                    records=("registers", "shared", "device")[info[2]],
+                    smem=info[3])
+    LAUNCHES[KINDS[kind].name(form_)] += (
+        KINDS[kind].ncolor * nsweeps if form_ == "step" else 1)
     return out

@@ -11,9 +11,12 @@ Port of the two Pallas probes of ``scripts/micro_roofline.py``
 quad's gather blocks, in the pattern and grid of the JAX script's K1, and
 only adds it up; ``dma_only_bands`` does the same for K1 as the card's
 solver launches it, on an RB colour's band stack (counted as
-``dma_only``); ``fma_run`` measures the card's float32 FMA rate.  Each wrapper runs its plain version for CPU tensors
-only; for a CUDA tensor it launches the kernel or raises.  ``LAUNCHES``
-counts kernel launches.
+``dma_only``); ``fma_run`` measures the card's float32 FMA rate.  ``step_floor`` (no
+JAX counterpart) is the floor of K6's one-launch forms: their serial
+colour steps, each a barrier and an nz-deep chain, in one block or a
+thread block cluster.  Each wrapper runs its plain version for CPU
+tensors only; for a CUDA tensor it launches the kernel or raises.
+``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
                              check_band_stack, gather_keys,
                              smoother_operator)
 
-LAUNCHES = {"dma_only": 0, "fma_run": 0}
+LAUNCHES = {"dma_only": 0, "fma_run": 0, "step_floor": 0}
 
 WHICH = ("all", "windows", "blocks")
 # the target quad whose loads the probe makes: K1 is timed on it
@@ -232,6 +235,51 @@ def dma_only_bands(e, bq, pack, targets):
     check_launch(rc, "dma_only")
     LAUNCHES["dma_only"] += 1
     return out
+
+
+FLOOR_H = 0.5          # step_floor's multiplier (roofline.cu kFloorH)
+
+
+def step_floor_plain(x, nsteps: int):
+    """``nsteps`` steps of the step-floor probe on the (nz, ny, nx)
+    state ``x``: in step s every column (j, i) with (j + i + s) even runs
+    acc = x[0, max(j-1, 0), i] * h, then acc = acc * h + x[k, j, i] for k
+    = 0 .. nz-1, all from the state before the step, and writes acc to
+    x[0, j, i]."""
+    x = x.clone()
+    nz, ny, nx = x.shape
+    jn = (torch.arange(ny) - 1).clamp(min=0)
+    jj = torch.arange(ny)[:, None]
+    ii = torch.arange(nx)[None, :]
+    for step in range(nsteps):
+        acc = x[0, jn] * FLOOR_H
+        for k in range(nz):
+            acc = acc * FLOOR_H + x[k]
+        x[0] = torch.where((jj + ii + step) % 2 == 0, acc, x[0])
+    return x
+
+
+def step_floor(x, nsteps: int, cluster: bool = False):
+    """K10 ``step_floor`` on the float32 state ``x`` (nz, ny, nx) in one
+    block, or with ``cluster`` in a thread block cluster (a band of rows
+    a block): :func:`step_floor_plain` for a CPU tensor.  Returns the
+    state and the blocks launched."""
+    if on_cpu(x):
+        return step_floor_plain(x, nsteps), 1
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.dim() != 3:
+        raise ValueError("step_floor takes a contiguous float32 (nz, ny, nx)"
+                         " tensor")
+    nz, ny, nx = x.shape
+    out = torch.empty_like(x)
+    blocks = ctypes.c_int(0)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = lib.mg_step_floor(ptr(x), ptr(out), nz, ny, nx, nsteps,
+                               int(cluster), ctypes.byref(blocks),
+                               torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "step_floor")
+    LAUNCHES["step_floor"] += 1
+    return out, blocks.value
 
 
 def fma_run_plain(x):

@@ -313,15 +313,27 @@ def _full_inputs(nz, ny, nx, dtype, device, seed):
 
 
 # (shape, sweeps): the coarsest levels of seamount 64^3 and CUC in the
-# one-launch form, a 64^3 level in the per-colour-step form, a ragged one
-K6_CASES = [((4, 4, 4), 40), ((2, 32, 32), 40), ((64, 64, 64), 3),
-            ((3, 5, 7), 3), ((1, 6, 5), 2)]
+# one-block form, CUC level 4 in the cluster form (the step form in
+# float64), CUC level 3 and a 64^3 level in the per-colour-step form,
+# ragged ones
+K6_CASES = [((4, 4, 4), 40), ((2, 32, 32), 40), ((4, 64, 64), 3),
+            ((8, 128, 128), 3), ((64, 64, 64), 3), ((3, 5, 7), 3),
+            ((1, 6, 5), 2)]
+
+
+def _k6_launches(p, kind, ns):
+    """The LAUNCHES key and count one gated K6 call of ``p`` adds."""
+    key = kf.launch_name(p, kind)
+    return key, (kf.KINDS[kind].ncolor * ns
+                 if kf.form(p.shape, p.dtype) == "step" else 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", K6_CASES)
 @pytest.mark.parametrize("real", [True, False])
 def test_fused_relax_matches_plain(cuda, case, dtype, real):
+    """K6 RB in the form the gate names: 0 ulp, p unwritten, counted under
+    the form's name."""
     shape, ns = case
     cA, p, b = _full_inputs(*shape, dtype, cuda, seed=sum(shape))
     p0 = p.clone()
@@ -331,9 +343,9 @@ def test_fused_relax_matches_plain(cuda, case, dtype, real):
     torch.cuda.synchronize()
     assert torch.equal(p, p0)
     assert _maxdiff(got, want) == 0.0
-    key = "fused_relax" if kf.one_block(p) else "fused_relax_step"
-    n = 1 if key == "fused_relax" else 2 * ns
-    assert kf.LAUNCHES[key] == before[key] + n
+    key, n = _k6_launches(p, "RB", ns)
+    assert {k: v - before[k] for k, v in kf.LAUNCHES.items()} == {
+        k: (n if k == key else 0) for k in kf.LAUNCHES}
 
 
 # the CUC level-0 shape in float32, two ragged shapes in both types
@@ -374,9 +386,10 @@ def test_full_layout_wrappers_reject_bad_input(cuda):
 @pytest.mark.parametrize("case", K6_CASES)
 @pytest.mark.parametrize("kind", ["FC", "GS"])
 def test_fused_relax_orderings_match_plain(cuda, case, kind, dtype):
-    """K6's four-colour and column-Jacobi forms, both forms, with and
-    without 'real': 0 ulp, the inputs unwritten, each counted under its
-    own name (ncolor launches a sweep in the per-colour-step form)."""
+    """K6's four-colour and column-Jacobi orderings in the form the gate
+    names, with and without 'real': 0 ulp, the inputs unwritten, each
+    counted under its own name (ncolor launches a sweep in the
+    per-colour-step form, one a call in the others)."""
     shape, ns = case
     cA, p, b = _full_inputs(*shape, dtype, cuda, seed=sum(shape) + 1)
     p0 = p.clone()
@@ -387,8 +400,7 @@ def test_fused_relax_orderings_match_plain(cuda, case, kind, dtype):
         torch.cuda.synchronize()
         assert torch.equal(p, p0)
         assert _maxdiff(got, want) == 0.0
-        key = kf.launch_name(p, kind)
-        n = 1 if kf.one_block(p) else kf.KINDS[kind].ncolor * ns
+        key, n = _k6_launches(p, kind, ns)
         assert {k: v - before[k] for k, v in kf.LAUNCHES.items()} == {
             k: (n if k == key else 0) for k in kf.LAUNCHES}
 
@@ -397,25 +409,75 @@ def test_fused_relax_orderings_match_plain(cuda, case, kind, dtype):
 @pytest.mark.parametrize("shape", [(3, 5, 33), (4, 9, 70), (2, 1, 1),
                                    (5, 2, 3), (1, 6, 5)])
 @pytest.mark.parametrize("kind", ["RB", "FC", "GS"])
-def test_fused_relax_step_form_matches_plain(cuda, monkeypatch, shape, kind,
+@pytest.mark.parametrize("form", ["step", "block", "cluster"])
+def test_fused_relax_step_form_matches_plain(cuda, form, shape, kind,
                                              dtype):
-    """K6's per-colour-step form (forced at every shape) in each ordering,
-    with and without 'real', at widths that are not a multiple of its
-    32-column rows and on levels whose every column is an edge or a corner
-    (the edge-copy halo reads the column itself): 0 ulp, p, b and cA
-    unwritten, ncolor launches a sweep."""
-    monkeypatch.setattr(kf, "ONE_BLOCK_BYTES", 0)
+    """Each of K6's forms (forced at every shape, whatever the gate says)
+    in each ordering, with and without 'real', at widths that are not a
+    multiple of the step form's 32-column rows and on levels whose every
+    column is an edge or a corner (the edge-copy halo reads the column
+    itself): 0 ulp, p, b and cA unwritten, ncolor launches a sweep in the
+    per-colour-step form, one a call in the others."""
     cA, p, b = _full_inputs(*shape, dtype, cuda, seed=sum(shape) + 2)
     inputs = tuple(x.clone() for x in (p, b, cA))
+    name = kf.KINDS[kind].name(form)
     for real in (True, False):
-        before = kf.LAUNCHES[kf.KINDS[kind].step]
-        got = kf.fused_relax(p, b, cA, 3, kind, real)
+        before = kf.LAUNCHES[name]
+        got = kf.fused_relax_form(p, b, cA, 3, kind, real, form)
         want = kf.fused_relax_plain(p, b, cA, 3, kind, real)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(inputs, (p, b, cA)))
         assert torch.equal(got, want)
-        assert (kf.LAUNCHES[kf.KINDS[kind].step]
-                == before + 3 * kf.KINDS[kind].ncolor)
+        assert kf.LAUNCHES[name] == before + (
+            3 * kf.KINDS[kind].ncolor if form == "step" else 1)
+
+
+# the one-launch forms at the gate's edges, forced: the largest one-block
+# shapes (1024 threads; the last shared-memory plane), nz 1, the smallest
+# cluster (two rows), CUC levels 4 and 3 and seamount levels 2 and 1 in
+# the cluster form (16 blocks; level 3 in float64 too, its records in
+# device memory), ragged widths
+K6_EDGES = [("block", (2, 32, 32)), ("block", (1, 32, 63)),
+            ("block", (5, 16, 31)), ("block", (8, 8, 8)),
+            ("cluster", (3, 2, 9)), ("cluster", (1, 17, 5)),
+            ("cluster", (4, 64, 64)), ("cluster", (8, 128, 128)),
+            ("cluster", (16, 16, 16)), ("cluster", (32, 32, 32)),
+            ("cluster", (2, 40, 33))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", K6_EDGES)
+@pytest.mark.parametrize("kind", ["RB", "FC", "GS"])
+def test_fused_relax_one_launch_edges(cuda, case, kind, dtype):
+    """K6's one-launch forms at the gate's edges, every ordering, with
+    and without 'real', 2 sweeps: 0 ulp from the plain version, one launch
+    a call; the cluster form runs 16 blocks (8 where 16 cannot be
+    resident), or ny where fewer rows."""
+    form, shape = case
+    cA, p, b = _full_inputs(*shape, dtype, cuda, seed=sum(shape) + 3)
+    for real in (True, False):
+        plan = {}
+        got = kf.fused_relax_form(p, b, cA, 2, kind, real, form, plan)
+        want = kf.fused_relax_plain(p, b, cA, 2, kind, real)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (plan, _maxdiff(got, want))
+        want_blocks = (1,) if form == "block" else (min(16, shape[1]),
+                                                    min(8, shape[1]))
+        assert plan["blocks"] in want_blocks, plan
+
+
+def test_fused_relax_refused_launch_raises(cuda):
+    """A one-launch form that cannot hold the level raises (no fallback
+    to the step form): the CUC level-0 shape in a cluster, a 64^3 level
+    in one block."""
+    for form, shape in (("cluster", (64, 1024, 1024)),
+                        ("block", (64, 64, 64))):
+        cA, p, b = _full_inputs(*shape, torch.float32, cuda, seed=5)
+        before = dict(kf.LAUNCHES)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kf.fused_relax_form(p, b, cA, 1, "RB", True, form)
+        assert kf.LAUNCHES == before
+        del cA, p, b
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -463,8 +525,9 @@ def test_use_pallas_solve_equals_default(cuda, compact):
                                                device=cuda),
                            tol=1e-5, maxiter=4)
         hist.append(info.history)
-        k6 = kf.LAUNCHES["fused_relax"]
+        k6 = sum(kf.LAUNCHES.values())
         assert (k6 > 0) == use_pallas, kf.LAUNCHES
+        assert (kf.LAUNCHES["fused_relax"] > 0) == use_pallas, kf.LAUNCHES
         if not compact:
             assert sum(kt.LAUNCHES.values()) == 0, kt.LAUNCHES
     np.testing.assert_allclose(hist[1], hist[0], rtol=1e-6, atol=0)
@@ -864,3 +927,25 @@ def test_dma_probes_reject_bad_input(cuda):
         dp.probe_blocks([torch.rand((2, 16, 128), device=cuda)] * 65, 8)
     with pytest.raises(ValueError):                 # W not 128 lanes wide
         dp.probe_wide_stream(torch.rand((2, 16, 200), device=cuda), 8)
+
+
+@pytest.mark.parametrize("shape,nsteps", [((2, 32, 32), 80), ((4, 4, 4), 80),
+                                          ((4, 64, 64), 6), ((3, 17, 9), 5)])
+@pytest.mark.parametrize("cluster", [False, True])
+def test_step_floor_matches_plain(cuda, shape, nsteps, cluster):
+    """K10's step-floor probe in one block and in a cluster: 0 ulp from
+    its plain version, one launch; the cluster of min(16, ny) blocks (8
+    where 16 cannot be resident)."""
+    from mgroms_tpu_torch.ops.kernels import roofline as rl
+    if not cluster and shape[1] * ((shape[2] + 1) // 2) > 1024:
+        pytest.skip("one block holds at most 1024 columns of a colour")
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.rand(shape, generator=g, device=cuda) + 0.5
+    before = rl.LAUNCHES["step_floor"]
+    got, blocks = rl.step_floor(x, nsteps, cluster)
+    want = rl.step_floor_plain(x.cpu(), nsteps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert rl.LAUNCHES["step_floor"] == before + 1
+    assert blocks in ((min(16, shape[1]), min(8, shape[1])) if cluster
+                      else (1,))

@@ -91,19 +91,225 @@ def test_orderings_plain_match_jax_kernel(jax_levels, kind, lev, nsweeps):
     assert all(v == 0 for v in kf.LAUNCHES.values())
 
 
-def test_launch_names_and_unknown_kind():
-    """Each ordering and form counts under its own name; an unknown
-    ordering raises."""
-    small, big = torch.zeros((2, 4, 4)), torch.zeros((64, 64, 64))
+# the form the gate gives every level of seamount 64^3 and CUC 1024^2 x
+# 64, in float32 and float64 (PERF.md gives the card's timings behind it)
+GATE = {
+    (64, 64, 64): ("step", "step"),
+    (32, 32, 32): ("step", "step"),
+    (16, 16, 16): ("step", "step"),
+    (8, 8, 8): ("block", "block"),
+    (4, 4, 4): ("block", "block"),
+    (64, 1024, 1024): ("step", "step"),
+    (32, 512, 512): ("step", "step"),
+    (16, 256, 256): ("step", "step"),
+    (8, 128, 128): ("step", "step"),
+    (4, 64, 64): ("cluster", "step"),
+    (2, 32, 32): ("block", "block"),
+}
+
+
+@pytest.mark.parametrize("case", ["seamount", "cuc"])
+def test_launch_names_and_unknown_kind(case):
+    """The gate is a function of shape and dtype: each level of the
+    case's plan takes the form GATE pins, in float32 and float64; each
+    ordering and form counts under its own name; an unknown ordering or
+    form raises."""
+    from mgroms_tpu_torch.levels import build_level_plan
+    grid = (64, 64, 64) if case == "seamount" else (1024, 1024, 64)
+    shapes = [(s.nzg, s.nyg, s.nxg) for s in build_level_plan(*grid)]
+    assert len(shapes) == (5 if case == "seamount" else 6)
+    for shape in shapes:
+        got = tuple(kf.form(shape, dt) for dt in (torch.float32,
+                                                  torch.float64))
+        assert got == GATE[shape], (shape, got)
+        for dt in (torch.float32, torch.float64):
+            x = torch.zeros(shape, dtype=dt)
+            assert [kf.launch_name(x, k) for k in ("RB", "FC", "GS")] == [
+                kf.KINDS[k].name(got[dt == torch.float64]) for k in
+                ("RB", "FC", "GS")]
+    small = torch.zeros((2, 4, 4))
     assert [kf.launch_name(small, k) for k in ("RB", "FC", "GS")] == [
         "fused_relax", "fused_relax_fc", "fused_relax_gs"]
-    assert [kf.launch_name(big, k) for k in ("RB", "FC", "GS")] == [
-        "fused_relax_step", "fused_relax_step_fc", "fused_relax_step_gs"]
     assert sorted(kf.LAUNCHES) == sorted(
-        kf.launch_name(x, k) for x in (small, big) for k in kf.KINDS)
+        kf.KINDS[k].name(f) for f in kf.FORMS for k in kf.KINDS)
     with pytest.raises(ValueError, match="unknown relax kind"):
         kf.fused_relax(small, small, torch.zeros((8, 2, 6, 6)), 1, "XY",
                        True)
+    with pytest.raises(ValueError, match="unknown form"):
+        kf.fused_relax_form(small, small, torch.zeros((8, 2, 6, 6)), 1,
+                            "RB", True, "grid")
+
+
+def np_resident(p, b, cA, nsweeps, kind, real, nblocks):
+    """The one-launch forms' recipe (csrc/relax_fused.cu relax_resident)
+    in float64 scalars: ``nblocks`` blocks (1: the one-block form) each
+    hold a band of rows r * ny // nblocks .. in their own buffers and read
+    the rows next to it from the neighbour block's (asserted: no other);
+    each thread's two slots (one column of each RB colour, GS's two parity
+    classes; FC's two thread groups, colours 0-1 and 2-3) hold records
+    computed once (the Thomas factors with the
+    plain version's divisions); a step solves its columns in reverse
+    thread order, each written the moment it is solved (RB and FC in
+    place; GS into the other buffer), RB's 'real' diagonals read from the
+    plane-0 snapshot, which takes a column's new value a step later."""
+    nz, ny, nx = p.shape
+    hx = (nx + 1) // 2
+    ncolor = {"RB": 2, "FC": 4, "GS": 1}[kind]
+    rows_max = -(-ny // nblocks)
+    # FC: two groups of threads, group g owning colours 2g and 2g + 1
+    nt0 = ((rows_max + 1) // 2 if kind == "FC" else rows_max) * hx
+    nt = 2 * nt0 if kind == "FC" else nt0
+    slots = lambda t: (2 * (t // nt0) + ls for ls in (0, 1))
+    lo = [r * ny // nblocks for r in range(nblocks + 1)]
+    owner = [next(r for r in range(nblocks) if lo[r] <= j < lo[r + 1])
+             for j in range(ny)]
+    A = [p[:, lo[r]:lo[r + 1]].tolist() for r in range(nblocks)]
+    B = [p[:, lo[r]:lo[r + 1]].tolist() for r in range(nblocks)]
+    S0 = [[row[:] for row in A[r][0]] for r in range(nblocks)]
+
+    def band(n, kk, j, i, dj=0, di=0):
+        if kk < 0 or kk >= nz:
+            return 0.0
+        return float(cA[n, kk, j + 1 + dj, i + 1 + di])
+
+    def column(r, t, s):
+        lr, m = divmod(t % nt0, hx)
+        if kind == "FC":
+            j = lo[r] + ((lo[r] + (s & 1)) & 1) + 2 * lr
+            i = 2 * m + (s >> 1)
+        else:
+            j = lo[r] + lr
+            i = 2 * m + ((j + s) & 1)
+        return (j, i) if j < lo[r + 1] and i < nx else None
+
+    def read(bufs, r, k, jj, ii):
+        """plane k (0 outside the column) of row jj, as block r sees it"""
+        if k < 0 or k >= nz:
+            return 0.0
+        o = owner[jj]
+        assert abs(o - r) <= 1
+        return bufs[o][k][jj - lo[o]][ii]
+
+    rec = {}
+    for r in range(nblocks):
+        for t in range(nt):
+            for s in slots(t):
+                col = column(r, t, s)
+                if col is None:
+                    continue
+                j, i = col
+                planes, bet = [], 0.0
+                for k in range(nz):
+                    v = [band(2, k, j, i), band(2, k - 1, j, i, 1, 0),
+                         band(3, k, j, i), band(3, k, j, i, 1, 0),
+                         band(4, k, j, i), band(4, k + 1, j, i, 1, 0),
+                         band(5, k, j, i), band(5, k - 1, j, i, 0, 1),
+                         band(6, k, j, i), band(6, k, j, i, 0, 1),
+                         band(7, k, j, i), band(7, k + 1, j, i, 0, 1)]
+                    dd = band(1, k, j, i) if k > 0 else 0.0
+                    if nz == 1:
+                        bet = band(0, 0, j, i)
+                    elif k == 0:
+                        bet = 1.0 / band(0, 0, j, i)
+                    else:
+                        gm = dd * bet
+                        planes[k - 1][14] = gm
+                        bet = 1.0 / (band(0, k, j, i) - dd * gm)
+                    planes.append(v + [dd, bet, 0.0, float(b[k, j, i])])
+                rec[r, t, s] = (planes, band(4, 0, j, i, -1, 1),
+                                band(7, 0, j, i, 1, 1))
+
+    def solve(r, t, s, rd, wr):
+        col = column(r, t, s)
+        if col is None:
+            return None
+        j, i = col
+        planes, r0, r1 = rec[r, t, s]
+        cl = lambda jj, ii: (min(max(jj, 0), ny - 1), min(max(ii, 0), nx - 1))
+        nbr = [cl(j - 1, i), cl(j + 1, i), cl(j, i - 1), cl(j, i + 1)]
+        st = lambda k, d: read(rd, r, k, *nbr[d])
+        xf, x = [], 0.0
+        for k in range(nz):
+            v = planes[k]
+            s_ = v[0] * st(k + 1, 0)
+            s_ = s_ + v[1] * st(k - 1, 1)
+            s_ = s_ + v[2] * st(k, 0)
+            s_ = s_ + v[3] * st(k, 1)
+            s_ = s_ + v[4] * st(k - 1, 0)
+            s_ = s_ + v[5] * st(k + 1, 1)
+            s_ = s_ + v[6] * st(k + 1, 2)
+            s_ = s_ + v[7] * st(k - 1, 3)
+            s_ = s_ + v[8] * st(k, 2)
+            s_ = s_ + v[9] * st(k, 3)
+            s_ = s_ + v[10] * st(k - 1, 2)
+            s_ = s_ + v[11] * st(k + 1, 3)
+            if real and k == 0:
+                def diag(jj, ii):
+                    jj, ii = cl(jj, ii)
+                    same = (jj + ii + j + i) % 2 == 0
+                    return read([[pl] for pl in S0] if kind == "RB"
+                                and same else rd, r, 0, jj, ii)
+                x0 = v[4] * diag(j + 1, i - 1)
+                x0 = x0 + r0 * diag(j - 1, i + 1)
+                x0 = x0 + v[10] * diag(j - 1, i - 1)
+                x0 = x0 + r1 * diag(j + 1, i + 1)
+                s_ = s_ + x0
+            rhs = v[15] - s_
+            if nz == 1:
+                x = rhs / v[13]
+            elif k == 0:
+                x = rhs * v[13]
+            else:
+                x = (rhs - v[12] * x) * v[13]
+            xf.append(x)
+        mine = rd[r]
+        for k in range(nz - 1, -1, -1):
+            if k < nz - 1:
+                x = xf[k] - planes[k][14] * x
+            po = mine[k][j - lo[r]][i]
+            wr[r][k][j - lo[r]][i] = po + (x - po)
+        return j, i, wr[r][0][j - lo[r]][i]
+
+    pend = []
+    rd, wr = A, (B if kind == "GS" else A)
+    for _ in range(nsweeps):
+        for c in range(ncolor):
+            for r, j, i, v in pend:
+                S0[r][j - lo[r]][i] = v
+            pend = []
+            for r in reversed(range(nblocks)):
+                for t in reversed(range(nt)):
+                    for s in ((0, 1) if kind == "GS" else (c,)):
+                        if s not in slots(t):
+                            continue
+                        got = solve(r, t, s, rd, wr)
+                        if got and kind == "RB" and real:
+                            pend.append((r, *got))
+            if kind == "GS":
+                rd, wr = wr, rd
+    return np.concatenate([np.array(rd[r]) for r in range(nblocks)], axis=1)
+
+
+@pytest.mark.parametrize("nblocks", [1, 3])
+@pytest.mark.parametrize("shape", [(1, 7, 5), (2, 7, 5), (4, 7, 5),
+                                   (1, 4, 6), (2, 4, 6), (4, 4, 6)])
+@pytest.mark.parametrize("real", [True, False])
+@pytest.mark.parametrize("kind", ["RB", "FC", "GS"])
+def test_one_launch_recipe_matches_plain(kind, real, shape, nblocks):
+    """The one-launch forms' recipe (np_resident; nblocks 3: a cluster
+    whose band count divides neither ny = 7 nor ny = 4) equals
+    fused_relax_plain bit for bit in float64, nz 1, 2 and 4, ragged widths,
+    with and without 'real', over 3 sweeps."""
+    rng = np.random.default_rng(sum(shape) + nblocks)
+    nz, ny, nx = shape
+    cA = rng.uniform(-0.1, 0.1, (8, nz, ny + 2, nx + 2))
+    cA[0] -= 4.0
+    p = rng.standard_normal(shape)
+    b = rng.standard_normal(shape)
+    want = kf.fused_relax_plain(torch.from_numpy(p), torch.from_numpy(b),
+                                torch.from_numpy(cA), 3, kind, real).numpy()
+    got = np_resident(p, b, cA, 3, kind, real, nblocks)
+    assert np.array_equal(got, want), np.abs(got - want).max()
 
 
 def _port(dtype="float32", **kw):

@@ -180,6 +180,42 @@ def test_fma_run_plain_matches_numpy(seed):
                                    atol=rl.FMA_RTOL * np.abs(want).max())
 
 
+def np_step_floor(x, nsteps):
+    """The step-floor probe (roofline.cu step_floor_kernel) column by
+    column in float32: in step s the columns with (j + i + s) even, each
+    from the state before the step."""
+    x = x.copy()
+    nz, ny, nx = x.shape
+    h = np.float32(rl.FLOOR_H)
+    for step in range(nsteps):
+        old = x.copy()
+        for j in range(ny):
+            for i in range(nx):
+                if (j + i + step) % 2:
+                    continue
+                acc = np.float32(old[0, max(j - 1, 0), i] * h)
+                for k in range(nz):
+                    acc = np.float32(np.float32(acc * h) + old[k, j, i])
+                x[0, j, i] = acc
+    return x
+
+
+@pytest.mark.parametrize("shape,nsteps", [((2, 32, 32), 6), ((4, 4, 4), 9),
+                                          ((1, 5, 7), 4), ((3, 6, 5), 5)])
+def test_step_floor_plain_matches_numpy(shape, nsteps):
+    """step_floor_plain and the CPU wrapper == the column-by-column
+    transcription bit for bit, at K6's coarsest shapes and ragged ones."""
+    x = np.random.default_rng(sum(shape)).uniform(0.5, 1.5, shape).astype(
+        np.float32)
+    want = np_step_floor(x, nsteps)
+    got, blocks = rl.step_floor(torch.from_numpy(x), nsteps)
+    assert blocks == 1
+    assert np.array_equal(rl.step_floor_plain(torch.from_numpy(x),
+                                              nsteps).numpy(), want)
+    assert np.array_equal(got.numpy(), want)
+    assert rl.LAUNCHES["step_floor"] == 0
+
+
 def test_counts():
     """The flop count of fma_run (micro_roofline.py:283) and the bytes
     dma_only must move at the CUC level-0 quad shape."""
