@@ -199,7 +199,51 @@ struct ResArgs {
     T* grec;           // the records in device memory (unless resident)
     ResPlan pl;
     int real, nsweeps;
+    int gs_one;        // GS: one buffer, a second barrier a step
 };
+
+// The N planes of one column, contiguous in shared memory (local or of a
+// neighbour block), in the fewest vector loads / stores (8 or 16 bytes)
+template <typename T, int N>
+__device__ __forceinline__ void load_col(const T* p, T* out) {
+    if constexpr (N * sizeof(T) == 8 && sizeof(T) == 4) {
+        const float2 v = *reinterpret_cast<const float2*>(p);
+        out[0] = v.x;
+        out[1] = v.y;
+    } else if constexpr (N * sizeof(T) % 16 == 0) {
+        using V = typename Vec<T>::type;
+#pragma unroll
+        for (int q = 0; q < N * (int)sizeof(T) / 16; ++q) {
+            const V v = reinterpret_cast<const V*>(p)[q];
+#pragma unroll
+            for (int e = 0; e < Vec<T>::n; ++e)
+                out[q * Vec<T>::n + e] = reinterpret_cast<const T*>(&v)[e];
+        }
+    } else {
+#pragma unroll
+        for (int q = 0; q < N; ++q) out[q] = p[q];
+    }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_col(T* p, const T* in) {
+    if constexpr (N * sizeof(T) == 8 && sizeof(T) == 4) {
+        *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
+    } else if constexpr (N * sizeof(T) % 16 == 0) {
+        using V = typename Vec<T>::type;
+#pragma unroll
+        for (int q = 0; q < N * (int)sizeof(T) / 16; ++q) {
+            V v;
+#pragma unroll
+            for (int e = 0; e < Vec<T>::n; ++e)
+                reinterpret_cast<T*>(&v)[e] = in[q * Vec<T>::n + e];
+            reinterpret_cast<V*>(p)[q] = v;
+        }
+    } else {
+#pragma unroll
+        for (int q = 0; q < N; ++q) p[q] = in[q];
+    }
+}
 
 // nsweeps * ncolor colour steps of ordering KIND on the rows of one block
 // (CLUSTER: one block of a thread block cluster that holds the level, the
@@ -212,11 +256,15 @@ struct Resident {
     static constexpr bool REG = NZ > 0;
     static constexpr int NCOLOR = KIND == kRB ? 2 : (KIND == kFC ? 4 : 1);
     static constexpr int VPR = kRec / Vec<T>::n;   // vectors a plane record
+    // the state buffers' layout: REG column-major (a column's NZ planes
+    // contiguous, one vector load a column), else plane-major; CS the
+    // stride of a column, KS (runtime) the stride of a plane
+    static constexpr int CS = REG ? NZ : 1;
 
     const ResArgs<T> a;
     const ResPlan pl;
     int nz_, ny, nx, hx, nb, j0, j1, j0u, t, NT, gr, lr, m;
-    size_t PS, P, G, NV;
+    size_t PS, KS, P, G, NV;
     T *bufA, *bufB, *S0, *fw;
     V* srec;
     T *upA = nullptr, *dnA = nullptr, *upB = nullptr, *dnB = nullptr,
@@ -245,6 +293,7 @@ struct Resident {
         lr = tl / hx;
         m = tl % hx;
         PS = (size_t)pl.rows_max * nx;     // a plane of the band buffers
+        KS = REG ? 1 : PS;
         P = (size_t)ny * nx;
         G = (size_t)ny * hx;               // global slots of one class
         NV = (size_t)nz_ * VPR + 1;         // vectors of a slot's records
@@ -294,12 +343,15 @@ struct Resident {
     }
 
     // plane 0 of row jj (of this band or next to it), column ii, of a
-    // buffer given here and at the neighbour blocks
-    __device__ __forceinline__ T* at(T* loc, T* up, T* dn, int jj,
-                                     int ii) const {
-        if (CLUSTER && jj < j0) return up + (size_t)(jj - j0u) * nx + ii;
-        if (CLUSTER && jj >= j1) return dn + (size_t)(jj - j1) * nx + ii;
-        return loc + (size_t)(jj - j0) * nx + ii;
+    // buffer given here and at the neighbour blocks: a state buffer
+    // (column stride cs = CS) or RB's plane-0 snapshot (cs = 1)
+    __device__ __forceinline__ T* at(T* loc, T* up, T* dn, int jj, int ii,
+                                     int cs = CS) const {
+        if (CLUSTER && jj < j0)
+            return up + ((size_t)(jj - j0u) * nx + ii) * cs;
+        if (CLUSTER && jj >= j1)
+            return dn + ((size_t)(jj - j1) * nx + ii) * cs;
+        return loc + ((size_t)(jj - j0) * nx + ii) * cs;
     }
 
     // vector q of the records of local slot ls (slot s, row j) in memory
@@ -414,12 +466,25 @@ struct Resident {
         // (j, i+1), the edge copy clamped to the column itself)
         const T* nbr[4] = {at(rl, ru, rd, jn, i), at(rl, ru, rd, js, i),
                            at(rl, ru, rd, j, iw), at(rl, ru, rd, j, ie)};
+        // the neighbours' planes k - 1, k, k + 1 (0 outside the column);
+        // REG: each neighbour's and the column's own planes in registers
+        T nb[4][REG ? NZ : 1];
+        if constexpr (REG) {
+#pragma unroll
+            for (int d = 0; d < 4; ++d) load_col<T, NZ>(nbr[d], nb[d]);
+            load_col<T, NZ>(at(rl, ru, rd, j, i), po);
+        }
+        auto plane = [&](int d, int kk) -> T {
+            if (kk >= nz) return T(0);
+            if constexpr (REG) return nb[d][kk < NZ ? kk : 0];
+            else return nbr[d][(size_t)kk * KS];
+        };
         T wm[4], w0[4], wp[4];
 #pragma unroll
         for (int d = 0; d < 4; ++d) {
             wm[d] = T(0);
-            w0[d] = nbr[d][0];
-            wp[d] = nz > 1 ? nbr[d][PS] : T(0);
+            w0[d] = plane(d, 0);
+            wp[d] = plane(d, 1);
         }
         T x = T(0);
         __align__(16) T nv[kRec];          // the next plane's record
@@ -464,17 +529,13 @@ struct Resident {
             if (nz == 1) x = rhs / v[13];
             else if (k == 0) x = rhs * v[13];
             else x = (rhs - v[12] * x) * v[13];
-            if constexpr (REG) {
-                xf[k] = x;
-                po[k] = rl[(size_t)k * PS + (j - j0) * nx + i];
-            } else {
-                fw[((size_t)sa * nz + k) * NT + t] = x;
-            }
+            if constexpr (REG) xf[k] = x;
+            else fw[((size_t)sa * nz + k) * NT + t] = x;
 #pragma unroll
             for (int d = 0; d < 4; ++d) {
                 wm[d] = w0[d];
                 w0[d] = wp[d];
-                wp[d] = k + 2 < nz ? nbr[d][(size_t)(k + 2) * PS] : T(0);
+                wp[d] = plane(d, k + 2);
             }
         }
     }
@@ -494,6 +555,7 @@ struct Resident {
         if (!column(s, j, i)) return -1;
         const int own = (j - j0) * nx + i;
         T x = T(0);
+        T nws[REG ? NZ : 1];
 #pragma unroll (REG ? NZ : 1)
         for (int kk = 0; kk < nz; ++kk) {
             const int k = nz - 1 - kk;
@@ -513,9 +575,11 @@ struct Resident {
             }
             const T pk = REG ? po[k] : rl[(size_t)k * PS + own];
             const T nw = pk + (x - pk);
-            wl[(size_t)k * PS + own] = nw;
+            if constexpr (REG) nws[k] = nw;
+            else wl[(size_t)k * PS + own] = nw;
             p0 = nw;
         }
+        if constexpr (REG) store_col<T, NZ>(wl + (size_t)own * CS, nws);
         return own;
     }
 
@@ -526,7 +590,7 @@ struct Resident {
         jj = jj < 0 ? 0 : (jj >= ny ? ny - 1 : jj);
         ii = ii < 0 ? 0 : (ii >= nx ? nx - 1 : ii);
         if (KIND == kRB && ((jj + ii + j + i) & 1) == 0)
-            return *at(S0, upS, dnS, jj, ii);
+            return *at(S0, upS, dnS, jj, ii, 1);
         return *at(rl, ru, rd, jj, ii);
     }
 
@@ -548,11 +612,17 @@ struct Resident {
             if constexpr (KIND == kGS) {
                 forward<0>(0, rA, rU, rD, xf0, po0);
                 forward<1>(1, rA, rU, rD, xf1, po1);
-                back<0>(0, rA, wA, xf0, po0, p0);
-                back<1>(1, rA, wA, xf1, po1, p0);
-                T* x = rA; rA = wA; wA = x;
-                x = rU; rU = wU; wU = x;
-                x = rD; rD = wD; wD = x;
+                if (a.gs_one) {
+                    barrier();
+                    back<0>(0, rA, rA, xf0, po0, p0);
+                    back<1>(1, rA, rA, xf1, po1, p0);
+                } else {
+                    back<0>(0, rA, wA, xf0, po0, p0);
+                    back<1>(1, rA, wA, xf1, po1, p0);
+                    T* x = rA; rA = wA; wA = x;
+                    x = rU; rU = wU; wU = x;
+                    x = rD; rD = wD; wD = x;
+                }
             } else if (KIND == kRB || gr == (C >> 1)) {
                 constexpr int LS = KIND == kRB ? C : (C & 1);
                 forward<LS>(0, rA, rU, rD, xf0, po0);
@@ -582,7 +652,7 @@ struct Resident {
         for (size_t o = t; o < (size_t)nz * nband; o += NT) {
             const size_t k = o / nband, rest = o % nband;
             const T v = a.p[k * P + (size_t)j0 * nx + rest];
-            bufA[k * PS + rest] = v;
+            bufA[REG ? rest * CS + k : k * PS + rest] = v;
             if (KIND == kRB && a.real && k == 0) S0[rest] = v;
         }
         all_records<0>();
@@ -600,7 +670,8 @@ struct Resident {
         // the result: this band of the last state
         for (size_t o = t; o < (size_t)nz * nband; o += NT) {
             const size_t k = o / nband, rest = o % nband;
-            a.out[k * P + (size_t)j0 * nx + rest] = rA[k * PS + rest];
+            a.out[k * P + (size_t)j0 * nx + rest] =
+                rA[REG ? rest * CS + k : k * PS + rest];
         }
     }
 };
@@ -938,7 +1009,7 @@ ResPlan plan_resident(int nz, int ny, int nx, int nb) {
 template <typename T, int KIND>
 int launch_resident(const T* p, const T* b, const T* cA, T* out, T* recs,
                     int nz, int ny, int nx, int real, int nsweeps,
-                    int cluster, int* info, cudaStream_t s) {
+                    int cluster, int gs_one, int* info, cudaStream_t s) {
     const int cands[2] = {cluster ? (ny < kMaxClusterBlocks
                                      ? ny : kMaxClusterBlocks) : 1,
                           ny < 8 ? ny : 8};
@@ -948,7 +1019,7 @@ int launch_resident(const T* p, const T* b, const T* cA, T* out, T* recs,
         if (pl.total > (size_t)kMaxSmem || pl.nt > 1024 || pl.nt < 1
             || (!pl.reg && !pl.resident && recs == nullptr))
             return (int)cudaErrorInvalidValue;
-        const ResArgs<T> a{p, b, cA, out, recs, pl, real, nsweeps};
+        const ResArgs<T> a{p, b, cA, out, recs, pl, real, nsweeps, gs_one};
         if (pl.reg) {
             rc = nz == 2 ? (cluster ? run_resident<T, KIND, 2, true>(a, s)
                                     : run_resident<T, KIND, 2, false>(a, s))
@@ -979,6 +1050,8 @@ int launch_relax_fused(const void* p, const void* b, const void* cA,
                        void* out, void* scratch, int nz, int ny, int nx,
                        int real, int nsweeps, int kind, int form, int* info,
                        void* stream) {
+    const int gs_one = (form & 4) != 0;
+    form &= 3;
     if (kind < kRB || kind > kGS || form < 0 || form > 2 || nz < 1
         || ny < 1 || nx < 1)
         return (int)cudaErrorInvalidValue;
@@ -993,12 +1066,12 @@ int launch_relax_fused(const void* p, const void* b, const void* cA,
         const int cl = form == 2;
         if (kind == kRB)
             return launch_resident<T, kRB>(pt, bt, ct, ot, sc, nz, ny, nx,
-                                           real, nsweeps, cl, info, s);
+                                           real, nsweeps, cl, gs_one, info, s);
         if (kind == kFC)
             return launch_resident<T, kFC>(pt, bt, ct, ot, sc, nz, ny, nx,
-                                           real, nsweeps, cl, info, s);
+                                           real, nsweeps, cl, gs_one, info, s);
         return launch_resident<T, kGS>(pt, bt, ct, ot, sc, nz, ny, nx, real,
-                                       nsweeps, cl, info, s);
+                                       nsweeps, cl, gs_one, info, s);
     }
     if (kind == kRB)
         return launch_steps<T, kRB>(pt, bt, ct, ot, sc, g, real, nsweeps, s);

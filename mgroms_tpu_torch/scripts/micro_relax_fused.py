@@ -18,11 +18,15 @@ the state in and out) from its cost a sweep.  Every call is held to the plain ve
 
     python -m mgroms_tpu_torch.scripts.micro_relax_fused
     PYTHONPATH=<an earlier checkout> python <this file> --gated
+    PYTHONPATH=<an earlier checkout> python <this file> --histories
 
 ``--gated`` times only ``relax_fused.fused_relax`` (the form the imported
 package's gate picks) through the calls every tree of the port has, so
 the same file, run by path against an earlier checkout, times that
-tree's K6 at the same shapes in the same call.
+tree's K6 at the same shapes in the same call.  ``--histories`` prints,
+with every digit, the residual histories of the solves that run K6
+(``chip_smoke.py`` phases 5, 6, 7, 15 and 16: float32, the same cycle
+limits), through the public API any tree of the port has.
 """
 
 from __future__ import annotations
@@ -135,14 +139,90 @@ def timed(dev=None, gated=False) -> list:
     return rows
 
 
+# chip_smoke.py phases 5, 6, 7, 15, 16: (phase, grid, case, config,
+# maxiter, tol)
+SOLVES = [
+    (5, (64, 64, 64), "seamount", dict(use_pallas=True), 3, 1e-4),
+    (6, (1024, 1024, 64), "cuc", dict(use_pallas=True), 8, 1e-4),
+    (7, (1024, 1024, 64), "cuc", dict(use_pallas=True, compact=False), 8,
+     1e-4),
+    (15, (1024, 1024, 64), "cuc", dict(relax_method="FC", use_pallas=True,
+                                       compact=False), 3, 1e-4),
+    (16, (1024, 1024, 64), "cuc", dict(relax_method="GS", use_pallas=True),
+     2, 0.0),
+]
+
+
+def histories(dev=None) -> dict:
+    """The residual history of each solve of :data:`SOLVES`, printed with
+    every digit (repr)."""
+    from mgroms_tpu_torch import NHModel, SolverConfig
+    from mgroms_tpu_torch.cases.cuc import setup_cuc_synthetic
+    from mgroms_tpu_torch.cases.seamount import (initial_velocities,
+                                                 setup_seamount)
+    dev = card(dev)
+    out = {}
+    for phase, (nx, ny, nz), case, cfg, maxiter, tol in SOLVES:
+        c = (setup_seamount if case == "seamount"
+             else setup_cuc_synthetic)(nx, ny, nz)
+        m = NHModel(nx, ny, nz, cfg=SolverConfig(dtype="float32", **cfg),
+                    device=dev)
+        m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
+                       theta_b=c.theta_b, theta_s=c.theta_s)
+        u, v, w = initial_velocities(nx, ny, nz, dtype=m.dtype, device=dev)
+        *_, info = m.solve(u, v, w, tol=tol, maxiter=maxiter)
+        out[phase] = [repr(float(h)) for h in info.history]
+        print(json.dumps({"phase": phase, "history": out[phase]}),
+              flush=True)
+        del m, c, u, v, w
+        torch.cuda.empty_cache()
+    return out
+
+
+# the one-launch forms' ablation: (shape, sweeps, form)
+ABLATION = [((2, 32, 32), 40, "block"), ((4, 4, 4), 40, "block"),
+            ((4, 64, 64), 3, "cluster")]
+
+
+def ablation(dev=None) -> list:
+    """Device time of each one-launch form of :data:`ABLATION` in each
+    ordering with and without the 'real' couplings, and GS with one
+    state buffer and a second barrier a step against two buffers."""
+    dev = card(dev)
+    rows = []
+    for shape, ns, form in ABLATION:
+        cA, p, b = inputs(shape, dev, sum(shape))
+        for kind in ("RB", "FC", "GS"):
+            for real in (True, False):
+                for one in ((False, True) if kind == "GS" else (False,)):
+                    call = lambda: kf.fused_relax_form(
+                        p, b, cA, ns, kind, real, form, gs_one_buffer=one)
+                    want = kf.fused_relax_plain(p, b, cA, ns, kind, real)
+                    assert torch.equal(call(), want), (shape, kind, real)
+                    r = dict(shape=list(shape), sweeps=ns, form=form,
+                             kind=kind, real=real, gs_one_buffer=one,
+                             dev_ms=device_ms(call), ms=median_ms(call))
+                    rows.append(r)
+                    print(json.dumps(r), flush=True)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gated", action="store_true",
                     help="time only the gate's form (any tree of the port)")
+    ap.add_argument("--histories", action="store_true",
+                    help="print the histories of the solves that run K6")
+    ap.add_argument("--ablation", action="store_true")
     ap.add_argument("--label", default="", help="printed with the card")
     args = ap.parse_args()
     print(json.dumps({"card": card_line(), "label": args.label}))
-    timed(gated=args.gated)
+    if args.ablation:
+        ablation()
+    elif args.histories:
+        histories()
+    else:
+        timed(gated=args.gated)
 
 
 if __name__ == "__main__":
