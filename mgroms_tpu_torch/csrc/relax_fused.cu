@@ -199,7 +199,6 @@ struct ResArgs {
     T* grec;           // the records in device memory (unless resident)
     ResPlan pl;
     int real, nsweeps;
-    int gs_one;        // GS: one buffer, a second barrier a step
 };
 
 // The N planes of one column, contiguous in shared memory (local or of a
@@ -612,17 +611,11 @@ struct Resident {
             if constexpr (KIND == kGS) {
                 forward<0>(0, rA, rU, rD, xf0, po0);
                 forward<1>(1, rA, rU, rD, xf1, po1);
-                if (a.gs_one) {
-                    barrier();
-                    back<0>(0, rA, rA, xf0, po0, p0);
-                    back<1>(1, rA, rA, xf1, po1, p0);
-                } else {
-                    back<0>(0, rA, wA, xf0, po0, p0);
-                    back<1>(1, rA, wA, xf1, po1, p0);
-                    T* x = rA; rA = wA; wA = x;
-                    x = rU; rU = wU; wU = x;
-                    x = rD; rD = wD; wD = x;
-                }
+                back<0>(0, rA, wA, xf0, po0, p0);
+                back<1>(1, rA, wA, xf1, po1, p0);
+                T* x = rA; rA = wA; wA = x;
+                x = rU; rU = wU; wU = x;
+                x = rD; rD = wD; wD = x;
             } else if (KIND == kRB || gr == (C >> 1)) {
                 constexpr int LS = KIND == kRB ? C : (C & 1);
                 forward<LS>(0, rA, rU, rD, xf0, po0);
@@ -1009,7 +1002,7 @@ ResPlan plan_resident(int nz, int ny, int nx, int nb) {
 template <typename T, int KIND>
 int launch_resident(const T* p, const T* b, const T* cA, T* out, T* recs,
                     int nz, int ny, int nx, int real, int nsweeps,
-                    int cluster, int gs_one, int* info, cudaStream_t s) {
+                    int cluster, int* info, cudaStream_t s) {
     const int cands[2] = {cluster ? (ny < kMaxClusterBlocks
                                      ? ny : kMaxClusterBlocks) : 1,
                           ny < 8 ? ny : 8};
@@ -1019,7 +1012,7 @@ int launch_resident(const T* p, const T* b, const T* cA, T* out, T* recs,
         if (pl.total > (size_t)kMaxSmem || pl.nt > 1024 || pl.nt < 1
             || (!pl.reg && !pl.resident && recs == nullptr))
             return (int)cudaErrorInvalidValue;
-        const ResArgs<T> a{p, b, cA, out, recs, pl, real, nsweeps, gs_one};
+        const ResArgs<T> a{p, b, cA, out, recs, pl, real, nsweeps};
         if (pl.reg) {
             rc = nz == 2 ? (cluster ? run_resident<T, KIND, 2, true>(a, s)
                                     : run_resident<T, KIND, 2, false>(a, s))
@@ -1050,8 +1043,6 @@ int launch_relax_fused(const void* p, const void* b, const void* cA,
                        void* out, void* scratch, int nz, int ny, int nx,
                        int real, int nsweeps, int kind, int form, int* info,
                        void* stream) {
-    const int gs_one = (form & 4) != 0;
-    form &= 3;
     if (kind < kRB || kind > kGS || form < 0 || form > 2 || nz < 1
         || ny < 1 || nx < 1)
         return (int)cudaErrorInvalidValue;
@@ -1066,12 +1057,12 @@ int launch_relax_fused(const void* p, const void* b, const void* cA,
         const int cl = form == 2;
         if (kind == kRB)
             return launch_resident<T, kRB>(pt, bt, ct, ot, sc, nz, ny, nx,
-                                           real, nsweeps, cl, gs_one, info, s);
+                                           real, nsweeps, cl, info, s);
         if (kind == kFC)
             return launch_resident<T, kFC>(pt, bt, ct, ot, sc, nz, ny, nx,
-                                           real, nsweeps, cl, gs_one, info, s);
+                                           real, nsweeps, cl, info, s);
         return launch_resident<T, kGS>(pt, bt, ct, ot, sc, nz, ny, nx, real,
-                                       nsweeps, cl, gs_one, info, s);
+                                       nsweeps, cl, info, s);
     }
     if (kind == kRB)
         return launch_steps<T, kRB>(pt, bt, ct, ot, sc, g, real, nsweeps, s);

@@ -176,8 +176,7 @@ def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
 
 
 def fused_relax_form(p, b, cA, nsweeps: int, kind: str, real_matrix: bool,
-                     form_: str, plan: dict | None = None,
-                     gs_one_buffer: bool = False):
+                     form_: str, plan: dict | None = None):
     """:func:`fused_relax` in the form ``form_`` (one of :data:`FORMS`,
     whatever the gate says: the tests and the timings).  ``plan``, where
     given, receives a one-launch form's blocks, threads a block, where
@@ -205,7 +204,7 @@ def fused_relax_form(p, b, cA, nsweeps: int, kind: str, real_matrix: bool,
     with torch.cuda.device(p.device):
         rc = fn(ptr(p), ptr(b), ptr(cA), ptr(out), ptr(scratch), nz, ny, nx,
                 int(real_matrix), nsweeps, KINDS[kind].code,
-                FORMS.index(form_) | (4 if gs_one_buffer else 0), info,
+                FORMS.index(form_), info,
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, f"fused_relax ({form_})")
     if plan is not None and form_ != "step":

@@ -19,6 +19,7 @@ the state in and out) from its cost a sweep.  Every call is held to the plain ve
     python -m mgroms_tpu_torch.scripts.micro_relax_fused
     PYTHONPATH=<an earlier checkout> python <this file> --gated
     PYTHONPATH=<an earlier checkout> python <this file> --histories
+    python -m mgroms_tpu_torch.scripts.micro_relax_fused --ablation
 
 ``--gated`` times only ``relax_fused.fused_relax`` (the form the imported
 package's gate picks) through the calls every tree of the port has, so
@@ -27,6 +28,8 @@ tree's K6 at the same shapes in the same call.  ``--histories`` prints,
 with every digit, the residual histories of the solves that run K6
 (``chip_smoke.py`` phases 5, 6, 7, 15 and 16: float32, the same cycle
 limits), through the public API any tree of the port has.
+``--ablation`` times the one-launch forms at the coarsest levels and CUC
+level 4 with and without the 'real' couplings.
 """
 
 from __future__ import annotations
@@ -186,24 +189,23 @@ ABLATION = [((2, 32, 32), 40, "block"), ((4, 4, 4), 40, "block"),
 
 def ablation(dev=None) -> list:
     """Device time of each one-launch form of :data:`ABLATION` in each
-    ordering with and without the 'real' couplings, and GS with one
-    state buffer and a second barrier a step against two buffers."""
+    ordering with and without the 'real' couplings (the plane-0
+    diagonal terms, RB's snapshot)."""
     dev = card(dev)
     rows = []
     for shape, ns, form in ABLATION:
         cA, p, b = inputs(shape, dev, sum(shape))
         for kind in ("RB", "FC", "GS"):
             for real in (True, False):
-                for one in ((False, True) if kind == "GS" else (False,)):
-                    call = lambda: kf.fused_relax_form(
-                        p, b, cA, ns, kind, real, form, gs_one_buffer=one)
-                    want = kf.fused_relax_plain(p, b, cA, ns, kind, real)
-                    assert torch.equal(call(), want), (shape, kind, real)
-                    r = dict(shape=list(shape), sweeps=ns, form=form,
-                             kind=kind, real=real, gs_one_buffer=one,
-                             dev_ms=device_ms(call), ms=median_ms(call))
-                    rows.append(r)
-                    print(json.dumps(r), flush=True)
+                call = lambda: kf.fused_relax_form(p, b, cA, ns, kind, real,
+                                                   form)
+                want = kf.fused_relax_plain(p, b, cA, ns, kind, real)
+                assert torch.equal(call(), want), (shape, kind, real)
+                r = dict(shape=list(shape), sweeps=ns, form=form, kind=kind,
+                         real=real, dev_ms=device_ms(call),
+                         ms=median_ms(call))
+                rows.append(r)
+                print(json.dumps(r), flush=True)
     return rows
 
 
@@ -213,7 +215,8 @@ def main():
                     help="time only the gate's form (any tree of the port)")
     ap.add_argument("--histories", action="store_true",
                     help="print the histories of the solves that run K6")
-    ap.add_argument("--ablation", action="store_true")
+    ap.add_argument("--ablation", action="store_true",
+                    help="the one-launch forms with and without 'real'")
     ap.add_argument("--label", default="", help="printed with the card")
     args = ap.parse_args()
     print(json.dumps({"card": card_line(), "label": args.label}))
