@@ -748,6 +748,8 @@ def full_layout_kernels(dev, results):
                 fl = lambda: rl.step_floor(x, nsteps, form == "cluster")
                 step = lambda: kf.fused_relax_form(p, b, cA, ns, kind, True,
                                                    "step")
+                x1 = torch.zeros((1, 1, 1), device=dev)
+                empty = lambda: [rl.step_floor(x1, 0) for _ in range(nsteps)]
                 dev_ms = mrf.device_ms(kern)
                 floor_dev = mrf.device_ms(fl)
                 if timed == "json":
@@ -758,8 +760,12 @@ def full_layout_kernels(dev, results):
                       f"{median_ms(fl):.4f} ms: kernel / floor "
                       f"{dev_ms / floor_dev:.2f}; the step form at this "
                       f"shape: events {median_ms(step):.4f} ms, device "
-                      f"{mrf.device_ms(step):.4f} ms; the gate's form "
-                      f"{kf.form(shape, dtype)}")
+                      f"{mrf.device_ms(step):.4f} ms; its floors: "
+                      f"{nsteps} empty launches device "
+                      f"{mrf.device_ms(empty):.4f} ms, events "
+                      f"{median_ms(empty):.4f} ms, its bytes "
+                      f"{bound(nsteps * step_bytes(cA, p, kind), 0)[0]:.6f}"
+                      f" ms; the gate's form {kf.form(shape, dtype)}")
         del cA, p, b, kern, plain
         torch.cuda.empty_cache()
 

@@ -32,6 +32,7 @@ level.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -112,13 +113,10 @@ def records_in_registers(shape, itemsize: int, nblocks: int) -> bool:
             and threads <= 65536 // (regs + 48) // 32 * 32)
 
 
-def form(shape, dtype) -> str:
-    """The form a level of ``shape`` and ``dtype`` takes: 'block' where
-    one block holds it, up to :data:`BLOCK_POINTS`; else 'cluster' where
-    a cluster of 16 blocks, and of 8, holds it with the records in
-    registers, up to :data:`CLUSTER_POINTS`; else 'step'."""
+@functools.lru_cache(maxsize=None)
+def _form(shape: tuple, dtype) -> str:
     nz, ny, nx = shape
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    itemsize = dtype.itemsize
     points = nz * ny * nx
     if points <= BLOCK_POINTS and fits(shape, itemsize, 1):
         return "block"
@@ -128,6 +126,14 @@ def form(shape, dtype) -> str:
             for n in CLUSTER_BLOCKS):
         return "cluster"
     return "step"
+
+
+def form(shape, dtype) -> str:
+    """The form a level of ``shape`` and ``dtype`` takes: 'block' where
+    one block holds it, up to :data:`BLOCK_POINTS`; else 'cluster' where
+    a cluster of 16 blocks, and of 8, holds it with the records in
+    registers, up to :data:`CLUSTER_POINTS`; else 'step'."""
+    return _form(tuple(shape), dtype)
 
 
 def launch_name(p: torch.Tensor, kind: str) -> str:
