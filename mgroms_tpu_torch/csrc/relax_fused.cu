@@ -143,12 +143,15 @@ __host__ __device__ constexpr int record_regs() {
     return kSlots * (kRec * NZ + 2) * (int)sizeof(T) / 4;
 }
 constexpr int kMaxRecordRegs = 160;
+__host__ __device__ constexpr int pow2_at_least(int x) {
+    return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
+}
+// the records and ~48 more registers a thread, rounded up to a power of
+// two: 512 threads at NZ 2 (f32), 256 at NZ 4 or in f64
 template <typename T, int NZ>
 __host__ __device__ constexpr int max_threads() {
     return NZ == 0 ? 1024
-        : (65536 / (record_regs<T, NZ>() + 48) / 32 * 32 < 1024
-               ? 65536 / (record_regs<T, NZ>() + 48) / 32 * 32
-               : 1024);
+                   : 65536 / pow2_at_least(record_regs<T, NZ>() + 48);
 }
 
 __host__ __device__ constexpr size_t up16(size_t x) {
@@ -270,6 +273,14 @@ struct Resident {
       *upS = nullptr, *dnS = nullptr;
     T rec[REG ? kSlots : 1][REG ? NZ : 1][kRec];
     T rre[REG ? kSlots : 1][2];
+    // one block with the records in registers: each slot's neighbour,
+    // own and diagonal columns as offsets, computed once (the step's
+    // address arithmetic off its issue slots); dsel bit q: diagonal q
+    // reads RB's snapshot (an offset into S0), else the state
+    static constexpr bool FAST = REG && !CLUSTER;
+    int nof[FAST ? kSlots : 1][5];
+    int dof[FAST ? kSlots : 1][4];
+    int dsel[FAST ? kSlots : 1];
 
     __device__ __forceinline__ Resident(const ResArgs<T>& a_,
                                         unsigned char* smem)
@@ -381,6 +392,27 @@ struct Resident {
         const int s = slot(LS);
         int j, i;
         if (!column(s, j, i)) return;
+        if constexpr (FAST) {
+            auto off = [&](int jj, int ii) { return (jj - j0) * nx + ii; };
+            const int jn = j > 0 ? j - 1 : 0, js = j < ny - 1 ? j + 1 : j;
+            const int iw = i > 0 ? i - 1 : 0, ie = i < nx - 1 ? i + 1 : i;
+            nof[LS][0] = off(jn, i) * CS;
+            nof[LS][1] = off(js, i) * CS;
+            nof[LS][2] = off(j, iw) * CS;
+            nof[LS][3] = off(j, ie) * CS;
+            nof[LS][4] = off(j, i) * CS;
+            const int dj[4] = {1, -1, -1, 1}, di[4] = {-1, 1, -1, 1};
+            dsel[LS] = 0;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                int jj = j + dj[q], ii = i + di[q];
+                jj = jj < 0 ? 0 : (jj >= ny ? ny - 1 : jj);
+                ii = ii < 0 ? 0 : (ii >= nx ? nx - 1 : ii);
+                const bool snap = KIND == kRB && ((jj + ii + j + i) & 1) == 0;
+                dof[LS][q] = off(jj, ii) * (snap ? 1 : CS);
+                dsel[LS] |= (snap ? 1 : 0) << q;
+            }
+        }
         const Level g{nz, ny, nx};
         auto bandv = [&](int n, int kk, int dj, int di) -> T {
             return band(a.cA, g, n, kk, j, i, dj, di);
@@ -459,19 +491,30 @@ struct Resident {
         const int s = slot(LS);
         int j, i;
         if (!column(s, j, i)) return;
-        const int jn = j > 0 ? j - 1 : 0, js = j < ny - 1 ? j + 1 : j;
-        const int iw = i > 0 ? i - 1 : 0, ie = i < nx - 1 ? i + 1 : i;
         // N, S, W, E (stencil15.cuh: (j-1, i), (j+1, i), (j, i-1),
         // (j, i+1), the edge copy clamped to the column itself)
-        const T* nbr[4] = {at(rl, ru, rd, jn, i), at(rl, ru, rd, js, i),
-                           at(rl, ru, rd, j, iw), at(rl, ru, rd, j, ie)};
+        const T* nbr[4];
+        const T* ownp;
+        if constexpr (FAST) {
+#pragma unroll
+            for (int d = 0; d < 4; ++d) nbr[d] = rl + nof[LS][d];
+            ownp = rl + nof[LS][4];
+        } else {
+            const int jn = j > 0 ? j - 1 : 0, js = j < ny - 1 ? j + 1 : j;
+            const int iw = i > 0 ? i - 1 : 0, ie = i < nx - 1 ? i + 1 : i;
+            nbr[0] = at(rl, ru, rd, jn, i);
+            nbr[1] = at(rl, ru, rd, js, i);
+            nbr[2] = at(rl, ru, rd, j, iw);
+            nbr[3] = at(rl, ru, rd, j, ie);
+            ownp = at(rl, ru, rd, j, i);
+        }
         // the neighbours' planes k - 1, k, k + 1 (0 outside the column);
         // REG: each neighbour's and the column's own planes in registers
         T nb[4][REG ? NZ : 1];
         if constexpr (REG) {
 #pragma unroll
             for (int d = 0; d < 4; ++d) load_col<T, NZ>(nbr[d], nb[d]);
-            load_col<T, NZ>(at(rl, ru, rd, j, i), po);
+            load_col<T, NZ>(ownp, po);
         }
         auto plane = [&](int d, int kk) -> T {
             if (kk >= nz) return T(0);
@@ -517,10 +560,16 @@ struct Resident {
                     r0 = reinterpret_cast<const T*>(&rv)[0];
                     r1 = reinterpret_cast<const T*>(&rv)[1];
                 }
-                T x0 = v[4] * diag(rl, ru, rd, j, i, j + 1, i - 1);
-                x0 = x0 + r0 * diag(rl, ru, rd, j, i, j - 1, i + 1);
-                x0 = x0 + v[10] * diag(rl, ru, rd, j, i, j - 1, i - 1);
-                x0 = x0 + r1 * diag(rl, ru, rd, j, i, j + 1, i + 1);
+                auto dg = [&](int q, int jj, int ii) -> T {
+                    if constexpr (FAST)
+                        return ((dsel[LS] >> q) & 1) ? S0[dof[LS][q]]
+                                                     : rl[dof[LS][q]];
+                    else return diag(rl, ru, rd, j, i, jj, ii);
+                };
+                T x0 = v[4] * dg(0, j + 1, i - 1);
+                x0 = x0 + r0 * dg(1, j - 1, i + 1);
+                x0 = x0 + v[10] * dg(2, j - 1, i - 1);
+                x0 = x0 + r1 * dg(3, j + 1, i + 1);
                 sum = sum + x0;
             }
             const T rhs = v[15] - sum;

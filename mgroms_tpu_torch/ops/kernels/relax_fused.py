@@ -110,7 +110,7 @@ def records_in_registers(shape, itemsize: int, nblocks: int) -> bool:
     rows = -(-ny // nblocks)
     threads = (rows + 1) // 2 * 2 * ((nx + 1) // 2)
     return (nz in (2, 4) and regs <= RECORD_REGS
-            and threads <= 65536 // (regs + 48) // 32 * 32)
+            and threads <= 65536 // (1 << (regs + 47).bit_length()))
 
 
 @functools.lru_cache(maxsize=None)
