@@ -20,33 +20,41 @@
 //
 // The TPU kept the whole level in VMEM for the whole call.  Three forms
 // solve the same colour steps here; ops/kernels/relax_fused.py `form`
-// names one per shape and type (the gate, thresholds from the card's
-// timings in PERF.md):
+// (the gate) names one per shape and type, its thresholds from the card's
+// timings of each form at every level of both cells (PERF.md):
 //
-//   one block   one launch per call, one block: the coarsest level of
-//               every cell (32x32x2, 4^3).
+//   one block   one launch per call, one block: levels up to 2x32x32
+//               points (the coarsest level of every cell: 32x32x2, 4^3;
+//               and 8^3).
 //   cluster     one launch per call, a thread block cluster of up to 16
 //               blocks (8 where 16 cannot be resident), each owning a band
-//               of rows: the mid levels whose state one block cannot hold.
-//   step        one launch per colour step: the larger levels.
+//               of rows: float32 levels of nz 2 or 4 up to 4x64x64 points
+//               (CUC level 4), where the records fit in registers; with
+//               them in shared or device memory it lost to the step form.
+//   step        one launch per colour step: every other level.
 //
 // The one-launch forms (relax_resident).  Their time is not bytes or
 // operations (the inputs are read once) but the ncolor * nsweeps serial
-// colour steps, each a barrier and an nz-deep dependent chain; the design
-// keeps everything that is not on that chain off it:
+// colour steps, each a barrier and an nz-deep dependent chain (K10's
+// step_floor, roofline.cu, is that floor); the design keeps everything
+// that is not on that chain off it:
 //
 // - What is constant across the steps is computed once a call: each
-//   thread owns one column of each colour (slot) for the whole call and
-//   holds its 12 coupling coefficients, ud, the Thomas factors bet and gam
-//   (ops/relax.thomas_factor, the plain version's divisions) and b of
-//   every plane, and the two plane-0 'real' coefficients not among them,
-//   in registers (nz 2 or 4, where they fit), or in shared memory, or
-//   where neither holds them in device memory (L2).  A step has no
-//   division (nz 1 keeps the plain version's b / d).
+//   thread owns two columns (slots) for the whole call and holds, per
+//   plane, their 12 coupling coefficients, ud, the Thomas factors bet and
+//   gam (ops/relax.thomas_factor, the plain version's divisions) and b,
+//   and the two plane-0 'real' coefficients not among them: in registers
+//   (nz 2 or 4, where they fit), or in shared memory, or where neither
+//   holds them in device memory (L2).  A step has no division (nz 1 keeps
+//   the plain version's b / d).  In one block with the records in
+//   registers the columns' neighbour and diagonal offsets are computed
+//   once too.
 // - The state lives in shared memory, a band of rows a block; a cluster
 //   block reads the rows next to its band from its neighbours' shared
 //   memory (distributed shared memory), and a cluster barrier separates
-//   the steps (one block: __syncthreads()).
+//   the steps (one block: __syncthreads()).  With the records in
+//   registers the state is column-major, a column's planes one vector
+//   load.
 // - In place, a thread per active column: RB and FC update the state in
 //   place and touch only the columns of the step's colour (an active
 //   column reads only columns of the other colours, and itself through
@@ -55,10 +63,12 @@
 //   plane 0, to which each thread writes its column's new value one step
 //   later (no step reads a column's snapshot until its colour's next
 //   turn; a diagonal clamped onto a column of the other colour reads the
-//   state).  GS solves every column from the old state: two buffers.
+//   state).  GS solves every column from the old state: two buffers (one
+//   buffer and a second barrier a step measured no faster).
 // - One pass over nz: the 4 neighbours' state in a 3-plane window, the
 //   forward values in registers (nz 2, 4) or shared memory, then the back
-//   substitution commits each plane.
+//   substitution commits each plane; all of a step's loads come before
+//   its stores.
 //
 // The per-step form is memory-bound: a step reads the operator rows of
 // its colour's columns (RB every sector of cA, since a sector holds both
@@ -100,6 +110,7 @@
 
 #include <type_traits>
 
+#include "cluster_launch.cuh"
 #include "stencil15.cuh"
 
 namespace {
@@ -953,73 +964,22 @@ int launch_steps(const T* p, const T* b, const T* cA, T* out, T* scratch,
 
 // ------------------------------------------------ the one-launch launch
 
-constexpr int kNoCluster = -1;       // this cluster size cannot be resident
-
-// What the card was told and answered for one kernel, per device: the
-// shared memory its attribute allows, and the clusters that can be
-// resident at a (blocks, threads, shared memory) shape; asked once, not at
-// every call (the host's time a call counts on the host-bound levels).
-struct KernelCache {
-    size_t smem[16] = {};
-    struct Query { int dev, nb, nt; size_t smem; int nclusters; };
-    Query q[16];
-    int nq = 0;
-};
-
 template <typename T, int KIND, int NZ, bool CLUSTER>
 int run_resident(const ResArgs<T>& a, cudaStream_t s) {
     if constexpr (NZ > 0 && record_regs<T, NZ>() > kMaxRecordRegs) {
         return (int)cudaErrorInvalidValue;     // never planned
     } else {
-        static KernelCache cache;
         auto kern = relax_resident<T, KIND, NZ, CLUSTER>;
         const ResPlan& pl = a.pl;
-        int dev = 0;
-        cudaError_t e = cudaGetDevice(&dev);
-        if (e != cudaSuccess) return (int)e;
-        if (dev >= 16) return (int)cudaErrorInvalidDevice;
-        if (cache.smem[dev] < pl.total) {
-            e = cudaFuncSetAttribute(
+        if constexpr (CLUSTER) {
+            return launch_cluster(kern, pl.nb, pl.nt, pl.total, s, a);
+        } else {
+            const cudaError_t e = cudaFuncSetAttribute(
                 kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                 (int)pl.total);
-            if (e == cudaSuccess && CLUSTER)
-                e = cudaFuncSetAttribute(
-                    kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
             if (e != cudaSuccess) return (int)e;
-            cache.smem[dev] = pl.total;
-        }
-        if constexpr (!CLUSTER) {
             kern<<<1, pl.nt, pl.total, s>>>(a);
             return (int)cudaGetLastError();
-        } else {
-            cudaLaunchConfig_t cfg = {};
-            cfg.gridDim = dim3(pl.nb);
-            cfg.blockDim = dim3(pl.nt);
-            cfg.dynamicSmemBytes = pl.total;
-            cfg.stream = s;
-            cudaLaunchAttribute attr[1];
-            attr[0].id = cudaLaunchAttributeClusterDimension;
-            attr[0].val.clusterDim.x = pl.nb;
-            attr[0].val.clusterDim.y = 1;
-            attr[0].val.clusterDim.z = 1;
-            cfg.attrs = attr;
-            cfg.numAttrs = 1;
-            int nclusters = -1;
-            for (int i = 0; i < cache.nq; ++i) {
-                const KernelCache::Query& q = cache.q[i];
-                if (q.dev == dev && q.nb == pl.nb && q.nt == pl.nt
-                    && q.smem == pl.total)
-                    nclusters = q.nclusters;
-            }
-            if (nclusters < 0) {
-                e = cudaOccupancyMaxActiveClusters(&nclusters, kern, &cfg);
-                if (e != cudaSuccess) return (int)e;
-                cache.q[cache.nq % 16] = {dev, pl.nb, pl.nt, pl.total,
-                                          nclusters};
-                cache.nq = cache.nq < 16 ? cache.nq + 1 : 16;
-            }
-            if (nclusters < 1) return kNoCluster;
-            return (int)cudaLaunchKernelEx(&cfg, kern, a);
         }
     }
 }

@@ -60,6 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_launch.cuh"
 #include "quad_terms.cuh"
 
 namespace {
@@ -254,8 +255,9 @@ step_floor_kernel(const float* __restrict__ x, float* __restrict__ out,
     }
 }
 
-// step_floor in one block (cluster 0) or a cluster; blocks[0] <- the
-// blocks launched
+// step_floor in one block (cluster 0) or a cluster of min(16, ny) blocks
+// (min(8, ny) where 16 cannot be resident, as K6); blocks[0] <- the blocks
+// launched
 int launch_step_floor(const float* x, float* out, int nz, int ny, int nx,
                       int nsteps, int cluster, int* blocks, cudaStream_t s) {
     const int cands[2] = {cluster ? (ny < 16 ? ny : 16) : 1, ny < 8 ? ny : 8};
@@ -264,6 +266,7 @@ int launch_step_floor(const float* x, float* out, int nz, int ny, int nx,
         const int rows = (ny + nb - 1) / nb, nt = rows * ((nx + 1) / 2);
         const size_t smem = (size_t)nz * rows * nx * sizeof(float);
         if (nt > 1024 || smem > 232448) return (int)cudaErrorInvalidValue;
+        *blocks = nb;
         if (!cluster) {
             cudaError_t e = cudaFuncSetAttribute(
                 step_floor_kernel<false>,
@@ -271,35 +274,11 @@ int launch_step_floor(const float* x, float* out, int nz, int ny, int nx,
             if (e != cudaSuccess) return (int)e;
             step_floor_kernel<false><<<1, nt, smem, s>>>(x, out, nz, ny, nx,
                                                           1, nsteps);
-            *blocks = 1;
             return (int)cudaGetLastError();
         }
-        auto kern = step_floor_kernel<true>;
-        cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(
-                kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-        if (e != cudaSuccess) return (int)e;
-        cudaLaunchConfig_t cfg = {};
-        cfg.gridDim = dim3(nb);
-        cfg.blockDim = dim3(nt);
-        cfg.dynamicSmemBytes = smem;
-        cfg.stream = s;
-        cudaLaunchAttribute attr[1];
-        attr[0].id = cudaLaunchAttributeClusterDimension;
-        attr[0].val.clusterDim.x = nb;
-        attr[0].val.clusterDim.y = 1;
-        attr[0].val.clusterDim.z = 1;
-        cfg.attrs = attr;
-        cfg.numAttrs = 1;
-        int nclusters = 0;
-        e = cudaOccupancyMaxActiveClusters(&nclusters, kern, &cfg);
-        if (e != cudaSuccess) return (int)e;
-        if (nclusters < 1) continue;
-        *blocks = nb;
-        return (int)cudaLaunchKernelEx(&cfg, kern, x, out, nz, ny, nx, nb,
-                                       nsteps);
+        const int rc = launch_cluster(step_floor_kernel<true>, nb, nt, smem,
+                                      s, x, out, nz, ny, nx, nb, nsteps);
+        if (rc != kNoCluster) return rc;
     }
     return (int)cudaErrorLaunchOutOfResources;
 }

@@ -74,13 +74,12 @@ CLUSTER_BLOCKS = (16, 8)
 # the gate's thresholds, from the card's timings of the three forms at the
 # levels of seamount 64^3 and CUC 1024^2 x 64 (PERF.md,
 # scripts/micro_relax_fused.py): the points (nz * ny * nx) of the largest
-# level each one-launch form takes; the cluster form only where each
-# thread holds its two columns' records in registers (csrc/relax_fused.cu
-# record_regs, kMaxRecordRegs: nz 2 or 4), which is where it beat the step
-# form
+# level each one-launch form takes, and the cluster form only in float32
+# at nz 2 or 4, where each thread holds its columns' records in registers
+# (csrc/relax_fused.cu plan_resident), the only place it beat the step form
 BLOCK_POINTS = 2 * 32 * 32
 CLUSTER_POINTS = 4 * 64 * 64
-RECORD_REGS = 160
+CLUSTER_NZ = (2, 4)
 
 
 def reset_launches() -> None:
@@ -101,18 +100,6 @@ def fits(shape, itemsize: int, nblocks: int) -> bool:
     return nblocks <= ny and threads <= MAX_THREADS and smem + 64 <= SMEM_BYTES
 
 
-def records_in_registers(shape, itemsize: int, nblocks: int) -> bool:
-    """Whether the threads of ``nblocks`` blocks hold their columns'
-    records in registers (relax_fused.cu plan_resident: nz 2 or 4, at
-    most RECORD_REGS registers of records, the kernel's thread bound)."""
-    nz, ny, nx = shape
-    regs = 2 * (16 * nz + 2) * itemsize // 4
-    rows = -(-ny // nblocks)
-    threads = (rows + 1) // 2 * 2 * ((nx + 1) // 2)
-    return (nz in (2, 4) and regs <= RECORD_REGS
-            and threads <= 65536 // (1 << (regs + 47).bit_length()))
-
-
 @functools.lru_cache(maxsize=None)
 def _form(shape: tuple, dtype) -> str:
     nz, ny, nx = shape
@@ -120,10 +107,9 @@ def _form(shape: tuple, dtype) -> str:
     points = nz * ny * nx
     if points <= BLOCK_POINTS and fits(shape, itemsize, 1):
         return "block"
-    if points <= CLUSTER_POINTS and all(
-            fits(shape, itemsize, min(n, ny))
-            and records_in_registers(shape, itemsize, min(n, ny))
-            for n in CLUSTER_BLOCKS):
+    if (points <= CLUSTER_POINTS and nz in CLUSTER_NZ and itemsize == 4
+            and all(fits(shape, itemsize, min(n, ny))
+                    for n in CLUSTER_BLOCKS)):
         return "cluster"
     return "step"
 
@@ -131,8 +117,9 @@ def _form(shape: tuple, dtype) -> str:
 def form(shape, dtype) -> str:
     """The form a level of ``shape`` and ``dtype`` takes: 'block' where
     one block holds it, up to :data:`BLOCK_POINTS`; else 'cluster' where
-    a cluster of 16 blocks, and of 8, holds it with the records in
-    registers, up to :data:`CLUSTER_POINTS`; else 'step'."""
+    a cluster of 16 blocks, and of 8, holds it, up to
+    :data:`CLUSTER_POINTS`, in float32 at nz in :data:`CLUSTER_NZ`; else
+    'step'."""
     return _form(tuple(shape), dtype)
 
 
