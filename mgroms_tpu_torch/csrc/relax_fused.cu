@@ -108,8 +108,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "cluster_launch.cuh"
 #include "stencil15.cuh"
 
@@ -183,7 +181,6 @@ struct ResPlan {
     bool resident;     // else records in shared memory (or device memory)
     size_t a, b, s0, fwd, rec, total;   // byte offsets, and the size
 
-    __host__ __device__ ResPlan() {}
     __host__ __device__ ResPlan(int kind, int elem, int nz_, int ny_,
                                 int nx_, int nb_, bool reg_, bool res_)
         : nz(nz_), ny(ny_), nx(nx_), nb(nb_), reg(reg_), resident(res_) {
