@@ -142,8 +142,14 @@ constexpr int kMaxClusterBlocks = 16;  // non-portable cluster size
 constexpr int kSlots = 2;              // columns a thread owns
 
 template <typename T> struct Vec;
-template <> struct Vec<float> { using type = float4; static constexpr int n = 4; };
-template <> struct Vec<double> { using type = double2; static constexpr int n = 2; };
+template <> struct Vec<float> {
+    using type = float4;
+    static constexpr int n = 4;
+};
+template <> struct Vec<double> {
+    using type = double2;
+    static constexpr int n = 2;
+};
 
 // 32-bit registers of a thread's records when they are held in registers
 // (NZ planes, both slots), and the threads a block of that kernel may have
@@ -283,8 +289,8 @@ struct Resident {
     T rre[REG ? kSlots : 1][2];
     // one block with the records in registers: each slot's neighbour,
     // own and diagonal columns as offsets, computed once (the step's
-    // address arithmetic off its issue slots); dsel bit q: diagonal q
-    // reads RB's snapshot (an offset into S0), else the state
+    // address arithmetic off its instruction stream); dsel bit q:
+    // diagonal q reads RB's snapshot (an offset into S0), else the state
     static constexpr bool FAST = REG && !CLUSTER;
     int nof[FAST ? kSlots : 1][5];
     int dof[FAST ? kSlots : 1][4];
@@ -1001,8 +1007,8 @@ ResPlan plan_resident(int nz, int ny, int nx, int nb) {
 
 // One launch for the whole call: one block (cluster == 0), or a cluster
 // of min(16, ny) blocks, of min(8, ny) where 16 cannot be resident.  recs:
-// device memory for the records ((FC 4, else 2) * (nz * 16 / (16 /
-// sizeof(T)) + 1) * ny * ((nx + 1) / 2) vectors of 16 bytes).  info (may be null):
+// device memory for the records ((FC 4, else 2) * (nz * sizeof(T) + 1)
+// * ny * ((nx + 1) / 2) vectors of 16 bytes).  info (may be null):
 // blocks, threads a block, where the records live (0 registers, 1 shared
 // memory, 2 device memory), shared memory bytes a block.
 template <typename T, int KIND>

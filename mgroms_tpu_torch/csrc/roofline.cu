@@ -219,7 +219,8 @@ step_floor_kernel(const float* __restrict__ x, float* __restrict__ out,
     const int lr = t / hx, m = t % hx;
     const int rows = j1 - j0;
     for (size_t o = t; o < (size_t)nz * rows * nx; o += blockDim.x) {
-        const size_t k = o / ((size_t)rows * nx), rest = o % ((size_t)rows * nx);
+        const size_t band = (size_t)rows * nx;
+        const size_t k = o / band, rest = o % band;
         sx[k * PS + rest] = x[k * P + (size_t)j0 * nx + rest];
     }
     const float* up = sx;
@@ -240,7 +241,8 @@ step_floor_kernel(const float* __restrict__ x, float* __restrict__ out,
                                  : sx[(size_t)(jn - j0) * nx + i];
             const size_t own = (size_t)(j - j0) * nx + i;
             float acc = nv * kFloorH;
-            for (int k = 0; k < nz; ++k) acc = acc * kFloorH + sx[k * PS + own];
+            for (int k = 0; k < nz; ++k)
+                acc = acc * kFloorH + sx[k * PS + own];
             sx[own] = acc;
         }
         if constexpr (CLUSTER) {
@@ -250,7 +252,8 @@ step_floor_kernel(const float* __restrict__ x, float* __restrict__ out,
         }
     }
     for (size_t o = t; o < (size_t)nz * rows * nx; o += blockDim.x) {
-        const size_t k = o / ((size_t)rows * nx), rest = o % ((size_t)rows * nx);
+        const size_t band = (size_t)rows * nx;
+        const size_t k = o / band, rest = o % band;
         out[k * P + (size_t)j0 * nx + rest] = sx[k * PS + rest];
     }
 }

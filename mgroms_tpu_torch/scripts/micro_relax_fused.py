@@ -14,7 +14,8 @@ forms where the records live and the blocks; beside them the step floor
 chain) in one block and in a cluster, both times, and the form the gate
 names.  ``dev_1sweep_ms`` (one-launch forms and the floor): the device
 time of one sweep, which parts a call's fixed cost (launch, the records,
-the state in and out) from its cost a sweep.  Every call is held to the plain version bit for bit first.
+the state in and out) from its cost a sweep.  Every call is held to the
+plain version bit for bit first.
 
     python -m mgroms_tpu_torch.scripts.micro_relax_fused
     PYTHONPATH=<an earlier checkout> python <this file> --gated
