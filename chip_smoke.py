@@ -27,13 +27,15 @@ Phases (any failed check raises, so the exit code is non-zero):
    ordering (RB, FC, GS), to 0 ulp, in each of its three forms (forced):
    one block with 40 sweeps at the coarsest levels of CUC (2, 32, 32) and
    seamount (4, 4, 4), at a ragged (3, 5, 7) and once in float64; a
-   thread block cluster with 3 sweeps at CUC levels 4 (4, 64, 64) and 3
-   (8, 128, 128) and at a ragged (3, 17, 9) in float64; a launch per
-   colour step with 3 sweeps at (64, 64, 64) and at the CUC level-0 shape
-   (the floor of a launch per colour step printed beside its bound); each
-   timed one-launch form printed with its device time, the step floor of
-   K10's step_floor (ncolor x sweeps steps in one launch of the same
-   form) and the step form's times at the same shape.  Time each
+   thread block cluster with 3 sweeps at CUC level 4 (4, 64, 64) and at
+   ragged (2, 17, 9) and (4, 33, 17), and refusing CUC level 3
+   (8, 128, 128) and a float64 level (its records would not sit in
+   registers); a launch per colour step with 3 sweeps at CUC level 3,
+   (64, 64, 64) and the CUC level-0 shape (the floor of a launch per
+   colour step printed beside its bound); each timed one-launch form
+   printed with its device time, the step floor of K10's step_floor
+   (ncolor x sweeps steps in one launch of the same form) and the step
+   form's times at the same shape.  Time each
    against its plain version
    (CUDA events, median of 20) beside its bound: the larger of its bytes
    (each input read once, each output written once) over 3.35 TB/s and
@@ -51,10 +53,12 @@ Phases (any failed check raises, so the exit code is non-zero):
    level-0 state and RHS shapes, exact, beside one strided PyTorch copy
    (library_ms); K10's dma_only in its three variants at (64, 512, 512)
    and on bfloat16 blocks (all, blocks), and on an RB colour's float32
-   and bfloat16 band stacks (dma_only_bands), exact, and fma_run within
-   its stated tolerance.  K7 at CUC level 0 split over a virtual (1, 4) mesh
-   (four (64, 1024, 256) tiles, both real_matrix values), 0 ulp from its
-   plain version and from K5 on the whole grid.  K11, the load-rate
+   and bfloat16 band stacks (dma_only_bands), exact, fma_run within
+   its stated tolerance, and step_floor at K6's one-launch shapes
+   (roofline.STEP_FLOOR_CASES), exact.  K7 at CUC level 0 split over a
+   virtual (1, 4) mesh (four (64, 1024, 256) tiles, both real_matrix
+   values), 0 ulp from its plain version and from K5 on the whole
+   grid.  K11, the load-rate
    probes (windows, blocks, j-lead windows, one wide stream), every row
    of the JAX script's two probe sets at a small shape and at its own
    (nz 64, H 512, tj 16, ws 24), to 0 ulp, timed beside one PyTorch call
@@ -98,7 +102,8 @@ Phases (any failed check raises, so the exit code is non-zero):
    turns; the packed iterates held to K4's after 2 sweeps and each route
    to the plain sweep; exactly the kernels of each route launched),
    micro_packed_parts and micro_roofline (K1 against K10's dma_only, the
-   FMA rate of K10's fma_run), micro_dma_probe (K11's load rates by
+   FMA rate of K10's fma_run, K10's step_floor at K6's one-launch
+   shapes), micro_dma_probe (K11's load rates by
    pattern, every probe launched) and micro_colour_update (K1 and K2 at
    the CUC level-0 quads, both layouts, and an RB colour as two
    one-target launches); their rows are printed.
@@ -120,8 +125,9 @@ Phases (any failed check raises, so the exit code is non-zero):
    its three forms (as in phase 7) and K5; the history within 1e-3 of
    phase 14's.
 16. CUC 1024^2 x 64 with relax_method='GS' (column-Jacobi), use_pallas=
-   True: every level in full layout, K6's GS form in its three forms and
-   K5; GS_CYCLES fixed F-cycles, each cutting the residual, mean factor
+   True: every level in full layout, K6's GS form (one block on the
+   coarsest level, the step form above: GS takes no cluster) and K5;
+   GS_CYCLES fixed F-cycles, each cutting the residual, mean factor
    >= 2.
 
 Every phase with quad levels (2, 4-6, 8-10, 12, 14) checks that every
@@ -145,8 +151,9 @@ The line before last is a JSON object with, for each kernel, its launches
 in the phase that is its path (4 for K4 and K3 in both its modes, 6 for
 K6's one-block form, 7 for K5 and K6's cluster and per-colour-step
 forms, 8 for K1 and K2, 9 for K4 on bfloat16 bands, 10 for K1 on the
-bfloat16 stack, 11 for K8-K11, 13 for K7, 15 for K6's FC forms, 16 for
-its GS forms), its error against the plain version, both times and its
+bfloat16 stack, 11 for K8-K11 and K10's step floor, 13 for K7, 15 for
+K6's FC forms, 16 for its GS forms), its error against the plain
+version, both times and its
 bound (K6's one-launch forms also their device time); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -224,8 +231,6 @@ KERNELS = {
                             "mgroms_tpu/ops/pallas/relax_fused.py:99", 15),
     "fused_relax_gs": ("relax_fused.cu",
                        "mgroms_tpu/ops/pallas/relax_fused.py:99", 16),
-    "fused_relax_cluster_gs": ("relax_fused.cu",
-                               "mgroms_tpu/ops/pallas/relax_fused.py:99", 16),
     "fused_relax_step_gs": ("relax_fused.cu",
                             "mgroms_tpu/ops/pallas/relax_fused.py:99", 16),
     "sweep_packed": ("sweep_packed.cu",
@@ -236,6 +241,10 @@ KERNELS = {
                      "mgroms_tpu/ops/pallas/sweep_packed.py:591", 11),
     "dma_only": ("roofline.cu", "scripts/micro_roofline.py:123", 11),
     "fma_run": ("roofline.cu", "scripts/micro_roofline.py:266", 11),
+    # no TPU counterpart: the floor of K6's one-launch forms, named by
+    # the kernel it measures
+    "step_floor": ("roofline.cu", "mgroms_tpu/ops/pallas/relax_fused.py:99",
+                   11),
     "residual_overlap_x": ("rdma_halo.cu",
                            "mgroms_tpu/ops/pallas/rdma_halo.py:132", 13),
     "probe_windows": ("dma_probe.cu", "scripts/micro_dma_probe.py:28", 11),
@@ -669,9 +678,9 @@ def full_inputs(nz, ny, nx, dtype, dev, seed):
 # shape; K6 in each ordering and form, forced whatever the gate says (the
 # "json" shapes are the gate's): one block at the coarsest levels of CUC
 # (2, 32, 32) and seamount (4, 4, 4), at a ragged shape and in float64; a
-# cluster at CUC levels 4 (4, 64, 64) and 3 (8, 128, 128), at a ragged
-# shape in float64; the per-colour step form at (64, 64, 64) and at CUC
-# level 0
+# cluster at CUC level 4 (4, 64, 64) (GS "print": the gate gives it the
+# step form) and at ragged shapes; the per-colour step form at CUC level
+# 3 (8, 128, 128), (64, 64, 64) and CUC level 0
 FULL_LAYOUT_CASES = [
     ("residual_tiled", None, (64, 1024, 1024), torch.float32, None, "json"),
     ("residual_tiled", None, (3, 5, 7), torch.float32, None, None),
@@ -681,11 +690,30 @@ FULL_LAYOUT_CASES = [
     (k.block, kind, (4, 4, 4), torch.float32, 40, "print"),
     (k.block, kind, (3, 5, 7), torch.float32, 3, None),
     (k.block, kind, (2, 32, 32), torch.float64, 40, None),
-    (k.cluster, kind, (4, 64, 64), torch.float32, 3, "json"),
-    (k.cluster, kind, (8, 128, 128), torch.float32, 3, "print"),
-    (k.cluster, kind, (3, 17, 9), torch.float64, 3, None),
+    (k.cluster, kind, (4, 64, 64), torch.float32, 3,
+     "json" if kf.form((4, 64, 64), torch.float32, kind) == "cluster"
+     else "print"),
+    (k.cluster, kind, (2, 17, 9), torch.float32, 3, None),
+    (k.cluster, kind, (4, 33, 17), torch.float32, 3, None),
+    (k.step, kind, (8, 128, 128), torch.float32, 3, "print"),
     (k.step, kind, (64, 64, 64), torch.float32, 3, "print"),
     (k.step, kind, (64, 1024, 1024), torch.float32, 3, "json"))]
+
+
+# levels the cluster form refuses (its records would not sit in
+# registers): CUC level 3, and CUC level 4 in float64
+CLUSTER_REFUSED = [((8, 128, 128), torch.float32),
+                   ((4, 64, 64), torch.float64)]
+
+
+def refused(fn) -> bool:
+    """Whether ``fn`` raises a refused launch, with no K6 launch."""
+    before = dict(kf.LAUNCHES)
+    try:
+        fn()
+    except RuntimeError as e:
+        return "launch failed" in str(e) and kf.LAUNCHES == before
+    return False
 
 
 def step_bytes(cA, p, kind) -> int:
@@ -765,9 +793,18 @@ def full_layout_kernels(dev, results):
                       f"{mrf.device_ms(empty):.4f} ms, events "
                       f"{median_ms(empty):.4f} ms, its bytes "
                       f"{bound(nsteps * step_bytes(cA, p, kind), 0)[0]:.6f}"
-                      f" ms; the gate's form {kf.form(shape, dtype)}")
+                      f" ms; the gate's form {kf.form(shape, dtype, kind)}")
         del cA, p, b, kern, plain
         torch.cuda.empty_cache()
+    for shape, dtype in CLUSTER_REFUSED:
+        cA, p, b = full_inputs(*shape, dtype, dev, seed=sum(shape))
+        for kind in kf.KINDS:
+            check(refused(lambda: kf.fused_relax_form(p, b, cA, 3, kind, True,
+                                                      "cluster")),
+                  f"the cluster form took {shape} {dtype} {kind}")
+        print(f"  cluster form {shape} {dtype}: refused in every ordering "
+              f"(the gate's form {kf.form(shape, dtype, 'RB')})")
+        del cA, p, b
 
 
 # (quad shape, dtype, bfloat16 bands, real, plan (tj, nchunks), timed):
@@ -854,7 +891,9 @@ def roofline_kernels(dev, results):
     and on an RB colour's float32 and bfloat16 band stacks
     (dma_only_bands) (exact; bytes: each loaded array read once, the
     output written once; flops: one add per value loaded),
-    and fma_run (within roofline.FMA_RTOL of its float64 plain version)."""
+    fma_run (within roofline.FMA_RTOL of its float64 plain version), and
+    step_floor at K6's one-launch shapes (exact; bytes: the state in and
+    out; flops: roofline.step_floor_flops)."""
     nz, H, W = 64, 512, 512
     o = mr.operands(dev, nz, H, W)
     n, col = nz * H * W, H * W
@@ -889,6 +928,15 @@ def roofline_kernels(dev, results):
          torch.float32, lambda: rl.fma_run(x), lambda: rl.fma_run_plain(x),
          rl.FMA_RTOL / REL_TOL * scale, 2 * nbytes(x), rl.fma_flops(),
          "json")
+    for shape, nsteps, cluster in rl.STEP_FLOOR_CASES:
+        g = torch.Generator(device=dev).manual_seed(sum(shape))
+        xs = torch.rand(shape, generator=g, device=dev) + 0.5
+        hold(results, "step_floor", f"{shape} x {nsteps}"
+             + (" cluster" if cluster else ""), torch.float32,
+             lambda: rl.step_floor(xs, nsteps, cluster)[0],
+             lambda: rl.step_floor_plain(xs, nsteps), None, 2 * nbytes(xs),
+             rl.step_floor_flops(shape, nsteps),
+             "json" if shape == (2, 32, 32) else "print", exact=True)
 
 
 def virtual_mesh(dev, npx, npy):
@@ -1122,7 +1170,8 @@ def k6_expected(m) -> collections.Counter:
     for lev, spec in enumerate(m.levels):
         if be.state_quads(lev) or not be._use_pallas(lev):
             continue
-        form = kf.form((spec.nzg, spec.nyg, spec.nxg), torch.float32)
+        form = kf.form((spec.nzg, spec.nyg, spec.nxg), torch.float32,
+                       cfg.relax_kind)
         calls = ([(L, cfg.ns_coarsest)] if lev == L - 1 else
                  [(lev + 1, cfg.ns_pre), (lev + 1, cfg.ns_post)])
         for n, ns in calls:

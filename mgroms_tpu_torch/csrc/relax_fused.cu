@@ -20,17 +20,20 @@
 //
 // The TPU kept the whole level in VMEM for the whole call.  Three forms
 // solve the same colour steps here; ops/kernels/relax_fused.py `form`
-// (the gate) names one per shape and type, its thresholds from the card's
-// timings of each form at every level of both cells (PERF.md):
+// (the gate) names one per shape, type and ordering, its thresholds from
+// the card's timings of each form at every level of both cells (PERF.md):
 //
 //   one block   one launch per call, one block: levels up to 2x32x32
 //               points (the coarsest level of every cell: 32x32x2, 4^3;
-//               and 8^3).
+//               and 8^3 in RB and FC; GS only at nz 2 or 4).
 //   cluster     one launch per call, a thread block cluster of up to 16
 //               blocks (8 where 16 cannot be resident), each owning a band
-//               of rows: float32 levels of nz 2 or 4 up to 4x64x64 points
-//               (CUC level 4), where the records fit in registers; with
-//               them in shared or device memory it lost to the step form.
+//               of rows, the records in registers: float32 at nz 2 or 4
+//               only (launch_resident refuses any other cluster plan;
+//               with the records in shared or device memory, or in
+//               float64, it lost to the step form at every level timed).
+//               The gate sends RB and FC up to 4x64x64 points to it (CUC
+//               level 4); GS loses there and takes the step form.
 //   step        one launch per colour step: every other level.
 //
 // The one-launch forms (relax_resident).  Their time is not bytes or
@@ -44,11 +47,11 @@
 //   plane, their 12 coupling coefficients, ud, the Thomas factors bet and
 //   gam (ops/relax.thomas_factor, the plain version's divisions) and b,
 //   and the two plane-0 'real' coefficients not among them: in registers
-//   (nz 2 or 4, where they fit), or in shared memory, or where neither
-//   holds them in device memory (L2).  A step has no division (nz 1 keeps
-//   the plain version's b / d).  In one block with the records in
-//   registers the columns' neighbour and diagonal offsets are computed
-//   once too.
+//   (nz 2 or 4, where they fit; always in a cluster), or in one block in
+//   shared memory, or where neither holds them in device memory (L2).  A
+//   step has no division (nz 1 keeps the plain version's b / d).  In one
+//   block with the records in registers the columns' neighbour and
+//   diagonal offsets are computed once too.
 // - The state lives in shared memory, a band of rows a block; a cluster
 //   block reads the rows next to its band from its neighbours' shared
 //   memory (distributed shared memory), and a cluster barrier separates
@@ -977,10 +980,9 @@ int run_resident(const ResArgs<T>& a, cudaStream_t s) {
         if constexpr (CLUSTER) {
             return launch_cluster(kern, pl.nb, pl.nt, pl.total, s, a);
         } else {
-            const cudaError_t e = cudaFuncSetAttribute(
-                kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                (int)pl.total);
-            if (e != cudaSuccess) return (int)e;
+            const int e =
+                kernel_attributes((const void*)kern, pl.total, false);
+            if (e != 0) return e;
             kern<<<1, pl.nt, pl.total, s>>>(a);
             return (int)cudaGetLastError();
         }
@@ -990,27 +992,53 @@ int run_resident(const ResArgs<T>& a, cudaStream_t s) {
 // The plan of a block of nb: records in registers where nz is 2 or 4 and
 // they fit (kMaxRecordRegs, the kernel's thread bound), else in shared
 // memory where they fit beside the state, else in device memory
-template <typename T, int KIND>
-ResPlan plan_resident(int nz, int ny, int nx, int nb) {
+template <typename T>
+ResPlan plan_resident(int kind, int nz, int ny, int nx, int nb) {
     const int e = (int)sizeof(T);
-    ResPlan pl(KIND, e, nz, ny, nx, nb, false, true);
+    ResPlan pl(kind, e, nz, ny, nx, nb, false, true);
     const bool reg =
         (nz == 2 && record_regs<T, 2>() <= kMaxRecordRegs
          && pl.nt <= max_threads<T, 2>())
         || (nz == 4 && record_regs<T, 4>() <= kMaxRecordRegs
             && pl.nt <= max_threads<T, 4>());
-    if (reg) return ResPlan(KIND, e, nz, ny, nx, nb, true, true);
+    if (reg) return ResPlan(kind, e, nz, ny, nx, nb, true, true);
     if (pl.total > (size_t)kMaxSmem)
-        pl = ResPlan(KIND, e, nz, ny, nx, nb, false, false);
+        pl = ResPlan(kind, e, nz, ny, nx, nb, false, false);
     return pl;
 }
 
+// The bytes of device memory the one-block form's records take at this
+// shape: 0 where registers or shared memory hold them (the cluster form
+// holds them in registers); else, per slot (FC 4, else 2) and global slot
+// (ny * ((nx + 1) / 2)), nz plane records of 16 values and one 16-byte
+// vector of the two 'real' coefficients.
+template <typename T>
+long long record_bytes(int kind, int nz, int ny, int nx) {
+    const ResPlan pl = plan_resident<T>(kind, nz, ny, nx, 1);
+    if (pl.reg || pl.resident) return 0;
+    return (long long)(kind == kFC ? 4 : 2)
+           * ((long long)nz * kRec * sizeof(T) + 16) * ny * ((nx + 1) / 2);
+}
+
+// The cluster form: the records in registers, float32 only
+template <typename T, int KIND>
+int run_cluster(const ResArgs<T>& a, cudaStream_t s) {
+    if constexpr (sizeof(T) != 4) {
+        return (int)cudaErrorInvalidValue;
+    } else {
+        return a.pl.nz == 2 ? run_resident<T, KIND, 2, true>(a, s)
+                            : run_resident<T, KIND, 4, true>(a, s);
+    }
+}
+
 // One launch for the whole call: one block (cluster == 0), or a cluster
-// of min(16, ny) blocks, of min(8, ny) where 16 cannot be resident.  recs:
-// device memory for the records ((FC 4, else 2) * (nz * sizeof(T) + 1)
-// * ny * ((nx + 1) / 2) vectors of 16 bytes).  info (may be null):
-// blocks, threads a block, where the records live (0 registers, 1 shared
-// memory, 2 device memory), shared memory bytes a block.
+// of min(16, ny) blocks, of min(8, ny) where 16 cannot be resident; a
+// cluster plan that does not hold the records in registers in float32 is
+// refused (cudaErrorInvalidValue).  recs: device memory for the records
+// where the one-block plan puts them there (record_bytes), else unused.
+// info (may be null): blocks, threads a block, where the records live (0
+// registers, 1 shared memory, 2 device memory), shared memory bytes a
+// block.
 template <typename T, int KIND>
 int launch_resident(const T* p, const T* b, const T* cA, T* out, T* recs,
                     int nz, int ny, int nx, int real, int nsweeps,
@@ -1020,20 +1048,19 @@ int launch_resident(const T* p, const T* b, const T* cA, T* out, T* recs,
                           ny < 8 ? ny : 8};
     int rc = (int)cudaErrorInvalidConfiguration;
     for (int c = 0; c < (cluster ? 2 : 1); ++c) {
-        const ResPlan pl = plan_resident<T, KIND>(nz, ny, nx, cands[c]);
+        const ResPlan pl = plan_resident<T>(KIND, nz, ny, nx, cands[c]);
         if (pl.total > (size_t)kMaxSmem || pl.nt > 1024 || pl.nt < 1
-            || (!pl.reg && !pl.resident && recs == nullptr))
+            || (!pl.reg && !pl.resident && recs == nullptr)
+            || (cluster && (!pl.reg || sizeof(T) != 4)))
             return (int)cudaErrorInvalidValue;
         const ResArgs<T> a{p, b, cA, out, recs, pl, real, nsweeps};
-        if (pl.reg) {
-            rc = nz == 2 ? (cluster ? run_resident<T, KIND, 2, true>(a, s)
-                                    : run_resident<T, KIND, 2, false>(a, s))
-                         : (cluster ? run_resident<T, KIND, 4, true>(a, s)
-                                    : run_resident<T, KIND, 4, false>(a, s));
-        } else {
-            rc = cluster ? run_resident<T, KIND, 0, true>(a, s)
-                         : run_resident<T, KIND, 0, false>(a, s);
-        }
+        if (cluster)
+            rc = run_cluster<T, KIND>(a, s);
+        else if (pl.reg)
+            rc = nz == 2 ? run_resident<T, KIND, 2, false>(a, s)
+                         : run_resident<T, KIND, 4, false>(a, s);
+        else
+            rc = run_resident<T, KIND, 0, false>(a, s);
         if (rc == kNoCluster) continue;
         if (info) {
             info[0] = pl.nb;
@@ -1047,8 +1074,9 @@ int launch_resident(const T* p, const T* b, const T* cA, T* out, T* recs,
 }
 
 // form 0: a launch per colour step (scratch: GS's second state buffer,
-// RB's plane-0 snapshot, unused by FC); 1: one launch, one block; 2: one
-// launch, a thread block cluster (scratch: the records).  Out <- p after
+// RB's plane-0 snapshot, unused by FC); 1: one launch, one block (scratch:
+// the records, where record_bytes is not 0); 2: one launch, a thread
+// block cluster (no scratch).  Out <- p after
 // nsweeps sweeps of ordering kind.
 template <typename T>
 int launch_relax_fused(const void* p, const void* b, const void* cA,
@@ -1103,6 +1131,14 @@ int mg_relax_fused_f64(const void* p, const void* b, const void* cA,
     return launch_relax_fused<double>(p, b, cA, out, scratch, nz, ny, nx,
                                       real, nsweeps, kind, form, info,
                                       stream);
+}
+
+// The scratch bytes the one-block form's records need (elem: 4 or 8)
+long long mg_relax_fused_record_bytes(int elem, int nz, int ny, int nx,
+                                      int kind) {
+    if (kind < kRB || kind > kGS || nz < 1 || ny < 1 || nx < 1) return -1;
+    return elem == 4 ? record_bytes<float>(kind, nz, ny, nx)
+                     : record_bytes<double>(kind, nz, ny, nx);
 }
 
 }  // extern "C"

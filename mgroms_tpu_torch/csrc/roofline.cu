@@ -271,10 +271,9 @@ int launch_step_floor(const float* x, float* out, int nz, int ny, int nx,
         if (nt > 1024 || smem > 232448) return (int)cudaErrorInvalidValue;
         *blocks = nb;
         if (!cluster) {
-            cudaError_t e = cudaFuncSetAttribute(
-                step_floor_kernel<false>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-            if (e != cudaSuccess) return (int)e;
+            const int e = kernel_attributes(
+                (const void*)step_floor_kernel<false>, smem, false);
+            if (e != 0) return e;
             step_floor_kernel<false><<<1, nt, smem, s>>>(x, out, nz, ny, nx,
                                                           1, nsteps);
             return (int)cudaGetLastError();

@@ -116,6 +116,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # stream
     lib.mg_dma_only_bands.argtypes = [p] * 11 + [i] * 5 + [p]
     lib.mg_dma_only_bands.restype = i
+    # elem nz ny nx kind: the one-block form's record scratch bytes
+    lib.mg_relax_fused_record_bytes.argtypes = [i] * 5
+    lib.mg_relax_fused_record_bytes.restype = ctypes.c_longlong
     # x out | nz ny nx nsteps cluster | blocks stream
     lib.mg_step_floor.argtypes = [p, p] + [i] * 5 + [p, p]
     lib.mg_step_floor.restype = i

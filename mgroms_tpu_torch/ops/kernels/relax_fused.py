@@ -6,7 +6,7 @@ sweeps of ``ncolor`` colour steps (:data:`KINDS`: 'RB' two parity
 colours, 'FC' four, 'GS' one all-ones step, the JAX package's
 column-Jacobi GS), each committing ``p + mask * (sol - p)``.  The kernel
 (``csrc/relax_fused.cu``) has three forms; :func:`form` names the one a
-level takes from its shape and dtype alone:
+level takes from its shape, dtype and ordering alone:
 
   ``block``    one launch per call, one block holding the level (its
                state in shared memory, each column's coefficients,
@@ -14,7 +14,9 @@ level takes from its shape and dtype alone:
                the coarsest level of every cell;
   ``cluster``  the same in a thread block cluster of up to 16 blocks, a
                band of rows each, the rows next to a band read from the
-               neighbour block's shared memory: the mid levels;
+               neighbour block's shared memory, the records in registers
+               (float32 at nz 2 or 4 only; any other level is refused):
+               CUC level 4 in RB and FC;
   ``step``     one launch per colour step (larger levels), a thread per
                column of the step's colour; RB and FC update a copy of
                ``p`` in place, GS ping-pongs.
@@ -71,15 +73,20 @@ LAUNCHES = {k.name(f): 0 for k in KINDS.values() for f in FORMS}
 SMEM_BYTES = 232448
 MAX_THREADS = 1024
 CLUSTER_BLOCKS = (16, 8)
+# the nz at which each thread holds its columns' records in registers
+# (csrc/relax_fused.cu plan_resident), and the most threads a block of
+# that kernel has in float32 (max_threads): the only plans the cluster
+# form takes
+REGISTER_THREADS = {2: 512, 4: 256}
 # the gate's thresholds, from the card's timings of the three forms at the
 # levels of seamount 64^3 and CUC 1024^2 x 64 (PERF.md,
 # scripts/micro_relax_fused.py): the points (nz * ny * nx) of the largest
-# level each one-launch form takes, and the cluster form only in float32
-# at nz 2 or 4, where each thread holds its columns' records in registers
-# (csrc/relax_fused.cu plan_resident), the only place it beat the step form
+# level each one-launch form takes.  GS solves every column a step and
+# beats the step form in one launch only at the coarsest levels (nz 2, 4:
+# CUC level 5, seamount level 4); at 8^3 and CUC level 4 the step form
+# wins, so GS takes one block only at nz 2 or 4 and never the cluster
 BLOCK_POINTS = 2 * 32 * 32
 CLUSTER_POINTS = 4 * 64 * 64
-CLUSTER_NZ = (2, 4)
 
 
 def reset_launches() -> None:
@@ -87,45 +94,57 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def fits(shape, itemsize: int, nblocks: int) -> bool:
+def fits(shape, itemsize: int, nblocks: int,
+         max_threads: int = MAX_THREADS) -> bool:
     """Whether ``nblocks`` blocks of a one-launch form hold a level of
     ``shape``: a thread per two columns of the largest band of rows (FC:
-    per two colours of a row pair), and in shared memory two state
-    buffers, the plane-0 snapshot and the forward values of two columns a
-    thread (the most any ordering takes)."""
+    per two colours of a row pair), at most ``max_threads``, and in
+    shared memory two state buffers, the plane-0 snapshot and the forward
+    values of two columns a thread (the most any ordering takes)."""
     nz, ny, nx = shape
     rows = -(-ny // nblocks)
     threads = (rows + 1) // 2 * 2 * ((nx + 1) // 2)
     smem = (2 * nz * rows * nx + rows * nx + 2 * nz * threads) * itemsize
-    return nblocks <= ny and threads <= MAX_THREADS and smem + 64 <= SMEM_BYTES
+    return nblocks <= ny and threads <= max_threads and smem + 64 <= SMEM_BYTES
+
+
+def cluster_takes(shape, dtype) -> bool:
+    """Whether the cluster form takes a level of ``shape`` and ``dtype``:
+    float32 at an nz of :data:`REGISTER_THREADS`, the records in
+    registers in a cluster of 16 blocks and of 8."""
+    nz, ny, _ = shape
+    return (dtype == torch.float32 and nz in REGISTER_THREADS
+            and all(fits(shape, 4, min(n, ny), REGISTER_THREADS[nz])
+                    for n in CLUSTER_BLOCKS))
 
 
 @functools.lru_cache(maxsize=None)
-def _form(shape: tuple, dtype) -> str:
+def _form(shape: tuple, dtype, kind: str) -> str:
     nz, ny, nx = shape
-    itemsize = dtype.itemsize
     points = nz * ny * nx
-    if points <= BLOCK_POINTS and fits(shape, itemsize, 1):
+    if (points <= BLOCK_POINTS and fits(shape, dtype.itemsize, 1)
+            and (kind != "GS" or nz in REGISTER_THREADS)):
         return "block"
-    if (points <= CLUSTER_POINTS and nz in CLUSTER_NZ and itemsize == 4
-            and all(fits(shape, itemsize, min(n, ny))
-                    for n in CLUSTER_BLOCKS)):
+    if (kind != "GS" and points <= CLUSTER_POINTS
+            and cluster_takes(shape, dtype)):
         return "cluster"
     return "step"
 
 
-def form(shape, dtype) -> str:
-    """The form a level of ``shape`` and ``dtype`` takes: 'block' where
-    one block holds it, up to :data:`BLOCK_POINTS`; else 'cluster' where
-    a cluster of 16 blocks, and of 8, holds it, up to
-    :data:`CLUSTER_POINTS`, in float32 at nz in :data:`CLUSTER_NZ`; else
-    'step'."""
-    return _form(tuple(shape), dtype)
+def form(shape, dtype, kind: str) -> str:
+    """The form a level of ``shape`` and ``dtype`` takes in ordering
+    ``kind``: 'block' where one block holds it, up to
+    :data:`BLOCK_POINTS` (GS only at nz 2 or 4); else, in RB and FC,
+    'cluster' where the cluster form takes it (:func:`cluster_takes`), up
+    to :data:`CLUSTER_POINTS`; else 'step'."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown relax kind {kind!r}")
+    return _form(tuple(shape), dtype, kind)
 
 
 def launch_name(p: torch.Tensor, kind: str) -> str:
     """The ``LAUNCHES`` key of the form ``p`` takes in ordering ``kind``."""
-    return KINDS[kind].name(form(p.shape, p.dtype))
+    return KINDS[kind].name(form(p.shape, p.dtype, kind))
 
 
 def fused_relax_plain(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
@@ -146,16 +165,23 @@ def _step_scratch(p, kind: str, real_matrix: bool):
     return None
 
 
-def record_scratch(p, kind: str):
-    """Device memory for the one-launch forms' per-column records where
-    neither registers nor shared memory hold them: per slot (RB, GS two,
-    FC four) and global slot (ny x (nx+1)//2), nz plane records of 16
-    values and one 16-byte vector of the two 'real' coefficients."""
-    nz, ny, nx = p.shape
-    isz = p.element_size()
-    slots = 4 if kind == "FC" else 2
-    nbytes = slots * (nz * 16 * isz + 16) * ny * ((nx + 1) // 2)
-    return torch.empty(nbytes // isz, dtype=p.dtype, device=p.device)
+@functools.lru_cache(maxsize=None)
+def _record_bytes(shape: tuple, itemsize: int, kind: str) -> int:
+    """The device memory the one-block form's records take at ``shape``
+    (csrc/relax_fused.cu record_bytes): 0 where registers or shared
+    memory hold them, asked once a shape."""
+    return _build.load().mg_relax_fused_record_bytes(itemsize, *shape,
+                                                     KINDS[kind].code)
+
+
+def _resident_scratch(p, kind: str, form_: str):
+    """The one-block form's records in device memory, where its plan puts
+    them there; else none (the cluster form holds them in registers)."""
+    if form_ != "block":
+        return None
+    nbytes = _record_bytes(tuple(p.shape), p.element_size(), kind)
+    return (torch.empty(nbytes // p.element_size(), dtype=p.dtype,
+                        device=p.device) if nbytes else None)
 
 
 def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
@@ -165,13 +191,14 @@ def fused_relax(p, b, cA, nsweeps: int, kind: str, real_matrix: bool):
     nx+2), the physical boundary on every side.  Returns the new ``p``;
     the inputs are not written."""
     return fused_relax_form(p, b, cA, nsweeps, kind, real_matrix,
-                            form(p.shape, p.dtype))
+                            form(p.shape, p.dtype, kind))
 
 
 def fused_relax_form(p, b, cA, nsweeps: int, kind: str, real_matrix: bool,
                      form_: str, plan: dict | None = None):
     """:func:`fused_relax` in the form ``form_`` (one of :data:`FORMS`,
-    whatever the gate says: the tests and the timings).  ``plan``, where
+    whatever the gate says: the tests and the timings; a cluster the
+    kernel does not take, :func:`cluster_takes`, raises).  ``plan``, where
     given, receives a one-launch form's blocks, threads a block, where
     the records live ('registers', 'shared', 'device') and its shared
     memory bytes a block."""
@@ -189,7 +216,7 @@ def fused_relax_form(p, b, cA, nsweeps: int, kind: str, real_matrix: bool,
         return p
     out = torch.empty_like(p)
     scratch = (_step_scratch(p, kind, real_matrix) if form_ == "step"
-               else record_scratch(p, kind))
+               else _resident_scratch(p, kind, form_))
     info = (ctypes.c_int * 4)()
     lib = _build.load()
     fn = (lib.mg_relax_fused_f32 if p.dtype == torch.float32

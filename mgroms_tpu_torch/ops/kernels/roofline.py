@@ -238,6 +238,11 @@ def dma_only_bands(e, bq, pack, targets):
 
 
 FLOOR_H = 0.5          # step_floor's multiplier (roofline.cu kFloorH)
+# (shape, steps, cluster): step_floor at K6's one-launch shapes, RB's
+# steps: the coarsest levels of CUC and seamount 64^3 (40 sweeps, one
+# block) and CUC level 4 (3 sweeps, a cluster)
+STEP_FLOOR_CASES = [((2, 32, 32), 80, False), ((4, 4, 4), 80, False),
+                    ((4, 64, 64), 6, True)]
 
 
 def step_floor_plain(x, nsteps: int):
@@ -248,15 +253,25 @@ def step_floor_plain(x, nsteps: int):
     x[0, j, i]."""
     x = x.clone()
     nz, ny, nx = x.shape
-    jn = (torch.arange(ny) - 1).clamp(min=0)
-    jj = torch.arange(ny)[:, None]
-    ii = torch.arange(nx)[None, :]
+    ar = lambda n: torch.arange(n, device=x.device)
+    jn = (ar(ny) - 1).clamp(min=0)
+    jj = ar(ny)[:, None]
+    ii = ar(nx)[None, :]
     for step in range(nsteps):
         acc = x[0, jn] * FLOOR_H
         for k in range(nz):
             acc = acc * FLOOR_H + x[k]
         x[0] = torch.where((jj + ii + step) % 2 == 0, acc, x[0])
     return x
+
+
+def step_floor_flops(shape, nsteps: int) -> int:
+    """The flops of ``nsteps`` steps: per active column (the step's
+    parity colour) one multiply and nz multiply-adds."""
+    nz, ny, nx = shape
+    even = (ny * nx + 1) // 2           # the columns of (j + i) even
+    cols = (nsteps + 1) // 2 * even + nsteps // 2 * (ny * nx - even)
+    return cols * (2 * nz + 1)
 
 
 def step_floor(x, nsteps: int, cluster: bool = False):

@@ -51,22 +51,31 @@ LEVELS = [("seamount", 4, (4, 4, 4), 40), ("seamount", 3, (8, 8, 8), 3),
 NCOLOR = {"RB": 2, "FC": 4, "GS": 1}
 
 
-def device_ms(fn, reps=20, warm=3) -> float:
-    """Device time of one call of ``fn``: the summed duration of the
-    device ops ``reps`` calls launch (torch.profiler, CUDA activity),
-    over ``reps``."""
+def device_ms(fn, reps=20, warm=3, tries=3) -> float:
+    """Device time of one call of ``fn`` from the device ops that ``reps``
+    calls launch (torch.profiler, CUDA activity): their mean duration
+    times the ops a call launches (the recorded ops over ``reps``,
+    rounded).  The profiler now and then drops some of a trace's device
+    events, or all: the mean of the rest stands for those, and a trace
+    whose ops round to none a call is taken again, up to ``tries`` times,
+    then raises."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.time_range.end - e.time_range.start for e in ops) / 1e3 \
-        / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        per_call = round(len(ops) / reps)
+        if per_call >= 1:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in ops) / len(ops) * per_call / 1e3
+    raise RuntimeError(f"the profiler recorded {len(ops)} device ops of "
+                       f"{reps} calls in each of {tries} traces")
 
 
 def inputs(shape, dev, seed):
@@ -80,11 +89,11 @@ def inputs(shape, dev, seed):
 
 
 def _forms(shape):
-    """The forms a float32 level of ``shape`` fits."""
+    """The forms that take a float32 level of ``shape``."""
     out = ["step"]
     if kf.fits(shape, 4, 1):
         out.insert(0, "block")
-    if all(kf.fits(shape, 4, min(n, shape[1])) for n in kf.CLUSTER_BLOCKS):
+    if kf.cluster_takes(shape, torch.float32):
         out.insert(-1, "cluster")
     return out
 
@@ -132,7 +141,7 @@ def timed(dev=None, gated=False) -> list:
                     lambda: kf.fused_relax_form(p, b, cA, 1, kind, True,
                                                 form))) if form != "step" \
                     else {}
-                r = dict(row, form=form, gate=kf.form(shape, p.dtype),
+                r = dict(row, form=form, gate=kf.form(shape, p.dtype, kind),
                          ms=median_ms(call), dev_ms=device_ms(call), **one,
                          launches=(nsteps if form == "step" else 1),
                          **plan, **floors)

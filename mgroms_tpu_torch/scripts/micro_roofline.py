@@ -33,6 +33,10 @@ rows under the JAX script's names:
   mxu_dot16_ms, ew_sum16_ms      the gather as (points x 16) . (16)
                                  contractions: torch.bmm against an
                                  elementwise multiply and sum
+  step_floor_{nz}x{ny}x{nx}_{steps}[_cluster]_ms
+                                 K10 step_floor at K6's one-launch shapes
+                                 (roofline.STEP_FLOOR_CASES), one block
+                                 or a cluster (rows the JAX script lacks)
 
     python -m mgroms_tpu_torch.scripts.micro_roofline
 
@@ -88,6 +92,12 @@ def check(dev, nz=4, H=6, W=40) -> dict:
         rows["dma_only_bands" + ("_bf16" if lp else "")] = max(
             float((got[t] - want[t]).abs().max()) for t in colour)
     return rows
+
+
+def step_floor_key(shape, nsteps: int, cluster: bool) -> str:
+    """The row of step_floor at ``shape`` and ``nsteps``."""
+    return ("step_floor_" + "x".join(map(str, shape)) + f"_{nsteps}"
+            + ("_cluster" if cluster else "") + "_ms")
 
 
 def timed(dev=None, nz=64, H=512, W=512, reps=20) -> dict:
@@ -178,6 +188,10 @@ def timed(dev=None, nz=64, H=512, W=512, reps=20) -> dict:
     emit(rows, "mxu_dot16_ms", ms(
         lambda: torch.bmm(b16[:, None, :], s16[:, :, None])[:, 0, 0]))
     emit(rows, "ew_sum16_ms", ms(lambda: (b16 * s16).sum(dim=1)))
+    for shape, nsteps, cluster in rl.STEP_FLOOR_CASES:
+        xs = torch.rand(shape, device=dev) + 0.5
+        emit(rows, step_floor_key(shape, nsteps, cluster), ms(
+            lambda: rl.step_floor(xs, nsteps, cluster)))
     return rows
 
 

@@ -313,19 +313,19 @@ def _full_inputs(nz, ny, nx, dtype, device, seed):
 
 
 # (shape, sweeps): the coarsest levels of seamount 64^3 and CUC in the
-# one-block form, CUC level 4 in the cluster form (the step form in
-# float64), CUC level 3 and a 64^3 level in the per-colour-step form,
-# ragged ones
-K6_CASES = [((4, 4, 4), 40), ((2, 32, 32), 40), ((4, 64, 64), 3),
-            ((8, 128, 128), 3), ((64, 64, 64), 3), ((3, 5, 7), 3),
-            ((1, 6, 5), 2)]
+# one-block form, seamount level 3 (RB, FC one block; GS the step form),
+# CUC level 4 in the cluster form (GS and float64: the step form), CUC
+# level 3 and a 64^3 level in the per-colour-step form, ragged ones
+K6_CASES = [((4, 4, 4), 40), ((2, 32, 32), 40), ((8, 8, 8), 3),
+            ((4, 64, 64), 3), ((8, 128, 128), 3), ((64, 64, 64), 3),
+            ((3, 5, 7), 3), ((1, 6, 5), 2)]
 
 
 def _k6_launches(p, kind, ns):
     """The LAUNCHES key and count one gated K6 call of ``p`` adds."""
     key = kf.launch_name(p, kind)
     return key, (kf.KINDS[kind].ncolor * ns
-                 if kf.form(p.shape, p.dtype) == "step" else 1)
+                 if kf.form(p.shape, p.dtype, kind) == "step" else 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -417,12 +417,18 @@ def test_fused_relax_step_form_matches_plain(cuda, form, shape, kind,
     multiple of the step form's 32-column rows and on levels whose every
     column is an edge or a corner (the edge-copy halo reads the column
     itself): 0 ulp, p, b and cA unwritten, ncolor launches a sweep in the
-    per-colour-step form, one a call in the others."""
+    per-colour-step form, one a call in the others; a cluster the kernel
+    does not take (not float32 at nz 2 or 4) raises, nothing launched."""
     cA, p, b = _full_inputs(*shape, dtype, cuda, seed=sum(shape) + 2)
     inputs = tuple(x.clone() for x in (p, b, cA))
     name = kf.KINDS[kind].name(form)
     for real in (True, False):
         before = kf.LAUNCHES[name]
+        if form == "cluster" and not kf.cluster_takes(shape, dtype):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kf.fused_relax_form(p, b, cA, 3, kind, real, form)
+            assert kf.LAUNCHES[name] == before
+            continue
         got = kf.fused_relax_form(p, b, cA, 3, kind, real, form)
         want = kf.fused_relax_plain(p, b, cA, 3, kind, real)
         torch.cuda.synchronize()
@@ -433,16 +439,18 @@ def test_fused_relax_step_form_matches_plain(cuda, form, shape, kind,
 
 
 # the one-launch forms at the gate's edges, forced: the largest one-block
-# shapes (1024 threads; the last shared-memory plane), nz 1, the smallest
-# cluster (two rows), CUC levels 4 and 3 and seamount levels 2 and 1 in
-# the cluster form (16 blocks; level 3 in float64 too, its records in
-# device memory), ragged widths
+# shapes (1024 threads; the last shared-memory plane), nz 1; the cluster
+# form at the smallest clusters (two rows), CUC level 4 (16 blocks) and
+# ragged widths, and where it refuses the level (records not in
+# registers: nz 1 or 3, CUC level 3, seamount levels 2 and 1; every
+# float64 level)
 K6_EDGES = [("block", (2, 32, 32)), ("block", (1, 32, 63)),
             ("block", (5, 16, 31)), ("block", (8, 8, 8)),
             ("cluster", (3, 2, 9)), ("cluster", (1, 17, 5)),
             ("cluster", (4, 64, 64)), ("cluster", (8, 128, 128)),
             ("cluster", (16, 16, 16)), ("cluster", (32, 32, 32)),
-            ("cluster", (2, 40, 33))]
+            ("cluster", (2, 40, 33)), ("cluster", (4, 2, 9)),
+            ("cluster", (2, 17, 5))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -452,11 +460,18 @@ def test_fused_relax_one_launch_edges(cuda, case, kind, dtype):
     """K6's one-launch forms at the gate's edges, every ordering, with
     and without 'real', 2 sweeps: 0 ulp from the plain version, one launch
     a call; the cluster form runs 16 blocks (8 where 16 cannot be
-    resident), or ny where fewer rows."""
+    resident), or ny where fewer rows, and a level it does not take
+    raises with nothing launched."""
     form, shape = case
     cA, p, b = _full_inputs(*shape, dtype, cuda, seed=sum(shape) + 3)
     for real in (True, False):
         plan = {}
+        if form == "cluster" and not kf.cluster_takes(shape, dtype):
+            before = dict(kf.LAUNCHES)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kf.fused_relax_form(p, b, cA, 2, kind, real, form, plan)
+            assert kf.LAUNCHES == before and plan == {}
+            continue
         got = kf.fused_relax_form(p, b, cA, 2, kind, real, form, plan)
         want = kf.fused_relax_plain(p, b, cA, 2, kind, real)
         torch.cuda.synchronize()
@@ -469,13 +484,17 @@ def test_fused_relax_one_launch_edges(cuda, case, kind, dtype):
 def test_fused_relax_refused_launch_raises(cuda):
     """A one-launch form that cannot hold the level raises (no fallback
     to the step form): the CUC level-0 shape in a cluster, a 64^3 level
-    in one block."""
-    for form, shape in (("cluster", (64, 1024, 1024)),
-                        ("block", (64, 64, 64))):
-        cA, p, b = _full_inputs(*shape, torch.float32, cuda, seed=5)
+    in one block, and the cluster form where its records would not sit in
+    registers: CUC level 3, and level 4 in float64."""
+    for form, shape, dtype in (("cluster", (64, 1024, 1024), torch.float32),
+                               ("block", (64, 64, 64), torch.float32),
+                               ("cluster", (8, 128, 128), torch.float32),
+                               ("cluster", (4, 64, 64), torch.float64)):
+        cA, p, b = _full_inputs(*shape, dtype, cuda, seed=5)
         before = dict(kf.LAUNCHES)
-        with pytest.raises(RuntimeError, match="launch failed"):
-            kf.fused_relax_form(p, b, cA, 1, "RB", True, form)
+        for kind in kf.KINDS:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                kf.fused_relax_form(p, b, cA, 1, kind, True, form)
         assert kf.LAUNCHES == before
         del cA, p, b
 

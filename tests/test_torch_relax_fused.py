@@ -92,7 +92,8 @@ def test_orderings_plain_match_jax_kernel(jax_levels, kind, lev, nsweeps):
 
 
 # the form the gate gives every level of seamount 64^3 and CUC 1024^2 x
-# 64, in float32 and float64 (PERF.md gives the card's timings behind it)
+# 64, in float32 and float64: RB and FC, then GS where it differs (PERF.md
+# gives the card's timings behind it)
 GATE = {
     (64, 64, 64): ("step", "step"),
     (32, 32, 32): ("step", "step"),
@@ -106,27 +107,35 @@ GATE = {
     (4, 64, 64): ("cluster", "step"),
     (2, 32, 32): ("block", "block"),
 }
+GATE_GS = {(8, 8, 8): ("step", "step"), (4, 64, 64): ("step", "step")}
 
 
 @pytest.mark.parametrize("case", ["seamount", "cuc"])
 def test_launch_names_and_unknown_kind(case):
-    """The gate is a function of shape and dtype: each level of the
-    case's plan takes the form GATE pins, in float32 and float64; each
-    ordering and form counts under its own name; an unknown ordering or
-    form raises."""
+    """The gate is a function of shape, dtype and ordering: each level of
+    the case's plan takes the form GATE (GS: GATE_GS) pins, in float32 and
+    float64; each ordering and form counts under its own name; an unknown
+    ordering or form raises."""
     from mgroms_tpu_torch.levels import build_level_plan
     grid = (64, 64, 64) if case == "seamount" else (1024, 1024, 64)
     shapes = [(s.nzg, s.nyg, s.nxg) for s in build_level_plan(*grid)]
     assert len(shapes) == (5 if case == "seamount" else 6)
     for shape in shapes:
-        got = tuple(kf.form(shape, dt) for dt in (torch.float32,
-                                                  torch.float64))
-        assert got == GATE[shape], (shape, got)
-        for dt in (torch.float32, torch.float64):
-            x = torch.zeros(shape, dtype=dt)
-            assert [kf.launch_name(x, k) for k in ("RB", "FC", "GS")] == [
-                kf.KINDS[k].name(got[dt == torch.float64]) for k in
-                ("RB", "FC", "GS")]
+        for kind in ("RB", "FC", "GS"):
+            want = (GATE_GS.get(shape, GATE[shape]) if kind == "GS"
+                    else GATE[shape])
+            got = tuple(kf.form(shape, dt, kind) for dt in (torch.float32,
+                                                            torch.float64))
+            assert got == want, (shape, kind, got)
+            for dt, f in zip((torch.float32, torch.float64), got):
+                x = torch.zeros(shape, dtype=dt)
+                assert kf.launch_name(x, kind) == kf.KINDS[kind].name(f)
+    # the cluster form takes float32 levels of nz 2 or 4 only
+    assert kf.cluster_takes((4, 64, 64), torch.float32)
+    assert kf.cluster_takes((2, 17, 9), torch.float32)
+    assert not any(kf.cluster_takes(s, dt) for s, dt in (
+        ((4, 64, 64), torch.float64), ((8, 128, 128), torch.float32),
+        ((1, 17, 5), torch.float32), ((3, 2, 9), torch.float32)))
     small = torch.zeros((2, 4, 4))
     assert [kf.launch_name(small, k) for k in ("RB", "FC", "GS")] == [
         "fused_relax", "fused_relax_fc", "fused_relax_gs"]

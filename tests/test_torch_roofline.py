@@ -218,8 +218,11 @@ def test_step_floor_plain_matches_numpy(shape, nsteps):
 
 def test_counts():
     """The flop count of fma_run (micro_roofline.py:283) and the bytes
-    dma_only must move at the CUC level-0 quad shape."""
+    dma_only must move at the CUC level-0 quad shape; step_floor's flops
+    (a multiply and nz multiply-adds per active column)."""
     assert rl.fma_flops() == 2.0 * 8 * 64 * 256 * 8 * 8 * 512
+    assert rl.step_floor_flops((2, 32, 32), 80) == 80 * 512 * 5
+    assert rl.step_floor_flops((3, 3, 3), 3) == (5 + 4 + 5) * 7
     nz, H, W = 64, 512, 512
     q, e = nz * H * W * 4, nz * (H + 2) * (W + 2) * 4
     assert rl.dma_only_bytes(nz, H, W, "windows") == 2 * q + 3 * e
