@@ -17,11 +17,16 @@ Phases (any failed check raises, so the exit code is non-zero):
    launch) on the band stack and on the gather blocks, in its coarse-RHS,
    residual and z-pair modes, to 0 ulp, at the CUC level-0 quads (timed),
    its level-4 quads (4, 32, 32), ragged widths, nz 2 and in float64;
-   K4 (one sweep, float32 and
-   bfloat16 bands) at the CUC level-0 quad shape (64, 512, 512), at the
-   CUC level-4 quad shape (4, 32, 32), at a ragged shape and once in
-   float64, its bytes counted as it reads them (the 24 band quads, its
-   bound on the 48 gather blocks printed beside), held to 0 ulp; K5 at the
+   K4 (one sweep; each instance's launch plan printed: threads a block,
+   blocks per SM, grid, shared memory) on float32 state with float32 and
+   bfloat16 bands at the CUC level-0 quad shape (64, 512, 512), at the
+   CUC level-4 quad shape (4, 32, 32) and at a ragged shape, on float64
+   state with float64 bands at (64, 512, 512) (timed) and a ragged shape,
+   and with bfloat16 bands (a float64 K4 level's band stack copy and
+   float64 pivots) at (64, 512, 512) (timed), (4, 32, 32) and a ragged
+   shape with and without 'real', its bytes counted as it reads them (the
+   24 band quads, its bound on the 48 gather blocks printed beside),
+   held to 0 ulp; K5 at the
    CUC level-0 shape
    (64, 1024, 1024), at a ragged shape and once in float64; K6 in each
    ordering (RB, FC, GS), to 0 ulp, in each of its three forms (forced):
@@ -130,28 +135,42 @@ Phases (any failed check raises, so the exit code is non-zero):
    GS_CYCLES fixed F-cycles, each cutting the residual, mean factor
    >= 2.
 
-Every phase with quad levels (2, 4-6, 8-10, 12, 14) checks that every
+17. CUC 1024^2 x 64 in float64 with fused_bands_bf16=True (V(3,2)): K4's
+   (float64, bfloat16) instance and K3 and no other kernel, every quad
+   level on the band stack and its bfloat16 copy; <= 1e-11 within
+   F64_MAXITER F-cycles, phase 4's max|div| limits, the traced F-cycle.
+   Beside it seamount 64^3 in float64 with and without bfloat16 bands:
+   their F-cycles to 1e-11 within one of each other.
+18. refine.refined_pressure_solve (mixed-precision defect correction:
+   float32 F-cycles, float64 residuals) on CUC 1024^2 x 64 to 1e-12
+   within REFINE_ROUNDS rounds, the inner solve in phase 4's config and
+   in perf mode (phase 9's), each launching exactly its path's kernels;
+   rounds, inner F-cycles, history, seconds and the pair's peak memory
+   (scripts/refine_solve.py's JSON line).
+
+Every phase with quad levels (2, 4-6, 8-10, 12, 14, 17) checks that every
 quad level (every tile on phase 12's mesh) holds the band stack only, no
 gather blocks, whatever route smooths it; every phase prints its peak
 device memory (set-up and solve).
 
-Phases 5-10 and 12-16 run in float32.  Phases 5-8 hold their history to the
-matching default phase's (2 or 4) within rel 1e-6 (1e-3 with
-compact=False, whose sums round in another order, and for phase 8, whose
-residuals are emitted where phase 4's are fresh).  Every phase reaches
-<= 1e-4 within its cycle limit, meets its default phase's max|div| limits
-and launches every kernel of its path and no other.
+Phases 5-10 and 12-16 run in float32, 17 in float64.  Phases 5-8 hold
+their history to the matching default phase's (2 or 4) within rel 1e-6
+(1e-3 with compact=False, whose sums round in another order, and for
+phase 8, whose residuals are emitted where phase 4's are fresh).  Every
+float32 phase reaches <= 1e-4 within its cycle limit, meets its default
+phase's max|div| limits and launches every kernel of its path and no
+other.
 
-Phases 2, 4-10, 12 and 14-16 also trace one F-cycle with torch.profiler (device
-activity only): device ops, device busy time against the same traced
+Phases 2, 4-10, 12 and 14-17 also trace one F-cycle with torch.profiler
+(device activity only): device ops, device busy time against the same traced
 step's wall time (the idle share), K4's, K3's, K1-K2's and each K6
 form's launches and device time where they run, and the top device ops.
 
 The line before last is a JSON object with, for each kernel, its launches
 in the phase that is its path (4 for K4 and K3 in both its modes, 6 for
 K6's one-block form, 7 for K5 and K6's cluster and per-colour-step
-forms, 8 for K1 and K2, 9 for K4 on bfloat16 bands, 10 for K1 on the
-bfloat16 stack, 11 for K8-K11 and K10's step floor, 13 for K7, 15 for
+forms, 8 for K1 and K2, 9 for K4 on bfloat16 bands, 17 for K4 on
+bfloat16 bands with a float64 state, 10 for K1 on the bfloat16 stack, 11 for K8-K11 and K10's step floor, 13 for K7, 15 for
 K6's FC forms, 16 for its GS forms), its error against the plain
 version, both times and its
 bound (K6's one-launch forms also their device time); the last line is
@@ -194,6 +213,7 @@ from mgroms_tpu_torch.scripts import micro_packed_parts as mpp
 from mgroms_tpu_torch.scripts import micro_relax_fused as mrf
 from mgroms_tpu_torch.scripts import micro_roofline as mr
 from mgroms_tpu_torch.scripts import micro_sweep_fused as msf
+from mgroms_tpu_torch.scripts import refine_solve
 from mgroms_tpu_torch.scripts._timing import card_line, median_ms
 from mgroms_tpu_torch.solver import solve_init, solve_step
 
@@ -215,6 +235,9 @@ KERNELS = {
                           "mgroms_tpu/ops/pallas/sweep_fused.py:509", 4),
     "relax_fused_sweep_bf16": ("sweep_fused.cu",
                                "mgroms_tpu/ops/pallas/sweep_fused.py:509", 9),
+    "relax_fused_sweep_bf16_f64": ("sweep_fused.cu",
+                                   "mgroms_tpu/ops/pallas/sweep_fused.py:509",
+                                   17),
     "residual_tiled": ("stencil_tiled.cu",
                        "mgroms_tpu/ops/pallas/stencil_tiled.py:75", 7),
     "fused_relax": ("relax_fused.cu",
@@ -267,6 +290,12 @@ FC_MAXITER = 3
 # the residual, by >= 2x on the mean (tests/test_solver.py:164 pins that
 # mean factor for JAX's GS), to <= 1e-4
 GS_CYCLES = 2
+# phase 17 (CUC, float64, bfloat16 bands, V(3,2)) reaches 1e-11 within
+# this many F-cycles: 1.5x the 4 of its first run on the card (7.497e-12
+# after the fourth, on an H100 80GB HBM3 at 700 W)
+F64_MAXITER = 6
+# phase 18: the refined solve's round limit (refine_solve.run's default)
+REFINE_ROUNDS = 8
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
 F32_FLOPS = 67e12                # float32 outside the tensor cores
 
@@ -314,20 +343,25 @@ def check(cond, msg):
 
 # ------------------------------------------------------------ phase 1
 
-def kernel_inputs(nz, H, W, dtype, dev, seed, lp=False, bands=False):
+def kernel_inputs(nz, H, W, dtype, dev, seed, lp=False, bands=False,
+                  real=True):
     """Random diagonally dominant operator pack (with the low-precision
     smoother operator when ``lp``, with the band stack K4 reads when
     ``bands``), state quads and RHS quads, made on the card from a seeded
-    generator."""
+    generator.  A float64 pack with ``lp`` is a float64 K4 level's: the
+    band stack, its bfloat16 copy and float64 pivots, no gather blocks."""
     g = torch.Generator(device=dev).manual_seed(seed)
     u = lambda *s: torch.rand(s, generator=g, device=dev, dtype=dtype)
     cA = 0.2 * u(8, nz, 2 * H + 2, 2 * W + 2) - 0.1
     cA[0] -= 4.0
-    pack = rc.build_compact_pack(cA, True)
-    if lp:
-        pack = rc.attach_lp(pack)
-    if bands:
-        pack = rc.attach_bands(pack, cA)
+    if lp and dtype == torch.float64:
+        pack = rc.attach_lp(rc.build_band_pack(cA, real))
+    else:
+        pack = rc.build_compact_pack(cA, real)
+        if lp:
+            pack = rc.attach_lp(pack)
+        if bands:
+            pack = rc.attach_bands(pack, cA)
     del cA
     q = rc.split_quads(2 * u(nz, 2 * H, 2 * W) - 1)
     bq = rc.split_quads(2 * u(nz, 2 * H, 2 * W) - 1)
@@ -563,17 +597,25 @@ def rr_kernels(dev, results):
         torch.cuda.empty_cache()
 
 
-# (shape, dtype, low-precision operator, K4 timed).  "json" times the shape
-# a kernel's main path gives it: K4 at the CUC level-0 quad (phases 4 and
-# 9); "print" times another shape.  Where K4 is timed for the json line,
-# one K4 sweep is also timed against one sweep of two K1 launches.
+# (shape, dtype, low-precision operator, K4 timed, 'real').  "json" times
+# the shape a kernel's main path gives it: K4 at the CUC level-0 quad
+# (phases 4, 9 and, float64 on bfloat16 bands, 17); "print" times another
+# shape (the (double, double) instance at the CUC level-0 quad).  Where a
+# K1 instance takes the same operator, one K4 sweep timed for the json
+# line is also timed against one sweep of two K1 launches.
 SWEEP_CASES = [
-    ((64, 512, 512), torch.float32, False, "json"),
-    ((64, 512, 512), torch.float32, True, "json"),
-    ((4, 32, 32), torch.float32, False, "print"),
-    ((6, 5, 7), torch.float32, False, None),
-    ((6, 5, 7), torch.float32, True, None),
-    ((6, 5, 7), torch.float64, False, None),
+    ((64, 512, 512), torch.float32, False, "json", True),
+    ((64, 512, 512), torch.float32, True, "json", True),
+    ((64, 512, 512), torch.float64, True, "json", True),
+    ((64, 512, 512), torch.float64, False, "print", True),
+    ((4, 32, 32), torch.float32, False, "print", True),
+    ((4, 32, 32), torch.float64, True, None, True),
+    ((4, 32, 32), torch.float64, True, None, False),
+    ((6, 5, 7), torch.float32, False, None, True),
+    ((6, 5, 7), torch.float32, True, None, True),
+    ((6, 5, 7), torch.float64, False, None, True),
+    ((6, 5, 7), torch.float64, True, None, True),
+    ((6, 5, 7), torch.float64, True, None, False),
 ]
 
 
@@ -586,30 +628,34 @@ def sweep_kernels(dev, results):
     four times K1's on one target.  Where K4 is timed for the json line,
     one K4 sweep is also timed against one sweep of the K1 route (two K1
     launches, a colour each, and the two halo extensions: relax_tiled.
-    relax_compact_tiled_quads) on the same band stack."""
-    for shape, dtype, lp, k4_timed in SWEEP_CASES:
+    relax_compact_tiled_quads) on the same band stack.  Prints each
+    launch's plan (threads a block, blocks per SM, grid, shared memory)."""
+    for shape, dtype, lp, k4_timed, real in SWEEP_CASES:
         nz, H, W = shape
         pack, q, bq = kernel_inputs(*shape, dtype, dev, seed=sum(shape),
-                                    lp=lp, bands=True)
+                                    lp=lp, bands=True, real=real)
         blocks, rblocks, bet, _ = rc.smoother_operator(pack, dtype)
-        stack = ksf.sweep_bands(pack, dtype)[0]
+        stack, _, band = ksf.sweep_bands(pack, dtype)
+        name = ksf.ENTRIES[(dtype, band)][1]
+        print(f"  {name} {shape} real={real}: launch plan "
+              f"{ksf.launch_plan(shape, dtype, band)}")
         n = bq[(0, 0)].numel()
         col = n // shape[0]
         state = nbytes(*q.values(), *bq.values(), *pack.ud, *bet,
                        *q.values())
         band_bytes = rc.NBANDS * nz * (H + 2) * (W + 2) * stack.element_size()
-        name = "relax_fused_sweep_bf16" if lp else "relax_fused_sweep"
         hold(results, name, shape, dtype,
              lambda: ksf.relax_fused_sweep(q, bq, pack, 1),
              lambda: ksf.relax_fused_sweep_plain(q, bq, pack, 1), None,
              state + band_bytes, 4 * (30 * n + 8 * col), k4_timed,
              exact=True)
-        if k4_timed == "json":
+        if k4_timed == "json" and blocks is not None:
             old = state + nbytes(*blocks, *rblocks)
             print(f"  {name} {shape} bound on the band quads "
                   f"{bound(state + band_bytes, 0)[0]:.6f} ms "
                   f"({(state + band_bytes) / 1e9:.4f} GB); on the gather "
                   f"blocks {bound(old, 0)[0]:.6f} ms ({old / 1e9:.4f} GB)")
+        if k4_timed == "json" and (dtype, band) in kt.COLOUR_ENTRIES:
             k4 = median_ms(lambda: ksf.relax_fused_sweep(q, bq, pack, 1))
             k1 = median_ms(lambda: kt.relax_compact_tiled_quads(q, bq, pack,
                                                                 1))
@@ -1377,6 +1423,98 @@ def overlap_phase(m, dev):
     return counts
 
 
+K3 = {"residual_restrict", "residual_quads"}
+
+
+def check_lp_levels(m):
+    """Every quad level holds the band stack and its bfloat16 copy with the
+    float64 pivots, no gather blocks (a float64 solve with bfloat16
+    bands)."""
+    be = m.backend
+    levels = [lev for lev in range(be.nlevs) if be.state_quads(lev)]
+    check(levels and all(
+        be.packs[lev].lp is not None and be.packs[lev].lp.blocks is None
+        and be.packs[lev].lp.ebands.dtype == torch.bfloat16
+        and be.packs[lev].lp.bet[0].dtype == torch.float64
+        for lev in levels),
+        f"quad levels {levels} do not all hold the bfloat16 stack")
+
+
+def f64_phase(case, case_seamount, dev):
+    """Phase 17: CUC 1024^2 x 64 in float64 with fused_bands_bf16 (V(3,2)):
+    <= 1e-11 within F64_MAXITER F-cycles, K4's (float64, bfloat16)
+    instance and K3 launched and no other kernel, every quad level on the
+    band stack and its bfloat16 copy, phase 4's max|div| limits, the
+    traced F-cycle; beside it seamount 64^3 in float64 with and without
+    the bands, whose cycles to 1e-11 lie within one of each other (the JAX
+    package's criterion, tests/test_sweep_fused.py:173-195).  Returns the
+    CUC run's launch counts."""
+    print("== phase 17: CUC 1024^2 x 64 float64, fused_bands_bf16=True "
+          "(V(3,2)), to 1e-11")
+    t0 = time.perf_counter()
+    reset_launches()
+    m, info, ratio, inner, _, _ = run_model(
+        1024, 1024, 64, case, "float64", dev, tol=1e-11,
+        maxiter=F64_MAXITER, fused_bands_bf16=True)
+    counts = launches()
+    print(f"  launches {counts}")
+    print(f"  F-cycles to 1e-11: {info.niter} (limit {F64_MAXITER}), "
+          f"solve {info.time_s:.3f} s")
+    check(info.res <= 1e-11 and info.niter <= F64_MAXITER,
+          f"{info.res} after {info.niter} cycles")
+    check_path(counts, {"relax_fused_sweep_bf16_f64"} | K3)
+    check_band_levels(m)
+    check_lp_levels(m)
+    check(ratio <= 2.5e-2 and inner <= 1e-2,
+          f"max|div| cut only to {ratio} (interior {inner})")
+    print(f"  F-cycle median {fcycle_ms(m):.3f} ms")
+    profile_fcycle(m)
+    del m
+    torch.cuda.empty_cache()
+    niter = {}
+    for bf16, busy in ((True, "relax_fused_sweep_bf16_f64"),
+                       (False, "relax_fused_sweep")):
+        print(f"  seamount 64^3 float64, fused_bands_bf16={bf16}:")
+        reset_launches()
+        ms, sinfo, _, _, _, _ = run_model(
+            64, 64, 64, case_seamount, "float64", dev, tol=1e-11,
+            maxiter=20, fused_bands_bf16=bf16)
+        check_path(launches(), {busy} | K3)
+        check(sinfo.res <= 1e-11, f"seamount: {sinfo.res}")
+        niter[bf16] = sinfo.niter
+        del ms
+    print(f"  seamount 64^3 F-cycles to 1e-11: {niter[True]} with bfloat16 "
+          f"bands, {niter[False]} without")
+    check(abs(niter[True] - niter[False]) <= 1, f"cycles {niter}")
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
+def refine_phase(dev):
+    """Phase 18: refine.refined_pressure_solve on CUC 1024^2 x 64 to
+    1e-12 within REFINE_ROUNDS rounds, the inner float32 solve in phase
+    4's config (K4 and K3) and in perf mode (phase 9's: K4 on bfloat16
+    bands and K3), each launching its kernels and no other; rounds, inner
+    F-cycles, history, time and the pair's peak memory printed
+    (scripts/refine_solve.run)."""
+    print("== phase 18: refined_pressure_solve, CUC 1024^2 x 64, tol 1e-12")
+    t0 = time.perf_counter()
+    for bf16, k4 in ((False, "relax_fused_sweep"),
+                     (True, "relax_fused_sweep_bf16")):
+        reset_launches()
+        row = refine_solve.run("cuc", 1024, 1024, 64, bf16_bands=bf16,
+                               device=dev, max_rounds=REFINE_ROUNDS,
+                               verbose=True)
+        print(json.dumps(row))
+        check(row["final_f64_rel_residual"] <= 1e-12,
+              f"refine stopped at {row['final_f64_rel_residual']} after "
+              f"{row['rounds']} rounds")
+        check_path(launches(), {k4} | K3)
+        torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -1545,6 +1683,9 @@ def main() -> int:
     print(f"  GS: {info16.niter} F-cycle(s), mean factor {factor:.3f}")
     check(all(b < a for a, b in zip(h, h[1:])) and factor >= 2.0,
           f"GS F-cycles do not each cut the residual 2x on the mean: {h}")
+
+    phase_counts[17] = f64_phase(case, case_seamount, dev)
+    refine_phase(dev)
 
     for name, (src, _, phase) in KERNELS.items():
         print(f"  {name}: {phase_counts[phase][name]} launches in phase "

@@ -56,9 +56,14 @@
 // the pre-sweep quads into their outputs; a grid barrier; colour 1 updates
 // (0,1), (1,0), reading colour 0's new values from those outputs and the
 // colour-1 quads' pre-sweep values from the inputs.  The plane-0 'real'
-// couplings (4 terms, one plane) are read in place.  Instances: (float,
-// float), (double, double) and (float, bfloat16 bands: the low-precision
-// smoother operator, upcast at read).
+// couplings (4 terms, one plane) are read in place.  Instances, by
+// (state, bands): (float, float), (double, double), (float, bfloat16)
+// and (double, bfloat16); bfloat16 bands are the low-precision smoother
+// operator, widened to the state type at read (exactly, as the plain
+// version's .to(dtype)).  In double a column's Thomas arrays take
+// 2 * nz * 8 bytes of shared memory: at nz 64 the launcher's halving
+// loop lands on 128 threads and one block per SM with either band type
+// (mg_sweep_fused_plan reports the plan it picks).
 //
 // Rounding: built with -fmad=false (0 ulp from the plain version).
 //
@@ -449,6 +454,46 @@ sweep_kernel(const Params<T, B> p) {
     }
 }
 
+// The launch plan of one sweep: threads per block (tile rows of kCols),
+// dynamic shared memory, resident blocks per SM and the cooperative grid.
+struct Plan {
+    int nt, per_sm, grid;
+    size_t smem;
+};
+
+template <typename T, typename B>
+cudaError_t plan_sweep(int nz, int H, int W, Plan& pl) {
+    const void* kern = reinterpret_cast<const void*>(&sweep_kernel<T, B>);
+    // the most threads (tile rows of kCols) whose columns fit a block
+    int nt = kMaxThreads;
+    while (nt > kCols && Smem<T, B>::bytes(nz, nt) > kMaxDynSmem) nt /= 2;
+    const size_t smem = Smem<T, B>::bytes(nz, nt);
+    if (smem > kMaxDynSmem) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    // a cooperative grid must be resident at once: at most the blocks the
+    // card holds with this shared memory, each walking its share of tiles
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                            nt, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    const int rows = nt / kCols;
+    const long long tiles = 2LL * ((H + rows - 1) / rows)
+                            * ((W + kCols - 1) / kCols);
+    pl.nt = nt;
+    pl.smem = smem;
+    pl.per_sm = per_sm;
+    pl.grid = (int)(tiles < (long long)per_sm * sms
+                        ? tiles : (long long)per_sm * sms);
+    return cudaSuccess;
+}
+
 template <typename T, typename B>
 int launch_sweep(const SweepArgs* a, int nz, int H, int W, int real,
                  void* stream) {
@@ -465,33 +510,13 @@ int launch_sweep(const SweepArgs* a, int nz, int H, int W, int real,
     p.H = H;
     p.W = W;
     p.real = real;
-    const void* kern = reinterpret_cast<const void*>(&sweep_kernel<T, B>);
-    // the most threads (tile rows of kCols) whose columns fit a block
-    int nt = kMaxThreads;
-    while (nt > kCols && Smem<T, B>::bytes(nz, nt) > kMaxDynSmem) nt /= 2;
-    const size_t smem = Smem<T, B>::bytes(nz, nt);
-    if (smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    // a cooperative grid must be resident at once: at most the blocks the
-    // card holds with this shared memory, each walking its share of tiles
-    int dev = 0, sms = 0, per_sm = 0;
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                            nt, smem);
+    Plan pl;
+    cudaError_t err = plan_sweep<T, B>(nz, H, W, pl);
     if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    const int rows = nt / kCols;
-    const long long tiles = 2LL * ((H + rows - 1) / rows)
-                            * ((W + kCols - 1) / kCols);
-    const int grid = (int)(tiles < (long long)per_sm * sms
-                               ? tiles : (long long)per_sm * sms);
+    const void* kern = reinterpret_cast<const void*>(&sweep_kernel<T, B>);
     void* args[] = {&p};
-    err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(nt), args, smem,
+    err = cudaLaunchCooperativeKernel(kern, dim3(pl.grid), dim3(pl.nt), args,
+                                      pl.smem,
                                       static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
@@ -514,6 +539,32 @@ int mg_sweep_fused_f64(const SweepArgs* a, int nz, int H, int W, int real,
 int mg_sweep_fused_bf16(const SweepArgs* a, int nz, int H, int W, int real,
                         void* stream) {
     return launch_sweep<float, __nv_bfloat16>(a, nz, H, W, real, stream);
+}
+
+int mg_sweep_fused_f64_bf16(const SweepArgs* a, int nz, int H, int W,
+                            int real, void* stream) {
+    return launch_sweep<double, __nv_bfloat16>(a, nz, H, W, real, stream);
+}
+
+// The plan a launch of instance `inst` (0: f32, 1: f64, 2: bf16, 3:
+// f64_bf16, the entries above in order) takes at quads (nz, H, W):
+// out = {threads, blocks per SM, grid, dynamic shared memory bytes}.
+int mg_sweep_fused_plan(int inst, int nz, int H, int W, int* out) {
+    Plan pl;
+    cudaError_t err;
+    switch (inst) {
+        case 0: err = plan_sweep<float, float>(nz, H, W, pl); break;
+        case 1: err = plan_sweep<double, double>(nz, H, W, pl); break;
+        case 2: err = plan_sweep<float, __nv_bfloat16>(nz, H, W, pl); break;
+        case 3: err = plan_sweep<double, __nv_bfloat16>(nz, H, W, pl); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return (int)err;
+    out[0] = pl.nt;
+    out[1] = pl.per_sm;
+    out[2] = pl.grid;
+    out[3] = (int)pl.smem;
+    return 0;
 }
 
 // The compiled term recipe of target quad t (_TKEYS index): 16 rows of

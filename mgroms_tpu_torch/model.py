@@ -43,7 +43,7 @@ class NHModel:
                  verbose: bool = False):
         self.cfg = cfg or SolverConfig()
         self.device = torch.device(device)
-        check_supported(self.cfg, self.device.type == "cuda")
+        check_supported(self.cfg)
         self.levels = build_level_plan(nx, ny, nz,
                                        aggressive=self.cfg.aggressive)
         self.nx, self.ny, self.nz = nx, ny, nz

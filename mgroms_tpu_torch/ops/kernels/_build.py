@@ -65,10 +65,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         # (bf16: float32 state, bfloat16 operator, emit 0)
         fn.argtypes = [p] + [i] * 8 + [p]
         fn.restype = i
+    for dt in ("f32", "f64", "bf16", "f64_bf16"):
         fn = getattr(lib, f"mg_sweep_fused_{dt}")
         # SweepArgs* | nz H W real | stream
         fn.argtypes = [p] + [i] * 4 + [p]
         fn.restype = i
+    # instance nz H W | out[4]: K4's launch plan
+    lib.mg_sweep_fused_plan.argtypes = [i] * 4 + [p]
+    lib.mg_sweep_fused_plan.restype = i
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"mg_rr_{dt}")
         # RRArgs* | nz H W real mask mode bands | stream
@@ -215,6 +219,17 @@ def check_tensors(named: dict, shapes: dict, dtype, device,
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"{shapes[name]}")
+
+
+def instance(table: dict, state, operator, kernel: str):
+    """``table[(state, operator)]``: what a kernel's wrapper launches for
+    state values of dtype ``state`` and operator values of dtype
+    ``operator`` (its instance's C entry); ``ValueError`` for a pair with
+    no instance, before anything launches."""
+    if (state, operator) not in table:
+        raise ValueError(f"{kernel} has no instance for {state} state with "
+                         f"{operator} operator values")
+    return table[(state, operator)]
 
 
 def ptr(t):

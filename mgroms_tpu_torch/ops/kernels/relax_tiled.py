@@ -39,7 +39,7 @@ import torch
 
 from ..relax import thomas_factored_unrolled
 from . import _build
-from ._build import check_launch, check_tensors, on_cpu, ptr
+from ._build import check_launch, check_tensors, instance, on_cpu, ptr
 from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
                              CompactPack, _residual_one, band_layout,
                              block_views, check_band_stack, colour_targets,
@@ -52,6 +52,16 @@ from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
 LAUNCHES = {"color_update": 0, "color_update_bf16": 0,
             "color_update_emit": 0, "residual_restrict": 0,
             "residual_quads": 0}
+
+# (state dtype, operator dtype) -> K1-K2's C entry (csrc/relax_tiled.cu's
+# instances; K2 reads the true operator, in the state's type).  No
+# (float64, bfloat16) instance: the JAX package never smooths a float64
+# state with K1 on bfloat16 blocks
+COLOUR_ENTRIES = {
+    (torch.float32, torch.float32): "mg_colour_update_f32",
+    (torch.float64, torch.float64): "mg_colour_update_f64",
+    (torch.float32, torch.bfloat16): "mg_colour_update_bf16",
+}
 
 # K3's modes (csrc/rr_fused.cu): the coarse RHS of all four targets, the
 # z-pair sums of chosen targets, the residual of chosen targets
@@ -222,6 +232,7 @@ def _launch_colour(e, bq, pack: CompactPack, targets, emit: bool):
     if nz * (H + 2) * (W + 2) >= 2 ** 32:
         raise ValueError("a quad of 2**32 values or more")
     layout, holder, bet, band = colour_operator(pack, q0.dtype, emit)
+    name = instance(COLOUR_ENTRIES, q0.dtype, band, "K1")
     real = pack.real_matrix
     ms = [_TKEYS.index(t) for t in targets]
     named, shapes = {}, {}
@@ -269,10 +280,7 @@ def _launch_colour(e, bq, pack: CompactPack, targets, emit: bool):
         else two([]),
         two([holder.rblocks[m] for m in ms])
         if layout == "blocks" and real else two([]), bandp)
-    lib = _build.load()
-    fn = {torch.bfloat16: lib.mg_colour_update_bf16,
-          torch.float64: lib.mg_colour_update_f64}.get(
-              band, lib.mg_colour_update_f32)
+    fn = getattr(_build.load(), name)
     with torch.cuda.device(q0.device):
         rc = fn(ctypes.byref(args), nz, H, W, int(real), ms[0],
                 len(targets), int(emit), int(layout == "bands"),

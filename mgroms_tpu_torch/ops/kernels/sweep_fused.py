@@ -22,8 +22,12 @@ H, W.
 
 :func:`relax_fused_sweep` runs its plain version for tensors on the CPU
 only; for CUDA tensors it checks them, launches the kernel once per sweep
-or raises.  ``LAUNCHES`` counts kernel launches, by the type of the bands
-the kernel read.
+or raises.  The C entry is picked by the pair (state dtype, band dtype)
+(:data:`ENTRIES`, one per instance of the kernel, read by
+``_build.instance``); a pair without an instance raises before anything
+launches.  ``LAUNCHES`` counts kernel
+launches per instance: full-precision bands, bfloat16 bands with float32
+state, bfloat16 bands with float64 state.
 """
 
 from __future__ import annotations
@@ -33,14 +37,28 @@ import ctypes
 import torch
 
 from . import _build
-from ._build import check_launch, check_tensors, on_cpu, ptr
+from ._build import check_launch, check_tensors, instance, on_cpu, ptr
 from .relax_tiled import term_table
 from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
                              CompactPack, band_index, band_layout,
                              check_band_stack, relax_compact_quads,
                              smoother_operator)
 
-LAUNCHES = {"relax_fused_sweep": 0, "relax_fused_sweep_bf16": 0}
+LAUNCHES = {"relax_fused_sweep": 0, "relax_fused_sweep_bf16": 0,
+            "relax_fused_sweep_bf16_f64": 0}
+
+# (state dtype, band dtype) -> (C entry, LAUNCHES key): the instances of
+# csrc/sweep_fused.cu, in the order mg_sweep_fused_plan numbers them
+ENTRIES = {
+    (torch.float32, torch.float32): ("mg_sweep_fused_f32",
+                                     "relax_fused_sweep"),
+    (torch.float64, torch.float64): ("mg_sweep_fused_f64",
+                                     "relax_fused_sweep"),
+    (torch.float32, torch.bfloat16): ("mg_sweep_fused_bf16",
+                                      "relax_fused_sweep_bf16"),
+    (torch.float64, torch.bfloat16): ("mg_sweep_fused_f64_bf16",
+                                      "relax_fused_sweep_bf16_f64"),
+}
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -93,6 +111,20 @@ def sweep_bands(pack: CompactPack, dtype):
     return ebands, bet, band
 
 
+def launch_plan(shape, state, band) -> dict:
+    """The launch K4 takes at quads ``shape`` (nz, H, W) for the pair
+    (``state``, ``band``): threads a block, resident blocks per SM, the
+    cooperative grid and the dynamic shared memory of a block (read from
+    the launcher, ``mg_sweep_fused_plan``; needs a card)."""
+    instance(ENTRIES, state, band, "K4")
+    inst = list(ENTRIES).index((state, band))
+    out = (ctypes.c_int * 4)()
+    check_launch(_build.load().mg_sweep_fused_plan(inst, *shape, out),
+                 "mg_sweep_fused_plan")
+    return dict(zip(("threads", "blocks_per_sm", "grid", "smem_bytes"),
+                    out))
+
+
 def compiled_term_table(target) -> list:
     """The kernel's own term recipe for ``target`` (compiled into
     csrc/sweep_fused.cu, read through ``mg_sweep_terms``), rows as
@@ -110,6 +142,7 @@ def _launch(q, bq, pack: CompactPack):
     if nz < 2:
         raise ValueError("the sweep kernel needs nz >= 2")
     ebands, bet, band = sweep_bands(pack, q0.dtype)
+    name, key = instance(ENTRIES, q0.dtype, band, "K4")
     check_band_stack(ebands, (NBANDS, nz + 2, H + 2, W + 2), band, q0.device)
     named, shapes = {}, {}
     for m, t in enumerate(_TKEYS):
@@ -127,15 +160,12 @@ def _launch(q, bq, pack: CompactPack):
                       arr([bq[t] for t in _TKEYS]),
                       ebands.data_ptr() - lpad * ebands.element_size(),
                       arr(pack.ud), arr(bet), arr([out[t] for t in _TKEYS]))
-    lib = _build.load()
-    fn = {torch.float64: lib.mg_sweep_fused_f64,
-          torch.bfloat16: lib.mg_sweep_fused_bf16}.get(band,
-                                                      lib.mg_sweep_fused_f32)
+    fn = getattr(_build.load(), name)
     with torch.cuda.device(q0.device):
         rc = fn(ctypes.byref(args), nz, H, W, int(pack.real_matrix),
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "relax_fused_sweep")
-    return out, band
+    return out, key
 
 
 def relax_fused_sweep(q0, bq, pack: CompactPack, nsweeps: int):
@@ -146,7 +176,6 @@ def relax_fused_sweep(q0, bq, pack: CompactPack, nsweeps: int):
         return relax_fused_sweep_plain(q0, bq, pack, nsweeps)
     q = dict(q0)
     for _ in range(nsweeps):
-        q, band = _launch(q, bq, pack)
-        LAUNCHES["relax_fused_sweep_bf16" if band == torch.bfloat16
-                 else "relax_fused_sweep"] += 1
+        q, key = _launch(q, bq, pack)
+        LAUNCHES[key] += 1
     return q

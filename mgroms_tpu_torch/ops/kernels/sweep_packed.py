@@ -49,7 +49,7 @@ import math
 import torch
 
 from . import _build
-from ._build import check_launch, on_cpu, ptr
+from ._build import check_launch, instance, on_cpu, ptr
 from ..relax import thomas_factored_unrolled
 from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, CompactPack,
                              _kshift, consistent_pivots, extend_quads,
@@ -481,6 +481,16 @@ def _scratch_shape(ntiles: int, Wc: int, nz: int, tj: int) -> tuple:
     return (ntiles * nsub, 2, nz, tj + 2, BLOCK_COLS + 2)
 
 
+# (state dtype, band dtype) -> K8's C entry (csrc/sweep_packed.cu's
+# instances).  No (float64, bfloat16) instance: the JAX package never
+# builds one
+PACKED_ENTRIES = {
+    (torch.float32, torch.float32): "mg_sweep_packed_f32",
+    (torch.float64, torch.float64): "mg_sweep_packed_f64",
+    (torch.float32, torch.bfloat16): "mg_sweep_packed_bf16",
+}
+
+
 def sweep_chunk(pst, pband_c, ppiv_c, pseam_c, pbq_c, pqs_c, tj: int,
                 nz: int, real_matrix: bool, first_chunk: bool,
                 last_chunk: bool) -> tuple:
@@ -497,8 +507,7 @@ def sweep_chunk(pst, pband_c, ppiv_c, pseam_c, pbq_c, pqs_c, tj: int,
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"sweep_packed takes float32/float64, got {dt}")
     band = pband_c.dtype
-    if band != dt and (band, dt) != (torch.bfloat16, torch.float32):
-        raise ValueError(f"{band} bands with {dt} state")
+    c_entry = instance(PACKED_ENTRIES, dt, band, "K8")
     if nz < 2:
         raise ValueError("the packed sweep needs nz >= 2")
     shapes = {"pst": (pst, (ntiles, 4 * nz, tj + 4, Wc + 4), dt),
@@ -522,10 +531,7 @@ def sweep_chunk(pst, pband_c, ppiv_c, pseam_c, pbq_c, pqs_c, tj: int,
                             ptr(pseam_c), ptr(pbq_c), ptr(pqs_c),
                             (ctypes.c_void_p * 4)(*(ptr(o) for o in outs)),
                             ptr(scratch))
-    lib = _build.load()
-    fn = {torch.float64: lib.mg_sweep_packed_f64,
-          torch.bfloat16: lib.mg_sweep_packed_bf16}.get(
-              band, lib.mg_sweep_packed_f32)
+    fn = getattr(_build.load(), c_entry)
     with torch.cuda.device(pst.device):
         rc = fn(ctypes.byref(args), nz, ntiles, tj, Wc, int(real_matrix),
                 int(first_chunk), int(last_chunk), ptr(_terms(pst.device)),

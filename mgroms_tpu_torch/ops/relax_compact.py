@@ -310,18 +310,24 @@ def smoother_operator(pack: CompactPack, dtype):
     """``(blocks, rblocks, bet, block dtype)`` the smoother uses, per target
     in ``_TKEYS`` order (blocks and rblocks None on a band-stack level:
     :func:`block_views` reads its stack), for state of type ``dtype``: the
-    low-precision consistent operator (bfloat16, float32 state) when the
-    pack has one, else the full-precision one.  Blocks of another type than the
-    state come only with their consistent pivots, in ``pack.lp``: the
-    full-precision pivots with rounded blocks break the operator's row
+    low-precision consistent operator (bfloat16) when the pack has one,
+    else the full-precision one.  The bfloat16 band stack serves float32
+    and float64 state (K4's instances, the JAX package's bfloat16 sweep
+    bands of either state type); bfloat16 gather blocks serve float32
+    state only.  Values of another type than the state come only with
+    their consistent pivots, in ``pack.lp`` and in the state's type: the
+    full-precision pivots with rounded values break the operator's row
     sums (:func:`consistent_pivots`).  Residual paths never use this (they
     need the true A)."""
     lp = pack.lp
     if lp is None:
         src, band = pack, dtype
-    elif dtype != torch.float32:
+    elif lp.blocks is not None and dtype != torch.float32:
         raise ValueError(f"low-precision blocks need float32 state, got "
                          f"{dtype}")
+    elif dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"low-precision bands need float32 or float64 "
+                         f"state, got {dtype}")
     else:
         src, band = lp, torch.bfloat16
     held = src.blocks if src.blocks is not None else (src.ebands,)
@@ -329,6 +335,9 @@ def smoother_operator(pack: CompactPack, dtype):
         raise ValueError(f"{held[0].dtype if held[0] is not None else None}"
                          f" operator for {dtype} state without its "
                          "consistent pivots (pack.lp)")
+    if lp is not None and lp.bet[0].dtype != dtype:
+        raise ValueError(f"{lp.bet[0].dtype} low-precision pivots for "
+                         f"{dtype} state")
     return src.blocks, src.rblocks, src.bet, band
 
 

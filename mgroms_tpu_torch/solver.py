@@ -27,10 +27,14 @@ levels:
   others the gather blocks, as the JAX package keeps them
   (:func:`band_stack_wanted`, :func:`build_relax_packs`).
 
-With ``fused_bands_bf16`` (float32) every quad level's pack carries the
-low-precision smoother operator (relax_compact.attach_lp), read by K4 or
-K1; residuals keep the full-precision blocks, and the outer step runs in
-defect-correction form (:func:`cycle_step`).
+With ``fused_bands_bf16`` the smoother reads the low-precision operator
+(relax_compact.attach_lp: bfloat16 values beside row-sum-consistent
+pivots in the state's type) where the JAX package has one: in float32 on
+every quad level, read by K4 or K1; in float64 on the levels K4 smooths
+(the JAX package's bfloat16 sweep bands), read by K4's (float64,
+bfloat16) instance, the other levels keeping the full-precision
+operator.  Residuals keep the full-precision operator, and the outer
+step runs in defect-correction form (:func:`cycle_step`).
 
 The other levels (the coarsest, every level of a GS solve, or every level
 with ``compact=False``) are held in full layout:
@@ -89,20 +93,15 @@ def fused_sweep_wanted(cfg: SolverConfig, on_card: bool) -> bool:
             and (on_card or cfg.pallas_interpret))
 
 
-def check_supported(cfg: SolverConfig, on_card: bool) -> None:
+def check_supported(cfg: SolverConfig) -> None:
     """Raise ``NotImplementedError`` for a config option this port does not
-    implement yet (nothing silently does something else).  ``on_card``:
-    the solve's tensors are CUDA tensors."""
+    implement yet (nothing silently does something else)."""
     off = {
         "gs_exact": cfg.gs_exact,
         "tridiag": cfg.tridiag != "thomas",
         "aggressive": cfg.aggressive,
         "bmask": cfg.bmask,
         "coarsest": cfg.coarsest != "relax",
-        # K4 has no (double state, bfloat16 blocks) instance
-        "fused_bands_bf16 with float64 on the fused sweep":
-            (cfg.fused_bands_bf16 and cfg.dtype == "float64"
-             and fused_sweep_wanted(cfg, on_card)),
         "device_loop": cfg.device_loop,
         "netcdf_output": cfg.netcdf_output,
         "cycles_per_check": cfg.cycles_per_check != 1,
@@ -145,12 +144,15 @@ def build_relax_packs(levels, ops, cfg: SolverConfig) -> list:
     CUC level 0 in float32).  Elsewhere it is held as the gather blocks
     (relax_compact.build_compact_pack).
 
-    With ``fused_bands_bf16`` and a state of at most 4 bytes each pack
-    also carries the low-precision smoother operator (``pack.lp``) in the
-    layout of its own: bfloat16 blocks, or a bfloat16 band stack beside
-    the float32 one that the residuals read."""
-    lp = (cfg.fused_bands_bf16
-          and getattr(torch, cfg.dtype).itemsize <= 4)
+    With ``fused_bands_bf16`` a pack also carries the low-precision
+    smoother operator (``pack.lp``) in the layout of its own (bfloat16
+    blocks, or a bfloat16 band stack beside the full-precision one that
+    the residuals read) where the JAX package builds one
+    (mgroms_tpu/solver.py:87-101): on every quad level for a state of at
+    most 4 bytes, and for a float64 state on the levels K4 smooths (its
+    ``build_sweep_operator(..., band_dtype=bfloat16)`` levels), which hold
+    the band stack."""
+    small = getattr(torch, cfg.dtype).itemsize <= 4
     real = cfg.cmatrix == "real"
     packs = []
     for lev, spec in enumerate(levels):
@@ -160,7 +162,8 @@ def build_relax_packs(levels, ops, cfg: SolverConfig) -> list:
             build = (build_band_pack if band_stack_wanted(cfg, cA.is_cuda)
                      else build_compact_pack)
             pack = build(cA, real)
-            if lp:
+            if cfg.fused_bands_bf16 and (
+                    small or fused_sweep_wanted(cfg, cA.is_cuda)):
                 pack = attach_lp(pack)
         packs.append(pack)
     return packs
@@ -181,7 +184,7 @@ class SingleDeviceBackend:
         # (a backend built to read its gates may hold no operators)
         self.on_card = (on_card if on_card is not None
                         else ops[0] is not None and ops[0].cA.is_cuda)
-        check_supported(cfg, self.on_card)
+        check_supported(cfg)
         self.levels = tuple(levels)
         self.ops = list(ops)
         self.cfg = cfg
@@ -474,7 +477,7 @@ def solve_p(backend, b: torch.Tensor, cfg: Optional[SolverConfig] = None,
     ||b - Ap|| / ||b|| drops under ``tol`` or ``maxiter`` cycles (:61-79);
     the host reads the norm once per cycle, as the reference does."""
     cfg = cfg or backend.cfg
-    check_supported(cfg, backend.on_card)
+    check_supported(cfg)
     tol = cfg.solver_prec if tol is None else tol
     maxiter = cfg.solver_maxiter if maxiter is None else maxiter
 

@@ -95,10 +95,6 @@ def test_unported_options_raise():
     from mgroms_tpu_torch import NHModel
     for kw in (dict(bmask=True), dict(coarsest="direct"),
                dict(gs_exact=True), dict(tridiag="pcr"),
-               dict(cycles_per_check=2), dict(device_loop=True),
-               # K4 has no (float64 state, bfloat16 blocks) instance;
-               # pallas_interpret puts the CPU solve on K4's route
-               dict(fused_bands_bf16=True, dtype="float64",
-                    pallas_interpret=True)):
+               dict(cycles_per_check=2), dict(device_loop=True)):
         with pytest.raises(NotImplementedError):
             NHModel(16, 16, 16, cfg=TConfig(**kw), device="cpu")

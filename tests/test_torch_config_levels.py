@@ -114,7 +114,9 @@ def test_import_leaves_jax_out():
             "mgroms_tpu_torch.scripts.micro_dma_probe, "
             "mgroms_tpu_torch.scripts.micro_colour_update, "
             "mgroms_tpu_torch.scripts.micro_solve, "
-            "mgroms_tpu_torch.scripts.micro_relax_fused\n"
+            "mgroms_tpu_torch.scripts.micro_relax_fused, "
+            "mgroms_tpu_torch.refine, "
+            "mgroms_tpu_torch.scripts.refine_solve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mgroms_tpu')]\n"
             "assert not bad, bad\n")

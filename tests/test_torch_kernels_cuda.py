@@ -553,16 +553,21 @@ def test_use_pallas_solve_equals_default(cuda, compact):
 
 
 def _sweep_inputs(nz, H, W, dtype, device, real, seed, lp):
-    """A random pack (with the low-precision operator when ``lp``, float32
-    state), raw state quads and RHS quads."""
+    """A random pack (with the low-precision operator when ``lp``: on
+    float32 state beside the gather blocks, on float64 state as a float64
+    K4 level holds it, the band stack and its bfloat16 copy only), raw
+    state quads and RHS quads."""
     rng = np.random.default_rng(seed)
     cA = rng.uniform(-0.1, 0.1, (8, nz, 2 * H + 2, 2 * W + 2))
     cA[0] -= 4.0
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)
-    pack = rc.build_compact_pack(t(cA), real)
-    if lp:
-        pack = rc.attach_lp(pack)
-    pack = rc.attach_bands(pack, t(cA))
+    if lp and dtype == torch.float64:
+        pack = rc.attach_lp(rc.build_band_pack(t(cA), real))
+    else:
+        pack = rc.build_compact_pack(t(cA), real)
+        if lp:
+            pack = rc.attach_lp(pack)
+        pack = rc.attach_bands(pack, t(cA))
     q = rc.split_quads(t(rng.standard_normal((nz, 2 * H, 2 * W))))
     bq = rc.split_quads(t(rng.standard_normal((nz, 2 * H, 2 * W))))
     return pack, q, bq
@@ -575,20 +580,24 @@ def _sweep_inputs(nz, H, W, dtype, device, real, seed, lp):
 # resident blocks (the grid-stride loops wrap)
 K4_SHAPES = [(6, 5, 7), (2, 3, 4), (3, 1, 1), (2, 1, 1), (8, 16, 33),
              (64, 8, 128), (64, 13, 70), (2, 512, 520)]
+# (state dtype, low-precision bands): K8's instances; K4 has a (float64,
+# bfloat16) one too
 BANDS = [(torch.float32, False), (torch.float64, False),
          (torch.float32, True)]
+K4_BANDS = BANDS + [(torch.float64, True)]
 
 
-@pytest.mark.parametrize("band", BANDS, ids=["f32", "f64", "bf16"])
+@pytest.mark.parametrize("band", K4_BANDS, ids=["f32", "f64", "bf16",
+                                                "f64-bf16"])
 @pytest.mark.parametrize("shape", K4_SHAPES)
 @pytest.mark.parametrize("real", [True, False])
 def test_sweep_fused_matches_plain(cuda, shape, band, real):
-    """K4 == its plain version to 0 ulp, one launch per sweep, its inputs
-    untouched."""
+    """K4 == its plain version to 0 ulp, one launch per sweep counted under
+    its instance's key, its inputs untouched."""
     dtype, lp = band
     pack, q, bq = _sweep_inputs(*shape, dtype, cuda, real, sum(shape), lp)
     q0 = {k: x.clone() for k, x in q.items()}
-    key = "relax_fused_sweep_bf16" if lp else "relax_fused_sweep"
+    key = ksf.ENTRIES[(dtype, torch.bfloat16 if lp else dtype)][1]
     before = ksf.LAUNCHES[key]
     got = ksf.relax_fused_sweep(q, bq, pack, 2)
     want = ksf.relax_fused_sweep_plain(q, bq, pack, 2)
@@ -636,6 +645,20 @@ def test_bf16_color_update_matches_plain(cuda, shape, real, layout):
     want = rc.relax_compact_quads(q, bq, pack, 2, "RB", real)
     for t in rc._TKEYS:
         assert torch.equal(got[t], want[t])
+
+
+def test_no_instance_raises_before_launch(cuda):
+    """K1 has no (float64, bfloat16) instance: on a float64 K4 level's
+    pack (the bfloat16 stack and float64 pivots) it raises, nothing
+    launched, where K4 takes the same pack."""
+    pack, q, bq = _sweep_inputs(4, 3, 70, torch.float64, cuda, True, 0,
+                                True)
+    before = dict(kt.LAUNCHES)
+    with pytest.raises(ValueError, match="no instance"):
+        kt.color_update(rc.extend_quads(q), bq, pack, ((0, 0), (1, 1)))
+    assert kt.LAUNCHES == before
+    ksf.relax_fused_sweep(q, bq, pack, 1)
+    torch.cuda.synchronize()
 
 
 def test_sweep_wrapper_rejects_bad_input(cuda):

@@ -54,17 +54,18 @@ def jax_run():
 
 
 def test_entry_points_default_to_the_card():
-    """NHModel, initial_velocities and the converters of JAX state run on
-    the card unless the caller asks for the CPU (checked on the
+    """NHModel, initial_velocities, the converters of JAX state and
+    refine.build_pair run on the card unless the caller asks for the CPU (checked on the
     signatures: nothing is built)."""
     import inspect
     from mgroms_tpu_torch.convert import packed_operator_from_numpy
     from mgroms_tpu_torch.convert import (pack_tiles_from_numpy,
                                           tiles_from_numpy)
     from mgroms_tpu_torch.parallel import make_mesh
+    from mgroms_tpu_torch.refine import build_pair
     for fn in (NHModel.__init__, initial_velocities, operators_from_numpy,
                pack_from_numpy, packed_operator_from_numpy, tiles_from_numpy,
-               pack_tiles_from_numpy):
+               pack_tiles_from_numpy, build_pair):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     # the mesh takes the visible CUDA devices by default and never falls
     # back to the CPU: here, with no card, it raises
