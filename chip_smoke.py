@@ -70,7 +70,11 @@ Phases (any failed check raises, so the exit code is non-zero):
    of the same sum (library_ms).  Last, the asynchronous copies in the
    SASS of K11's staged_sum_kernel and wide_stream_kernel (bulk copies)
    and of K1-K2, K4, K3 and K6's step form (cp.async), per instance
-   (cuobjdump -sass).
+   (cuobjdump -sass).  The device loop's condition kernel
+   (csrc/device_loop.cu) against its plain version, exactly (counter,
+   history slot, decision), in float32 and float64 at a NaN residual, at
+   i == maxiter, at res == tol, inside the loop and in its prologue;
+   timed beside its bound.
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -147,6 +151,22 @@ Phases (any failed check raises, so the exit code is non-zero):
    in perf mode (phase 9's), each launching exactly its path's kernels;
    rounds, inner F-cycles, history, seconds and the pair's peak memory
    (scripts/refine_solve.py's JSON line).
+19. The loop modes (loop_phase): scripts/solve_wall.py on CUC 1024^2 x 64
+   to 1e-4, the eager host loop, the replayed host loop and the device
+   loop (one CUDA graph, a WHILE node around the captured step and the
+   condition kernel), timed, equal histories, the one-off capture and
+   instantiation seconds and the peak from an empty card (its JSON line);
+   seamount 64^3 with use_pallas in the device loop with one and two
+   F-cycles a check, hist_cpc2[k] == hist_cpc1[2k].
+
+Every single-device solve (phases 2-10, 14-19, the inner solves of 18)
+replays its captured step (capture.py; the model's first solve captures
+it): phases 2-10 and 14-17 hold the replayed solve to the same model's
+eager solve (graph=False) to every digit of the history, the pressure bit
+for bit and the same launch counts, and print the one-off warm-up,
+capture and instantiation seconds; the launch counts every check reads
+are the replayed solve's (capture.CapturedStep adds a replay's launches
+to the counters).  Phase 12 (a distributed backend) stays eager.
 
 Every phase with quad levels (2, 4-6, 8-10, 12, 14, 17) checks that every
 quad level (every tile on phase 12's mesh) holds the band stack only, no
@@ -161,17 +181,22 @@ float32 phase reaches <= 1e-4 within its cycle limit, meets its default
 phase's max|div| limits and launches every kernel of its path and no
 other.
 
-Phases 2, 4-10, 12 and 14-17 also trace one F-cycle with torch.profiler
-(device activity only): device ops, device busy time against the same traced
-step's wall time (the idle share), K4's, K3's, K1-K2's and each K6
-form's launches and device time where they run, and the top device ops.
+Phases 2, 4-10, 12 and 14-17 also time one F-cycle (CUDA events, median
+of 5) eagerly and, but for phase 12, as a replay, and trace one F-cycle
+with torch.profiler (device activity only), eagerly and as a replay:
+device ops, device busy time against the same traced step's wall time
+(the idle share), for the eager step K4's, K3's, K1-K2's and each K6
+form's launches and device time where they run and the top device ops;
+the replay's op count beside the eager step's plus the copies back into
+the static buffers.
 
 The line before last is a JSON object with, for each kernel, its launches
 in the phase that is its path (4 for K4 and K3 in both its modes, 6 for
 K6's one-block form, 7 for K5 and K6's cluster and per-colour-step
 forms, 8 for K1 and K2, 9 for K4 on bfloat16 bands, 17 for K4 on
 bfloat16 bands with a float64 state, 10 for K1 on the bfloat16 stack, 11 for K8-K11 and K10's step floor, 13 for K7, 15 for
-K6's FC forms, 16 for its GS forms), its error against the plain
+K6's FC forms, 16 for its GS forms, 19 for the device loop's condition),
+its error against the plain
 version, both times and its
 bound (K6's one-launch forms also their device time); the last line is
 {"ok": true, "device": {...}}.
@@ -192,11 +217,14 @@ import torch
 
 from mgroms_tpu_torch import NHModel, SolverConfig
 from mgroms_tpu_torch.bc import extend_h1
+from mgroms_tpu_torch.capture import (KERNEL_MODULES, captured_loop,
+                                     captured_step)
 from mgroms_tpu_torch.cases.cuc import setup_cuc_synthetic
 from mgroms_tpu_torch.cases.seamount import initial_velocities, setup_seamount
 from mgroms_tpu_torch.levels import describe
 from mgroms_tpu_torch.ops import relax_compact as rc
 from mgroms_tpu_torch.ops.kernels import _build
+from mgroms_tpu_torch.ops.kernels import device_loop as kdl
 from mgroms_tpu_torch.ops.kernels import dma_probe as dp
 from mgroms_tpu_torch.ops.kernels import rdma_halo as k7
 from mgroms_tpu_torch.ops.kernels import relax_fused as kf
@@ -213,9 +241,9 @@ from mgroms_tpu_torch.scripts import micro_packed_parts as mpp
 from mgroms_tpu_torch.scripts import micro_relax_fused as mrf
 from mgroms_tpu_torch.scripts import micro_roofline as mr
 from mgroms_tpu_torch.scripts import micro_sweep_fused as msf
-from mgroms_tpu_torch.scripts import refine_solve
+from mgroms_tpu_torch.scripts import refine_solve, solve_wall
 from mgroms_tpu_torch.scripts._timing import card_line, median_ms
-from mgroms_tpu_torch.solver import solve_init, solve_step
+from mgroms_tpu_torch.solver import solve_init, solve_p, solve_step
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = "mgroms_tpu_torch/csrc/"
@@ -276,6 +304,9 @@ KERNELS = {
                             11),
     "probe_wide_stream": ("dma_probe.cu", "scripts/micro_dma_probe.py:242",
                           11),
+    # no Pallas kernel: the JAX package leaves the device loop's condition
+    # and history update to XLA inside lax.while_loop
+    "loop_condition": ("device_loop.cu", "mgroms_tpu/solver.py:731", 19),
 }
 REL_TOL = 1e-6
 # phases 14-15 (FC): the cycle limit, set beside phase 14 in main()
@@ -300,16 +331,20 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
 F32_FLOPS = 67e12                # float32 outside the tensor cores
 
 
-KERNEL_MODULES = (kt, ks, kf, ksf, sp, rl, k7, dp)
-
-
 def launches() -> dict:
+    """Every kernel wrapper's count (capture.KERNEL_MODULES: a replayed
+    step's launches are added at each replay)."""
     return {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}
 
 
 def reset_launches() -> None:
     for mod in KERNEL_MODULES:
         mod.reset_launches()
+
+
+def set_launches(counts) -> None:
+    for mod in KERNEL_MODULES:
+        mod.LAUNCHES.update({k: counts[k] for k in mod.LAUNCHES})
 
 
 def check_path(counts, busy):
@@ -436,8 +471,78 @@ def kernel_phase(dev):
     roofline_kernels(dev, results)
     overlap_kernels(dev, results)
     probe_kernels(dev, results)
+    loop_kernels(dev, results)
     sass_async_copies()
     return results
+
+
+# the device loop's condition (state dtype; rsq, bnorm, it, prologue, tol):
+# a NaN residual (0/0, as b == 0 gives) in a check and in the prologue,
+# i == maxiter, res == tol (tol None: the residual itself), inside the
+# loop, the prologue
+LOOP_MAXITER, LOOP_CPC = 8, 2
+LOOP_CASES = [(0.0, 0.0, 0, False, 1e-4), (0.0, 0.0, 0, True, 1e-4),
+              (4e-6, 1.0, 6, False, 1e-4), (1e-8, 1.0, 0, False, None),
+              (2.5e-7, 3.0, 2, False, 1e-4), (2.5e-7, 3.0, 3, True, 1e-4),
+              (7.3e-3, 0.37, 1, False, 1e-6)]
+
+
+def loop_buffers(rsq, bnorm, it0, tol, dtype, dev, capacity):
+    f64 = dict(dtype=torch.float64, device=dev)
+    return dict(rsq=torch.tensor(rsq, dtype=dtype, device=dev),
+                bnorm=torch.tensor(bnorm, dtype=dtype, device=dev),
+                it=torch.tensor(it0, dtype=torch.int32, device=dev),
+                hist=torch.full((capacity,), float("nan"), **f64),
+                lim=torch.tensor([float(LOOP_MAXITER), tol], **f64),
+                cont=torch.tensor(9, dtype=torch.int32, device=dev))
+
+
+def loop_kernels(dev, results):
+    """The device loop's condition kernel (csrc/device_loop.cu) against its
+    plain version on the card, exactly (counter, history slot, decision),
+    in float32 and float64 at LOOP_CASES; timed in float32 (the main
+    path's type) in the loop's mode, beside its bound: 44 bytes (the two
+    norms, the counter and the limits read, the counter, the history slot
+    and the decision written) over the card's memory rate; a dependent
+    global round trip and a launch are its real floor."""
+    for dtype in (torch.float32, torch.float64):
+        for rsq, bnorm, it0, init, tol in LOOP_CASES:
+            if tol is None:
+                tol = float(torch.sqrt(torch.tensor(rsq, dtype=dtype))
+                            .double() / bnorm)
+            k = loop_buffers(rsq, bnorm, it0, tol, dtype, dev,
+                             LOOP_MAXITER + LOOP_CPC)
+            q = {n: t.clone() for n, t in k.items()}
+            kdl.loop_condition(k["rsq"], k["bnorm"], k["it"], k["hist"],
+                               k["lim"], LOOP_CPC, init, k["cont"])
+            kdl.loop_condition_plain(q["rsq"], q["bnorm"], q["it"],
+                                     q["hist"], q["lim"], LOOP_CPC, init,
+                                     q["cont"])
+            torch.cuda.synchronize()
+            check(all(torch.equal(k[n].nan_to_num(-1.0),
+                                  q[n].nan_to_num(-1.0))
+                      for n in ("it", "hist", "cont")),
+                  f"loop_condition {dtype} {(rsq, bnorm, it0, init, tol)}: "
+                  f"{k} != {q}")
+        print(f"kernel loop_condition         {str(dtype):14s} "
+              f"{len(LOOP_CASES)} cases: counter, history and decision "
+              "equal to the plain version (0 ulp)")
+    # timed in the loop's mode: the counter grows 2 a call, so the history
+    # holds every call of the warm-up and the timed reps
+    k = loop_buffers(2.5e-7, 3.0, 0, 1e-4, torch.float32, dev, 4096)
+    args = (k["rsq"], k["bnorm"], k["it"], k["hist"], k["lim"], LOOP_CPC,
+            False, k["cont"])
+    ms = median_ms(lambda: kdl.loop_condition(*args))
+    k["it"].zero_()
+    plain_ms = median_ms(lambda: kdl.loop_condition_plain(*args))
+    nbytes_ = 4 * 3 + 16 + 4 + 8 + 4
+    bound_ms, bound_by = bound(nbytes_, 4)
+    results["loop_condition"] = dict(max_abs_err=0.0, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by, library_ms=None)
+    print(f"  loop_condition (one thread): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.3e} ms ({bound_by}: "
+          f"{nbytes_} bytes)")
 
 
 # K1 and K2, a colour a launch (quad shape, dtype, timed): "json" times the
@@ -1085,7 +1190,11 @@ def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
     nondivergence, with ``SolverConfig(dtype=dtype, **cfg)``.  Returns the
     model, SolveInfo, the max|div| ratios after/before over the whole grid
     and over the interior (the 2-cell wall ring excluded), set-up seconds
-    and peak device memory; the pressure is kept as ``m.p_solved``."""
+    and peak device memory; the pressure is kept as ``m.p_solved``.
+    On a single-device model the solve replays its captured step (the
+    model's first solve captures it) and is then held to the same model's
+    eager solve (:func:`eager_check`); the launch counts left are the
+    replayed solve's."""
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     m = NHModel(nx, ny, nz, cfg=SolverConfig(dtype=dtype, **cfg), device=dev)
@@ -1097,6 +1206,7 @@ def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
     u, v, w = initial_velocities(nx, ny, nz, dtype=m.dtype, device=dev)
+    before = launches()
     uc, vc, wc, p, info = m.solve(u, v, w, tol=tol, maxiter=maxiter)
     div = float(m.check_nondivergence(uc, vc, wc))
     div0 = float(m.check_nondivergence(u, v, w))
@@ -1110,7 +1220,36 @@ def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
           f"max|div| {div0:.4e} -> {div:.4e} (ratio {div / div0:.3e}; "
           f"interior ratio {inner / div0:.3e}), peak memory "
           f"{peak / 2**30:.3f} GiB")
+    if m.backend.capturable:
+        eager_check(m, (u, v, w), info, tol, maxiter, before)
     return m, info, div / div0, inner / div0, setup_s, peak
+
+
+def eager_check(m, uvw, info, tol, maxiter, before):
+    """The model's solve of the same velocities with graph=False (the
+    eager loop) against its replayed solve ``info``: the same history to
+    every digit, the same pressure bit for bit, and the same launches
+    (the replay ledger, the counts' growth over the replayed solve from
+    ``before``, against the launches the wrappers enqueue); the counts
+    are left as the replayed solve left them."""
+    after = launches()
+    replayed = {k: n - before[k] for k, n in after.items()}
+    check(len(m.backend.graphs) == 1, "the solve replayed no captured step")
+    step = next(iter(m.backend.graphs.values()))
+    reset_launches()
+    *_, p, einfo = m.solve(*uvw, tol=tol, maxiter=maxiter, graph=False)
+    eager = launches()
+    set_launches(after)
+    check(einfo.history == info.history,
+          f"replayed history {info.history} != eager {einfo.history}")
+    check(torch.equal(p, m.p_solved), "replayed pressure != eager")
+    check(eager == replayed, f"replayed launches {replayed} != eager "
+          f"{eager}")
+    print(f"  graph=False solve {einfo.time_s:.3f} s against {info.time_s:.3f}"
+          f" s replayed (first solve: warm-up {step.warmup_s:.3f} s, capture "
+          f"{step.capture_s:.3f} s, instantiation {step.instantiate_s:.3f} s)"
+          f": history equal to every digit, pressure bit for bit, launches "
+          f"equal")
 
 
 def check_band_levels(m):
@@ -1137,43 +1276,65 @@ def check_band_levels(m):
 
 def fcycle_ms(m, reps=5):
     """Median time of one F-cycle + residual norm (solver.solve_step) at
-    level 0 of model ``m`` (CUDA events), from a fresh solve start."""
+    level 0 of model ``m`` (CUDA events), from a fresh solve start: eagerly
+    and, on a single-device model, as a replay of its captured step (None
+    on a distributed one)."""
     be = m.backend
     u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
                                  device=m.device)
     p, bs, r, _, _ = solve_init(be, m._rhs_state(u, v, w))
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        p, r, rn = solve_step(be, p, bs, r, m.cfg)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    step = captured_step(be, m.cfg) if be.capturable else None
+    if step is not None:
+        step.load(p, bs, r)
+    counts = launches()
+    state = [p, r]
+
+    def eager():
+        state[0], state[1], _ = solve_step(be, state[0], bs, state[1],
+                                           m.cfg)
+
+    def timed(fn):
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    out = (timed(eager), timed(step.replay) if step else None)
+    set_launches(counts)
+    return out
 
 
-def profile_fcycle(m, top=8):
-    """One F-cycle (solver.solve_step, after a warm-up step) under
-    torch.profiler, tracing device activity only.  Prints the device ops
-    traced, the union of their intervals (device busy) against the wall
-    time of the same traced step, the idle share 1 - busy/wall, and the
-    ``top`` device ops by time."""
+def print_fcycle(m):
+    eager, replay = fcycle_ms(m)
+    print(f"  F-cycle median {eager:.3f} ms eager"
+          + (f", {replay:.3f} ms replayed" if replay is not None else ""))
+
+
+def trace(fn, tries=3):
+    """One call of ``fn`` under torch.profiler (device activity only),
+    after a warm-up call: (device ops, busy ms, traced wall ms, ops and
+    device us by name).  A trace that recorded no device op is taken
+    again, up to ``tries`` times (the profiler now and then drops a
+    trace's events)."""
     from torch.profiler import ProfilerActivity, profile
-    be = m.backend
-    u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
-                                 device=m.device)
-    p, bs, r, _, _ = solve_init(be, m._rhs_state(u, v, w))
-    p, r, _ = solve_step(be, p, bs, r, m.cfg)
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solve_step(be, p, bs, r, m.cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
@@ -1184,8 +1345,35 @@ def profile_fcycle(m, top=8):
     for e in dev:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.end - e.time_range.start
-    busy_ms = busy_us / 1e3
-    print(f"  profile: {len(dev)} device ops, device busy {busy_ms:.3f} ms "
+    return len(dev), busy_us / 1e3, wall_ms, by_name
+
+
+def profile_fcycle(m, top=8):
+    """One F-cycle (solver.solve_step, after a warm-up step) under
+    torch.profiler, tracing device activity only, eagerly and (on a
+    single-device model) as a replay of the captured step.  Prints the
+    device ops traced, the union of their intervals (device busy) against
+    the wall time of the same traced step, the idle share 1 - busy/wall,
+    and for the eager step the ``top`` device ops by time.  The replay
+    runs the eager step's ops and the copies back into the static buffers
+    (p and r: a quad level's four quads each, or one array each; ||r||^2
+    and ||r||): the counts are printed with their difference (the
+    profiler drops a few events of a ~40k-op trace now and then; the
+    launch counts are held exactly by :func:`eager_check`); a replay
+    trace with no device op fails."""
+    be = m.backend
+    u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
+                                 device=m.device)
+    p, bs, r, _, _ = solve_init(be, m._rhs_state(u, v, w))
+    counts = launches()
+    state = [p, r]
+
+    def eager():
+        state[0], state[1], _ = solve_step(be, state[0], bs, state[1],
+                                           m.cfg)
+
+    n, busy_ms, wall_ms, by_name = trace(eager)
+    print(f"  profile: {n} device ops, device busy {busy_ms:.3f} ms "
           f"of {wall_ms:.3f} ms traced wall, idle share "
           f"{1 - busy_ms / wall_ms:.4f}")
     for label, match in (("K4", ("sweep_kernel<",)), ("K3", ("rr_kernel<",)),
@@ -1198,9 +1386,21 @@ def profile_fcycle(m, top=8):
             print(f"  profile: {label} {sum(n for n, _ in ks_)} launches, "
                   f"{sum(us for _, us in ks_) / 1e3:.3f} ms device time "
                   "per F-cycle")
-    for name, (n, us) in sorted(by_name.items(),
+    for name, (k, us) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:top]:
-        print(f"    {us / 1e3:10.3f} ms {n:7d}x  {name[:90]}")
+        print(f"    {us / 1e3:10.3f} ms {k:7d}x  {name[:90]}")
+    if be.capturable:
+        step = captured_step(be, m.cfg)
+        step.load(state[0], bs, state[1])
+        copies = 2 * (4 if be.state_quads(0) else 1) + 2
+        rn, rbusy, rwall, _ = trace(step.replay)
+        check(rn > 0, "the profiler traced no device op of a replay")
+        print(f"  profile (replay): {rn} device ops (the eager step's {n} "
+              f"+ {copies} copies: {'equal' if rn == n + copies else 'differ'}"
+              f" by {rn - n - copies}), device busy {rbusy:.3f} ms of "
+              f"{rwall:.3f} ms traced wall, idle share "
+              f"{1 - rbusy / rwall:.4f}")
+    set_launches(counts)
 
 
 def k6_expected(m) -> collections.Counter:
@@ -1268,7 +1468,7 @@ def path_phase(title, grid, case, dev, maxiter, ref, rtol, div_limits, cfg,
     if "residual_tiled" in busy:
         check(counts["residual_tiled"] == 7 * info.niter + 1,
               f"K5 {counts['residual_tiled']} times")
-    print(f"  F-cycle median {fcycle_ms(m):.3f} ms")
+    print_fcycle(m)
     profile_fcycle(m)
     p = m.p_solved.cpu()
     del m
@@ -1374,7 +1574,7 @@ def distributed_phase(case, dev, ref, p_ref):
     check(info.res <= 1e-4, f"{info.res} after {info.niter} cycles")
     check(ratio <= 2.5e-2 and inner <= 1e-2,
           f"max|div| cut only to {ratio} (interior {inner})")
-    print(f"  F-cycle median {fcycle_ms(m):.3f} ms (virtual mesh: four "
+    print(f"  F-cycle median {fcycle_ms(m)[0]:.3f} ms (virtual mesh: four "
           f"tiles on one card)")
     profile_fcycle(m)
     check(dev_rel <= REL_TOL, f"history {info.history} vs phase 8 {ref}")
@@ -1467,7 +1667,7 @@ def f64_phase(case, case_seamount, dev):
     check_lp_levels(m)
     check(ratio <= 2.5e-2 and inner <= 1e-2,
           f"max|div| cut only to {ratio} (interior {inner})")
-    print(f"  F-cycle median {fcycle_ms(m):.3f} ms")
+    print_fcycle(m)
     profile_fcycle(m)
     del m
     torch.cuda.empty_cache()
@@ -1515,6 +1715,91 @@ def refine_phase(dev):
     print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
 
 
+# phase 19: solve_wall's timed solves a mode (after one that captures)
+SOLVE_WALL_REPS = 3
+# phase 19: seamount 64^3 runs this many F-cycles (tol 0) with one and
+# with two F-cycles a check
+LOOP_CYCLES = 4
+
+
+def loop_phase(case, case_seamount, dev):
+    """Phase 19: the convergence loop modes.  scripts/solve_wall.py on CUC
+    1024^2 x 64 float32 to 1e-4: the eager host loop, the host loop
+    replaying the captured step and the device loop (one CUDA graph with a
+    WHILE node), SOLVE_WALL_REPS timed solves each after one that
+    captures, their histories equal to every digit, the one-off capture
+    and instantiation seconds and the peak from an empty card (its JSON
+    line); the device loop's condition kernel launched once a check and
+    once a solve, K4 and K3 and no other kernel.  Then seamount 64^3
+    float32 with use_pallas in the device loop with one and with two
+    F-cycles a check,
+    LOOP_CYCLES F-cycles each: each history equal to the replayed host
+    loop's, and hist_cpc2[k] == hist_cpc1[2k] exactly.  Returns the CUC
+    run's launch counts."""
+    print("== phase 19: the loop modes: scripts/solve_wall.py (CUC 1024^2 x "
+          "64 to 1e-4, eager / replayed / device loop); seamount 64^3 "
+          "use_pallas, device loop with cycles_per_check 1 and 2")
+    t0 = time.perf_counter()
+    reset_launches()
+    row = solve_wall.run(1024, 1024, 64, tol=1e-4, maxiter=8,
+                         reps=SOLVE_WALL_REPS, device=dev, case=case)
+    print(json.dumps({"solve_wall": row}))
+    counts = launches()
+    print(f"  launches {counts}")
+    checks = row["device_loop"]["niter"]
+    check(counts["loop_condition"] == (SOLVE_WALL_REPS + 1) * (1 + checks),
+          f"loop_condition launched {counts['loop_condition']} times")
+    check_path(counts, {"relax_fused_sweep", "loop_condition"} | K3)
+    check(row["device_loop"]["final_rel_residual"] <= 1e-4,
+          f"device loop stopped at {row['device_loop']}")
+    print("  solve wall (s): " + ", ".join(
+        f"{mode} {row[mode]['wall_s_per_solve']:.4f}"
+        for mode in solve_wall.MODES) + f"; F-cycles {checks}; step warm-up "
+        f"{row['step_warmup_s']:.3f} s, capture {row['step_capture_s']:.3f} "
+        f"s, instantiation {row['step_instantiate_s']:.3f} s, device loop "
+        f"graph {row['loop_graph_instantiate_s']:.3f} s; peak "
+        f"{row['peak_gib']:.3f} GiB from {row['held_gib']:.3f} GiB held")
+    saved = launches()
+    # use_pallas: a step of ~1.4k graph nodes a cycle; the default
+    # configuration's ~43k a cycle take ~25 s to build into a WHILE body
+    # at two cycles a check (PERF.md), longer than the rest of the phase
+    m = NHModel(64, 64, 64, cfg=SolverConfig(dtype="float32",
+                                             use_pallas=True), device=dev)
+    m.set_matrices(case_seamount.dx, case_seamount.dy, case_seamount.zeta,
+                   case_seamount.h, hc=case_seamount.hc,
+                   theta_b=case_seamount.theta_b,
+                   theta_s=case_seamount.theta_s)
+    b = m.rhs(*initial_velocities(64, 64, 64, dtype=m.dtype, device=dev))
+    hist = {}
+    for cpc in (1, 2):
+        cfg = SolverConfig(dtype="float32", use_pallas=True,
+                           cycles_per_check=cpc)
+        _, info = solve_p(m.backend, b, cfg, tol=0.0, maxiter=LOOP_CYCLES,
+                          device_loop=True)
+        _, host = solve_p(m.backend, b, cfg, tol=0.0, maxiter=LOOP_CYCLES)
+        check(info.niter == host.niter == LOOP_CYCLES
+              and info.history == host.history,
+              f"device loop {info} != host loop {host}")
+        hist[cpc] = info.history
+        loop = captured_loop(m.backend, cfg, LOOP_CYCLES)
+        print(f"  seamount 64^3 use_pallas, cycles_per_check {cpc}: device "
+              f"loop {info.time_s:.4f} s (its first solve: step capture "
+              f"{loop.step.capture_s:.3f} s, instantiation "
+              f"{loop.step.instantiate_s:.3f} s, loop graph "
+              f"{loop.instantiate_s:.3f} s), replayed host loop "
+              f"{host.time_s:.4f} s, history "
+              f"{['%.6e' % h for h in info.history]}")
+    check(len(hist[2]) == LOOP_CYCLES // 2 + 1 and all(
+        h == hist[1][2 * k] for k, h in enumerate(hist[2])),
+        f"cycles_per_check 2 {hist[2]} against 1 {hist[1]}")
+    print("  hist_cpc2[k] == hist_cpc1[2k] for every k, exactly")
+    set_launches(saved)
+    del m, b
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -1555,7 +1840,7 @@ def main() -> int:
     check_path(counts, quad_k4)
     check(ratio <= 1e-2 and inner <= 1e-2,
           f"seamount max|div| cut only to {ratio} (interior {inner})")
-    print(f"  F-cycle median {fcycle_ms(m):.3f} ms")
+    print_fcycle(m)
     profile_fcycle(m)
     del m
 
@@ -1600,7 +1885,7 @@ def main() -> int:
     # emitted residual's ring patches still fails
     check(inner <= 1e-2, f"CUC interior max|div| cut only to {inner}")
     check(ratio <= 2.5e-2, f"CUC whole-grid max|div| cut only to {ratio}")
-    print(f"  F-cycle median {fcycle_ms(m):.3f} ms")
+    print_fcycle(m)
     profile_fcycle(m)
     del m
     torch.cuda.empty_cache()
@@ -1686,6 +1971,7 @@ def main() -> int:
 
     phase_counts[17] = f64_phase(case, case_seamount, dev)
     refine_phase(dev)
+    phase_counts[19] = loop_phase(case, case_seamount, dev)
 
     for name, (src, _, phase) in KERNELS.items():
         print(f"  {name}: {phase_counts[phase][name]} launches in phase "

@@ -85,6 +85,9 @@ class NHModel:
         self.ops = ops
         self.metrics = metrics
         self._physics = None
+        # the old backend's CUDA graphs (capture.py) hold its operators'
+        # pointers: they go with it, before the new packs are built
+        self.backend = None
         self.backend = SingleDeviceBackend(self.levels, ops, self.cfg,
                                            packs=packs)
 
@@ -167,18 +170,20 @@ class NHModel:
         return self.backend.place(0, self._physics.rhs(
             self.tensor(u), self.tensor(v), self.tensor(w)))
 
-    def _solve_state(self, b, tol, maxiter, verbose):
+    def _solve_state(self, b, tol, maxiter, verbose, graph):
         self._require()
         if self.distributed:
             b = self.backend.place(0, self._state(b))
         else:
             b = self.tensor(b)
         return solve_p(self.backend, b, self.cfg, tol=tol, maxiter=maxiter,
-                       verbose=verbose)
+                       verbose=verbose, graph=graph)
 
-    def pressure_solve(self, b, tol=None, maxiter=None, verbose=False
+    def pressure_solve(self, b, tol=None, maxiter=None, verbose=False,
+                       graph: Optional[bool] = None
                        ) -> Tuple[torch.Tensor, SolveInfo]:
-        p, info = self._solve_state(b, tol, maxiter, verbose)
+        """solve_p on the model's backend (``graph``: solver.solve_p)."""
+        p, info = self._solve_state(b, tol, maxiter, verbose, graph)
         return (self.backend.gather(0, p) if self.distributed else p), info
 
     def project(self, p, u, v, w):
@@ -190,12 +195,15 @@ class NHModel:
                            self.tensor(u), self.tensor(v), self.tensor(w))
 
     # -- the reference's three-step solve (nhydro.f90:80-98) ---------------
-    def solve(self, u, v, w, tol=None, maxiter=None, verbose=False):
+    def solve(self, u, v, w, tol=None, maxiter=None, verbose=False,
+              graph: Optional[bool] = None):
         """compute_rhs -> solve_p -> correct_uvw.  Returns corrected
-        (u, v, w), the pressure p, and a SolveInfo."""
+        (u, v, w), the pressure p, and a SolveInfo.  On the card the solve
+        replays its step as a CUDA graph; ``graph=False`` runs the eager
+        loop (solver.solve_p)."""
         u, v, w = self.tensor(u), self.tensor(v), self.tensor(w)
         p, info = self._solve_state(self._rhs_state(u, v, w), tol, maxiter,
-                                    verbose)
+                                    verbose, graph)
         u, v, w = self.project(p, u, v, w)
         if self.distributed:
             p = self.backend.gather(0, p)

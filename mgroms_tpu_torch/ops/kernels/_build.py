@@ -129,6 +129,18 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # x out | n ntiles | stream
     lib.mg_fma_run.argtypes = [p, p, i, i, p]
     lib.mg_fma_run.restype = i
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"mg_loop_condition_{dt}")
+        # rsq bnorm it hist lim | cpc init | cont stream
+        fn.argtypes = [p] * 5 + [i, i] + [p, p]
+        fn.restype = i
+    # step f64 | rsq bnorm it hist lim cpc cont | graph_out exec_out
+    lib.mg_loop_graph.argtypes = [p, i] + [p] * 5 + [i] + [p] * 3
+    lib.mg_loop_graph.restype = i
+    lib.mg_graph_launch.argtypes = [p, p]
+    lib.mg_graph_launch.restype = i
+    lib.mg_graph_destroy.argtypes = [p, p]
+    lib.mg_graph_destroy.restype = i
     return lib
 
 

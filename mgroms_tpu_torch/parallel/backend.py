@@ -32,6 +32,10 @@ from .mesh import MeshPlan, Tiles, join_tiles, move, split_tiles
 
 
 class DistributedBackend(SingleDeviceBackend):
+    # its solves stay eager: mesh.shard_map runs the tiles' programs on
+    # host threads, which one CUDA graph capture cannot follow
+    capturable = False
+
     def __init__(self, levels: List[LevelSpec], ops: List[LevelOperator],
                  cfg: SolverConfig, plan: MeshPlan, packs: list):
         super().__init__(levels, ops, cfg, packs=packs,

@@ -11,6 +11,10 @@ configuration, and what one K1 launch per RB colour saves end to end.
                                    configuration starts
                phase{n}_peak_gib   its peak
 
+             the solve replays its captured step (capture.py) as
+             chip_smoke.py's does; with --eager it runs the eager loop
+             (graph=False) and the rows are named phase{n}_eager_*
+
   launches   the K1-K2 route (phase 8: CUC 1024^2 x 64, pallas_fused_sweep
              =False; phase 10: seamount 64^3, perf mode, the same): wall
              time of one F-cycle (solver.solve_step, synchronized) with K1
@@ -30,6 +34,7 @@ configuration, and what one K1 launch per RB colour saves end to end.
                                                      differences
 
     python -m mgroms_tpu_torch.scripts.micro_solve memory [--phases 4 8 ...]
+        [--eager]
     python -m mgroms_tpu_torch.scripts.micro_solve launches [--rounds N]
 
 Both need a card.
@@ -81,25 +86,27 @@ def model(dev, phase):
     return m
 
 
-def memory(dev=None, phases=(4, 8, 9, 12, 14)) -> dict:
+def memory(dev=None, phases=(4, 8, 9, 12, 14), eager=False) -> dict:
     """The ``memory`` rows of the module docstring."""
     dev = card(dev)
     print(card_line(), flush=True)
     rows = {}
+    name = "_eager" if eager else ""
     for phase in phases:
         gc.collect()
         torch.cuda.empty_cache()
-        emit(rows, f"phase{phase}_held_gib",
+        emit(rows, f"phase{phase}{name}_held_gib",
              torch.cuda.memory_allocated(dev) / 2**30)
         torch.cuda.reset_peak_memory_stats(dev)
         m = model(dev, phase)
         u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
                                      device=dev)
         uc, vc, wc, p, info = m.solve(u, v, w, tol=1e-4,
-                                      maxiter=PHASES[phase][3])
+                                      maxiter=PHASES[phase][3],
+                                      graph=False if eager else None)
         float(m.check_nondivergence(uc, vc, wc))
         float(m.rhs(uc, vc, wc).abs().max())
-        emit(rows, f"phase{phase}_peak_gib",
+        emit(rows, f"phase{phase}{name}_peak_gib",
              torch.cuda.max_memory_allocated(dev) / 2**30)
         del m, u, v, w, uc, vc, wc, p, info
     return rows
@@ -184,9 +191,10 @@ def main(argv=None):
     ap.add_argument("what", choices=("memory", "launches"))
     ap.add_argument("--phases", type=int, nargs="*")
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--eager", action="store_true")
     args = ap.parse_args(argv)
     if args.what == "memory":
-        memory(None, tuple(args.phases or (4, 8, 9, 12, 14)))
+        memory(None, tuple(args.phases or (4, 8, 9, 12, 14)), args.eager)
     else:
         launches(None, tuple(args.phases or (8, 10)), args.rounds)
 

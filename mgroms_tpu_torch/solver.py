@@ -3,7 +3,8 @@
 Port of the single-device part of ``mgroms_tpu/solver.py`` (reference
 ``src/mg_solvers.f90``).  The per-level operations live on a backend
 object (:class:`SingleDeviceBackend`); the cycle code is plain Python over
-the levels, run eagerly.
+the levels, run eagerly, and on the card captured once as a CUDA graph
+that the solve replays (capture.py, :func:`solve_p`).
 
 Every non-coarsest level with even ny, nx of an RB or FC solve keeps its
 state in quad-parity layout (``QuadField``) — the rule the JAX package
@@ -77,6 +78,7 @@ from .config import SolverConfig
 from .levels import LevelSpec
 from .ops import relax as relax_ops
 from .ops import stencil, transfer
+from .ops.kernels import device_loop as loop_condition
 from .ops.kernels import relax_fused, stencil_tiled, sweep_fused
 from .ops.kernels import relax_tiled as kernels
 from .ops.relax_compact import (QuadField, attach_lp, build_band_pack,
@@ -102,9 +104,7 @@ def check_supported(cfg: SolverConfig) -> None:
         "aggressive": cfg.aggressive,
         "bmask": cfg.bmask,
         "coarsest": cfg.coarsest != "relax",
-        "device_loop": cfg.device_loop,
         "netcdf_output": cfg.netcdf_output,
-        "cycles_per_check": cfg.cycles_per_check != 1,
     }
     bad = [k for k, v in off.items() if v]
     if bad:
@@ -178,6 +178,9 @@ def is_quads(x) -> bool:
 class SingleDeviceBackend:
     """All per-level ops on one device (physical BCs on every edge)."""
 
+    # its solves on the card replay a captured step (capture.py)
+    capturable = True
+
     def __init__(self, levels: List[LevelSpec], ops: List[LevelOperator],
                  cfg: SolverConfig, packs: Optional[list] = None,
                  on_card: Optional[bool] = None):
@@ -193,6 +196,9 @@ class SingleDeviceBackend:
         self.packs = (list(packs) if packs is not None
                       else build_relax_packs(levels, ops, cfg))
         self.fused_sweep = fused_sweep_wanted(cfg, self.on_card)
+        # captured steps and device loops (capture.py), built at the first
+        # solve that replays them
+        self.graphs = {}
 
     def extend(self, lev: int, x: torch.Tensor) -> torch.Tensor:
         return extend_h1(x)
@@ -422,15 +428,21 @@ def fcycle(backend, p0, b0, r0, cfg: SolverConfig,
     return (ps[0], r_top) if emit_residual else ps[0]
 
 
-def solve_init(be, b):
-    """p = 0, ||b||, initial residual and relative norm (solve_p prologue,
-    mg_solvers.f90:35-57), with (p, b, r) in level 0's state layout."""
+def _init_state(be, b):
+    """p = 0, b and the initial residual in level 0's state layout, ||r||^2
+    and ||b|| (solve_p's prologue, mg_solvers.f90:35-57)."""
     p = be.zeros(0, as_quads=be.state_quads(0))
     bnorm = torch.sqrt(be.norm_sq(0, b))
     bs = be.to_state(0, b)
     r = be.residual(0, p, bs)
-    rnorm = torch.sqrt(be.norm_sq(0, r))
-    return p, bs, r, rnorm / bnorm, bnorm
+    return p, bs, r, be.norm_sq(0, r), bnorm
+
+
+def solve_init(be, b):
+    """p = 0, ||b||, initial residual and relative norm (solve_p prologue,
+    mg_solvers.f90:35-57), with (p, b, r) in level 0's state layout."""
+    p, bs, r, rsq, bnorm = _init_state(be, b)
+    return p, bs, r, torch.sqrt(rsq) / bnorm, bnorm
 
 
 def cycle_step(be, p, b, r, cfg):
@@ -454,10 +466,21 @@ def cycle_step(be, p, b, r, cfg):
     return p, r
 
 
+def step_norm(be, p, b, r, cfg):
+    """One convergence-loop iteration: ``cycles_per_check`` F-cycles with
+    their fresh residual (mgroms_tpu/solver.py:696-703), ||r||^2 and
+    ||r||."""
+    for _ in range(cfg.cycles_per_check):
+        p, r = cycle_step(be, p, b, r, cfg)
+    rsq = be.norm_sq(0, r)
+    return p, r, rsq, torch.sqrt(rsq)
+
+
 def solve_step(be, p, b, r, cfg):
-    """One convergence-loop iteration: F-cycle + fresh residual + norm."""
-    p, r = cycle_step(be, p, b, r, cfg)
-    return p, r, torch.sqrt(be.norm_sq(0, r))
+    """One convergence-loop iteration: ``cycles_per_check`` F-cycles +
+    fresh residual + norm (the step a CUDA graph captures, capture.py)."""
+    p, r, _, rnorm = step_norm(be, p, b, r, cfg)
+    return p, r, rnorm
 
 
 class SolveInfo(NamedTuple):
@@ -468,45 +491,138 @@ class SolveInfo(NamedTuple):
     rescaled_perf: float       # reference figure of merit (mg_solvers.f90:92)
 
 
+def graph_wanted(backend, graph: Optional[bool]) -> bool:
+    """Whether a solve replays its step as a CUDA graph (capture.py): by
+    default on a single-device backend on the card; ``graph=False`` runs
+    the eager loop; ``graph=True`` raises where no graph can run (the CPU,
+    a distributed backend)."""
+    can = backend.on_card and backend.capturable
+    if graph and not can:
+        raise ValueError("a CUDA graph replays a single-device solve on "
+                         "the card only")
+    return can if graph is None else graph
+
+
+def _rescaled_perf(backend, dt: float, res: float, res0: float,
+                   niter: int) -> float:
+    """The reference's figure of merit (mg_solvers.f90:84-97): seconds per
+    DOF per decade of residual reduction."""
+    s = backend.levels[0]
+    decades = (-math.log10(max(res / res0, 1e-300)) if niter
+               else float("nan"))
+    return (dt / decades / (s.nxg * s.nyg * s.nzg)
+            if decades and decades > 0 else float("nan"))
+
+
+def _device_loop(backend, b, cfg: SolverConfig, tol: float, maxiter: int,
+                 graph: bool):
+    """JAX's ``_solve_device_loop`` (mgroms_tpu/solver.py:706-748): the
+    prologue, then checks of ``cycles_per_check`` F-cycles while the
+    condition (ops/kernels/device_loop.py) holds, the history kept on the
+    device.  With ``graph`` the loop is one CUDA graph with a WHILE node
+    (capture.DeviceLoop); else the same body and condition in a Python
+    loop, which reads the condition once a check.  Returns the pressure in
+    full layout, the cycles run and the history to them (NaN where no
+    check landed)."""
+    if graph:
+        from .capture import captured_loop
+        loop = captured_loop(backend, cfg, maxiter)
+        niter, hist = loop.run(*_init_state(backend, b), maxiter, tol)
+        return loop.step.result(), niter, hist
+    p, bs, r, rsq, bnorm = _init_state(backend, b)
+    cpc = cfg.cycles_per_check
+    buf = loop_condition.LoopBuffers(rsq, maxiter + cpc)
+    buf.reset(maxiter, tol, cpc)
+    loop_condition.loop_condition(rsq, bnorm, buf.it, buf.hist, buf.lim,
+                                  cpc, True, buf.cont)
+    while bool(buf.cont):
+        p, r, rsq, _ = step_norm(backend, p, bs, r, cfg)
+        loop_condition.loop_condition(rsq, bnorm, buf.it, buf.hist,
+                                      buf.lim, cpc, False, buf.cont)
+    niter, hist = buf.read()
+    return backend.to_full(0, p), niter, hist
+
+
 def solve_p(backend, b: torch.Tensor, cfg: Optional[SolverConfig] = None,
             tol: Optional[float] = None, maxiter: Optional[int] = None,
-            verbose: bool = False) -> Tuple[torch.Tensor, SolveInfo]:
+            verbose: bool = False, device_loop: Optional[bool] = None,
+            graph: Optional[bool] = None) -> Tuple[torch.Tensor, SolveInfo]:
     """Outer convergence loop (``solve_p``, mg_solvers.f90:17-101).
 
     Starts from p = 0 (:35) and runs F-cycles until the relative residual
-    ||b - Ap|| / ||b|| drops under ``tol`` or ``maxiter`` cycles (:61-79);
-    the host reads the norm once per cycle, as the reference does."""
+    ||b - Ap|| / ||b|| drops under ``tol`` or ``maxiter`` cycles (:61-79).
+    The host reads the norm once a check of ``cfg.cycles_per_check``
+    F-cycles (once a cycle by default, as the reference does), so
+    ``niter`` may pass ``maxiter`` by less than a check.
+
+    ``device_loop`` (default: ``cfg.device_loop``) runs the whole loop on
+    the device with its history kept there, one host read a solve, as the
+    JAX package's ``_solve_device_loop`` (:func:`_device_loop`); with
+    ``verbose`` the host loop runs instead, as there.
+
+    ``graph`` is the counterpart of ``jax.disable_jit``
+    (:func:`graph_wanted`): on a single-device backend on the card the
+    step is captured as a CUDA graph at the first solve and replayed
+    (capture.py; the device loop as one graph with a WHILE node), with the
+    same kernels on the same inputs as the eager loop, so the same
+    history to every digit; ``graph=False`` runs the eager loop.  On the
+    CPU and on a distributed backend (parallel/: ``mesh.shard_map`` runs
+    the tiles' programs on host threads, which one capture cannot follow)
+    the loop is eager."""
     cfg = cfg or backend.cfg
     check_supported(cfg)
     tol = cfg.solver_prec if tol is None else tol
     maxiter = cfg.solver_maxiter if maxiter is None else maxiter
+    if device_loop is None:
+        device_loop = cfg.device_loop
+    graph = graph_wanted(backend, graph)
+
+    if device_loop and not (verbose or cfg.netcdf_output):
+        t0 = time.perf_counter()
+        p, niter, hist = _device_loop(backend, b, cfg, tol, maxiter, graph)
+        backend.synchronize()
+        dt = time.perf_counter() - t0
+        hist = [h for h in hist if not math.isnan(h)]
+        # b == 0 makes every entry 0/0 = NaN (the host loop returns the
+        # same degenerate history=(nan,)); keep the shape of that contract
+        if not hist:
+            hist = [float("nan")]
+        return p, SolveInfo(niter=niter, res=hist[-1], history=tuple(hist),
+                            time_s=dt,
+                            rescaled_perf=_rescaled_perf(
+                                backend, dt, hist[-1], hist[0], niter))
 
     t0 = time.perf_counter()
+    step = None
+    if graph:
+        from .capture import captured_step
+        step = captured_step(backend, cfg)
     p, bs, r, res0, bnorm = solve_init(backend, b)
     res0 = float(res0)
     bnorm = float(bnorm)
     r0val = res0
     history = [res0]
     nite = 0
+    if step is not None:
+        step.load(p, bs, r)
+        del p, bs, r
     while nite < maxiter and res0 > tol:
-        p, r, rnorm = solve_step(backend, p, bs, r, cfg)
+        if step is not None:
+            rnorm = step.replay()
+        else:
+            p, r, rnorm = solve_step(backend, p, bs, r, cfg)
         rnorm = float(rnorm) / bnorm
         conv = res0 / rnorm if rnorm > 0 else float("inf")
         res0 = rnorm
-        nite += 1
+        nite += cfg.cycles_per_check
         history.append(rnorm)
         if verbose:
             print(f"ite = {nite:2d}: res = {rnorm:10.3e} / "
                   f"conv = {conv:10.3f}")
-    p = backend.to_full(0, p)
+    p = step.result() if step is not None else backend.to_full(0, p)
     backend.synchronize()
     dt = time.perf_counter() - t0
-
-    # rescaled performance (mg_solvers.f90:84-97): core-seconds per DOF per
-    # decade of residual reduction
-    s = backend.levels[0]
-    decades = -math.log10(max(res0 / r0val, 1e-300)) if nite else float("nan")
-    perf = (dt / decades / (s.nxg * s.nyg * s.nzg)
-            if decades and decades > 0 else float("nan"))
     return p, SolveInfo(niter=nite, res=res0, history=tuple(history),
-                        time_s=dt, rescaled_perf=perf)
+                        time_s=dt,
+                        rescaled_perf=_rescaled_perf(backend, dt, res0,
+                                                     r0val, nite))

@@ -94,7 +94,6 @@ def test_setup_path_matches_jax(name):
 def test_unported_options_raise():
     from mgroms_tpu_torch import NHModel
     for kw in (dict(bmask=True), dict(coarsest="direct"),
-               dict(gs_exact=True), dict(tridiag="pcr"),
-               dict(cycles_per_check=2), dict(device_loop=True)):
+               dict(gs_exact=True), dict(tridiag="pcr")):
         with pytest.raises(NotImplementedError):
             NHModel(16, 16, 16, cfg=TConfig(**kw), device="cpu")

@@ -991,3 +991,154 @@ def test_step_floor_matches_plain(cuda, shape, nsteps, cluster):
     assert rl.LAUNCHES["step_floor"] == before + 1
     assert blocks in ((min(16, shape[1]), min(8, shape[1])) if cluster
                       else (1,))
+
+
+# ---- the convergence step as a CUDA graph (capture.py) -----------------
+
+GRAPH_CFGS = {"default": {}, "use_pallas": dict(use_pallas=True),
+              "perf": dict(fused_bands_bf16=True, ns_pre=1, ns_post=1)}
+
+
+def _graph_model(cuda, n=32, **cfg):
+    from mgroms_tpu_torch import NHModel, SolverConfig
+    from mgroms_tpu_torch.cases.seamount import (initial_velocities,
+                                                 setup_seamount)
+    m = NHModel(n, n, n, cfg=SolverConfig(dtype="float32", **cfg),
+                device=cuda)
+    c = setup_seamount(n, n, n)
+    m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
+                   theta_b=c.theta_b, theta_s=c.theta_s)
+    b = m.rhs(*initial_velocities(n, n, n, dtype=m.dtype, device=cuda))
+    return m, b
+
+
+def _counts():
+    from mgroms_tpu_torch.capture import KERNEL_MODULES
+    return {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}
+
+
+def _reset_counts():
+    from mgroms_tpu_torch.capture import KERNEL_MODULES
+    for mod in KERNEL_MODULES:
+        mod.reset_launches()
+
+
+@pytest.mark.parametrize("name", list(GRAPH_CFGS))
+def test_replayed_solve_equals_eager(cuda, name):
+    """Seamount 32^3 float32 in the default config, with use_pallas and in
+    perf mode: the solve that replays its captured step (the first one
+    captures it, the second reuses it) equals the eager solve
+    (graph=False) bit for bit, history and pressure, and leaves the same
+    LAUNCHES counts."""
+    m, b = _graph_model(cuda, **GRAPH_CFGS[name])
+    _reset_counts()
+    pe, ie = m.pressure_solve(b, tol=0.0, maxiter=4, graph=False)
+    eager = _counts()
+    assert not m.backend.graphs
+    for rep in range(2):
+        _reset_counts()
+        pg, ig = m.pressure_solve(b, tol=0.0, maxiter=4)
+        assert len(m.backend.graphs) == 1
+        assert ig.niter == ie.niter == 4
+        assert ig.history == ie.history, (rep, ig.history, ie.history)
+        assert torch.equal(pg, pe), rep
+        assert _counts() == eager, rep
+
+
+@pytest.mark.parametrize("cpc", [1, 2])
+def test_device_loop_graph_equals_host_loop(cuda, cpc):
+    """device_loop on the card (one graph: a WHILE node around the
+    captured step and the condition kernel) and its eager form give the
+    host loop's niter, history and pressure, the condition kernel
+    launched once a check and once in the prologue."""
+    from mgroms_tpu_torch import SolverConfig
+    from mgroms_tpu_torch.ops.kernels import device_loop as dl
+    from mgroms_tpu_torch.solver import solve_p
+    m, b = _graph_model(cuda)
+    cfg = SolverConfig(dtype="float32", cycles_per_check=cpc)
+    runs = {}
+    for key, kw in (("host", dict(device_loop=False)),
+                    ("graph", dict(device_loop=True)),
+                    ("eager", dict(device_loop=True, graph=False))):
+        _reset_counts()
+        runs[key] = solve_p(m.backend, b, cfg, tol=1e-5, maxiter=5, **kw)
+        runs[key] += (_counts(),)
+    p0, i0, c0 = runs["host"]
+    assert c0["loop_condition"] == 0
+    for key in ("graph", "eager"):
+        p, i, c = runs[key]
+        assert i.niter == i0.niter and i.history == i0.history, key
+        assert torch.equal(p, p0), key
+        assert c["loop_condition"] == 1 + i.niter // cpc, (key, c)
+        c["loop_condition"] = 0
+        assert c == c0, key
+    assert dl.LAUNCHES["loop_condition"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_loop_condition_matches_plain(cuda, dtype):
+    """The condition kernel == its plain version, exactly: the counter,
+    the history slot and the decision, at a NaN residual, at i ==
+    maxiter, at res == tol, inside the loop and in the prologue."""
+    from mgroms_tpu_torch.ops.kernels import device_loop as dl
+    maxiter, cpc = 6, 2
+    rsq0 = torch.tensor(1e-8, dtype=dtype)
+    res_eq = float(torch.sqrt(rsq0).double())
+    for rsq, bnorm, it0, init, tol in (
+            (0.0, 0.0, 0, False, 1e-4), (0.0, 0.0, 0, True, 1e-4),
+            (4e-6, 1.0, 4, False, 1e-4), (1e-8, 1.0, 0, False, res_eq),
+            (2.5e-7, 3.0, 2, False, 1e-4), (2.5e-7, 3.0, 3, True, 1e-4),
+            (7.3e-3, 0.37, 1, False, 1e-6)):
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            t = dict(it=torch.tensor(it0, dtype=torch.int32, device=dev),
+                     cont=torch.tensor(9, dtype=torch.int32, device=dev),
+                     hist=torch.full((maxiter + cpc,), float("nan"),
+                                     dtype=torch.float64, device=dev),
+                     lim=torch.tensor([float(maxiter), tol],
+                                      dtype=torch.float64, device=dev))
+            before = dl.LAUNCHES["loop_condition"]
+            dl.loop_condition(torch.tensor(rsq, dtype=dtype, device=dev),
+                              torch.tensor(bnorm, dtype=dtype, device=dev),
+                              t["it"], t["hist"], t["lim"], cpc, init,
+                              t["cont"])
+            assert dl.LAUNCHES["loop_condition"] == before + (dev == cuda)
+            out.append({k: v.cpu() for k, v in t.items()})
+        got, want = out
+        assert torch.equal(got["it"], want["it"])
+        assert torch.equal(got["cont"], want["cont"])
+        assert torch.equal(got["hist"].nan_to_num(-1.0),
+                           want["hist"].nan_to_num(-1.0))
+
+
+def test_use_operators_recaptures(cuda):
+    """A backend rebuilt by use_operators captures its own step: the
+    solve on it equals the eager solve again."""
+    m, b = _graph_model(cuda)
+    p0, i0 = m.pressure_solve(b, tol=0.0, maxiter=2)
+    old = m.backend
+    m.use_operators(m.ops, m.metrics)
+    assert m.backend is not old and not m.backend.graphs
+    p1, i1 = m.pressure_solve(b, tol=0.0, maxiter=2)
+    pe, ie = m.pressure_solve(b, tol=0.0, maxiter=2, graph=False)
+    assert len(m.backend.graphs) == 1
+    assert i1.history == i0.history == ie.history
+    assert torch.equal(p1, pe) and torch.equal(p0, pe)
+
+
+def test_capture_failure_raises(cuda, monkeypatch):
+    """A step that cannot be captured (here: one that reads a value on the
+    host) makes the solve raise; nothing falls back to the eager loop."""
+    from mgroms_tpu_torch import solver
+    m, b = _graph_model(cuda, n=16)
+    step_norm = solver.step_norm
+
+    def reads_the_host(be, p, bb, r, cfg):
+        out = step_norm(be, p, bb, r, cfg)
+        float(out[2])
+        return out
+
+    monkeypatch.setattr(solver, "step_norm", reads_the_host)
+    with pytest.raises(RuntimeError):
+        m.pressure_solve(b, tol=0.0, maxiter=2)
+    assert not m.backend.graphs
