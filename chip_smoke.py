@@ -72,9 +72,10 @@ Phases (any failed check raises, so the exit code is non-zero):
    and of K1-K2, K4, K3 and K6's step form (cp.async), per instance
    (cuobjdump -sass).  The device loop's condition kernel
    (csrc/device_loop.cu) against its plain version, exactly (counter,
-   history slot, decision), in float32 and float64 at a NaN residual, at
-   i == maxiter, at res == tol, inside the loop and in its prologue;
-   timed beside its bound.
+   history slot, decision, run count), in float32 and float64 at a NaN
+   residual, at i == maxiter, at res == tol, inside the loop and in its
+   prologue; timed (events and device time) beside its bytes bound and
+   its latency floor (the device time of one int32 += 1).
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -156,8 +157,11 @@ Phases (any failed check raises, so the exit code is non-zero):
    loop (one CUDA graph, a WHILE node around the captured step and the
    condition kernel), timed, equal histories, the one-off capture and
    instantiation seconds and the peak from an empty card (its JSON line);
-   seamount 64^3 with use_pallas in the device loop with one and two
-   F-cycles a check, hist_cpc2[k] == hist_cpc1[2k].
+   scripts/loop_graph_build.py on seamount 64^3, the default
+   configuration with one and two F-cycles a check and use_pallas with
+   one: the device loop's build seconds against its node count (cloned
+   and, for the time only, captured into the WHILE body), its solves
+   against the replayed host loop's, hist_cpc2[k] == hist_cpc1[2k].
 
 Every single-device solve (phases 2-10, 14-19, the inner solves of 18)
 replays its captured step (capture.py; the model's first solve captures
@@ -165,8 +169,10 @@ it): phases 2-10 and 14-17 hold the replayed solve to the same model's
 eager solve (graph=False) to every digit of the history, the pressure bit
 for bit and the same launch counts, and print the one-off warm-up,
 capture and instantiation seconds; the launch counts every check reads
-are the replayed solve's (capture.CapturedStep adds a replay's launches
-to the counters).  Phase 12 (a distributed backend) stays eager.
+are the replayed solve's: a replay adds its graph's kernel nodes, by
+function, to the counters, and the device loop its body's times the
+runs its condition kernel counted on the device (capture.py).  Phase 12
+(a distributed backend) stays eager.
 
 Every phase with quad levels (2, 4-6, 8-10, 12, 14, 17) checks that every
 quad level (every tile on phase 12's mesh) holds the band stack only, no
@@ -217,13 +223,13 @@ import torch
 
 from mgroms_tpu_torch import NHModel, SolverConfig
 from mgroms_tpu_torch.bc import extend_h1
-from mgroms_tpu_torch.capture import (KERNEL_MODULES, captured_loop,
-                                     captured_step)
+from mgroms_tpu_torch.capture import captured_step
 from mgroms_tpu_torch.cases.cuc import setup_cuc_synthetic
 from mgroms_tpu_torch.cases.seamount import initial_velocities, setup_seamount
 from mgroms_tpu_torch.levels import describe
 from mgroms_tpu_torch.ops import relax_compact as rc
-from mgroms_tpu_torch.ops.kernels import _build
+from mgroms_tpu_torch.ops.kernels import (_build, launches, reset_launches,
+                                          set_launches)
 from mgroms_tpu_torch.ops.kernels import device_loop as kdl
 from mgroms_tpu_torch.ops.kernels import dma_probe as dp
 from mgroms_tpu_torch.ops.kernels import rdma_halo as k7
@@ -241,9 +247,10 @@ from mgroms_tpu_torch.scripts import micro_packed_parts as mpp
 from mgroms_tpu_torch.scripts import micro_relax_fused as mrf
 from mgroms_tpu_torch.scripts import micro_roofline as mr
 from mgroms_tpu_torch.scripts import micro_sweep_fused as msf
-from mgroms_tpu_torch.scripts import refine_solve, solve_wall
+from mgroms_tpu_torch.scripts import (loop_graph_build, refine_solve,
+                                      solve_wall)
 from mgroms_tpu_torch.scripts._timing import card_line, median_ms
-from mgroms_tpu_torch.solver import solve_init, solve_p, solve_step
+from mgroms_tpu_torch.solver import solve_init, solve_step
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = "mgroms_tpu_torch/csrc/"
@@ -329,22 +336,6 @@ F64_MAXITER = 6
 REFINE_ROUNDS = 8
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
 F32_FLOPS = 67e12                # float32 outside the tensor cores
-
-
-def launches() -> dict:
-    """Every kernel wrapper's count (capture.KERNEL_MODULES: a replayed
-    step's launches are added at each replay)."""
-    return {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}
-
-
-def reset_launches() -> None:
-    for mod in KERNEL_MODULES:
-        mod.reset_launches()
-
-
-def set_launches(counts) -> None:
-    for mod in KERNEL_MODULES:
-        mod.LAUNCHES.update({k: counts[k] for k in mod.LAUNCHES})
 
 
 def check_path(counts, busy):
@@ -494,17 +485,22 @@ def loop_buffers(rsq, bnorm, it0, tol, dtype, dev, capacity):
                 it=torch.tensor(it0, dtype=torch.int32, device=dev),
                 hist=torch.full((capacity,), float("nan"), **f64),
                 lim=torch.tensor([float(LOOP_MAXITER), tol], **f64),
-                cont=torch.tensor(9, dtype=torch.int32, device=dev))
+                cont=torch.tensor(9, dtype=torch.int32, device=dev),
+                runs=torch.tensor(3, dtype=torch.int32, device=dev))
 
 
 def loop_kernels(dev, results):
     """The device loop's condition kernel (csrc/device_loop.cu) against its
-    plain version on the card, exactly (counter, history slot, decision),
-    in float32 and float64 at LOOP_CASES; timed in float32 (the main
-    path's type) in the loop's mode, beside its bound: 44 bytes (the two
-    norms, the counter and the limits read, the counter, the history slot
-    and the decision written) over the card's memory rate; a dependent
-    global round trip and a launch are its real floor."""
+    plain version on the card, exactly (counter, history slot, decision,
+    run count), in float32 and float64 at LOOP_CASES; timed in float32
+    (the main path's type) in the loop's mode: CUDA events around the
+    call (host enqueue included) and its device time (torch.profiler),
+    beside its bound: 48 bytes (the two norms, the counters and the
+    limits read, the counters, the history slot and the decision written)
+    over the card's memory rate, and its real floor, a launch and one
+    dependent global round trip, measured as the device time of
+    PyTorch's kernel that adds 1 to one int32 in device memory (read,
+    then a dependent write)."""
     for dtype in (torch.float32, torch.float64):
         for rsq, bnorm, it0, init, tol in LOOP_CASES:
             if tol is None:
@@ -514,35 +510,42 @@ def loop_kernels(dev, results):
                              LOOP_MAXITER + LOOP_CPC)
             q = {n: t.clone() for n, t in k.items()}
             kdl.loop_condition(k["rsq"], k["bnorm"], k["it"], k["hist"],
-                               k["lim"], LOOP_CPC, init, k["cont"])
+                               k["lim"], LOOP_CPC, init, k["cont"],
+                               k["runs"])
             kdl.loop_condition_plain(q["rsq"], q["bnorm"], q["it"],
                                      q["hist"], q["lim"], LOOP_CPC, init,
-                                     q["cont"])
+                                     q["cont"], q["runs"])
             torch.cuda.synchronize()
             check(all(torch.equal(k[n].nan_to_num(-1.0),
                                   q[n].nan_to_num(-1.0))
-                      for n in ("it", "hist", "cont")),
+                      for n in ("it", "hist", "cont", "runs")),
                   f"loop_condition {dtype} {(rsq, bnorm, it0, init, tol)}: "
                   f"{k} != {q}")
         print(f"kernel loop_condition         {str(dtype):14s} "
-              f"{len(LOOP_CASES)} cases: counter, history and decision "
-              "equal to the plain version (0 ulp)")
+              f"{len(LOOP_CASES)} cases: counter, history, decision and "
+              "run count equal to the plain version (0 ulp)")
     # timed in the loop's mode: the counter grows 2 a call, so the history
-    # holds every call of the warm-up and the timed reps
-    k = loop_buffers(2.5e-7, 3.0, 0, 1e-4, torch.float32, dev, 4096)
+    # holds every call of the warm-ups and the timed reps
+    k = loop_buffers(2.5e-7, 3.0, 0, 1e-4, torch.float32, dev, 8192)
     args = (k["rsq"], k["bnorm"], k["it"], k["hist"], k["lim"], LOOP_CPC,
-            False, k["cont"])
+            False, k["cont"], k["runs"])
     ms = median_ms(lambda: kdl.loop_condition(*args))
+    dev_ms = mrf.device_ms(lambda: kdl.loop_condition(*args))
     k["it"].zero_()
     plain_ms = median_ms(lambda: kdl.loop_condition_plain(*args))
-    nbytes_ = 4 * 3 + 16 + 4 + 8 + 4
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms = mrf.device_ms(lambda: one.add_(1))
+    nbytes_ = 4 * 4 + 16 + 4 * 3 + 8
     bound_ms, bound_by = bound(nbytes_, 4)
     results["loop_condition"] = dict(max_abs_err=0.0, ms=ms,
                                      plain_ms=plain_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by, library_ms=None)
-    print(f"  loop_condition (one thread): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.3e} ms ({bound_by}: "
-          f"{nbytes_} bytes)")
+                                     bound_by=bound_by, library_ms=None,
+                                     dev_ms=dev_ms, latency_floor_ms=floor_ms)
+    print(f"  loop_condition (one thread): kernel {ms:.4f} ms (CUDA events "
+          f"around the call), device time {dev_ms:.5f} ms; latency floor "
+          f"(a launch and one dependent global round trip: one int32 += 1) "
+          f"{floor_ms:.5f} ms device time; plain {plain_ms:.4f} ms; bytes "
+          f"bound {bound_ms:.3e} ms ({bound_by}: {nbytes_} bytes)")
 
 
 # K1 and K2, a colour a launch (quad shape, dtype, timed): "json" times the
@@ -1229,9 +1232,10 @@ def eager_check(m, uvw, info, tol, maxiter, before):
     """The model's solve of the same velocities with graph=False (the
     eager loop) against its replayed solve ``info``: the same history to
     every digit, the same pressure bit for bit, and the same launches
-    (the replay ledger, the counts' growth over the replayed solve from
-    ``before``, against the launches the wrappers enqueue); the counts
-    are left as the replayed solve left them."""
+    (the replayed solve's, the counts' growth from ``before``: the
+    replays counted from the captured graph's kernel nodes, against the
+    launches the wrappers enqueue in the eager solve); the counts are
+    left as the replayed solve left them."""
     after = launches()
     replayed = {k: n - before[k] for k, n in after.items()}
     check(len(m.backend.graphs) == 1, "the solve replayed no captured step")
@@ -1247,9 +1251,10 @@ def eager_check(m, uvw, info, tol, maxiter, before):
           f"{eager}")
     print(f"  graph=False solve {einfo.time_s:.3f} s against {info.time_s:.3f}"
           f" s replayed (first solve: warm-up {step.warmup_s:.3f} s, capture "
-          f"{step.capture_s:.3f} s, instantiation {step.instantiate_s:.3f} s)"
-          f": history equal to every digit, pressure bit for bit, launches "
-          f"equal")
+          f"{step.capture_s:.3f} s, instantiation {step.instantiate_s:.3f} s;"
+          f" the step's graph: {step.nodes} nodes, kernel nodes "
+          f"{dict(step.launches)}): history equal to every digit, pressure "
+          f"bit for bit, launches equal")
 
 
 def check_band_levels(m):
@@ -1286,7 +1291,6 @@ def fcycle_ms(m, reps=5):
     step = captured_step(be, m.cfg) if be.capturable else None
     if step is not None:
         step.load(p, bs, r)
-    counts = launches()
     state = [p, r]
 
     def eager():
@@ -1305,9 +1309,7 @@ def fcycle_ms(m, reps=5):
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    out = (timed(eager), timed(step.replay) if step else None)
-    set_launches(counts)
-    return out
+    return timed(eager), timed(step.replay) if step else None
 
 
 def print_fcycle(m):
@@ -1365,7 +1367,6 @@ def profile_fcycle(m, top=8):
     u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
                                  device=m.device)
     p, bs, r, _, _ = solve_init(be, m._rhs_state(u, v, w))
-    counts = launches()
     state = [p, r]
 
     def eager():
@@ -1400,7 +1401,6 @@ def profile_fcycle(m, top=8):
               f" by {rn - n - copies}), device busy {rbusy:.3f} ms of "
               f"{rwall:.3f} ms traced wall, idle share "
               f"{1 - rbusy / rwall:.4f}")
-    set_launches(counts)
 
 
 def k6_expected(m) -> collections.Counter:
@@ -1718,8 +1718,9 @@ def refine_phase(dev):
 # phase 19: solve_wall's timed solves a mode (after one that captures)
 SOLVE_WALL_REPS = 3
 # phase 19: seamount 64^3 runs this many F-cycles (tol 0) with one and
-# with two F-cycles a check
+# with two F-cycles a check, each mode LOOP_REPS times after its build
 LOOP_CYCLES = 4
+LOOP_REPS = 3
 
 
 def loop_phase(case, case_seamount, dev):
@@ -1729,16 +1730,22 @@ def loop_phase(case, case_seamount, dev):
     WHILE node), SOLVE_WALL_REPS timed solves each after one that
     captures, their histories equal to every digit, the one-off capture
     and instantiation seconds and the peak from an empty card (its JSON
-    line); the device loop's condition kernel launched once a check and
-    once a solve, K4 and K3 and no other kernel.  Then seamount 64^3
-    float32 with use_pallas in the device loop with one and with two
-    F-cycles a check,
-    LOOP_CYCLES F-cycles each: each history equal to the replayed host
-    loop's, and hist_cpc2[k] == hist_cpc1[2k] exactly.  Returns the CUC
-    run's launch counts."""
+    line); the device loop's condition kernel run once a check and once a
+    solve (the runs the device counted), K4 and K3 and no other kernel.
+    Then seamount 64^3 float32 (scripts/loop_graph_build.run, the device
+    loop built as solve_p builds it and, for its build time only, with
+    the step captured into the WHILE body), in the default configuration with
+    one and with two F-cycles a check and with use_pallas with one,
+    LOOP_CYCLES F-cycles each, LOOP_REPS solves a mode after the build:
+    each device loop's history equal to the replayed host loop's, and
+    hist_cpc2[k] == hist_cpc1[2k] exactly; the build seconds beside the
+    node counts and the two loops' walls.  Returns the CUC run's launch
+    counts."""
     print("== phase 19: the loop modes: scripts/solve_wall.py (CUC 1024^2 x "
           "64 to 1e-4, eager / replayed / device loop); seamount 64^3 "
-          "use_pallas, device loop with cycles_per_check 1 and 2")
+          "device loop against the replayed host loop, default config with "
+          "cycles_per_check 1 and 2, use_pallas with 1 "
+          "(scripts/loop_graph_build.py)")
     t0 = time.perf_counter()
     reset_launches()
     row = solve_wall.run(1024, 1024, 64, tol=1e-4, maxiter=8,
@@ -1748,7 +1755,7 @@ def loop_phase(case, case_seamount, dev):
     print(f"  launches {counts}")
     checks = row["device_loop"]["niter"]
     check(counts["loop_condition"] == (SOLVE_WALL_REPS + 1) * (1 + checks),
-          f"loop_condition launched {counts['loop_condition']} times")
+          f"loop_condition ran {counts['loop_condition']} times")
     check_path(counts, {"relax_fused_sweep", "loop_condition"} | K3)
     check(row["device_loop"]["final_rel_residual"] <= 1e-4,
           f"device loop stopped at {row['device_loop']}")
@@ -1757,44 +1764,36 @@ def loop_phase(case, case_seamount, dev):
         for mode in solve_wall.MODES) + f"; F-cycles {checks}; step warm-up "
         f"{row['step_warmup_s']:.3f} s, capture {row['step_capture_s']:.3f} "
         f"s, instantiation {row['step_instantiate_s']:.3f} s, device loop "
-        f"graph {row['loop_graph_instantiate_s']:.3f} s; peak "
-        f"{row['peak_gib']:.3f} GiB from {row['held_gib']:.3f} GiB held")
-    saved = launches()
-    # use_pallas: a step of ~1.4k graph nodes a cycle; the default
-    # configuration's ~43k a cycle take ~25 s to build into a WHILE body
-    # at two cycles a check (PERF.md), longer than the rest of the phase
-    m = NHModel(64, 64, 64, cfg=SolverConfig(dtype="float32",
-                                             use_pallas=True), device=dev)
-    m.set_matrices(case_seamount.dx, case_seamount.dy, case_seamount.zeta,
-                   case_seamount.h, hc=case_seamount.hc,
-                   theta_b=case_seamount.theta_b,
-                   theta_s=case_seamount.theta_s)
-    b = m.rhs(*initial_velocities(64, 64, 64, dtype=m.dtype, device=dev))
+        f"body clone {row['loop_clone_s']:.3f} s, instantiation "
+        f"{row['loop_instantiate_s']:.3f} s; peak {row['peak_gib']:.3f} GiB "
+        f"from {row['held_gib']:.3f} GiB held")
     hist = {}
-    for cpc in (1, 2):
-        cfg = SolverConfig(dtype="float32", use_pallas=True,
-                           cycles_per_check=cpc)
-        _, info = solve_p(m.backend, b, cfg, tol=0.0, maxiter=LOOP_CYCLES,
-                          device_loop=True)
-        _, host = solve_p(m.backend, b, cfg, tol=0.0, maxiter=LOOP_CYCLES)
-        check(info.niter == host.niter == LOOP_CYCLES
-              and info.history == host.history,
-              f"device loop {info} != host loop {host}")
-        hist[cpc] = info.history
-        loop = captured_loop(m.backend, cfg, LOOP_CYCLES)
-        print(f"  seamount 64^3 use_pallas, cycles_per_check {cpc}: device "
-              f"loop {info.time_s:.4f} s (its first solve: step capture "
-              f"{loop.step.capture_s:.3f} s, instantiation "
-              f"{loop.step.instantiate_s:.3f} s, loop graph "
-              f"{loop.instantiate_s:.3f} s), replayed host loop "
-              f"{host.time_s:.4f} s, history "
-              f"{['%.6e' % h for h in info.history]}")
+    for use_pallas, cpcs in ((False, (1, 2)), (True, (1,))):
+        for lrow in loop_graph_build.run(
+                "seamount", 64, 64, 64, cpcs=cpcs, cycles=LOOP_CYCLES,
+                reps=LOOP_REPS, use_pallas=use_pallas, device=dev,
+                setup=case_seamount):
+            cpc = lrow["cycles_per_check"]
+            if not use_pallas:
+                hist[cpc] = lrow["history"]
+            st, lp, lc = (lrow["step"], lrow["loop"],
+                          lrow["loop_captured"])
+            print(f"  seamount 64^3{' use_pallas' * use_pallas}, "
+                  f"cycles_per_check {cpc}: step {st['nodes']} nodes (capture"
+                  f" {st['capture_s']:.3f} s, instantiation "
+                  f"{st['instantiate_s']:.3f} s); device loop body "
+                  f"{lp['body_nodes']} nodes, cloned in {lp['clone_s']:.3f} "
+                  f"s, instantiated in {lp['instantiate_s']:.3f} s (captured "
+                  f"into the body instead: {lc['capture_s']:.3f} s + "
+                  f"{lc['instantiate_s']:.3f} s); solve of {LOOP_CYCLES} "
+                  f"F-cycles: device loop {lrow['device_loop_wall_s']:.4f} s,"
+                  f" replayed host loop {lrow['replay_wall_s']:.4f} s "
+                  f"(medians of {LOOP_REPS}); "
+                  f"history {['%.6e' % h for h in lrow['history']]}")
     check(len(hist[2]) == LOOP_CYCLES // 2 + 1 and all(
         h == hist[1][2 * k] for k, h in enumerate(hist[2])),
         f"cycles_per_check 2 {hist[2]} against 1 {hist[1]}")
     print("  hist_cpc2[k] == hist_cpc1[2k] for every k, exactly")
-    set_launches(saved)
-    del m, b
     torch.cuda.empty_cache()
     print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
     return counts

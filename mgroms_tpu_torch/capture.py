@@ -28,11 +28,14 @@ step.
   ``"global"`` mode, as are K4's cooperative and K6's cluster launches
   (found on an H100 with CUDA 12.8), so the step is captured in that
   mode.
-- **Launch counts.**  The kernel wrappers count a launch when they enqueue
-  it.  The warm-up's launches and the capture's (which launch nothing) are
-  taken back out of the ``LAUNCHES`` counters; the capture's increments
-  are kept as the step's launches and added again after each replay, so
-  the counters count the launches the card runs, as in an eager solve.
+- **Launch counts.**  What a graph launches is read from the graph: its
+  kernel nodes, by function (:func:`graph_launches`, through
+  ``ops.kernels.kernel_key``).  At capture they must equal what the
+  wrappers counted as they enqueued the step, else the capture raises;
+  each replay then adds the graph's counts to the ``LAUNCHES`` counters.
+  The warm-up's launches (on zeros, before the solve) and the wrappers'
+  counts during the capture (which launches nothing) are taken back out,
+  so the counters hold the solve's launches, as in an eager solve.
 - **Failure.**  A capture or instantiation that fails raises: no solve
   falls back to the eager loop.
 - **Lifetime.**  A backend keeps its graphs (:func:`captured_step`), keyed
@@ -42,13 +45,18 @@ step.
 
 :class:`DeviceLoop` runs the whole convergence loop as one CUDA graph
 (``csrc/device_loop.cu``): the loop condition kernel (prologue mode)
-sets the condition of a WHILE node whose body is the captured step and
-the condition kernel, which writes the history on the device.  The host
-reads the counter and the history once per solve.
+sets the condition of a WHILE node whose body is the captured step
+(cloned as a child graph: its buffers stay in the step's pool) and the
+condition kernel, which writes the history on the device and counts its
+runs.  The host reads the counter, the runs and the history once per
+solve; the body's launches are counted from its nodes times the runs.
+Instantiating a WHILE body grows with the square of its node count on an
+H100 (CUDA 12.8; PERF.md), a plain graph's linearly.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import time
 import weakref
@@ -56,34 +64,49 @@ from typing import Optional
 
 import torch
 
+from .ops import kernels
 from .ops.kernels._build import check_launch, ptr
-from .ops.kernels import (_build, device_loop, dma_probe, rdma_halo,
-                          relax_fused, relax_tiled, roofline, stencil_tiled,
-                          sweep_fused, sweep_packed)
+from .ops.kernels import (_build, device_loop, relax_fused, relax_tiled,
+                          stencil_tiled, sweep_fused)
 from .ops.relax_compact import QuadField
 
-KERNEL_MODULES = (relax_tiled, stencil_tiled, relax_fused, sweep_fused,
-                  sweep_packed, roofline, rdma_halo, dma_probe, device_loop)
+# the kernel modules a convergence step launches (the condition's is not)
+STEP_MODULES = (relax_tiled, stencil_tiled, relax_fused, sweep_fused)
 
 
-def _snapshot() -> list:
-    return [dict(m.LAUNCHES) for m in KERNEL_MODULES]
+def _snapshot(mods) -> list:
+    return [dict(m.LAUNCHES) for m in mods]
 
 
-def _restore(counts: list) -> None:
-    for m, c in zip(KERNEL_MODULES, counts):
+def _restore(mods, counts: list) -> None:
+    for m, c in zip(mods, counts):
         m.LAUNCHES.update(c)
 
 
-def _delta(before: list) -> list:
-    return [{k: n - b[k] for k, n in m.LAUNCHES.items() if n != b[k]}
-            for m, b in zip(KERNEL_MODULES, before)]
+def _delta(mods, before: list) -> collections.Counter:
+    return collections.Counter(
+        {k: n - b[k] for m, b in zip(mods, before)
+         for k, n in m.LAUNCHES.items() if n != b[k]})
 
 
-def _add(delta: list, times: int = 1) -> None:
-    for m, d in zip(KERNEL_MODULES, delta):
-        for k, n in d.items():
-            m.LAUNCHES[k] += n * times
+def graph_launches(graph: int):
+    """(launches by ``LAUNCHES`` key, nodes) of one launch of the CUDA
+    graph ``graph``: its kernel nodes (child graphs included) whose
+    function a kernel module names, and the count of every node."""
+    names = device_loop.graph_kernels(graph)
+    out = collections.Counter()
+    for name, n in names.items():
+        key = kernels.kernel_key(name)
+        if key is not None:
+            out[key] += n
+    return out, sum(names.values())
+
+
+def _check_census(what: str, census, counted) -> None:
+    if census != counted:
+        raise RuntimeError(
+            f"{what}: the graph's kernel nodes {dict(census)} differ from "
+            f"the launches its wrappers enqueued {dict(counted)}")
 
 
 def _copy(dst, src) -> None:
@@ -101,14 +124,31 @@ def layout(be) -> tuple:
     return (be.state_quads(0), (s.nzg, s.nyg, s.nxg), cA.dtype, cA.device)
 
 
+def step_body(be, cfg, st):
+    """The step on ``st``'s static buffers (a CapturedStep's), as a
+    function of no arguments (kept by no graph: a backend's graphs hold no
+    reference to the backend)."""
+    from .solver import step_norm
+
+    def body():
+        p, r, rsq, rnorm = step_norm(be, st.p, st.b, st.r, cfg)
+        _copy(st.p, p)
+        _copy(st.r, r)
+        st.rsq.copy_(rsq)
+        st.rnorm.copy_(rnorm)
+
+    return body
+
+
 class CapturedStep:
     """One convergence step of backend ``be`` under ``cfg``, captured on
     static buffers (module docstring).  ``capture_s`` and
     ``instantiate_s`` are the one-off costs of the capture and of the
-    graph's instantiation, ``warmup_s`` the eager warm-up's."""
+    graph's instantiation, ``warmup_s`` the eager warm-up's;
+    ``launches`` the kernels one replay launches (from the graph's nodes),
+    ``nodes`` its node count."""
 
     def __init__(self, be, cfg):
-        from .solver import step_norm
         quads, _, dtype, dev = layout(be)
         self.device = dev
         self.p = be.zeros(0, as_quads=quads)
@@ -116,15 +156,8 @@ class CapturedStep:
         self.r = be.zeros(0, as_quads=quads)
         self.rsq = torch.zeros((), dtype=dtype, device=dev)
         self.rnorm = torch.zeros((), dtype=dtype, device=dev)
-
-        def body():
-            p, r, rsq, rnorm = step_norm(be, self.p, self.b, self.r, cfg)
-            _copy(self.p, p)
-            _copy(self.r, r)
-            self.rsq.copy_(rsq)
-            self.rnorm.copy_(rnorm)
-
-        before = _snapshot()
+        body = step_body(be, cfg, self)
+        before = _snapshot(STEP_MODULES)
         _build.load()
         try:
             t0 = time.perf_counter()
@@ -135,7 +168,7 @@ class CapturedStep:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
-            warm = _snapshot()
+            warm = _snapshot(STEP_MODULES)
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.device(dev):
                 with torch.cuda.graph(self.graph,
@@ -145,10 +178,12 @@ class CapturedStep:
                 self.graph.instantiate()
                 torch.cuda.synchronize(dev)
             t3 = time.perf_counter()
-            # what the capture counted is what a replay launches
-            self.delta = _delta(warm)
+            self.launches, self.nodes = graph_launches(
+                self.graph.raw_cuda_graph())
+            _check_census("captured step", self.launches,
+                          _delta(STEP_MODULES, warm))
         finally:
-            _restore(before)
+            _restore(STEP_MODULES, before)
         self.warmup_s, self.capture_s, self.instantiate_s = (
             t1 - t0, t2 - t1, t3 - t2)
 
@@ -164,7 +199,7 @@ class CapturedStep:
         """One step on the card; returns ``rnorm`` (not read here)."""
         with torch.cuda.device(self.device):
             self.graph.replay()
-        _add(self.delta)
+        kernels.add_launches(self.launches)
         return self.rnorm
 
     def result(self) -> torch.Tensor:
@@ -173,34 +208,65 @@ class CapturedStep:
                 else self.p.clone())
 
 
-class DeviceLoop:
-    """The convergence loop of ``step`` as one CUDA graph (module
-    docstring): ``capacity`` history slots (at least maxiter +
-    cycles_per_check), ``instantiate_s`` the one-off cost of building and
-    instantiating it."""
+def _destroy(lib, handles) -> None:
+    lib.mg_graph_destroy(handles[0], handles[1])
 
-    def __init__(self, step: CapturedStep, capacity: int, cpc: int):
+
+class DeviceLoop:
+    """The convergence loop of ``step`` under ``cfg`` as one CUDA graph
+    (module docstring): ``capacity`` history slots (at least maxiter +
+    cycles_per_check).  ``clone_s`` and ``instantiate_s`` are the one-off
+    costs of cloning the step into the WHILE body and of instantiating
+    the graph, ``body_launches`` and ``body_nodes`` one body run's kernels
+    (from its nodes) and nodes."""
+
+    def __init__(self, step: CapturedStep, cfg, capacity: int):
         self.step = step
-        self.cpc = cpc
+        self.cpc = cpc = cfg.cycles_per_check
+        dev = step.device
         self.bnorm = torch.zeros_like(step.rsq)
-        self.buf = device_loop.LoopBuffers(step.rsq, capacity)
+        self.buf = buf = device_loop.LoopBuffers(step.rsq, capacity)
+        f64 = int(step.rsq.dtype == torch.float64)
+        args = (ptr(step.rsq), ptr(self.bnorm), ptr(buf.it), ptr(buf.hist),
+                ptr(buf.lim), cpc, ptr(buf.cont), ptr(buf.runs))
         lib = _build.load()
-        g, e = ctypes.c_void_p(), ctypes.c_void_p()
-        t0 = time.perf_counter()
-        with torch.cuda.device(step.device):
-            rc = lib.mg_loop_graph(
-                step.graph.raw_cuda_graph(),
-                int(step.rsq.dtype == torch.float64), ptr(step.rsq),
-                ptr(self.bnorm), ptr(self.buf.it), ptr(self.buf.hist),
-                ptr(self.buf.lim), cpc, ptr(self.buf.cont), ctypes.byref(g),
-                ctypes.byref(e))
+        g, body, handle = (ctypes.c_void_p(), ctypes.c_void_p(),
+                           ctypes.c_ulonglong())
+        with torch.cuda.device(dev):
+            rc = lib.mg_loop_graph_open(f64, *args, ctypes.byref(g),
+                                        ctypes.byref(body),
+                                        ctypes.byref(handle))
         if rc != 0:
             raise RuntimeError(
-                f"the device loop's CUDA graph (a WHILE node around the "
-                f"captured step) could not be built: CUDA error {rc}")
-        self.instantiate_s = time.perf_counter() - t0
-        self._exec = e.value
-        weakref.finalize(self, lib.mg_graph_destroy, g.value, e.value)
+                f"the device loop's CUDA graph (a WHILE node) could not be "
+                f"built: CUDA error {rc}")
+        self._handles = [g.value, None]
+        weakref.finalize(self, _destroy, lib, self._handles)
+
+        # the body: the captured step cloned as a child graph, then the
+        # condition kernel
+        secs = ctypes.c_double()
+        with torch.cuda.device(dev):
+            rc = lib.mg_loop_body_clone(body.value,
+                                        step.graph.raw_cuda_graph(), f64,
+                                        *args, handle.value,
+                                        ctypes.byref(secs))
+        if rc != 0:
+            raise RuntimeError(f"the device loop's WHILE body could not be "
+                               f"built: CUDA error {rc}")
+        self.clone_s = secs.value
+        self.body_launches, self.body_nodes = graph_launches(body.value)
+        _check_census("device loop body", self.body_launches,
+                      step.launches + collections.Counter(loop_condition=1))
+        e = ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            rc = lib.mg_graph_instantiate(g.value, ctypes.byref(e),
+                                          ctypes.byref(secs))
+        if rc != 0:
+            raise RuntimeError(f"the device loop's CUDA graph could not be "
+                               f"instantiated: CUDA error {rc}")
+        self._handles[1] = e.value
+        self.instantiate_s = secs.value
 
     @property
     def capacity(self) -> int:
@@ -210,20 +276,23 @@ class DeviceLoop:
         """The loop from the prologue's iterates (p, b, r in level 0's
         state layout, ||r||^2 and ||b||); returns (cycles run, history
         to them, NaN where no check landed): one device-to-host read.
-        The pressure stays in ``step.p``."""
+        The pressure stays in ``step.p``.  The counters gain the
+        prologue's condition once and the body's kernel nodes once a body
+        run: the condition's runs, counted on the device, less the
+        prologue's."""
         self.step.load(p, b, r, rsq)
         self.bnorm.copy_(bnorm)
         del p, b, r
         self.buf.reset(maxiter, tol, self.cpc)
         lib = _build.load()
         with torch.cuda.device(self.step.device):
-            rc = lib.mg_graph_launch(self._exec,
+            rc = lib.mg_graph_launch(self._handles[1],
                                      torch.cuda.current_stream().cuda_stream)
         check_launch(rc, "device loop graph")
-        niter, hist = self.buf.read()
-        checks = niter // self.cpc
-        _add(self.step.delta, checks)
-        device_loop.LAUNCHES["loop_condition"] += 1 + checks
+        niter, hist, runs = self.buf.read()
+        # the root's one kernel node is the prologue's condition
+        kernels.add_launches({"loop_condition": 1})
+        kernels.add_launches(self.body_launches, runs - 1)
         return niter, hist
 
 
@@ -236,13 +305,15 @@ def captured_step(be, cfg) -> CapturedStep:
 
 
 def captured_loop(be, cfg, maxiter: int) -> DeviceLoop:
-    """``be``'s device loop under ``cfg`` with room for ``maxiter``
-    cycles, built at the first call (again for a longer history)."""
+    """``be``'s device loop under ``cfg``, built at the first call with
+    room for ``cfg.solver_maxiter`` cycles, or ``maxiter`` where more
+    (again for a longer history)."""
     key = ("loop", cfg, layout(be))
     need = maxiter + cfg.cycles_per_check
     loop = be.graphs.get(key)
     if loop is None or loop.capacity < need:
         be.graphs.pop(key, None)
-        loop = be.graphs[key] = DeviceLoop(captured_step(be, cfg), need,
-                                           cfg.cycles_per_check)
+        loop = be.graphs[key] = DeviceLoop(
+            captured_step(be, cfg), cfg,
+            max(need, cfg.solver_maxiter + cfg.cycles_per_check))
     return loop

@@ -129,14 +129,35 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # x out | n ntiles | stream
     lib.mg_fma_run.argtypes = [p, p, i, i, p]
     lib.mg_fma_run.restype = i
+    u, z = ctypes.c_ulonglong, ctypes.c_size_t
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"mg_loop_condition_{dt}")
-        # rsq bnorm it hist lim | cpc init | cont stream
-        fn.argtypes = [p] * 5 + [i, i] + [p, p]
+        # rsq bnorm it hist lim | cpc init | cont runs stream
+        fn.argtypes = [p] * 5 + [i, i] + [p] * 3
         fn.restype = i
-    # step f64 | rsq bnorm it hist lim cpc cont | graph_out exec_out
-    lib.mg_loop_graph.argtypes = [p, i] + [p] * 5 + [i] + [p] * 3
-    lib.mg_loop_graph.restype = i
+    # f64 | rsq bnorm it hist lim | cpc | cont runs | handle stream
+    lib.mg_loop_condition_node.argtypes = ([i] + [p] * 5 + [i] + [p] * 2
+                                           + [u, p])
+    lib.mg_loop_condition_node.restype = i
+    # f64 | rsq bnorm it hist lim | cpc | cont runs | graph_out body_out
+    # handle_out
+    lib.mg_loop_graph_open.argtypes = [i] + [p] * 5 + [i] + [p] * 5
+    lib.mg_loop_graph_open.restype = i
+    # body step f64 | rsq bnorm it hist lim | cpc | cont runs | handle
+    # seconds
+    lib.mg_loop_body_clone.argtypes = ([p, p, i] + [p] * 5 + [i] + [p] * 2
+                                       + [u, p])
+    lib.mg_loop_body_clone.restype = i
+    lib.mg_capture_begin.argtypes = [p, p]
+    lib.mg_capture_begin.restype = i
+    lib.mg_capture_end.argtypes = [p]
+    lib.mg_capture_end.restype = i
+    # graph | exec_out seconds
+    lib.mg_graph_instantiate.argtypes = [p, p, p]
+    lib.mg_graph_instantiate.restype = i
+    # graph | out cap len
+    lib.mg_graph_kernels.argtypes = [p, p, z, p]
+    lib.mg_graph_kernels.restype = i
     lib.mg_graph_launch.argtypes = [p, p]
     lib.mg_graph_launch.restype = i
     lib.mg_graph_destroy.argtypes = [p, p]

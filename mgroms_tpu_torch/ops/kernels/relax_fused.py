@@ -67,6 +67,14 @@ KINDS = {kind: Kind(code, ncolor, f"fused_relax{sfx}",
                                          ("GS", 2, 1, "_gs"))}
 
 LAUNCHES = {k.name(f): 0 for k in KINDS.values() for f in FORMS}
+# the kernel functions behind each count (ops/kernels/__init__.py):
+# relax_resident<T, KIND, NZ, CLUSTER> (one-block and cluster forms),
+# relax_step<T, KIND> (a launch a colour step)
+GRAPH_NAMES = tuple(
+    pair for k in KINDS.values() for pair in (
+        (rf"\brelax_resident<\w+, {k.code}, -?\d+, true>", k.cluster),
+        (rf"\brelax_resident<\w+, {k.code}, -?\d+, false>", k.block),
+        (rf"\brelax_step<\w+, {k.code}>", k.step)))
 
 # the H100's shared memory and threads a block; the cluster form's blocks
 # (16, non-portable; 8 where 16 cannot be resident)

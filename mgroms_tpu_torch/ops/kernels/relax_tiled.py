@@ -67,6 +67,16 @@ COLOUR_ENTRIES = {
 # z-pair sums of chosen targets, the residual of chosen targets
 RR_MODES = {"coarse": 0, "zsum": 1, "residual": 2}
 
+# the kernel functions behind each count (ops/kernels/__init__.py):
+# colour_kernel<T, B, BANDS, EMIT, ...>, rr_kernel<T, BANDS, MODE>
+GRAPH_NAMES = (
+    (r"\bcolour_kernel<\w+, \w+, \w+, true,", "color_update_emit"),
+    (r"\bcolour_kernel<\w+, __nv_bfloat16,", "color_update_bf16"),
+    (r"\bcolour_kernel<", "color_update"),
+    (rf"\brr_kernel<\w+, \w+, {RR_MODES['residual']}>", "residual_quads"),
+    (r"\brr_kernel<", "residual_restrict"),
+)
+
 _NKEYS = len(gather_keys(False))
 
 

@@ -46,6 +46,13 @@ from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
 
 LAUNCHES = {"relax_fused_sweep": 0, "relax_fused_sweep_bf16": 0,
             "relax_fused_sweep_bf16_f64": 0}
+# the kernel functions behind each count (ops/kernels/__init__.py):
+# sweep_kernel<T, B>
+GRAPH_NAMES = (
+    (r"\bsweep_kernel<(float, float|double, double)>", "relax_fused_sweep"),
+    (r"\bsweep_kernel<float, __nv_bfloat16>", "relax_fused_sweep_bf16"),
+    (r"\bsweep_kernel<double, __nv_bfloat16>", "relax_fused_sweep_bf16_f64"),
+)
 
 # (state dtype, band dtype) -> (C entry, LAUNCHES key): the instances of
 # csrc/sweep_fused.cu, in the order mg_sweep_fused_plan numbers them

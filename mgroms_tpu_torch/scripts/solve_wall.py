@@ -18,8 +18,9 @@ Each mode's first solve is not timed (the replayed modes capture there);
 ``reps`` more are.  All three histories must be equal to every digit (the
 same kernels on the same inputs).  Prints one JSON line: per mode the
 cycles, the final residual, the history and the walls; the one-off
-seconds of the warm-up, the capture and the instantiation of the step and
-of the device loop's graph; the peak device memory from a card that held
+seconds of the warm-up, the capture and the instantiation of the step, and
+of the device loop's graph (the step's clone into its WHILE body and the
+instantiation); the peak device memory from a card that held
 nothing of this model (set-up and the three modes).
 
     python -m mgroms_tpu_torch.scripts.solve_wall [--nx 1024 --ny 1024
@@ -85,11 +86,12 @@ def run(nx=1024, ny=1024, nz=64, tol=1e-4, maxiter=12, reps=3,
     row["step_warmup_s"] = step.warmup_s
     row["step_capture_s"] = step.capture_s
     row["step_instantiate_s"] = step.instantiate_s
-    row["loop_graph_instantiate_s"] = captured_loop(
-        m.backend, m.cfg, maxiter).instantiate_s
+    loop = captured_loop(m.backend, m.cfg, maxiter)
+    row["loop_clone_s"] = loop.clone_s
+    row["loop_instantiate_s"] = loop.instantiate_s
     row["held_gib"] = held / 2**30
     row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-    del m, b, step
+    del m, b, step, loop
     torch.cuda.empty_cache()
     return row
 

@@ -534,12 +534,13 @@ def _device_loop(backend, b, cfg: SolverConfig, tol: float, maxiter: int,
     buf = loop_condition.LoopBuffers(rsq, maxiter + cpc)
     buf.reset(maxiter, tol, cpc)
     loop_condition.loop_condition(rsq, bnorm, buf.it, buf.hist, buf.lim,
-                                  cpc, True, buf.cont)
+                                  cpc, True, buf.cont, buf.runs)
     while bool(buf.cont):
         p, r, rsq, _ = step_norm(backend, p, bs, r, cfg)
         loop_condition.loop_condition(rsq, bnorm, buf.it, buf.hist,
-                                      buf.lim, cpc, False, buf.cont)
-    niter, hist = buf.read()
+                                      buf.lim, cpc, False, buf.cont,
+                                      buf.runs)
+    niter, hist, _ = buf.read()
     return backend.to_full(0, p), niter, hist
 
 

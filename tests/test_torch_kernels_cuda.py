@@ -1013,14 +1013,13 @@ def _graph_model(cuda, n=32, **cfg):
 
 
 def _counts():
-    from mgroms_tpu_torch.capture import KERNEL_MODULES
-    return {k: v for mod in KERNEL_MODULES for k, v in mod.LAUNCHES.items()}
+    from mgroms_tpu_torch.ops.kernels import launches
+    return launches()
 
 
 def _reset_counts():
-    from mgroms_tpu_torch.capture import KERNEL_MODULES
-    for mod in KERNEL_MODULES:
-        mod.reset_launches()
+    from mgroms_tpu_torch.ops.kernels import reset_launches
+    reset_launches()
 
 
 @pytest.mark.parametrize("name", list(GRAPH_CFGS))
@@ -1093,6 +1092,7 @@ def test_loop_condition_matches_plain(cuda, dtype):
         for dev in (cuda, torch.device("cpu")):
             t = dict(it=torch.tensor(it0, dtype=torch.int32, device=dev),
                      cont=torch.tensor(9, dtype=torch.int32, device=dev),
+                     runs=torch.tensor(3, dtype=torch.int32, device=dev),
                      hist=torch.full((maxiter + cpc,), float("nan"),
                                      dtype=torch.float64, device=dev),
                      lim=torch.tensor([float(maxiter), tol],
@@ -1101,12 +1101,13 @@ def test_loop_condition_matches_plain(cuda, dtype):
             dl.loop_condition(torch.tensor(rsq, dtype=dtype, device=dev),
                               torch.tensor(bnorm, dtype=dtype, device=dev),
                               t["it"], t["hist"], t["lim"], cpc, init,
-                              t["cont"])
+                              t["cont"], t["runs"])
             assert dl.LAUNCHES["loop_condition"] == before + (dev == cuda)
             out.append({k: v.cpu() for k, v in t.items()})
         got, want = out
         assert torch.equal(got["it"], want["it"])
         assert torch.equal(got["cont"], want["cont"])
+        assert torch.equal(got["runs"], want["runs"]) and int(got["runs"]) == 4
         assert torch.equal(got["hist"].nan_to_num(-1.0),
                            want["hist"].nan_to_num(-1.0))
 

@@ -8,8 +8,9 @@ within rtol 1e-12 and atol 1e-15 and the pressure within 1e-12 x max|p|;
 the port's device loop also equals its host loop exactly (the same
 operations).  JAX compiles each configuration's step once (its solves are
 cached here): the two-cycle checks are held to its host loop, which its
-own tests/test_solver.py:184 holds to its device loop.  The loop's condition (ops/kernels/device_loop.py) is held
-to numpy at a NaN residual, at i == maxiter and at res == tol.
+own tests/test_solver.py:184 holds to its device loop.  The loop's
+condition (ops/kernels/device_loop.py) is held to numpy at a NaN residual,
+at i == maxiter and at res == tol.
 """
 
 import numpy as np
@@ -161,12 +162,13 @@ def test_loop_condition_plain_against_numpy(dtype):
             tol = float(np.sqrt(npt(rsq))) / float(npt(bnorm))
         it = torch.tensor(it0, dtype=torch.int32)
         cont = torch.tensor(7, dtype=torch.int32)
+        runs = torch.tensor(3, dtype=torch.int32)
         hist = torch.full((maxiter + cpc,), float("nan"),
                           dtype=torch.float64)
         lim = torch.tensor([float(maxiter), tol], dtype=torch.float64)
         dl.loop_condition(torch.tensor(rsq, dtype=dtype),
                           torch.tensor(bnorm, dtype=dtype), it, hist, lim,
-                          cpc, init, cont)
+                          cpc, init, cont, runs)
         i, res, go = _np_condition(rsq, bnorm, it0, maxiter, tol, cpc, init,
                                    npt)
         if init:
@@ -175,6 +177,7 @@ def test_loop_condition_plain_against_numpy(dtype):
         got = float(hist[i])
         assert (np.isnan(got) and np.isnan(res)) or got == res
         assert bool(cont) == go
+        assert int(runs) == 4
         others = torch.cat([hist[:i], hist[i + 1:]])
         assert torch.isnan(others).all()
     # the three ends of the loop: a NaN residual, i == maxiter, res == tol
@@ -192,3 +195,40 @@ def test_graph_is_refused_off_the_card(runs):
     with pytest.raises(ValueError, match="CUDA graph"):
         solve_p(tm.backend, torch.from_numpy(runs[1]["b"]), tm.cfg,
                 tol=TOL, maxiter=2, graph=True)
+
+
+def test_kernel_key_names_every_counted_kernel():
+    """A CUDA graph's kernel nodes, by demangled function name (as the card
+    shows them), map to the LAUNCHES key of the wrapper that launches
+    them; a PyTorch kernel maps to none."""
+    from mgroms_tpu_torch.ops import kernels
+    ns = "(anonymous namespace)::"
+    cases = {
+        "colour_kernel<float, float, true, false, 0, 2>": "color_update",
+        "colour_kernel<float, float, true, true, 1, 2>": "color_update_emit",
+        "colour_kernel<float, __nv_bfloat16, true, false, 0, 1>":
+            "color_update_bf16",
+        "rr_kernel<float, true, 0>": "residual_restrict",
+        "rr_kernel<double, false, 1>": "residual_restrict",
+        "rr_kernel<float, true, 2>": "residual_quads",
+        "residual_kernel<float>": "residual_tiled",
+        "sweep_kernel<float, float>": "relax_fused_sweep",
+        "sweep_kernel<double, double>": "relax_fused_sweep",
+        "sweep_kernel<float, __nv_bfloat16>": "relax_fused_sweep_bf16",
+        "sweep_kernel<double, __nv_bfloat16>": "relax_fused_sweep_bf16_f64",
+        "relax_resident<float, 0, 2, false>": "fused_relax",
+        "relax_resident<float, 1, 4, true>": "fused_relax_cluster_fc",
+        "relax_resident<double, 2, 0, false>": "fused_relax_gs",
+        "relax_step<float, 0>": "fused_relax_step",
+        "relax_step<float, 1>": "fused_relax_step_fc",
+        "relax_step<double, 2>": "fused_relax_step_gs",
+        "loop_condition_kernel<float>": "loop_condition",
+    }
+    counted = kernels.launches()
+    for name, key in cases.items():
+        assert key in counted
+        assert kernels.kernel_key(ns + name + "(Params)") == key, name
+    for name in ("void at::native::vectorized_elementwise_kernel<4, "
+                 "at::native::FillFunctor<float>>(int, float)",
+                 "mirr_kernel<float, true, 2>"):
+        assert kernels.kernel_key(name) is None
