@@ -52,9 +52,12 @@ Phases (any failed check raises, so the exit code is non-zero):
    chunk) at the CUC level-0 quad
    shape (64, 512, 512) with the card-default plan, f32 and bfloat16
    bands, at level 1 (32, 256, 256), at a shape with 3 chunks and 3
-   tiles, without 'real' and once in float64, held to 0 ulp, its bound
-   beside the unique bytes of the same sweep and the size of its blocks'
-   colour-0 stores; K9 in both modes at the
+   tiles, without 'real', and in float64 at (64, 512, 512) (timed) and a
+   ragged shape, held to 0 ulp, its launch plan (threads, window, shared
+   memory, blocks per SM) and registers printed, its bound beside the
+   unique bytes of the same sweep and this design's own traffic (the
+   bands once per colour), the earlier design's times beside; K9 in both
+   modes at the
    level-0 state and RHS shapes, exact, beside one strided PyTorch copy
    (library_ms); K10's dma_only in its three variants at (64, 512, 512)
    and on bfloat16 blocks (all, blocks), and on an RB colour's float32
@@ -69,7 +72,7 @@ Phases (any failed check raises, so the exit code is non-zero):
    (nz 64, H 512, tj 16, ws 24), to 0 ulp, timed beside one PyTorch call
    of the same sum (library_ms).  Last, the asynchronous copies in the
    SASS of K11's staged_sum_kernel and wide_stream_kernel (bulk copies)
-   and of K1-K2, K4, K3 and K6's step form (cp.async), per instance
+   and of K1-K2, K4, K3, K6's step form and K8 (cp.async), per instance
    (cuobjdump -sass).  The device loop's condition kernel
    (csrc/device_loop.cu) against its plain version, exactly (counter,
    history slot, decision, run count), in float32 and float64 at a NaN
@@ -777,7 +780,8 @@ def sweep_kernels(dev, results):
 # kernel -> what its staging must show in the SASS: the bulk copies of
 # K11's ring, the asynchronous copies of K1-K2's, K4's, K3's and K6's step
 # form
-SASS_ASYNC = {"staged_sum_kernel": ("UBLKCP", "UTMALDG"),
+SASS_ASYNC = {"sweep_packed_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
+              "staged_sum_kernel": ("UBLKCP", "UTMALDG"),
               "wide_stream_kernel": ("UBLKCP", "UTMALDG"),
               "colour_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
               "sweep_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
@@ -786,10 +790,10 @@ SASS_ASYNC = {"staged_sum_kernel": ("UBLKCP", "UTMALDG"),
 
 
 def sass_async_copies():
-    """Print, per instance of K11's two kernels, of K1-K2, of K4, of K3 and
-    of K6's step form, how many asynchronous-copy instructions its SASS
-    holds (cuobjdump -sass of the built library), and check that each
-    stages through them."""
+    """Print, per instance of K11's two kernels, of K1-K2, of K4, of K3,
+    of K6's step form and of K8, how many asynchronous-copy instructions
+    its SASS holds (cuobjdump -sass of the built library), and check that
+    each stages through them."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         print(f"  SASS: {tool} not found; the staging instructions are not "
@@ -964,12 +968,15 @@ def full_layout_kernels(dev, results):
 # (quad shape, dtype, bfloat16 bands, real, plan (tj, nchunks), timed):
 # "json" at the shape of phase 11 (the CUC level-0 quad, the card-default
 # plan), "print" another; one shape with 3 chunks and 3 tiles (seams,
-# first and last tile), one without 'real', one in float64
+# first and last tile), one without 'real', float64 at the level-0 shape
+# (an 8-column window) and at a ragged one
 PACKED_CASES = [
     ((64, 512, 512), torch.float32, False, True,
      (sp.DEFAULT_TJ, sp.DEFAULT_NCHUNKS), "json"),
     ((64, 512, 512), torch.float32, True, True,
      (sp.DEFAULT_TJ, sp.DEFAULT_NCHUNKS), "json"),
+    ((64, 512, 512), torch.float64, False, True,
+     (sp.DEFAULT_TJ, sp.DEFAULT_NCHUNKS), "print"),
     ((32, 256, 256), torch.float32, False, True,
      (sp.DEFAULT_TJ, sp.DEFAULT_NCHUNKS), "print"),
     ((6, 12, 96), torch.float32, False, True, (4, 3), None),
@@ -978,12 +985,42 @@ PACKED_CASES = [
 ]
 
 
+# the earlier design's times at the CUC level-0 shape (a thread a column,
+# every term from device memory, colour 0 through a store in device
+# memory; PERF.md section 6, H100 80GB HBM3 at 700 W), printed beside this
+# run's
+PACKED_EARLIER_MS = {("sweep_packed", torch.float32): "5.742-6.096",
+                 ("sweep_packed_bf16", torch.float32): "8.335-8.436",
+                 ("sweep_packed", torch.float64): "not timed",
+                 "state": "0.482-0.525", "rhs seam": "0.151-0.179"}
+
+
+def ptxas_lines(name: str) -> list:
+    """The -Xptxas -v lines of every instance of kernel ``name`` in this
+    process's build log (registers, spills, shared memory)."""
+    out, keep = [], False
+    for line in _build.BuildInfo.log.splitlines():
+        if line.startswith("["):
+            keep = False
+        elif ("Compiling entry function" in line
+              or "Function properties" in line):
+            keep = name in line
+        if keep:
+            out.append(line.strip())
+    return out
+
+
 def packed_kernels(dev, results):
     """K8 (one packed sweep: every chunk on pre-packed streams) and K9
     (both modes, at the shapes a sweep gives it) against their plain
     versions, exactly.  Bytes of K8: the six packed streams of every
     chunk as stored, and the four output quads; flops as K4's.  Beside it
-    the unique bytes of the same sweep (what K4's bound counts)."""
+    the unique bytes of the same sweep (what K4's bound counts) and this
+    design's own traffic (sweep_packed.design_bytes: the bands once per
+    colour).  First, K8's and K9's registers, spills and shared memory
+    (-Xptxas -v) and each K8 case's launch plan."""
+    for line in ptxas_lines("sweep_packed_kernel") + ptxas_lines("pack_"):
+        print(f"  ptxas {line}")
     for shape, dtype, lp, real, (tj, C), timed in PACKED_CASES:
         nz, H, W = shape
         g = torch.Generator(device=dev).manual_seed(sum(shape))
@@ -1004,10 +1041,13 @@ def packed_kernels(dev, results):
         n = nz * H * W
         nb = nbytes(*psts, *sop.pband, *sop.ppiv, *sop.pseam, *pbq, *pqs) \
             + 4 * n * q[(0, 0)].element_size()
-        uniq = sp.unique_bytes(nz, H, W, q[(0, 0)].element_size(),
-                               sop.pband[0].element_size())
-        store = sp.store_bytes(nz, H, W, tj, C, q[(0, 0)].element_size())
+        isz, bsz = q[(0, 0)].element_size(), sop.pband[0].element_size()
+        uniq = sp.unique_bytes(nz, H, W, isz, bsz)
+        own = sp.design_bytes(nz, H, W, tj, C, isz, bsz)
         name = "sweep_packed_bf16" if lp else "sweep_packed"
+        band = torch.bfloat16 if lp else dtype
+        print(f"  {name} {shape} {dtype}: launch plan "
+              f"{sp.launch_plan(nz, tj, W // C, dtype, band)}")
         hold(results, name, shape, dtype,
              lambda: [sp.sweep_chunk(*a) for a in args],
              lambda: [sp.sweep_chunk_plain(*a) for a in args], None, nb,
@@ -1015,9 +1055,16 @@ def packed_kernels(dev, results):
         print(f"  {name} {shape} plan tj {tj}, {C} chunk(s): packed "
               f"{nb / 1e9:.4f} GB; unique bytes of the sweep (GB) "
               + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in uniq.items())
-              + f", total {sum(uniq.values()) / 1e9:.4f}; the blocks' "
-              f"colour-0 stores {store / 1e9:.4f}")
-        if shape == (64, 512, 512) and not lp:
+              + f", total {sum(uniq.values()) / 1e9:.4f}; this design's "
+              "traffic (GB) "
+              + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in own.items())
+              + f", total {sum(own.values()) / 1e9:.4f} "
+              f"({bound(sum(own.values()), 0)[0]:.4f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12:g} TB/s)")
+        if timed and shape == (64, 512, 512):
+            print(f"  {name} {dtype} at (64, 512, 512), earlier design: "
+                  f"{PACKED_EARLIER_MS[(name, dtype)]} ms")
+        if shape == (64, 512, 512) and dtype == torch.float32 and not lp:
             for mode, arrs, rows, wpad in (
                     ("state", tuple(sp._pad_rows(sp._pad_cols(e, 1), 1,
                                                  H + 4)
@@ -1028,12 +1075,18 @@ def packed_kernels(dev, results):
                      tj + 2, -2)):
                 pk = (arrs, tj, rows, W // C, wpad, C)
                 outs = sp.pack_streams(*pk)
+                # seam mode reads two values a source row: its bytes are
+                # the values it moves, in and out
+                moved = nbytes(*arrs, *outs) if mode == "state" \
+                    else 2 * nbytes(*outs)
                 hold(results, "pack_streams", f"{shape} {mode}", dtype,
                      lambda: list(sp.pack_streams(*pk)),
                      lambda: list(sp.pack_streams_plain(*pk)), None,
-                     nbytes(*arrs, *outs), 0,
+                     moved, 0,
                      "json" if mode == "state" else "print", exact=True,
                      library=lambda: sp.pack_streams_library(*pk))
+                print(f"  pack_streams {mode}, earlier design: "
+                      f"{PACKED_EARLIER_MS[mode]} ms")
                 del arrs, outs, pk
         del sop, q, bq, pbq, pqs, psts, args
         torch.cuda.empty_cache()

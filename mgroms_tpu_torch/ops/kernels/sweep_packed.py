@@ -16,16 +16,25 @@ The TPU kernel's VMEM model (``_Plan``/``_plan_bytes``/``_pick_plan``/
 ``supports``) is not carried over: :func:`build_sweep_operator` takes the
 row tile ``tj`` and the lane chunk count ``nchunks`` explicitly.  The
 card's default, tj 8 with one chunk: the CUDA kernel splits a chunk's
-columns over its own blocks (32 columns each, with a one-column colour-0
-overhang), so lane chunks only add launches and seam recomputes; at tj 8
-the duplicated overhang rows make the band stream 1.5x its unique bytes
-(tj 16: 1.25x), a (512, 512) quad level gives 64 x 16 = 1024 blocks per
-launch, and of tj 4, 8, 16 and 32 it timed fastest at CUC level 0
-(PERF.md, section 6).  Each block's private colour-0 store holds 2 x nz
-x (tj+2) x 34 values (:func:`store_bytes`): 174 KB per block at nz 64 in
-float32, 178 MB per launch, about 69 MB of it live at three resident
-blocks per SM, more than the 50 MB L2 cache; how much of its traffic
-reaches device memory is not measured.
+columns over its own blocks, so lane chunks only add launches and seam
+recomputes; at tj 8 the duplicated overhang rows make the band stream 1.5x
+its unique bytes (tj 16: 1.25x), and of tj 4, 8, 16 and 32 it timed
+fastest at CUC level 0 (PERF.md, section 6).
+
+K8's design (``csrc/sweep_packed.cu``): a block owns one row tile x a
+window of the chunk's columns and walks z in lock step, staging every
+plane's band slabs, colour-0 state and column values in shared memory
+through a ring of asynchronous copies; colour 0's overhang columns stay in
+shared memory over all nz planes (no store in device memory), and colour 1
+reads them there.  What bounds it is memory: both colours read every band
+slab, so the band stream is read twice a sweep (:func:`design_bytes`
+counts this design's own traffic beside the bound's unique bytes).
+:func:`window_plan` mirrors the launcher's window choice from (nz, tj,
+types): the widest of :data:`WINDOWS` whose colour-0 columns and rings fit
+a block's 227 KB of shared memory with at most :data:`MAX_THREADS`
+threads; a plan no window fits raises ``ValueError`` before any launch
+(float32 at nz 64, tj 8: a 16-column window, 320 threads, 176,784 B).
+:func:`launch_plan` reads the launcher's own plan on the card.
 
 Iterates equal relax_compact.relax_compact_quads bit for bit with bands of
 the state type (same term order, the same factored Thomas recurrence) and
@@ -43,8 +52,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
-import math
 
 import torch
 
@@ -64,8 +71,6 @@ _COLOR1 = ((0, 1), (1, 0))
 # target, targets in (_COLOR0 + _COLOR1) order
 _PTARGETS = _COLOR0 + _COLOR1
 
-# columns of a chunk one CUDA block updates (csrc/sweep_packed.cu kCols)
-BLOCK_COLS = 32
 DEFAULT_TJ = 8
 DEFAULT_NCHUNKS = 1
 
@@ -195,17 +200,6 @@ def plan_bytes(nz: int, H: int, W: int, tj: int, nchunks: int,
             "outputs": 4 * nz * H * W * itemsize}
 
 
-def store_bytes(nz: int, H: int, W: int, tj: int, nchunks: int,
-                itemsize: int) -> int:
-    """The size of the blocks' private colour-0 stores one packed sweep
-    fills, over all chunks.  K8 writes each value and reads it back in the
-    same block; the store is neither an input nor an output, so the
-    sweep's bound does not count it."""
-    Wc = W // nchunks
-    return nchunks * itemsize * math.prod(_scratch_shape(H // tj, Wc, nz,
-                                                         tj))
-
-
 def unique_bytes(nz: int, H: int, W: int, itemsize: int,
                  band_itemsize: int) -> dict:
     """The same sweep's unique bytes: the 6 band quads' 24 extended slabs,
@@ -215,6 +209,95 @@ def unique_bytes(nz: int, H: int, W: int, itemsize: int,
             "pivots": 4 * (3 * nz - 2) * H * W * itemsize,
             "state": 4 * q * itemsize, "rhs": 4 * q * itemsize,
             "outputs": 4 * q * itemsize}
+
+
+# K8's launch plan (csrc/sweep_packed.cu: Layout, pick_window): the ring
+# stages of bands and column values, the state ring's planes, the most
+# band / state copies a thread issues a plane, the threads a block may
+# have, the shared memory a block may take and the windows tried, widest
+# first
+RING_STAGES = 4
+STATE_SLOTS = RING_STAGES + 2
+MAX_BAND_COPIES = 16
+MAX_STATE_COPIES = 4
+MAX_THREADS = 384
+MAX_SMEM = 227 * 1024
+WINDOWS = (16, 8, 4, 2, 1)
+
+
+def _a16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def window_layout(nz: int, tj: int, wn: int, itemsize: int,
+                  band_itemsize: int) -> dict:
+    """One K8 block's threads and shared memory at window ``wn``
+    (csrc/sweep_packed.cu ``Layout``): the colour-0 store (2 quads x
+    (nz+2) planes x (tj+1) x (wn+1)), the plane-0 window of the four quads,
+    the state ring, the band ring (bfloat16 rows staged in 16-byte copies
+    aligned as device memory has them, with 7 values of slack; float32 and
+    float64 a value a copy) and the column ring."""
+    R, NC = tj + 2, wn + 2
+    E = 8 if band_itemsize == 2 else 1
+    BP = (NC + 2 * E - 2) // E * E
+    CPR = BP // E
+    need = max(2 * (tj + 1) * (wn + 1), 2 * tj * wn,
+               -(-24 * R * CPR // MAX_BAND_COPIES),
+               -(-2 * R * NC // MAX_STATE_COPIES))
+    nt = -(-need // 32) * 32
+    parts = {"store": _a16(2 * (nz + 2) * (tj + 1) * (wn + 1) * itemsize),
+             "plane0": _a16(4 * R * NC * itemsize),
+             "state_ring": _a16(STATE_SLOTS * 2 * R * NC * itemsize),
+             "band_ring": _a16(RING_STAGES * 24 * R * BP * band_itemsize),
+             "column_ring": _a16(RING_STAGES * 3 * nt * itemsize)}
+    return {"threads": nt, "smem_bytes": sum(parts.values()), **parts}
+
+
+def window_plan(nz: int, tj: int, Wc: int, itemsize: int,
+                band_itemsize: int) -> dict:
+    """The window K8's launcher picks for a chunk of ``Wc`` columns: the
+    widest of :data:`WINDOWS` (at most ``Wc``) whose block fits
+    :data:`MAX_THREADS` threads and :data:`MAX_SMEM` bytes; ``ValueError``
+    when none does."""
+    for w in WINDOWS:
+        wn = min(w, Wc)
+        lay = window_layout(nz, tj, wn, itemsize, band_itemsize)
+        if lay["threads"] <= MAX_THREADS and lay["smem_bytes"] <= MAX_SMEM:
+            return {"window": wn, **lay}
+    raise ValueError(
+        f"the packed sweep has no window for nz {nz}, tj {tj} with "
+        f"{itemsize}-byte state and {band_itemsize}-byte bands: one column "
+        f"needs {window_layout(nz, tj, 1, itemsize, band_itemsize)} (limits "
+        f"{MAX_THREADS} threads, {MAX_SMEM} bytes)")
+
+
+def design_bytes(nz: int, H: int, W: int, tj: int, nchunks: int,
+                 itemsize: int, band_itemsize: int) -> dict:
+    """What K8 moves for one packed sweep at plan (``tj``, ``nchunks``),
+    per stream, as its blocks stage it: every band slab's window (rows
+    [J0-1, J0+tj], the window's columns and one each side; the slack of
+    the aligned copies, in the same 32-byte sectors, left out) once per
+    colour; colour 0's state (two quads, all
+    planes, and plane 0 of all four); bet, gam, ud and the RHS of every
+    column each colour solves (colour 0's overhang and seam columns
+    included); the four outputs written once, and colour 1's forward
+    values written and read back once more (through L2).  The physical
+    mirror cells' state reads are left out (a few edge columns)."""
+    ntiles, Wc = H // tj, W // nchunks
+    wn = window_plan(nz, tj, Wc, itemsize, band_itemsize)["window"]
+    R = tj + 2
+    bands = state = cols = 0
+    for c0 in range(0, Wc, wn):
+        nc = min(wn, Wc - c0)
+        bands += 2 * 24 * nz * R * (nc + 2) * band_itemsize
+        state += (2 * nz + 4) * R * (nc + 2) * itemsize
+        cols += (2 * (tj + 1) * (nc + 1) + 2 * tj * nc) \
+            * (4 * nz - 2) * itemsize
+    per = nchunks * ntiles
+    q = nz * H * W * itemsize
+    return {"bands": per * bands, "state": per * state,
+            "pivots_rhs": per * cols, "outputs": 4 * q,
+            "colour1_roundtrip": 4 * q}
 
 
 # ------------------------------------------------------------ K9 (pack)
@@ -464,21 +547,7 @@ class _SweepPackedArgs(ctypes.Structure):
     _fields_ = [("pst", ctypes.c_void_p), ("pband", ctypes.c_void_p),
                 ("ppiv", ctypes.c_void_p), ("pseam", ctypes.c_void_p),
                 ("pbq", ctypes.c_void_p), ("pqs", ctypes.c_void_p),
-                ("out", ctypes.c_void_p * 4), ("scratch", ctypes.c_void_p)]
-
-
-@functools.cache
-def _terms(device) -> torch.Tensor:
-    """:func:`term_rows` as one int32 (4, 16, 8) tensor on ``device``,
-    made once per device."""
-    return torch.tensor(term_rows(), dtype=torch.int32, device=device)
-
-
-def _scratch_shape(ntiles: int, Wc: int, nz: int, tj: int) -> tuple:
-    """The blocks' private colour-0 stores: per block, the two colour-0
-    quads on rows [J0-1, J0+TJ] x columns [c0-1, c0+BLOCK_COLS]."""
-    nsub = -(-Wc // BLOCK_COLS)
-    return (ntiles * nsub, 2, nz, tj + 2, BLOCK_COLS + 2)
+                ("out", ctypes.c_void_p * 4)]
 
 
 # (state dtype, band dtype) -> K8's C entry (csrc/sweep_packed.cu's
@@ -489,6 +558,21 @@ PACKED_ENTRIES = {
     (torch.float64, torch.float64): "mg_sweep_packed_f64",
     (torch.float32, torch.bfloat16): "mg_sweep_packed_bf16",
 }
+
+
+def launch_plan(nz: int, tj: int, Wc: int, state, band) -> dict:
+    """The launch K8 takes for a chunk of ``Wc`` columns at (``nz``,
+    ``tj``) for the pair (``state``, ``band``): threads a block, the
+    window, the dynamic shared memory of a block and the resident blocks
+    per SM (read from the launcher, ``mg_sweep_packed_plan``; needs a
+    card)."""
+    instance(PACKED_ENTRIES, state, band, "K8")
+    inst = list(PACKED_ENTRIES).index((state, band))
+    out = (ctypes.c_int * 4)()
+    check_launch(_build.load().mg_sweep_packed_plan(inst, nz, tj, Wc, out),
+                 "mg_sweep_packed_plan")
+    return dict(zip(("threads", "window", "smem_bytes", "blocks_per_sm"),
+                    out))
 
 
 def sweep_chunk(pst, pband_c, ppiv_c, pseam_c, pbq_c, pqs_c, tj: int,
@@ -525,16 +609,19 @@ def sweep_chunk(pst, pband_c, ppiv_c, pseam_c, pbq_c, pqs_c, tj: int,
         if tuple(x.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
                              f"{shape}")
+    # the kernel's offsets within one tile's band stream are 32-bit
+    if pband_c[0].numel() >= 2 ** 31:
+        raise ValueError(f"pband: {pband_c[0].numel()} values a tile, the "
+                         "kernel indexes a tile's streams in 32 bits")
+    window_plan(nz, tj, Wc, pst.element_size(), pband_c.element_size())
     outs = [pst.new_empty((nz, H, Wc)) for _ in range(4)]
-    scratch = pst.new_empty(_scratch_shape(ntiles, Wc, nz, tj))
     args = _SweepPackedArgs(ptr(pst), ptr(pband_c), ptr(ppiv_c),
                             ptr(pseam_c), ptr(pbq_c), ptr(pqs_c),
-                            (ctypes.c_void_p * 4)(*(ptr(o) for o in outs)),
-                            ptr(scratch))
+                            (ctypes.c_void_p * 4)(*(ptr(o) for o in outs)))
     fn = getattr(_build.load(), c_entry)
     with torch.cuda.device(pst.device):
         rc = fn(ctypes.byref(args), nz, ntiles, tj, Wc, int(real_matrix),
-                int(first_chunk), int(last_chunk), ptr(_terms(pst.device)),
+                int(first_chunk), int(last_chunk),
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "sweep_packed")
     LAUNCHES["sweep_packed_bf16" if band == torch.bfloat16

@@ -130,8 +130,8 @@ def timed(dev=None, nz=64, ny=1024, nx=1024, modes=MODES,
                 nz, H, W, tj, nchunks, 4, bsz).values()) / 1e9)
             emit(rows, f"packed_unique_gb_{name}", sum(sp.unique_bytes(
                 nz, H, W, 4, bsz).values()) / 1e9)
-        emit(rows, "packed_store_gb",
-             sp.store_bytes(nz, H, W, tj, nchunks, 4) / 1e9)
+            emit(rows, f"packed_design_gb_{name}", sum(sp.design_bytes(
+                nz, H, W, tj, nchunks, 4, bsz).values()) / 1e9)
     launches = {}
     for mode, (fn, _) in rts.items():
         before = _all_launches()

@@ -703,10 +703,12 @@ from mgroms_tpu_torch.ops.kernels import roofline as rl          # noqa: E402
 from mgroms_tpu_torch.ops.kernels import sweep_packed as sp      # noqa: E402
 
 # (quad shape, tj, nchunks): ragged plans with several tiles, column
-# blocks and chunks, one-row tiles, one-column chunks, nz = 2, a chunk
-# wider than one column block with a ragged last block
+# windows and chunks, one-row tiles, one-column chunks, nz = 2, chunks
+# wider than one window with a ragged last window (Wc 50 and 70 against
+# the 16-column window, 70 against float64's 8, and two chunks of 20)
 K8_PLANS = [((3, 6, 18), 2, 3), ((2, 4, 6), 1, 6), ((5, 8, 8), 8, 1),
-            ((4, 12, 100), 3, 2), ((64, 16, 70), 8, 1)]
+            ((4, 12, 100), 3, 2), ((64, 16, 70), 8, 1),
+            ((16, 16, 40), 8, 2)]
 
 
 @pytest.mark.parametrize("band", BANDS, ids=["f32", "f64", "bf16"])
@@ -783,6 +785,63 @@ def test_sweep_packed_wrappers_reject_bad_input(cuda):
         sp.pack_streams((bq[(0, 0)], bq[(0, 1)].double()), 2, 3, 3, 0, 2)
     with pytest.raises(ValueError):
         sp.pack_streams((nc(psts[0]),), 2, 3, 3, 0, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["main", "seam"])
+def test_pack_streams_vector_edges(cuda, dtype, mode):
+    """K9 with 3 chunks of an odd width over rows whose pitch (Wp = 3 Wc +
+    7 values) breaks 16-byte alignment: every output row meets the vector
+    copies' misaligned head and tail, or none; exactly its plain version
+    in both modes."""
+    nz, tj, Wc, C = 3, 2, 13, 3
+    rows = tj + 4 if mode == "main" else tj + 2
+    wpad = 4 if mode == "main" else -2
+    g = torch.Generator(device=cuda).manual_seed(7)
+    arrs = tuple(torch.rand((nz, 4 * tj + rows - tj, C * Wc + 7),
+                            generator=g, device=cuda, dtype=dtype)
+                 for _ in range(3))
+    before = sp.LAUNCHES["pack_streams"]
+    got = sp.pack_streams(arrs, tj, rows, Wc, wpad, C)
+    want = sp.pack_streams_plain(arrs, tj, rows, Wc, wpad, C)
+    torch.cuda.synchronize()
+    assert sp.LAUNCHES["pack_streams"] == before + 1
+    assert len(got) == C
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("band", BANDS, ids=["f32", "f64", "bf16"])
+def test_sweep_packed_launch_plan_matches_window_plan(cuda, band):
+    """The launcher's plan (mg_sweep_packed_plan) picks the window, the
+    threads and the shared memory sweep_packed.window_plan reckons, at
+    the CUC level-0 and level-1 default plans and at small ones, with at
+    least one block resident per SM."""
+    dtype, lp = band
+    bd = torch.bfloat16 if lp else dtype
+    isz, bsz = torch.empty((), dtype=dtype).element_size(), \
+        torch.empty((), dtype=bd).element_size()
+    for nz, tj, Wc in ((64, 8, 512), (32, 8, 256), (64, 8, 70), (2, 1, 1),
+                       (5, 3, 50)):
+        got = sp.launch_plan(nz, tj, Wc, dtype, bd)
+        want = sp.window_plan(nz, tj, Wc, isz, bsz)
+        assert (got["window"], got["threads"], got["smem_bytes"]) == \
+            (want["window"], want["threads"], want["smem_bytes"])
+        assert got["blocks_per_sm"] >= 1
+
+
+def test_sweep_packed_refuses_a_plan_no_window_holds(cuda):
+    """nz 8000: the colour-0 columns overflow shared memory even one
+    column wide, so sweep_chunk raises ValueError before any launch."""
+    nz, tj, Wc = 8000, 1, 1
+    z = lambda *s: torch.zeros(s, device=cuda)
+    args = (z(1, 4 * nz, tj + 4, Wc + 4), z(1, 24 * nz, tj + 4, Wc + 3),
+            z(1, 12 * nz, tj + 2, Wc), z(1, 6 * nz, tj + 2, 2),
+            z(1, 4 * nz, tj + 2, Wc), z(1, 2 * nz, tj + 2, 2))
+    before = dict(sp.LAUNCHES)
+    with pytest.raises(ValueError, match="no window"):
+        sp.sweep_chunk(*args, tj, nz, True, True, True)
+    assert sp.LAUNCHES == before
 
 
 @pytest.mark.parametrize("shape", [(5, 6, 40), (64, 512, 512)])

@@ -3,10 +3,12 @@ the CPU.
 
 JAX's K8/K9 run in Pallas interpret mode (``interpret=True``); the
 port's wrappers run their plain versions on CPU tensors.  The CUDA
-kernel's index recipe (column blocks with a one-column colour-0
-overhang, its private colour-0 store and the e1 view of
-csrc/sweep_packed.cu) is emulated below in scalar numpy and held to the
-plain version to the last bit.
+kernel's recipe (csrc/sweep_packed.cu: column windows, the staged band and
+state windows, colour 0 on its overhang kept on chip with the mirror cells
+filled, colour 1 reading it there and its plane-0 siblings patched by the
+e1 halo rules) is emulated below in scalar numpy and held to the plain
+version to the last bit; its launcher's window choice and shared-memory
+count are pinned.
 
 Tolerances: 1e-14 x max|JAX| in float64 (the same term order; measured
 <= 1.1e-16 of the plain sweep); 1e-6 x max|JAX| with bfloat16 bands in
@@ -222,15 +224,20 @@ def test_plan_domain_is_enforced():
 
 def _emulate_chunk(streams, tj, nz, Wc, real, first_chunk, last_chunk,
                    cols):
-    """csrc/sweep_packed.cu sweep_packed_kernel in scalar numpy: blocks of
-    ``cols`` columns per tile, phase 0 into a private store ((0,0) on
-    [c0, ce], (1,1) on [c0-1, ce), mirror cells skipped), phase 1 through
-    the e1 view."""
+    """csrc/sweep_packed.cu sweep_packed_kernel in scalar numpy: a block
+    per row tile x window of ``cols`` columns.  Phase 0 solves (0,0) on
+    rows [J0, J0+tj] x columns [c0, ce] and (1,1) on rows [J0-1, J0+tj) x
+    [c0-1, ce) into the window's on-chip store, whose physical mirror cells
+    hold the pre-sweep state; phase 1 reads colour 0 there and the 'real'
+    terms' colour-1 siblings from plane 0 patched by the e1 rules.  Every
+    band and state read must fall in the staged window (rows [J0-1,
+    J0+tj], columns [c0-1, ce]); planes outside [0, nz) read zero."""
     pst, pband, ppiv, pseam, pbq, pqs = (
         (x.float() if x.dtype == torch.bfloat16 else x).numpy()
         for x in streams)
     ntiles = pst.shape[0]
     H = ntiles * tj
+    dt = pst.dtype.type
     terms = sp.term_rows()
     out = np.zeros((4, nz, H, Wc), pst.dtype)
     ptidx = {0: 0, 3: 1, 1: 2, 2: 3}
@@ -238,33 +245,26 @@ def _emulate_chunk(streams, tj, nz, Wc, real, first_chunk, last_chunk,
         J0 = tile * tj
         for c0 in range(0, Wc, cols):
             ce = min(c0 + cols, Wc)
-            scr = {}
+
+            def staged(y, x):
+                assert J0 - 1 <= y <= J0 + tj and c0 - 1 <= x <= ce, (y, x)
+
+            def band(s, k, y, x):
+                staged(y, x)
+                if not 0 <= k < nz:
+                    return dt(0)
+                return dt(pband[tile, s * nz + k, y - J0 + 2, x + 1])
 
             def state(q, k, y, x):
+                staged(y, x)
+                if not 0 <= k < nz:
+                    return dt(0)
                 return pst[tile, q * nz + k, y - J0 + 2, x + 2]
 
-            def e1(q, k, y, x):
-                if q == 2:
-                    if y == -1:
-                        q, y = 0, 0
-                    elif last_chunk and x == Wc:
-                        q, x = 3, Wc - 1
-                    else:
-                        return state(2, k, y, x)
-                elif q == 1:
-                    if y == H:
-                        q, y = 3, H - 1
-                    elif first_chunk and x == -1:
-                        q, x = 0, 0
-                    else:
-                        return state(1, k, y, x)
-                if q == 0:
-                    if y == H or (last_chunk and x == Wc):
-                        return state(0, k, y, x)
-                    return scr[(0, y, x)][k]
-                if y == -1 or (first_chunk and x == -1):
-                    return state(3, k, y, x)
-                return scr[(1, y, x)][k]
+            store = {}
+
+            def stored(qi, k, y, x):
+                return dt(0) if not 0 <= k < nz else store[(qi, y, x)][k]
 
             def solve(t, y, x, ci, reader):
                 pt = ptidx[t]
@@ -281,11 +281,8 @@ def _emulate_chunk(streams, tj, nz, Wc, real, first_chunk, last_chunk,
 
                 def term(m, k):
                     bs, bk, rjb, rib, q, pk, rj, ri = terms[t][m]
-                    kb, kp = k + bk, k + pk
-                    bv = (pband[tile, bs * nz + kb, y - J0 + 2 + rjb,
-                                x + 1 + rib] if 0 <= kb < nz else 0.0)
-                    v = reader(q, kp, y + rj, x + ri) if 0 <= kp < nz else 0.0
-                    return pst.dtype.type(bv) * pst.dtype.type(v)
+                    return band(bs, k + bk, y + rjb, x + rib) \
+                        * reader(q, k + pk, y + rj, x + ri)
 
                 col = np.zeros(nz, pst.dtype)
                 xk = None
@@ -307,34 +304,65 @@ def _emulate_chunk(streams, tj, nz, Wc, real, first_chunk, last_chunk,
                     col[k] = xk
                 return col
 
+            # phase 0: colour-1 quads (1, 2) from the state ring, the
+            # plane-0 'real' siblings (0, 3) from the staged plane 0
+            def read0(q, k, y, x):
+                assert q in (1, 2) or k == 0
+                return state(q, k, y, x)
+
             for qi, t in ((0, 0), (1, 3)):
-                for y in range(J0 - 1, J0 + tj + 1):
-                    xs = range(c0, ce + 1) if qi == 0 else range(c0 - 1, ce)
+                ys = range(J0, J0 + tj + 1) if qi == 0 \
+                    else range(J0 - 1, J0 + tj)
+                xs = range(c0, ce + 1) if qi == 0 else range(c0 - 1, ce)
+                for y in ys:
                     for x in xs:
                         if (qi == 0 and (y == H or (last_chunk and x == Wc))) \
                                 or (qi == 1 and (y == -1 or (first_chunk
                                                              and x == -1))):
+                            store[(qi, y, x)] = np.array(
+                                [state(3 * qi, k, y, x) for k in range(nz)])
                             continue
                         ci = 0 if x == -1 else 1 if x == Wc else -1
-                        scr[(qi, y, x)] = solve(t, y, x, ci, state)
+                        store[(qi, y, x)] = solve(t, y, x, ci, read0)
                         if J0 <= y < J0 + tj and c0 <= x < ce:
-                            out[t, :, y, x] = scr[(qi, y, x)]
+                            out[t, :, y, x] = store[(qi, y, x)]
+
+            # phase 1: colour 0 from the store; the 'real' terms' (0,1) and
+            # (1,0) siblings from plane 0 with the e1 patches
+            def read1(q, k, y, x):
+                if q in (0, 3):
+                    return stored(0 if q == 0 else 1, k, y, x)
+                assert k == 0
+                if q == 2:
+                    if y == -1:
+                        return stored(0, 0, 0, x)
+                    if last_chunk and x == Wc:
+                        return stored(1, 0, y, Wc - 1)
+                elif y == H:
+                    return stored(1, 0, H - 1, x)
+                elif first_chunk and x == -1:
+                    return stored(0, 0, y, 0)
+                return state(q, 0, y, x)
+
             for t in (1, 2):
                 for y in range(J0, J0 + tj):
                     for x in range(c0, ce):
-                        out[t, :, y, x] = solve(t, y, x, -1, e1)
+                        out[t, :, y, x] = solve(t, y, x, -1, read1)
     return out
 
 
-@pytest.mark.parametrize("case", [((3, 4, 12), 2, 2), ((2, 6, 10), 3, 1)])
+@pytest.mark.parametrize("case", [((3, 4, 12), 2, 2, 4),
+                                  ((2, 6, 10), 3, 1, 4),
+                                  ((4, 6, 22), 3, 1, 16)])
 @pytest.mark.parametrize("real", [True, False])
 @pytest.mark.parametrize("lp", [False, True])
 def test_cuda_recipe_emulation_matches_plain(case, real, lp):
-    """The CUDA kernel's column blocks (4 columns here, so blocks split
-    each chunk), phase-0 ranges, skipped mirror cells and e1 view give the
-    plain chunk sweep's values to the last bit, in float64 and (lp) in
-    float32 with bfloat16 bands."""
-    (nz, H, W), tj, C = case
+    """The CUDA kernel's windows (4 columns, so windows split each chunk,
+    or the card's 16 against an 11-column chunk: neither divides Wc),
+    phase-0 ranges, on-chip colour 0 with its mirror cells, staged window
+    extents and the e1 patches give the plain chunk sweep's values to the
+    last bit, in float64 and (lp) in float32 with bfloat16 bands."""
+    (nz, H, W), tj, C, cols = case
     dtype = np.float32 if lp else np.float64
     cA, p, b = problem(nz, 2 * H, 2 * W, seed=sum(case[0]), dtype=dtype)
     pack, sop = port_operator(cA, real, tj, C,
@@ -348,9 +376,79 @@ def test_cuda_recipe_emulation_matches_plain(case, real, lp):
         want = sp.sweep_chunk_plain(*streams, tj, nz, real, c == 0,
                                     c == C - 1)
         got = _emulate_chunk(streams, tj, nz, W // C, real, c == 0,
-                             c == C - 1, cols=4)
+                             c == C - 1, cols=cols)
         for m in range(4):
             np.testing.assert_array_equal(got[m], want[m].numpy())
+
+
+def test_term_recipe_is_the_band_stacks():
+    """The packed recipe (term_rows) is the band stack's (sweep_fused.
+    band_term_table, which the CUDA tests hold to the compiled term_of
+    that K8 reads too) with rows and columns one lower; each band slab is
+    read at one plane offset per colour (the kernel stages slab s at plane
+    k + bk(s))."""
+    from mgroms_tpu_torch.ops.kernels import sweep_fused as ksf
+    rows = sp.term_rows()
+    for m, t in enumerate(trc._TKEYS):
+        assert rows[m] == [(b, bk, bj - 1, bi - 1, src, dk, oj - 1, oi - 1)
+                           for b, bk, bj, bi, src, dk, oj, oi
+                           in ksf.band_term_table(t)]
+    for colour in (((0, 0), (1, 1)), ((0, 1), (1, 0))):
+        bk = {}
+        for t in colour:
+            for r in rows[trc._TKEYS.index(t)]:
+                bk.setdefault(r[0], set()).add(r[1])
+        assert sorted(bk) == list(range(24))
+        assert all(len(v) == 1 for v in bk.values())
+
+
+@pytest.mark.parametrize("case", [
+    # CUC level 0 / level 1 quads at the card's default plan (tj 8, one
+    # chunk): float32, bfloat16 bands, float64
+    ((64, 512), 4, 4, 16, 320, 176784), ((32, 256), 4, 4, 16, 320, 137616),
+    ((64, 512), 4, 2, 16, 320, 169104), ((64, 512), 8, 8, 8, 192, 193568),
+    ((32, 256), 8, 8, 8, 192, 152096)])
+def test_launcher_window_choice(case):
+    """The window K8's launcher picks (sweep_packed.window_plan mirrors
+    csrc/sweep_packed.cu pick_window; the CUDA tests hold the two equal)
+    and the shared memory it reckons at the default plan: in float32 at nz
+    64 a 16-column window, 320 threads and 176,784 bytes (the colour-0
+    store 80,784 of them, the band ring 69,120), in float64 an 8-column
+    one."""
+    (nz, Wc), isz, bsz, window, threads, smem = case
+    plan = sp.window_plan(nz, sp.DEFAULT_TJ, Wc, isz, bsz)
+    assert (plan["window"], plan["threads"], plan["smem_bytes"]) == \
+        (window, threads, smem)
+    assert plan["smem_bytes"] <= sp.MAX_SMEM
+    assert plan["store"] == 2 * (nz + 2) * (sp.DEFAULT_TJ + 1) \
+        * (window + 1) * isz
+    # the next wider window does not fit
+    if window < 16:
+        wider = sp.window_layout(nz, sp.DEFAULT_TJ, 2 * window, isz, bsz)
+        assert wider["smem_bytes"] > sp.MAX_SMEM
+    # a narrow chunk takes a window no wider than itself
+    assert sp.window_plan(nz, sp.DEFAULT_TJ, 6, isz, bsz)["window"] == 6
+
+
+@pytest.mark.parametrize("nz, tj", [(2000, 8), (64, 400)])
+def test_plan_outside_the_window_domain_raises(nz, tj):
+    """A plan no window holds (the colour-0 columns of nz 2000 overflow
+    shared memory even one column wide; a 400-row tile needs more threads
+    than a block takes) raises ValueError."""
+    with pytest.raises(ValueError, match="no window"):
+        sp.window_plan(nz, tj, 512, 4, 4)
+
+
+def test_design_bytes_counts_the_bands_twice():
+    """design_bytes at the CUC level-0 default plan: each colour stages
+    every band slab's window once, so the bands are twice a colour's
+    staged slabs, and more than twice their unique bytes."""
+    nz, H, W = 64, 512, 512
+    got = sp.design_bytes(nz, H, W, 8, 1, 4, 4)
+    uniq = sp.unique_bytes(nz, H, W, 4, 4)
+    assert got["bands"] == 2 * 24 * nz * 10 * 18 * 4 * (H // 8) * (W // 16)
+    assert got["bands"] > 2 * uniq["bands"]
+    assert got["outputs"] == uniq["outputs"]
 
 
 # -------------------------------------------------------------------- (f)
