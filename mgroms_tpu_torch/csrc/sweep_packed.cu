@@ -60,10 +60,13 @@
 //   columns whose colour-0 columns and rings fit 227 KB of shared memory
 //   with at most kMaxThreads threads.  A plan no window fits is refused.
 //
-// On the H100 it moves its own traffic at about half the memory's rate
-// (PERF.md section 6).  Two resident blocks an SM (an 8-column window)
-// and float32 bands in 16-byte copies both measured slower: what bounds
-// it is the per-plane work of one block's warps between two barriers.
+// On the H100 it moves its own traffic at 55-65 % of the memory's rate
+// (PERF.md section 6; scripts/micro_packed_variants.py takes parts out):
+// the band copies take about a third of its time, the gather an eighth,
+// the barriers nothing measurable.  The back substitutions load kBack
+// planes at a time (one at a time cost 6-11 %).  Two resident blocks an
+// SM (an 8-column window), float32 bands in 16-byte copies and a deeper
+// ring (more shared memory, less L1) all measured slower.
 //
 // Instances: (float, float), (double, double) and (float, bfloat16 bands,
 // upcast at read).  Rounding: built with -fmad=false (0 ulp from the plain
@@ -477,6 +480,37 @@ struct Block {
     }
 };
 
+// The back substitution x_k = col[k] - gam_k x_{k+1}, k = nz-2 .. 0, of
+// a column at col[k cs] (shared memory or the outputs) with gam_k at
+// gam[k gs]: its values are loaded kBack planes at a time, so a batch's
+// loads are in flight together and not one round trip a plane.
+constexpr int kBack = 8;
+
+template <typename T>
+__device__ __forceinline__ void back_substitute(T* __restrict__ col,
+                                                size_t cs,
+                                                const T* __restrict__ gam,
+                                                size_t gs, int nz, T xk) {
+    int k = nz - 2;
+    for (; k >= kBack - 1; k -= kBack) {
+        T g[kBack], c[kBack];
+#pragma unroll
+        for (int i = 0; i < kBack; ++i) {
+            g[i] = __ldg(gam + (size_t)(k - i) * gs);
+            c[i] = col[(size_t)(k - i) * cs];
+        }
+#pragma unroll
+        for (int i = 0; i < kBack; ++i) {
+            xk = c[i] - g[i] * xk;
+            col[(size_t)(k - i) * cs] = xk;
+        }
+    }
+    for (; k >= 0; --k) {
+        xk = col[(size_t)k * cs] - __ldg(gam + (size_t)k * gs) * xk;
+        col[(size_t)k * cs] = xk;
+    }
+}
+
 template <typename T, typename B>
 __global__ void __launch_bounds__(kMaxThreads)
 sweep_packed_kernel(const SweepPackedArgs a, int nz, int ntiles, int tj,
@@ -554,10 +588,19 @@ sweep_packed_kernel(const SweepPackedArgs a, int nz, int ntiles, int tj,
         col0[0] = T(0);
         col0[(nz + 1) * lay.SQ] = T(0);
         if (mirror) {
-            const T* src = b.st + (size_t)((qi ? 3 : 0) * nz) * b.PSs
-                           + (y0 - J0 + 2) * (wc + 4) + x0 + 2;
-            for (int k = 0; k < nz; ++k)
-                col0[(k + 1) * lay.SQ] = src[(size_t)k * b.PSs];
+            const T* __restrict__ src =
+                b.st + (size_t)((qi ? 3 : 0) * nz) * b.PSs
+                + (y0 - J0 + 2) * (wc + 4) + x0 + 2;
+            for (int k0 = 0; k0 < nz; k0 += kBack) {
+                T v[kBack];
+#pragma unroll
+                for (int i = 0; i < kBack; ++i)
+                    if (k0 + i < nz)
+                        v[i] = __ldg(src + (size_t)(k0 + i) * b.PSs);
+#pragma unroll
+                for (int i = 0; i < kBack; ++i)
+                    if (k0 + i < nz) col0[(k0 + i + 1) * lay.SQ] = v[i];
+            }
         }
     }
 #pragma unroll
@@ -609,14 +652,13 @@ sweep_packed_kernel(const SweepPackedArgs a, int nz, int ntiles, int tj,
         cp_commit();
     }
     if (solve0) {
-        for (int k = nz - 2; k >= 0; --k) {
-            xk = col0[(k + 1) * lay.SQ] - gam0[(size_t)k * gps0] * xk;
-            col0[(k + 1) * lay.SQ] = xk;
-        }
+        back_substitute(col0 + lay.SQ, (size_t)lay.SQ, gam0, (size_t)gps0, nz,
+                        xk);
         if (y0 >= J0 && y0 < J0 + tj && x0 >= c0 && x0 < ce) {
-            T* o = static_cast<T*>(a.out[qi ? 3 : 0]) + (size_t)y0 * wc
-                   + x0;
-            for (int k = 0; k < nz; ++k) o[k * P] = col0[(k + 1) * lay.SQ];
+            T* __restrict__ o = static_cast<T*>(a.out[qi ? 3 : 0])
+                                + (size_t)y0 * wc + x0;
+            const T* __restrict__ c = col0 + lay.SQ;
+            for (int k = 0; k < nz; ++k) o[k * P] = c[k * lay.SQ];
         }
     }
     // every colour-0 value of the store is written
@@ -666,12 +708,7 @@ sweep_packed_kernel(const SweepPackedArgs a, int nz, int ntiles, int tj,
         }
     }
     cp_wait_all();
-    if (t1) {
-        for (int k = nz - 2; k >= 0; --k) {
-            xk = o1[k * P] - b.cgam[(size_t)k * b.cps] * xk;
-            o1[k * P] = xk;
-        }
-    }
+    if (t1) back_substitute(o1, P, b.cgam, (size_t)b.cps, nz, xk);
 }
 
 // The launch plan of one chunk sweep: the window, threads per block,

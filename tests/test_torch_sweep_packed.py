@@ -439,6 +439,17 @@ def test_plan_outside_the_window_domain_raises(nz, tj):
         sp.window_plan(nz, tj, 512, 4, 4)
 
 
+def test_variant_edits_apply_to_the_kernel_source():
+    """micro_packed_variants edits csrc/sweep_packed.cu by named source
+    snippets: each must still be in the source, once per edit site."""
+    from mgroms_tpu_torch.ops.kernels import _build
+    from mgroms_tpu_torch.scripts import micro_packed_variants as mpv
+    src = (_build.CSRC / "sweep_packed.cu").read_text()
+    for name, edits in mpv.VARIANTS.items():
+        for old, _ in edits:
+            assert src.count(old) >= 1, (name, old)
+
+
 def test_design_bytes_counts_the_bands_twice():
     """design_bytes at the CUC level-0 default plan: each colour stages
     every band slab's window once, so the bands are twice a colour's
