@@ -54,7 +54,8 @@ Phases (any failed check raises, so the exit code is non-zero):
    bands, at level 1 (32, 256, 256), at a shape with 3 chunks and 3
    tiles, without 'real', and in float64 at (64, 512, 512) (timed) and a
    ragged shape, held to 0 ulp, its launch plan (threads, window, shared
-   memory, blocks per SM) and registers printed, its bound beside the
+   memory, blocks per SM) and registers printed, its bound (what its
+   outputs depend on, read once) beside the streams as stored, the
    unique bytes of the same sweep and this design's own traffic (the
    bands once per colour), the earlier design's times beside; K9 in both
    modes at the
@@ -1013,12 +1014,13 @@ def ptxas_lines(name: str) -> list:
 def packed_kernels(dev, results):
     """K8 (one packed sweep: every chunk on pre-packed streams) and K9
     (both modes, at the shapes a sweep gives it) against their plain
-    versions, exactly.  Bytes of K8: the six packed streams of every
-    chunk as stored, and the four output quads; flops as K4's.  Beside it
-    the unique bytes of the same sweep (what K4's bound counts) and this
-    design's own traffic (sweep_packed.design_bytes: the bands once per
-    colour).  First, K8's and K9's registers, spills and shared memory
-    (-Xptxas -v) and each K8 case's launch plan."""
+    versions, exactly.  Bytes of K8: every element of the packed streams
+    the outputs depend on, read once, and the four output quads
+    (sweep_packed.needed_bytes); flops as K4's.  Beside them the streams
+    as stored, the unique bytes of the same sweep (what K4's bound
+    counts) and this design's own traffic (sweep_packed.design_bytes: the
+    bands once per colour).  First, K8's and K9's registers, spills and
+    shared memory (-Xptxas -v) and each K8 case's launch plan."""
     for line in ptxas_lines("sweep_packed_kernel") + ptxas_lines("pack_"):
         print(f"  ptxas {line}")
     for shape, dtype, lp, real, (tj, C), timed in PACKED_CASES:
@@ -1039,9 +1041,11 @@ def packed_kernels(dev, results):
         args = [(psts[c], sop.pband[c], sop.ppiv[c], sop.pseam[c], pbq[c],
                  pqs[c], tj, nz, real, c == 0, c == C - 1) for c in range(C)]
         n = nz * H * W
-        nb = nbytes(*psts, *sop.pband, *sop.ppiv, *sop.pseam, *pbq, *pqs) \
-            + 4 * n * q[(0, 0)].element_size()
+        stored = nbytes(*psts, *sop.pband, *sop.ppiv, *sop.pseam, *pbq,
+                        *pqs)
         isz, bsz = q[(0, 0)].element_size(), sop.pband[0].element_size()
+        need = sp.needed_bytes(nz, H, W, tj, C, isz, bsz, real)
+        nb = sum(need.values())
         uniq = sp.unique_bytes(nz, H, W, isz, bsz)
         own = sp.design_bytes(nz, H, W, tj, C, isz, bsz)
         name = "sweep_packed_bf16" if lp else "sweep_packed"
@@ -1052,8 +1056,10 @@ def packed_kernels(dev, results):
              lambda: [sp.sweep_chunk(*a) for a in args],
              lambda: [sp.sweep_chunk_plain(*a) for a in args], None, nb,
              4 * (30 * n + 8 * H * W), timed, exact=True)
-        print(f"  {name} {shape} plan tj {tj}, {C} chunk(s): packed "
-              f"{nb / 1e9:.4f} GB; unique bytes of the sweep (GB) "
+        print(f"  {name} {shape} plan tj {tj}, {C} chunk(s): needed (GB) "
+              + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in need.items())
+              + f", total {nb / 1e9:.4f}; packed streams as stored "
+              f"{stored / 1e9:.4f} GB; unique bytes of the sweep (GB) "
               + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in uniq.items())
               + f", total {sum(uniq.values()) / 1e9:.4f}; this design's "
               "traffic (GB) "

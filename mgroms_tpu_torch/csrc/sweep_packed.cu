@@ -18,9 +18,10 @@
 // read every one of the 24 band slabs (a target reads its own quad's six
 // bands and a neighbour quad's six shifted ones), so each band byte is
 // read twice a sweep; a tile's slabs over all planes are megabytes, more
-// than a block holds, so the bound's unique bytes are out of reach; what
-// the design does about the rest (sweep_packed.design_bytes counts what
-// it moves):
+// than a block holds, so the bound (sweep_packed.needed_bytes: every
+// element the outputs depend on, read once) is out of reach; what the
+// design does about the rest (sweep_packed.design_bytes counts what it
+// moves):
 //
 // - A block owns one row tile [J0, J0+TJ) x a window [c0, c0+WN) of the
 //   chunk's columns and walks z in lock step, one block barrier a plane.
@@ -55,18 +56,21 @@
 // - A thread owns one column of the current colour: 2 (TJ+1)(WN+1) in
 //   phase 0, 2 TJ WN in phase 1 (320 threads at TJ 8, WN 16: 96 % and
 //   80 % busy).
-// - The window is sized from (nz, TJ, types) by the launcher (plan_packed;
-//   sweep_packed.window_plan mirrors it): the widest of 16, 8, 4, 2, 1
-//   columns whose colour-0 columns and rings fit 227 KB of shared memory
-//   with at most kMaxThreads threads.  A plan no window fits is refused.
+// - The window is chosen from (nz, TJ, types) by sweep_packed.window_plan:
+//   the widest of 16, 8, 4, 2, 1 columns whose colour-0 columns and rings
+//   fit 227 KB of shared memory with at most kMaxThreads threads.  The
+//   launcher takes that window and the shared memory reckoned for it, and
+//   refuses a window that does not fit or whose Layout here differs.
 //
-// On the H100 it moves its own traffic at 55-65 % of the memory's rate
-// (PERF.md section 6; scripts/micro_packed_variants.py takes parts out):
-// the band copies take about a third of its time, the gather an eighth,
-// the barriers nothing measurable.  The back substitutions load kBack
-// planes at a time (one at a time cost 6-11 %).  Two resident blocks an
-// SM (an 8-column window), float32 bands in 16-byte copies and a deeper
-// ring (more shared memory, less L1) all measured slower.
+// On the H100 it moves its own traffic at 50-55 % (float32), 38-40 %
+// (bfloat16 bands) and 59-63 % (float64) of the memory's rate: 27-30 %,
+// 24-25 % and 30-32 % of its bound (PERF.md section 6).  Builds with
+// parts taken out showed the band copies take about a third of its time,
+// the gather an eighth, the barriers nothing measurable.  The back
+// substitutions load kBack planes at a time (one at a time cost
+// 6-11 %).  Two resident blocks an SM (an 8-column window), float32
+// bands in 16-byte copies and a deeper ring (more shared memory, less
+// L1) all measured slower.
 //
 // Instances: (float, float), (double, double) and (float, bfloat16 bands,
 // upcast at read).  Rounding: built with -fmad=false (0 ulp from the plain
@@ -84,7 +88,7 @@
 //
 // Plain C interface (loaded with ctypes): each entry launches on the given
 // stream and returns the launch's CUDA error code (cudaErrorInvalidValue
-// for a plan no window fits).
+// for a window that does not fit).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,14 +127,14 @@ constexpr int kMaxC = 16;           // band copies a thread issues a plane
 constexpr int kMaxS = 4;            // state copies a thread issues a plane
 constexpr int kMaxThreads = 384;
 constexpr size_t kMaxDynSmem = 227 * 1024;
-constexpr int kWindows[] = {16, 8, 4, 2, 1};
 
 __host__ __device__ constexpr size_t align16(size_t b) {
     return (b + 15) / 16 * 16;
 }
 
-// The shared-memory layout of one block at window WN (csrc and
-// sweep_packed.window_plan compute it alike).  R staged rows [J0-1, J0+TJ],
+// The shared-memory layout of one block at window WN
+// (sweep_packed.window_layout reckons it alike; the launcher checks that
+// the two agree).  R staged rows [J0-1, J0+TJ],
 // NC staged columns [c0-1, c0+WN]; band rows are staged in aligned copies
 // of kE values with kE - 1 values of slack for their misalignment (BP
 // values, CPR copies a row): bfloat16 in 16-byte copies, float32 and
@@ -171,16 +175,6 @@ struct Layout {
         return nt <= kMaxThreads && bytes <= kMaxDynSmem;
     }
 };
-
-// the widest window of kWindows (at most the chunk width) that fits
-template <typename T, typename B>
-__host__ int pick_window(int nz, int tj, int wc) {
-    for (int w : kWindows) {
-        const int wn = w < wc ? w : wc;
-        if (Layout<T, B>(nz, tj, wn).fits()) return wn;
-    }
-    return 0;
-}
 
 // the plane offset of band slab s in colour c's terms (each slab is read
 // at one offset a colour: sweep_packed's tests check it), as two masks
@@ -711,30 +705,33 @@ sweep_packed_kernel(const SweepPackedArgs a, int nz, int ntiles, int tj,
     if (t1) back_substitute(o1, P, b.cgam, (size_t)b.cps, nz, xk);
 }
 
-// The launch plan of one chunk sweep: the window, threads per block,
-// dynamic shared memory, resident blocks per SM.
+// The launch plan of one chunk sweep at the window WN the caller chose
+// (sweep_packed.window_plan) and the shared memory it reckoned for it:
+// threads per block, dynamic shared memory, resident blocks per SM.  A
+// window wider than the chunk, one that does not fit, or a shared-memory
+// size other than this layout's is refused.
 struct PackedPlan {
-    int wn, nt, per_sm;
+    int nt, per_sm;
     size_t smem;
 };
 
 template <typename T, typename B>
-cudaError_t plan_packed(int nz, int tj, int wc, PackedPlan& pl) {
-    if (nz < 2 || tj < 1 || wc < 1) return cudaErrorInvalidValue;
-    const int wn = pick_window<T, B>(nz, tj, wc);
-    if (wn < 1) return cudaErrorInvalidValue;
+cudaError_t plan_packed(int nz, int tj, int wc, int wn, int smem,
+                        PackedPlan& pl) {
+    if (nz < 2 || tj < 1 || wn < 1 || wn > wc) return cudaErrorInvalidValue;
     const Layout<T, B> lay(nz, tj, wn);
+    if (!lay.fits() || lay.bytes != (size_t)smem)
+        return cudaErrorInvalidValue;
     const void* kern =
         reinterpret_cast<const void*>(&sweep_packed_kernel<T, B>);
     cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     int per_sm = 0;
     if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                             lay.nt,
                                                             lay.bytes);
     if (err != cudaSuccess) return err;
-    pl.wn = wn;
     pl.nt = lay.nt;
     pl.per_sm = per_sm;
     pl.smem = lay.bytes;
@@ -743,16 +740,16 @@ cudaError_t plan_packed(int nz, int tj, int wc, PackedPlan& pl) {
 
 template <typename T, typename B>
 int launch_sweep_packed(const SweepPackedArgs* a, int nz, int ntiles, int tj,
-                        int wc, int real, int first_chunk, int last_chunk,
-                        void* stream) {
+                        int wc, int wn, int smem, int real, int first_chunk,
+                        int last_chunk, void* stream) {
     if (ntiles < 1 || ntiles > 65535) return (int)cudaErrorInvalidValue;
     PackedPlan pl;
-    cudaError_t err = plan_packed<T, B>(nz, tj, wc, pl);
+    cudaError_t err = plan_packed<T, B>(nz, tj, wc, wn, smem, pl);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((wc + pl.wn - 1) / pl.wn, ntiles);
+    const dim3 grid((wc + wn - 1) / wn, ntiles);
     sweep_packed_kernel<T, B><<<grid, pl.nt, pl.smem,
                                 static_cast<cudaStream_t>(stream)>>>(
-        *a, nz, ntiles, tj, wc, pl.wn, real, first_chunk, last_chunk);
+        *a, nz, ntiles, tj, wc, wn, real, first_chunk, last_chunk);
     return (int)cudaGetLastError();
 }
 
@@ -858,46 +855,54 @@ int launch_pack(const PackArgs* a, int S, int C, int nz, int Hp, int Wp,
 extern "C" {
 
 int mg_sweep_packed_f32(const SweepPackedArgs* a, int nz, int ntiles, int tj,
-                        int wc, int real, int first_chunk, int last_chunk,
-                        void* stream) {
-    return launch_sweep_packed<float, float>(a, nz, ntiles, tj, wc, real,
-                                             first_chunk, last_chunk, stream);
+                        int wc, int wn, int smem, int real, int first_chunk,
+                        int last_chunk, void* stream) {
+    return launch_sweep_packed<float, float>(a, nz, ntiles, tj, wc, wn, smem,
+                                             real, first_chunk, last_chunk,
+                                             stream);
 }
 
 int mg_sweep_packed_f64(const SweepPackedArgs* a, int nz, int ntiles, int tj,
-                        int wc, int real, int first_chunk, int last_chunk,
-                        void* stream) {
-    return launch_sweep_packed<double, double>(a, nz, ntiles, tj, wc, real,
-                                               first_chunk, last_chunk,
-                                               stream);
+                        int wc, int wn, int smem, int real, int first_chunk,
+                        int last_chunk, void* stream) {
+    return launch_sweep_packed<double, double>(a, nz, ntiles, tj, wc, wn,
+                                               smem, real, first_chunk,
+                                               last_chunk, stream);
 }
 
 int mg_sweep_packed_bf16(const SweepPackedArgs* a, int nz, int ntiles,
-                         int tj, int wc, int real, int first_chunk,
-                         int last_chunk, void* stream) {
+                         int tj, int wc, int wn, int smem, int real,
+                         int first_chunk, int last_chunk, void* stream) {
     return launch_sweep_packed<float, __nv_bfloat16>(
-        a, nz, ntiles, tj, wc, real, first_chunk, last_chunk, stream);
+        a, nz, ntiles, tj, wc, wn, smem, real, first_chunk, last_chunk,
+        stream);
 }
 
 // The plan a launch of instance `inst` (0: f32, 1: f64, 2: bf16, the
-// entries above in order) takes at (nz, TJ, WC): out = {threads, window,
-// dynamic shared memory bytes, resident blocks per SM}.
-int mg_sweep_packed_plan(int inst, int nz, int tj, int wc, int* out) {
+// entries above in order) takes at (nz, TJ, WC) with window WN and SMEM
+// bytes of shared memory: out = {threads, dynamic shared memory bytes,
+// resident blocks per SM}.
+int mg_sweep_packed_plan(int inst, int nz, int tj, int wc, int wn, int smem,
+                         int* out) {
     PackedPlan pl;
     cudaError_t err;
     switch (inst) {
-        case 0: err = plan_packed<float, float>(nz, tj, wc, pl); break;
-        case 1: err = plan_packed<double, double>(nz, tj, wc, pl); break;
+        case 0:
+            err = plan_packed<float, float>(nz, tj, wc, wn, smem, pl);
+            break;
+        case 1:
+            err = plan_packed<double, double>(nz, tj, wc, wn, smem, pl);
+            break;
         case 2:
-            err = plan_packed<float, __nv_bfloat16>(nz, tj, wc, pl);
+            err = plan_packed<float, __nv_bfloat16>(nz, tj, wc, wn, smem,
+                                                    pl);
             break;
         default: return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return (int)err;
     out[0] = pl.nt;
-    out[1] = pl.wn;
-    out[2] = (int)pl.smem;
-    out[3] = pl.per_sm;
+    out[1] = (int)pl.smem;
+    out[2] = pl.per_sm;
     return 0;
 }
 

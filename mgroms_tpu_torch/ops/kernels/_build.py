@@ -97,12 +97,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = i
     for dt in ("f32", "f64", "bf16"):
         fn = getattr(lib, f"mg_sweep_packed_{dt}")
-        # SweepPackedArgs* | nz ntiles tj Wc real first_chunk last_chunk |
-        # stream
-        fn.argtypes = [p] + [i] * 7 + [p]
+        # SweepPackedArgs* | nz ntiles tj Wc window smem real first_chunk
+        # last_chunk | stream
+        fn.argtypes = [p] + [i] * 9 + [p]
         fn.restype = i
-    # instance nz tj Wc | out[4]: K8's launch plan
-    lib.mg_sweep_packed_plan.argtypes = [i] * 4 + [p]
+    # instance nz tj Wc window smem | out[3]: K8's launch plan
+    lib.mg_sweep_packed_plan.argtypes = [i] * 6 + [p]
     lib.mg_sweep_packed_plan.restype = i
     # e0 e1 e2 blocks rb ud bet gam bq out | nz H W which | terms stream
     for fn in (lib.mg_dma_only, lib.mg_dma_only_bf16):

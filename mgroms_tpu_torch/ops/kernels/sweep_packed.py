@@ -28,13 +28,16 @@ through a ring of asynchronous copies; colour 0's overhang columns stay in
 shared memory over all nz planes (no store in device memory), and colour 1
 reads them there.  What bounds it is memory: both colours read every band
 slab, so the band stream is read twice a sweep (:func:`design_bytes`
-counts this design's own traffic beside the bound's unique bytes).
-:func:`window_plan` mirrors the launcher's window choice from (nz, tj,
-types): the widest of :data:`WINDOWS` whose colour-0 columns and rings fit
-a block's 227 KB of shared memory with at most :data:`MAX_THREADS`
-threads; a plan no window fits raises ``ValueError`` before any launch
-(float32 at nz 64, tj 8: a 16-column window, 320 threads, 176,784 B).
-:func:`launch_plan` reads the launcher's own plan on the card.
+counts this design's own traffic beside the bound's bytes,
+:func:`needed_bytes`: what the outputs depend on, read once).
+:func:`window_plan` chooses the window from (nz, tj, types): the widest
+of :data:`WINDOWS` whose colour-0 columns and rings fit a block's 227 KB
+of shared memory with at most :data:`MAX_THREADS` threads; a plan no
+window fits raises ``ValueError`` before any launch (float32 at nz 64,
+tj 8: a 16-column window, 320 threads, 176,784 B).  The launcher takes
+the window and the shared memory reckoned for it and refuses a pair its
+own layout does not give; :func:`launch_plan` reads its plan on the
+card.
 
 Iterates equal relax_compact.relax_compact_quads bit for bit with bands of
 the state type (same term order, the same factored Thomas recurrence) and
@@ -183,23 +186,6 @@ def build_sweep_operator(cA: torch.Tensor, pack: CompactPack, nz: int,
                          tj=tj, nchunks=C)
 
 
-def plan_bytes(nz: int, H: int, W: int, tj: int, nchunks: int,
-               itemsize: int, band_itemsize: int) -> dict:
-    """Bytes one packed sweep reads and writes, per stream, at plan
-    (``tj``, ``nchunks``): the packed streams as stored (overlap rows and
-    seam columns duplicated), the state pack K9 writes and K8 reads, the
-    RHS streams, and the four output quads."""
-    ntiles, Wc = H // tj, W // nchunks
-    per = lambda s, rows, width, isz: nchunks * ntiles * s * nz * rows \
-        * width * isz
-    return {"bands": per(24, tj + 4, Wc + 3, band_itemsize),
-            "pivots": per(12, tj + 2, Wc, itemsize)
-            + per(6, tj + 2, 2, itemsize),
-            "state": per(4, tj + 4, Wc + 4, itemsize),
-            "rhs": per(4, tj + 2, Wc, itemsize) + per(2, tj + 2, 2, itemsize),
-            "outputs": 4 * nz * H * W * itemsize}
-
-
 def unique_bytes(nz: int, H: int, W: int, itemsize: int,
                  band_itemsize: int) -> dict:
     """The same sweep's unique bytes: the 6 band quads' 24 extended slabs,
@@ -211,11 +197,11 @@ def unique_bytes(nz: int, H: int, W: int, itemsize: int,
             "outputs": 4 * q * itemsize}
 
 
-# K8's launch plan (csrc/sweep_packed.cu: Layout, pick_window): the ring
-# stages of bands and column values, the state ring's planes, the most
-# band / state copies a thread issues a plane, the threads a block may
-# have, the shared memory a block may take and the windows tried, widest
-# first
+# K8's block layout (csrc/sweep_packed.cu: Layout) and window choice: the
+# ring stages of bands and column values, the state ring's planes, the
+# most band / state copies a thread issues a plane, the threads a block
+# may have, the shared memory a block may take and the windows tried,
+# widest first
 RING_STAGES = 4
 STATE_SLOTS = RING_STAGES + 2
 MAX_BAND_COPIES = 16
@@ -232,7 +218,8 @@ def _a16(b: int) -> int:
 def window_layout(nz: int, tj: int, wn: int, itemsize: int,
                   band_itemsize: int) -> dict:
     """One K8 block's threads and shared memory at window ``wn``
-    (csrc/sweep_packed.cu ``Layout``): the colour-0 store (2 quads x
+    (csrc/sweep_packed.cu ``Layout``, which the launcher checks against
+    the shared memory reckoned here): the colour-0 store (2 quads x
     (nz+2) planes x (tj+1) x (wn+1)), the plane-0 window of the four quads,
     the state ring, the band ring (bfloat16 rows staged in 16-byte copies
     aligned as device memory has them, with 7 values of slack; float32 and
@@ -255,7 +242,7 @@ def window_layout(nz: int, tj: int, wn: int, itemsize: int,
 
 def window_plan(nz: int, tj: int, Wc: int, itemsize: int,
                 band_itemsize: int) -> dict:
-    """The window K8's launcher picks for a chunk of ``Wc`` columns: the
+    """The window K8 launches with for a chunk of ``Wc`` columns: the
     widest of :data:`WINDOWS` (at most ``Wc``) whose block fits
     :data:`MAX_THREADS` threads and :data:`MAX_SMEM` bytes; ``ValueError``
     when none does."""
@@ -277,12 +264,13 @@ def design_bytes(nz: int, H: int, W: int, tj: int, nchunks: int,
     per stream, as its blocks stage it: every band slab's window (rows
     [J0-1, J0+tj], the window's columns and one each side; the slack of
     the aligned copies, in the same 32-byte sectors, left out) once per
-    colour; colour 0's state (two quads, all
-    planes, and plane 0 of all four); bet, gam, ud and the RHS of every
-    column each colour solves (colour 0's overhang and seam columns
-    included); the four outputs written once, and colour 1's forward
-    values written and read back once more (through L2).  The physical
-    mirror cells' state reads are left out (a few edge columns)."""
+    colour; colour 0's state (two quads, all planes, and plane 0 of all
+    four); bet, gam, ud and the RHS of every column each colour solves
+    (colour 0's overhang and seam columns included); the four outputs
+    written once.  Left out: colour 1's
+    forward values, written to the outputs and read back by the same
+    thread (from L2), and the physical mirror cells' state reads (a few
+    edge columns)."""
     ntiles, Wc = H // tj, W // nchunks
     wn = window_plan(nz, tj, Wc, itemsize, band_itemsize)["window"]
     R = tj + 2
@@ -296,8 +284,7 @@ def design_bytes(nz: int, H: int, W: int, tj: int, nchunks: int,
     per = nchunks * ntiles
     q = nz * H * W * itemsize
     return {"bands": per * bands, "state": per * state,
-            "pivots_rhs": per * cols, "outputs": 4 * q,
-            "colour1_roundtrip": 4 * q}
+            "pivots_rhs": per * cols, "outputs": 4 * q}
 
 
 # ------------------------------------------------------------ K9 (pack)
@@ -543,6 +530,142 @@ def term_rows() -> list:
     return out
 
 
+def _kinds(n: int) -> list:
+    """(first, last, how many) of ``n`` tiles or chunks."""
+    if n == 1:
+        return [(True, True, 1)]
+    return [(True, False, 1), (False, True, 1), (False, False, n - 2)]
+
+
+def _shifted(cells, dr: int, dc: int):
+    """``cells`` moved by (dr, dc) on the same grid (each lands inside)."""
+    out = torch.zeros_like(cells)
+    r, c = cells.nonzero(as_tuple=True)
+    out[r + dr, c + dc] = True
+    return out
+
+
+def _needed_elements(nz: int, tj: int, Wc: int, real: bool,
+                     first_tile: bool, last_tile: bool, first_chunk: bool,
+                     last_chunk: bool) -> dict:
+    """The elements of one tile's packed streams that the chunk's four
+    outputs depend on, per stream, following :func:`sweep_chunk_plain`
+    term by term.  Cells are indexed on its colour-0 grid (``scr``): rows
+    [J0-1, J0+tj], columns [-1, Wc] of the chunk; a term reads band slab
+    ``s`` at row r+rjb+1, column c+rib and its source at cell (r+rj, c+ri),
+    the pre-sweep state at (r+1, c+1) of its grid, and neither where the
+    other is a zero (a plane beyond nz, an unset colour-0 cell)."""
+    n0, m0 = tj + 2, Wc + 2
+    terms = [rows[:16 if real else 12] for rows in term_rows()]
+    band = torch.zeros(24, nz, tj + 4, Wc + 3, dtype=torch.bool)
+    state = torch.zeros(4, nz, tj + 4, Wc + 4, dtype=torch.bool)
+    full = lambda v: torch.full((n0, m0), v, dtype=torch.long)
+    # colour-0 cells: 1 solved, 2 the pre-sweep state (mirror), 0 zero
+    src = {(1, 1): full(1), (0, 0): full(1)}
+    src[(1, 1)][:, m0 - 1] = 0
+    src[(0, 0)][:, 0] = 0
+    if first_chunk:
+        src[(1, 1)][:, 0] = 2
+    if first_tile:
+        src[(1, 1)][0, :] = 2
+    if last_chunk:
+        src[(0, 0)][:, m0 - 1] = 2
+    if last_tile:
+        src[(0, 0)][n0 - 1, :] = 2
+    # the lowest plane read of each solved cell (nz: none)
+    low = {t: full(nz) for t in _COLOR0}
+    colour1 = torch.zeros(n0, m0, dtype=torch.bool)
+    colour1[1: tj + 1, 1: Wc + 1] = True
+    for t in _COLOR0:
+        low[t][colour1] = 0                        # the outputs
+
+    def span(j: int, bk: int, pk: int) -> tuple:
+        """The planes k a term is read at: every k whose band plane k+bk
+        and source plane k+pk exist; plane 0 alone for a 'real' term."""
+        if j >= 12:
+            return 0, 1
+        return max(0, -bk, -pk), min(nz, nz - bk, nz - pk)
+
+    def put(dst, lo: int, hi: int, cells, dr: int, dc: int) -> None:
+        r, c = cells.nonzero(as_tuple=True)
+        dst[lo:hi, r + dr, c + dc] = True
+
+    def need0(t, cells, lo: int, hi: int):
+        """Colour-0 quad ``t``'s ``cells`` read at planes [lo, hi): the
+        cells that hold a value."""
+        solved = cells & (src[t] == 1)
+        low[t][solved] = low[t][solved].clamp(max=lo)
+        put(state[_TI[t]], lo, hi, cells & (src[t] == 2), 1, 1)
+        return cells & (src[t] != 0)
+
+    for t in _COLOR1:
+        for j, (s, bk, rjb, rib, kp, pk, rj, ri) in enumerate(
+                terms[_TI[t]]):
+            lo, hi = span(j, bk, pk)
+            cells = _shifted(colour1, rj, ri)
+            kq = _TKEYS[kp]
+            if kq in _COLOR0:
+                live = need0(kq, cells, lo + pk, hi + pk)
+            else:
+                # a 'real' term's colour-1 sibling at plane 0: the
+                # pre-sweep state, or colour 0 where the e1 rules patch it
+                row, col = torch.zeros_like(cells), torch.zeros_like(cells)
+                if kq == (1, 0):
+                    row[0], col[:, m0 - 1] = first_tile, last_chunk
+                    by_row, dr, by_col, dc = (0, 0), 1, (1, 1), -1
+                else:
+                    row[n0 - 1], col[:, 0] = last_tile, first_chunk
+                    by_row, dr, by_col, dc = (1, 1), -1, (0, 0), 1
+                col &= ~row
+                live = cells & ~(row | col)
+                put(state[kp], lo + pk, hi + pk, live, 1, 1)
+                live |= _shifted(need0(by_row, _shifted(cells & row, dr, 0),
+                                       pk, pk + 1), -dr, 0)
+                live |= _shifted(need0(by_col, _shifted(cells & col, 0, dc),
+                                       pk, pk + 1), 0, -dc)
+            put(band[s], lo + bk, hi + bk, _shifted(live, -rj, -ri),
+                1 + rjb, rib)
+    cols = gam = 0
+    for t in _COLOR0:
+        solved = low[t] < nz
+        for j, (s, bk, rjb, rib, kp, pk, rj, ri) in enumerate(
+                terms[_TI[t]]):
+            lo, hi = span(j, bk, pk)
+            put(band[s], lo + bk, hi + bk, solved, 1 + rjb, rib)
+            put(state[kp], lo + pk, hi + pk, solved, 1 + rj, 1 + ri)
+        cols += int(solved.sum())
+        gam += int((nz - 1 - low[t][solved]).clamp(min=0).sum())
+    # a solved column needs bet, ud and the RHS at every plane and gam
+    # from its lowest plane read; colour 1's 2 tj Wc columns all of them
+    n1 = 2 * tj * Wc
+    return {"bands": int(band.sum()), "state": int(state.sum()),
+            "pivots": (cols + n1) * (2 * nz - 1) + gam + n1 * (nz - 1),
+            "rhs": (cols + n1) * nz}
+
+
+def needed_bytes(nz: int, H: int, W: int, tj: int, nchunks: int,
+                 itemsize: int, band_itemsize: int, real: bool) -> dict:
+    """The bytes one packed sweep must move at plan (``tj``, ``nchunks``),
+    per stream: every element of the packed streams that the four output
+    quads depend on, read once (what :func:`sweep_chunk_plain` reads: rows
+    [J0-1, J0+tj] of the bands and state, colour 0's own quads only at
+    plane 0 and the mirror cells, each band slab at the planes its terms
+    reach), and the outputs written once.  K8's bound counts these; the
+    tests hold the count to the plain version's dependencies."""
+    ntiles, Wc = H // tj, W // nchunks
+    got = dict.fromkeys(("bands", "state", "pivots", "rhs"), 0)
+    for ft, lt, nt in _kinds(ntiles):
+        for fc, lc, nc in _kinds(nchunks):
+            if nt and nc:
+                one = _needed_elements(nz, tj, Wc, real, ft, lt, fc, lc)
+                for k in got:
+                    got[k] += nt * nc * one[k]
+    return {"bands": got["bands"] * band_itemsize,
+            "state": got["state"] * itemsize,
+            "pivots": got["pivots"] * itemsize, "rhs": got["rhs"] * itemsize,
+            "outputs": 4 * nz * H * W * itemsize}
+
+
 class _SweepPackedArgs(ctypes.Structure):
     _fields_ = [("pst", ctypes.c_void_p), ("pband", ctypes.c_void_p),
                 ("ppiv", ctypes.c_void_p), ("pseam", ctypes.c_void_p),
@@ -562,17 +685,20 @@ PACKED_ENTRIES = {
 
 def launch_plan(nz: int, tj: int, Wc: int, state, band) -> dict:
     """The launch K8 takes for a chunk of ``Wc`` columns at (``nz``,
-    ``tj``) for the pair (``state``, ``band``): threads a block, the
-    window, the dynamic shared memory of a block and the resident blocks
-    per SM (read from the launcher, ``mg_sweep_packed_plan``; needs a
-    card)."""
+    ``tj``) for the pair (``state``, ``band``): the window
+    (:func:`window_plan`), and read from the launcher
+    (``mg_sweep_packed_plan``; needs a card) the threads a block, the
+    dynamic shared memory of a block and the resident blocks per SM."""
     instance(PACKED_ENTRIES, state, band, "K8")
     inst = list(PACKED_ENTRIES).index((state, band))
-    out = (ctypes.c_int * 4)()
-    check_launch(_build.load().mg_sweep_packed_plan(inst, nz, tj, Wc, out),
-                 "mg_sweep_packed_plan")
-    return dict(zip(("threads", "window", "smem_bytes", "blocks_per_sm"),
-                    out))
+    size = lambda d: torch.empty((), dtype=d).element_size()
+    plan = window_plan(nz, tj, Wc, size(state), size(band))
+    out = (ctypes.c_int * 3)()
+    check_launch(_build.load().mg_sweep_packed_plan(
+        inst, nz, tj, Wc, plan["window"], plan["smem_bytes"], out),
+        "mg_sweep_packed_plan")
+    return {"window": plan["window"],
+            **dict(zip(("threads", "smem_bytes", "blocks_per_sm"), out))}
 
 
 def sweep_chunk(pst, pband_c, ppiv_c, pseam_c, pbq_c, pqs_c, tj: int,
@@ -613,16 +739,17 @@ def sweep_chunk(pst, pband_c, ppiv_c, pseam_c, pbq_c, pqs_c, tj: int,
     if pband_c[0].numel() >= 2 ** 31:
         raise ValueError(f"pband: {pband_c[0].numel()} values a tile, the "
                          "kernel indexes a tile's streams in 32 bits")
-    window_plan(nz, tj, Wc, pst.element_size(), pband_c.element_size())
+    plan = window_plan(nz, tj, Wc, pst.element_size(),
+                       pband_c.element_size())
     outs = [pst.new_empty((nz, H, Wc)) for _ in range(4)]
     args = _SweepPackedArgs(ptr(pst), ptr(pband_c), ptr(ppiv_c),
                             ptr(pseam_c), ptr(pbq_c), ptr(pqs_c),
                             (ctypes.c_void_p * 4)(*(ptr(o) for o in outs)))
     fn = getattr(_build.load(), c_entry)
     with torch.cuda.device(pst.device):
-        rc = fn(ctypes.byref(args), nz, ntiles, tj, Wc, int(real_matrix),
-                int(first_chunk), int(last_chunk),
-                torch.cuda.current_stream().cuda_stream)
+        rc = fn(ctypes.byref(args), nz, ntiles, tj, Wc, plan["window"],
+                plan["smem_bytes"], int(real_matrix), int(first_chunk),
+                int(last_chunk), torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "sweep_packed")
     LAUNCHES["sweep_packed_bf16" if band == torch.bfloat16
              else "sweep_packed"] += 1

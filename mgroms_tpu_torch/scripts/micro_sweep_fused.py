@@ -126,8 +126,8 @@ def timed(dev=None, nz=64, ny=1024, nx=1024, modes=MODES,
     if any(m.startswith("packed") for m in rts):
         emit(rows, "packed_plan", {"tj": tj, "nchunks": nchunks})
         for name, bsz in (("f32", 4), ("bf16", 2)):
-            emit(rows, f"packed_plan_gb_{name}", sum(sp.plan_bytes(
-                nz, H, W, tj, nchunks, 4, bsz).values()) / 1e9)
+            emit(rows, f"packed_needed_gb_{name}", sum(sp.needed_bytes(
+                nz, H, W, tj, nchunks, 4, bsz, True).values()) / 1e9)
             emit(rows, f"packed_unique_gb_{name}", sum(sp.unique_bytes(
                 nz, H, W, 4, bsz).values()) / 1e9)
             emit(rows, f"packed_design_gb_{name}", sum(sp.design_bytes(

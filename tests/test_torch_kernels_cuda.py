@@ -15,6 +15,8 @@ K6 in every ordering), K3's and K5's residuals and K11's sums are held to
 1e-6 x max|bq| (f32).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -813,10 +815,10 @@ def test_pack_streams_vector_edges(cuda, dtype, mode):
 
 @pytest.mark.parametrize("band", BANDS, ids=["f32", "f64", "bf16"])
 def test_sweep_packed_launch_plan_matches_window_plan(cuda, band):
-    """The launcher's plan (mg_sweep_packed_plan) picks the window, the
-    threads and the shared memory sweep_packed.window_plan reckons, at
-    the CUC level-0 and level-1 default plans and at small ones, with at
-    least one block resident per SM."""
+    """The launcher's plan (mg_sweep_packed_plan) at the window
+    sweep_packed.window_plan chooses has the threads and the shared
+    memory window_plan reckons, at the CUC level-0 and level-1 default
+    plans and at small ones, with at least one block resident per SM."""
     dtype, lp = band
     bd = torch.bfloat16 if lp else dtype
     isz, bsz = torch.empty((), dtype=dtype).element_size(), \
@@ -828,6 +830,29 @@ def test_sweep_packed_launch_plan_matches_window_plan(cuda, band):
         assert (got["window"], got["threads"], got["smem_bytes"]) == \
             (want["window"], want["threads"], want["smem_bytes"])
         assert got["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("band", BANDS, ids=["f32", "f64", "bf16"])
+def test_sweep_packed_launcher_refuses_another_layout(cuda, band):
+    """The launcher refuses a shared-memory size other than its own
+    layout's at the chosen window, a window wider than the chunk and one
+    that does not fit, and takes the chosen pair."""
+    from mgroms_tpu_torch.ops.kernels import _build
+    dtype, lp = band
+    bd = torch.bfloat16 if lp else dtype
+    isz, bsz = torch.empty((), dtype=dtype).element_size(), \
+        torch.empty((), dtype=bd).element_size()
+    inst = list(sp.PACKED_ENTRIES).index((dtype, bd))
+    nz, tj, Wc = 64, 8, 512
+    plan = sp.window_plan(nz, tj, Wc, isz, bsz)
+    wn, smem = plan["window"], plan["smem_bytes"]
+    big = sp.window_layout(nz, tj, 2 * wn, isz, bsz)["smem_bytes"]
+    fn = _build.load().mg_sweep_packed_plan
+    out = (ctypes.c_int * 3)()
+    assert fn(inst, nz, tj, Wc, wn, smem, out) == 0
+    for w, b in ((wn, smem + 16), (wn, smem - 16), (Wc + 1, smem),
+                 (2 * wn, big)):
+        assert fn(inst, nz, tj, Wc, w, b, out) != 0, (w, b)
 
 
 def test_sweep_packed_refuses_a_plan_no_window_holds(cuda):

@@ -409,9 +409,10 @@ def test_term_recipe_is_the_band_stacks():
     ((64, 512), 4, 2, 16, 320, 169104), ((64, 512), 8, 8, 8, 192, 193568),
     ((32, 256), 8, 8, 8, 192, 152096)])
 def test_launcher_window_choice(case):
-    """The window K8's launcher picks (sweep_packed.window_plan mirrors
-    csrc/sweep_packed.cu pick_window; the CUDA tests hold the two equal)
-    and the shared memory it reckons at the default plan: in float32 at nz
+    """The window K8 launches with (sweep_packed.window_plan; the
+    launcher refuses a shared-memory size its own layout does not give,
+    which the CUDA tests check) and the shared memory it reckons at the
+    default plan: in float32 at nz
     64 a 16-column window, 320 threads and 176,784 bytes (the colour-0
     store 80,784 of them, the band ring 69,120), in float64 an 8-column
     one."""
@@ -439,27 +440,74 @@ def test_plan_outside_the_window_domain_raises(nz, tj):
         sp.window_plan(nz, tj, 512, 4, 4)
 
 
-def test_variant_edits_apply_to_the_kernel_source():
-    """micro_packed_variants edits csrc/sweep_packed.cu by named source
-    snippets: each must still be in the source, once per edit site."""
-    from mgroms_tpu_torch.ops.kernels import _build
-    from mgroms_tpu_torch.scripts import micro_packed_variants as mpv
-    src = (_build.CSRC / "sweep_packed.cu").read_text()
-    for name, edits in mpv.VARIANTS.items():
-        for old, _ in edits:
-            assert src.count(old) >= 1, (name, old)
+def _thomas_out_of_place(bet, gam, ud, b):
+    """thomas_factored_unrolled's recurrence without writes into its
+    result, so autograd can take it back."""
+    x = [b[0] * bet[0]]
+    for k in range(1, b.shape[0]):
+        x.append((b[k] - ud[k - 1] * x[k - 1]) * bet[k])
+    for k in range(b.shape[0] - 2, -1, -1):
+        x[k] = x[k] - gam[k] * x[k + 1]
+    return torch.stack(x)
+
+
+@pytest.mark.parametrize("case", [
+    # (nz, H, W, tj, nchunks): three tiles and chunks, one tile, one
+    # column a chunk, one-row tiles, nz 2
+    (4, 12, 18, 4, 3), (3, 2, 10, 2, 2), (5, 6, 8, 3, 1),
+    (2, 3, 9, 1, 3), (4, 4, 3, 2, 3)])
+@pytest.mark.parametrize("real", [True, False])
+def test_needed_bytes_are_what_the_plain_sweep_reads(case, real,
+                                                     monkeypatch):
+    """needed_bytes (K8's bound) counts exactly the elements of each
+    packed stream that sweep_chunk_plain's outputs depend on: those with
+    a nonzero gradient of a random weighting of the outputs, every chunk
+    of the plan, on random streams."""
+    nz, H, W, tj, C = case
+    monkeypatch.setattr(sp, "thomas_factored_unrolled",
+                        _thomas_out_of_place)
+    ntiles, Wc = H // tj, W // C
+    shapes = {"state": [(4, tj + 4, Wc + 4)], "bands": [(24, tj + 4, Wc + 3)],
+              "pivots": [(12, tj + 2, Wc), (6, tj + 2, 2)],
+              "rhs": [(4, tj + 2, Wc), (2, tj + 2, 2)]}
+    g = torch.Generator().manual_seed(sum(case))
+    got = dict.fromkeys(shapes, 0)
+    for c in range(C):
+        xs = {k: [(torch.rand((ntiles, s * nz, rows, cols), generator=g,
+                              dtype=torch.float64) + 0.5).requires_grad_()
+                  for s, rows, cols in v]
+              for k, v in shapes.items()}
+        outs = sp.sweep_chunk_plain(
+            xs["state"][0], xs["bands"][0], xs["pivots"][0],
+            xs["pivots"][1], xs["rhs"][0], xs["rhs"][1], tj, nz, real,
+            c == 0, c == C - 1)
+        sum((o * torch.rand(o.shape, generator=g, dtype=o.dtype)).sum()
+            for o in outs).backward()
+        for k, v in xs.items():
+            got[k] += sum(int((x.grad != 0).sum()) for x in v
+                          if x.grad is not None)
+    want = sp.needed_bytes(nz, H, W, tj, C, 1, 1, real)
+    assert want.pop("outputs") == 4 * nz * H * W
+    assert want == got
 
 
 def test_design_bytes_counts_the_bands_twice():
     """design_bytes at the CUC level-0 default plan: each colour stages
     every band slab's window once, so the bands are twice a colour's
-    staged slabs, and more than twice their unique bytes."""
+    staged slabs, and more than twice their unique bytes; at a small plan
+    it moves no less than the sweep needs (needed_bytes), stream by
+    stream."""
     nz, H, W = 64, 512, 512
     got = sp.design_bytes(nz, H, W, 8, 1, 4, 4)
     uniq = sp.unique_bytes(nz, H, W, 4, 4)
     assert got["bands"] == 2 * 24 * nz * 10 * 18 * 4 * (H // 8) * (W // 16)
     assert got["bands"] > 2 * uniq["bands"]
     assert got["outputs"] == uniq["outputs"]
+    own = sp.design_bytes(8, 32, 40, 8, 1, 4, 4)
+    need = sp.needed_bytes(8, 32, 40, 8, 1, 4, 4, True)
+    assert own["bands"] > need["bands"] and own["state"] > need["state"]
+    assert own["pivots_rhs"] > need["pivots"] + need["rhs"]
+    assert own["outputs"] == need["outputs"]
 
 
 # -------------------------------------------------------------------- (f)
