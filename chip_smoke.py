@@ -64,16 +64,21 @@ Phases (any failed check raises, so the exit code is non-zero):
    and on bfloat16 blocks (all, blocks), and on an RB colour's float32
    and bfloat16 band stacks (dma_only_bands), exact, fma_run within
    its stated tolerance, and step_floor at K6's one-launch shapes
-   (roofline.STEP_FLOOR_CASES), exact.  K7 at CUC level 0 split over a
+   (roofline.STEP_FLOOR_CASES), exact; the ring forms' registers
+   printed.  K7 at CUC level 0 split over a
    virtual (1, 4) mesh (four (64, 1024, 256) tiles, both real_matrix
    values), 0 ulp from its plain version and from K5 on the whole
-   grid.  K11, the load-rate
+   grid; its registers, launch plan (tile, ring, shared memory, blocks,
+   blocks an SM) and this design's own traffic (rdma_halo.design_bytes)
+   printed beside its bound and the earlier design's time.  K11, the
+   load-rate
    probes (windows, blocks, j-lead windows, one wide stream), every row
    of the JAX script's two probe sets at a small shape and at its own
    (nz 64, H 512, tj 16, ws 24), to 0 ulp, timed beside one PyTorch call
    of the same sum (library_ms).  Last, the asynchronous copies in the
    SASS of K11's staged_sum_kernel and wide_stream_kernel (bulk copies)
-   and of K1-K2, K4, K3, K6's step form and K8 (cp.async), per instance
+   and of K1-K2, K4, K3, K6's step form, K8, K7 and K10's window ring
+   (cp.async), per instance
    (cuobjdump -sass).  The device loop's condition kernel
    (csrc/device_loop.cu) against its plain version, exactly (counter,
    history slot, decision, run count), in float32 and float64 at a NaN
@@ -779,20 +784,23 @@ def sweep_kernels(dev, results):
 
 
 # kernel -> what its staging must show in the SASS: the bulk copies of
-# K11's ring, the asynchronous copies of K1-K2's, K4's, K3's and K6's step
-# form
+# K11's ring, the asynchronous copies of K1-K2's, K4's, K3's, K6's step
+# form's, K8's, K7's and K10's window ring (dma_only's windows and all)
 SASS_ASYNC = {"sweep_packed_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
               "staged_sum_kernel": ("UBLKCP", "UTMALDG"),
               "wide_stream_kernel": ("UBLKCP", "UTMALDG"),
               "colour_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
               "sweep_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
               "rr_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
-              "relax_step": ("LDGSTS", "UBLKCP", "UTMALDG")}
+              "relax_step": ("LDGSTS", "UBLKCP", "UTMALDG"),
+              "overlap_kernel": ("LDGSTS", "UBLKCP", "UTMALDG"),
+              "dma_only_ring_kernel": ("LDGSTS", "UBLKCP", "UTMALDG")}
 
 
 def sass_async_copies():
     """Print, per instance of K11's two kernels, of K1-K2, of K4, of K3,
-    of K6's step form and of K8, how many asynchronous-copy instructions
+    of K6's step form, of K8, of K7 and of K10's window ring, how many
+    asynchronous-copy instructions
     its SASS holds (cuobjdump -sass of the built library), and check that
     each stages through them."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -1108,6 +1116,8 @@ def roofline_kernels(dev, results):
     step_floor at K6's one-launch shapes (exact; bytes: the state in and
     out; flops: roofline.step_floor_flops)."""
     nz, H, W = 64, 512, 512
+    for line in ptxas_lines("dma_only"):
+        print(f"  ptxas {line}")
     o = mr.operands(dev, nz, H, W)
     n, col = nz * H * W, H * W
     adds = {"all": (26, 6), "windows": (12, 4), "blocks": (12, 2)}
@@ -1152,6 +1162,12 @@ def roofline_kernels(dev, results):
              "json" if shape == (2, 32, 32) else "print", exact=True)
 
 
+# K7's four (64, 1024, 256) launches in its first design (a thread a
+# column over plane chunks, separate seam blocks; PERF.md, H100 80GB HBM3,
+# 700 W)
+OVERLAP_EARLIER_MS = "2.107-2.212"
+
+
 def virtual_mesh(dev, npx, npy):
     """An (npy, npx) mesh of ``dev`` repeated: every tile on the one card."""
     return pmesh.make_mesh(npx, npy, [dev] * (npx * npy))
@@ -1167,6 +1183,12 @@ def overlap_kernels(dev, results):
     tile's extended bands, p and b read once and r written once; flops
     K5's."""
     nz, ny, nx, npx = 64, 1024, 1024, 4
+    for line in ptxas_lines("overlap_kernel"):
+        print(f"  ptxas {line}")
+    print(f"  residual_overlap_x launch plan (64, 1024, 256) f32 "
+          f"{k7.launch_plan(ny, nx // npx)}, f64 "
+          f"{k7.launch_plan(ny, nx // npx, torch.float64)}")
+    own = k7.design_bytes(nz, ny, nx // npx)
     cA, p, b = full_inputs(nz, ny, nx, torch.float32, dev, seed=132)
     mesh = virtual_mesh(dev, npx, 1)
     cut = lambda a, extra=(0, 0): pmesh.split_tiles(a, (1, npx),
@@ -1190,6 +1212,16 @@ def overlap_kernels(dev, results):
              lambda: list(via(k7.residual_overlap_x_plain).flat()),
              float(b.abs().max()), nb, 30 * p.numel() + 8 * ny * nx,
              "json" if real else None, exact=True)
+        if real:
+            moved = npx * sum(own.values())
+            print(f"  residual_overlap_x: this design moves (GB, four "
+                  f"tiles) " + ", ".join(f"{k} {npx * v / 1e9:.4f}"
+                                         for k, v in own.items())
+                  + f", total {moved / 1e9:.4f} "
+                  f"({bound(moved, 0)[0]:.4f} ms at "
+                  f"{HBM_BYTES_PER_S / 1e12:g} TB/s) beside the bound's "
+                  f"{nb / 1e9:.4f} GB ({bound(nb, 0)[0]:.4f} ms); earlier "
+                  f"design {OVERLAP_EARLIER_MS} ms")
         got = pmesh.join_tiles(via(k7.residual_overlap_x), dev)
         check(torch.equal(got, k5), f"K7 != K5 on the whole grid "
               f"(real={real}): max ulp {max_ulp(got, k5)}")

@@ -8,7 +8,7 @@
 //
 // dma_only takes K1's operands at K1's shapes (ops/kernels/relax_tiled.py
 // _shapes), K1's grid (32 x 8 threads per block, one thread per (J, I)
-// column) and K1's per-plane load pattern (relax_tiled.cu gather and
+// column) and K1's per-plane loads (relax_tiled.cu gather and
 // color_update_kernel): the 12 state values of the term table (and the 4
 // 'real' ones on plane 0), the 12 operator blocks (and the 'real' pair on
 // plane 0; float32, or bfloat16 as K1 reads them in perf mode), ud at k-1,
@@ -18,7 +18,16 @@
 // added, in a fixed order, into the output, so no load can be dropped and
 // the plain version (roofline.dma_only_plain) computes the same sums bit
 // for bit.  K1's time against this one's says whether K1 is bound by its
-// bytes.  Bound: memory.
+// bytes.  Bound: memory.  The JAX probe DMAs each window into VMEM once a
+// plane, and K1 stages its sibling quads through a cp.async ring: so the
+// forms with windows (dma_only_ring_kernel) stage the three extended quads'
+// (8 + 2) x (32 + 2) windows of a plane and the block's RHS in shared
+// memory, a ring of kWSlots planes (k-1 .. k+1 read, five in flight), and
+// read the 12 (16) terms from there.  A thread per column loading each
+// term from device memory (the first port) fetched every window value up
+// to four times through L1 and ran at ~0.8 TB/s; an RHS loaded into a
+// register a plane ahead left each plane waiting on its latency.  The
+// blocks form (dma_only_kernel) is the coalesced walk it always was.
 //
 // dma_only_bands: the same probe for K1 as the card's solver launches it
 // on an RB colour (relax_tiled.cu colour_kernel<float, B, true, false,
@@ -68,9 +77,47 @@ namespace {
 constexpr int kFmaChains = 8;
 constexpr int kFmaReps = 64;
 
-// which: 0 all, 1 the state windows, 2 the blocks (each with the RHS).  B:
-// the block type, float or bfloat16 (K1 on the low-precision smoother
-// operator), upcast at load as K1 does.
+// K1's grid block: 32 x 8 threads, a thread per (J, I) column
+constexpr int kWI = 32, kWJ = 8;
+constexpr int kWT = kWI * kWJ;
+// the windows' ring: planes k-1, k, k+1 (the term table's reach) and
+// kWSlots - 3 in flight ahead of them, each plane the three quads'
+// (kWJ+2) x (kWI+2) windows and the RHS
+constexpr int kWSlots = 8;
+constexpr int kWP = kWI + 2;
+constexpr int kWin = (kWJ + 2) * kWP;
+constexpr int kWQ = 3 * kWin;               // the windows, then the RHS
+constexpr int kWSlot = kWQ + kWT;
+constexpr int kWIters = (kWQ + kWT - 1) / kWT;
+constexpr size_t kWBytes = (size_t)kWSlots * kWSlot * sizeof(float);
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// a 4-byte copy to shared address dst
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(dst), "l"(src), "n"(4) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies of all but the newest N groups landed
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The first port's kernel, kept as it was for the blocks form (which 2):
+// a thread walks its column with coalesced loads.  Its windows and all
+// paths (which 0, 1) no longer launch (dma_only_ring_kernel runs those
+// forms); they stay so that the blocks form compiles to the code it
+// always ran (a copy without them measured slower on bfloat16 blocks:
+// scripts/micro_overlap.py, variant blocks_only).  B: the block type, float or bfloat16 (K1 on the low-precision
+// smoother operator), upcast at load as K1 does.
 template <typename B>
 __global__ void dma_only_kernel(const float* __restrict__ e0,
                                 const float* __restrict__ e1,
@@ -120,6 +167,131 @@ __global__ void dma_only_kernel(const float* __restrict__ e0,
             if (k > 0) acc = acc + ud[o - P];
             acc = acc + bet[o];
             if (gam != nullptr && k < nz - 1) acc = acc + gam[o];
+        }
+        out[o] = acc;
+    }
+}
+
+// which 0 (ALL) and 1 (the state windows, with the RHS): the windows are
+// staged plane by plane in shared memory through a cp.async ring (the
+// extended quads' rows, of W + 2 values, in 4-byte copies), as K1 stages
+// its sibling quads, and the terms read from there; the RHS rides in the
+// same ring (a thread's own value).  With ALL, the blocks, rb, ud, bet and
+// gam are single coalesced loads into registers, issued at the top of
+// their plane, before its barrier.
+template <typename B, bool ALL>
+__global__ void __launch_bounds__(kWT)
+dma_only_ring_kernel(const float* __restrict__ e0,
+                     const float* __restrict__ e1,
+                     const float* __restrict__ e2,
+                     const B* __restrict__ blocks,
+                     const B* __restrict__ rb, const float* __restrict__ ud,
+                     const float* __restrict__ bet,
+                     const float* __restrict__ gam,
+                     const float* __restrict__ bq, float* __restrict__ out,
+                     int nz, int H, int W, Terms tt) {
+    const int I = blockIdx.x * kWI + threadIdx.x;
+    const int J = blockIdx.y * kWJ + threadIdx.y;
+    const bool act = I < W && J < H;
+    const size_t P = (size_t)H * W;
+    const size_t c = (size_t)J * W + I;
+    const size_t wrow = (size_t)kBaseKeys * W;
+    const size_t EP = (size_t)(H + 2) * (W + 2);
+    extern __shared__ __align__(16) float ring[];
+    const int tid = threadIdx.y * kWI + threadIdx.x;
+    // this thread's window copies, the same every plane: the source at
+    // plane 0 (nullptr: none)
+    const float* wsrc[kWIters];
+    {
+        const int I0 = blockIdx.x * kWI, J0 = blockIdx.y * kWJ;
+        const int rows = min(kWJ, H - J0), cols = min(kWI, W - I0);
+#pragma unroll
+        for (int m = 0; m < kWIters; ++m) {
+            const int e = tid + m * kWT;
+            const int q = e / kWin, w = (e % kWin) / kWP, cc = e % kWP;
+            wsrc[m] = (q < 3 && w < rows + 2 && cc < cols + 2)
+                          ? (q == 0 ? e0 : q == 1 ? e1 : e2)
+                                + (size_t)(J0 + w) * (W + 2) + I0 + cc
+                          : nullptr;
+        }
+    }
+    const uint32_t sbase = smem_addr(ring) + (uint32_t)tid * 4;
+    const auto stage = [&](int k) {
+        const uint32_t s = sbase + ((unsigned)k % kWSlots) * (kWSlot * 4);
+#pragma unroll
+        for (int m = 0; m < kWIters; ++m)
+            if (wsrc[m] != nullptr)
+                cp_async4(s + m * kWT * 4, wsrc[m] + (size_t)k * EP);
+        if (act) cp_async4(s + kWQ * 4, bq + (size_t)k * P + c);
+    };
+    constexpr int ahead = kWSlots - 3;        // planes in flight past k+1
+#pragma unroll
+    for (int q = 0; q <= ahead; ++q) {
+        if (q < nz) stage(q);
+        cp_commit();
+    }
+    // a base term's offset in a plane's windows, worked out once
+    int toff[kBaseKeys];
+#pragma unroll
+    for (int m = 0; m < kBaseKeys; ++m)
+        toff[m] = tt.src[m] * kWin + (threadIdx.y + tt.oj[m]) * kWP
+                  + threadIdx.x + tt.oi[m];
+    for (int k = 0; k < nz; ++k) {
+        const size_t o = (size_t)k * P + c;
+        const bool rk = rb != nullptr && k == 0;
+        // the plane's coalesced loads, issued before its barrier
+        float vb[kBaseKeys], vr[2] = {0.0f, 0.0f};
+        float vu = 0.0f, vt = 0.0f, vg = 0.0f;
+        if (ALL && act) {
+            const B* brow = blocks + ((size_t)k * H + J) * wrow + I;
+#pragma unroll
+            for (int m = 0; m < kBaseKeys; ++m) vb[m] = up(brow[m * W]);
+            if (rk) {
+                vr[0] = up(rb[(size_t)J * 2 * W + I]);
+                vr[1] = up(rb[(size_t)J * 2 * W + W + I]);
+            }
+            if (k > 0) vu = ud[o - P];
+            vt = bet[o];
+            if (gam != nullptr && k < nz - 1) vg = gam[o];
+        }
+        cp_wait<ahead - 1>();                  // planes <= k+1 landed
+        // ... for every thread, and every thread is past plane k-1, so
+        // plane k-2's slot takes plane k+1+ahead
+        __syncthreads();
+        if (k + 1 + ahead < nz) stage(k + 1 + ahead);
+        cp_commit();
+        if (!act) continue;
+        // planes k-1, k, k+1: their slots, and whether they exist
+        const int s0 = ((unsigned)(k + kWSlots - 1) % kWSlots) * kWSlot;
+        const int s1 = ((unsigned)k % kWSlots) * kWSlot;
+        const int s2 = ((unsigned)(k + 1) % kWSlots) * kWSlot;
+        const bool lo = k > 0, hi = k + 1 < nz;
+        const auto term = [&](int dk, int off) {
+            if ((dk < 0 && !lo) || (dk > 0 && !hi)) return 0.0f;
+            return ring[(dk < 0 ? s0 : dk > 0 ? s2 : s1) + off];
+        };
+        float acc = ring[s1 + kWQ + tid];
+#pragma unroll
+        for (int m = 0; m < kBaseKeys; ++m)
+            acc = acc + term(tt.dk[m], toff[m]);
+        if (rk) {
+#pragma unroll
+            for (int m = kBaseKeys; m < kTerms; ++m)
+                acc = acc + term(tt.dk[m],
+                                 tt.src[m] * kWin
+                                     + (threadIdx.y + tt.oj[m]) * kWP
+                                     + threadIdx.x + tt.oi[m]);
+        }
+        if (ALL) {
+#pragma unroll
+            for (int m = 0; m < kBaseKeys; ++m) acc = acc + vb[m];
+            if (rk) {
+                acc = acc + vr[0];
+                acc = acc + vr[1];
+            }
+            if (k > 0) acc = acc + vu;
+            acc = acc + vt;
+            if (gam != nullptr && k < nz - 1) acc = acc + vg;
         }
         out[o] = acc;
     }
@@ -285,19 +457,45 @@ int launch_step_floor(const float* x, float* out, int nz, int ny, int nx,
     return (int)cudaErrorLaunchOutOfResources;
 }
 
+// the windows form stages what the term table reads: planes k-1 .. k+1
+// (the ring's reach), rows and columns 0 .. 2 of the extended quads
+bool terms_in_ring(const Terms& tt) {
+    for (int m = 0; m < kTerms; ++m)
+        if (tt.dk[m] < -1 || tt.dk[m] > 1 || tt.oj[m] < 0 || tt.oj[m] > 2
+            || tt.oi[m] < 0 || tt.oi[m] > 2 || tt.src[m] < 0 || tt.src[m] > 2)
+            return false;
+    return true;
+}
+
 template <typename B>
 int launch_dma_only(const void* e0, const void* e1, const void* e2,
                     const void* blocks, const void* rb, const void* ud,
                     const void* bet, const void* gam, const void* bq,
                     void* out, int nz, int H, int W, int which,
                     const Terms* tt, void* stream) {
-    const dim3 block(32, 8);
-    const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-    dma_only_kernel<B><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        (const float*)e0, (const float*)e1, (const float*)e2,
-        (const B*)blocks, (const B*)rb, (const float*)ud, (const float*)bet,
-        (const float*)gam, (const float*)bq, (float*)out, nz, H, W, which,
-        *tt);
+    if (which < 0 || which > 2 || (which != 2 && !terms_in_ring(*tt)))
+        return (int)cudaErrorInvalidValue;
+    const dim3 block(kWI, kWJ);
+    const dim3 grid((W + kWI - 1) / kWI, (H + kWJ - 1) / kWJ);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (which == 2)
+        dma_only_kernel<B><<<grid, block, 0, s>>>(
+            (const float*)e0, (const float*)e1, (const float*)e2,
+            (const B*)blocks, (const B*)rb, (const float*)ud,
+            (const float*)bet, (const float*)gam, (const float*)bq,
+            (float*)out, nz, H, W, which, *tt);
+    else if (which == 0)
+        dma_only_ring_kernel<B, true><<<grid, block, kWBytes, s>>>(
+            (const float*)e0, (const float*)e1, (const float*)e2,
+            (const B*)blocks, (const B*)rb, (const float*)ud,
+            (const float*)bet, (const float*)gam, (const float*)bq,
+            (float*)out, nz, H, W, *tt);
+    else
+        dma_only_ring_kernel<B, false><<<grid, block, kWBytes, s>>>(
+            (const float*)e0, (const float*)e1, (const float*)e2,
+            (const B*)blocks, (const B*)rb, (const float*)ud,
+            (const float*)bet, (const float*)gam, (const float*)bq,
+            (float*)out, nz, H, W, *tt);
     return (int)cudaGetLastError();
 }
 

@@ -117,6 +117,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # x out | nz H tj ng gw rc | stream
     lib.mg_probe_wide.argtypes = [p, p] + [i] * 6 + [p]
     lib.mg_probe_wide.restype = i
+    # elem ny nx | out[6]: K7's launch plan
+    lib.mg_residual_overlap_x_plan.argtypes = [i, i, i, p]
+    lib.mg_residual_overlap_x_plan.restype = i
     lib.mg_enable_peer.argtypes = [i]
     lib.mg_enable_peer.restype = i
     # s0 s1 bq0 bq1 ud0 ud1 bet0 bet1 band out0 out1 | nz H W tg0 bf16 |

@@ -5,10 +5,13 @@ version.
 Port of ``mgroms_tpu/ops/pallas/rdma_halo.py:residual_overlap_x`` (kernel
 ``_kernel``).  The TPU kernel overlaps an inter-chip RDMA of its edge
 columns with the interior columns' residual; the CUDA kernel
-(``csrc/rdma_halo.cu``) runs the interior blocks and the two seam columns'
-blocks in one launch per tile, the seam blocks reading the neighbours' edge
-columns through their device pointers.  As in the JAX package no solver
-path routes it: it is an alternative schedule of the shard_map residual.
+(``csrc/rdma_halo.cu``) is one launch per tile: a block owns a
+:data:`TILE` of columns and walks the planes through a ring of
+:data:`RING` planes in shared memory (state window with its halo, b, the 8
+band windows), and the seam is the halo column the edge blocks stage from
+the neighbours' edge columns through their device pointers; those blocks
+come first in block order.  As in the JAX package no solver path routes
+it: it is an alternative schedule of the shard_map residual.
 
 :func:`residual_overlap_x` runs inside parallel.mesh.shard_map over a
 (1, npx) mesh, as the JAX function runs inside ``jax.shard_map``.  For a
@@ -23,6 +26,8 @@ stream when it deposited its tile.  ``LAUNCHES`` counts the launches.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import stencil
@@ -30,6 +35,12 @@ from . import _build
 from ._build import check_launch, check_tensors, on_cpu, ptr
 
 LAUNCHES = {"residual_overlap_x": 0}
+
+# the kernel's block tile (rows, columns; a thread a point) and ring depth
+# (planes k-1, k, k+1 and one in flight), as csrc/rdma_halo.cu compiles
+# them (mg_residual_overlap_x_plan)
+TILE = (16, 32)
+RING = 4
 
 
 def reset_launches() -> None:
@@ -48,6 +59,49 @@ def check_peer(dev: torch.device, other: torch.device,
     if not can_access(dev, other):
         raise RuntimeError(f"{dev} cannot read {other} (no peer access); "
                            "K7 reads a neighbour tile in place")
+
+
+def block_order(ny: int, nx: int, tile=TILE) -> list:
+    """The kernel's blocks in launch order, as (row, column) tile indices:
+    the first and last tile columns (the seams), row by row, then the
+    interior columns, row by row."""
+    nby, nbx = -(-ny // tile[0]), -(-nx // tile[1])
+    edge = [0, nbx - 1] if nbx > 1 else [0]
+    return ([(bj, bi) for bj in range(nby) for bi in edge]
+            + [(bj, bi) for bj in range(nby) for bi in range(1, nbx - 1)])
+
+
+def design_bytes(nz: int, ny: int, nx_l: int, tile=TILE, itemsize: int = 4,
+                 real: bool = True) -> dict:
+    """The bytes one launch on a (nz, ny, nx_l) tile moves as designed,
+    halo re-reads included: per block and plane the 8 band windows
+    (bands 3-5 a row taller, 6-8 a column wider), the state window with
+    its two halo rows and columns, b, and r written; with ``real`` the
+    two plane-0 band values off the windows."""
+    tj, ti = tile
+    out = dict.fromkeys(("bands", "state", "b", "r"), 0)
+    for bj, bi in block_order(ny, nx_l, tile):
+        rows, cols = min(tj, ny - bj * tj), min(ti, nx_l - bi * ti)
+        out["bands"] += nz * (2 * rows * cols + 3 * (rows + 1) * cols
+                              + 3 * rows * (cols + 1))
+        out["state"] += nz * (rows + 2) * (cols + 2)
+        out["b"] += nz * rows * cols
+        out["r"] += nz * rows * cols
+    if real:
+        out["bands"] += 2 * ny * nx_l
+    return {k: v * itemsize for k, v in out.items()}
+
+
+def launch_plan(ny: int, nx: int, dtype=torch.float32) -> dict:
+    """The kernel's plan for a (ny, nx) tile, read from the build: tile,
+    ring slots, shared memory a block, blocks, blocks resident an SM
+    (needs a card)."""
+    out = (ctypes.c_int * 6)()
+    check_launch(_build.load().mg_residual_overlap_x_plan(
+        torch.tensor([], dtype=dtype).element_size(), ny, nx, out),
+        "residual_overlap_x plan")
+    return dict(tile=(out[0], out[1]), ring=out[2], smem=out[3],
+                blocks=out[4], per_sm=out[5])
 
 
 def residual_overlap_tile(p_l, b_l, cA_l, real_matrix: bool, p_west=None,

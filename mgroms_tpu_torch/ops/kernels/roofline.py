@@ -9,9 +9,12 @@ Port of the two Pallas probes of ``scripts/micro_roofline.py``
 
 ``dma_only`` loads what K1 (relax_tiled.color_update) loads on one target
 quad's gather blocks, in the pattern and grid of the JAX script's K1, and
-only adds it up; ``dma_only_bands`` does the same for K1 as the card's
-solver launches it, on an RB colour's band stack (counted as
-``dma_only``); ``fma_run`` measures the card's float32 FMA rate.  ``step_floor`` (no
+only adds it up (its windows and all forms stage the three extended
+quads' windows plane by plane through a ring in shared memory, as the JAX
+probe DMAs each window into VMEM once and K1 stages its siblings);
+``dma_only_bands`` does the same for K1 as the card's solver launches it,
+on an RB colour's band stack (counted as ``dma_only``); ``fma_run``
+measures the card's float32 FMA rate.  ``step_floor`` (no
 JAX counterpart) is the floor of K6's one-launch forms: their serial
 colour steps, each a barrier and an nz-deep chain, in one block or a
 thread block cluster.  Each wrapper runs its plain version for CPU
@@ -37,6 +40,12 @@ from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
 LAUNCHES = {"dma_only": 0, "fma_run": 0, "step_floor": 0}
 
 WHICH = ("all", "windows", "blocks")
+# the windows and all forms' block tile (rows, columns: K1's grid, a thread
+# a column) and the depth of their ring of planes in shared memory (planes
+# k-1, k, k+1 and the rest in flight), as csrc/roofline.cu compiles them
+# (kWJ, kWI, kWSlots)
+WINDOW_TILE = (8, 32)
+WINDOW_RING = 8
 # the target quad whose loads the probe makes: K1 is timed on it
 # (micro_roofline.py:78-79)
 TARGET = (0, 0)

@@ -869,11 +869,14 @@ def test_sweep_packed_refuses_a_plan_no_window_holds(cuda):
     assert sp.LAUNCHES == before
 
 
-@pytest.mark.parametrize("shape", [(5, 6, 40), (64, 512, 512)])
+# ragged (H, W) against the windows' 8 x 32 block tile, nz 1 and 2
+@pytest.mark.parametrize("shape", [(5, 6, 40), (64, 512, 512), (2, 9, 33),
+                                   (3, 17, 70), (1, 5, 7), (2, 1, 1)])
 @pytest.mark.parametrize("which", rl.WHICH)
 def test_dma_only_matches_plain(cuda, shape, which):
     """dma_only == its plain version exactly, with and without gam and
-    the 'real' pair, and on bfloat16 blocks."""
+    the 'real' pair, and on bfloat16 blocks (float32 and bfloat16
+    ``all`` and ``windows`` stage the windows through the ring)."""
     nz, H, W = shape
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
     f = lambda *s: torch.rand(s, generator=g, device=cuda) + 0.5
@@ -943,16 +946,25 @@ def _k7_run(mesh, p, b, cA, real, fn):
     return tmesh.join_tiles(r, p.device)
 
 
+# (nz, ny, npx, nx): down to two columns a tile; ragged tiles against
+# K7's 16 x 32 block tile (33 and 70 columns a tile, 7, 9 and 17 rows, nz
+# 1 and 2); (3, 9, 3, 96): each tile exactly one block wide, the middle
+# one staging both seam columns in the same block
+K7_SHAPES = [(5, 7, 1, 8), (5, 7, 2, 4), (5, 7, 3, 6), (5, 7, 4, 8),
+             (5, 7, 4, 64), (2, 7, 2, 66), (1, 9, 2, 140), (2, 9, 3, 99),
+             (1, 7, 1, 70), (2, 9, 4, 280), (3, 9, 3, 96), (2, 17, 2, 66),
+             (1, 33, 3, 210)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("npx,nx", [(1, 8), (2, 4), (3, 6), (4, 8),
-                                    (4, 64)])
+@pytest.mark.parametrize("nz,ny,npx,nx", K7_SHAPES)
 @pytest.mark.parametrize("real", [True, False])
-def test_overlap_residual_matches_plain(cuda, npx, nx, dtype, real):
+def test_overlap_residual_matches_plain(cuda, nz, ny, npx, nx, dtype, real):
     """K7 on a virtual (1, npx) mesh on one card, down to two columns a
-    tile: 0 ulp from its plain version and from K5 on the whole grid."""
+    tile and at ragged tiles: 0 ulp from its plain version and from K5 on
+    the whole grid."""
     from mgroms_tpu_torch.ops.kernels import rdma_halo as k7
     from mgroms_tpu_torch.parallel import mesh as tmesh
-    nz, ny = 5, 7
     cA, p, b = _full_inputs(nz, ny, nx, dtype, cuda, seed=nx + npx)
     mesh = tmesh.make_mesh(npx, 1, [cuda] * npx)
     k7.reset_launches()
@@ -962,6 +974,18 @@ def test_overlap_residual_matches_plain(cuda, npx, nx, dtype, real):
     assert torch.equal(got, want)
     assert torch.equal(got, ks.residual_tiled(extend_h1(p).contiguous(), b,
                                               cA, real))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_overlap_plan_matches_python(cuda, dtype):
+    """K7's compiled tile and ring are rdma_halo.TILE and RING, its blocks
+    those of block_order, and shared memory lets 2 float32 blocks (1,024
+    threads; 1 float64) share an SM."""
+    from mgroms_tpu_torch.ops.kernels import rdma_halo as k7
+    plan = k7.launch_plan(1024, 256, dtype)
+    assert plan["tile"] == k7.TILE and plan["ring"] == k7.RING
+    assert plan["blocks"] == len(k7.block_order(1024, 256))
+    assert plan["per_sm"] >= (2 if dtype == torch.float32 else 1), plan
 
 
 def test_overlap_residual_refuses_missing_peer_access(cuda, monkeypatch):

@@ -246,3 +246,86 @@ def test_micro_roofline_check_on_cpu():
                          "dma_only_blocks", "dma_only_bands",
                          "dma_only_bands_bf16", "fma_run"}
     assert all(v == 0.0 for v in rows.values()), rows
+
+
+def np_dma_only_ring(o, which, gam, real, tile=rl.WINDOW_TILE,
+                     ring=rl.WINDOW_RING):
+    """csrc/roofline.cu dma_only_ring_kernel's recipe in numpy (the
+    windows and all forms): per block of ``tile`` columns, each plane's
+    three extended-quad windows ((rows + 2) x (cols + 2), NaN where not
+    staged) staged into a ring of ``ring`` slots (planes 0 .. ring-3
+    first, plane k+1+(ring-3) into plane k-2's slot at step k), the terms
+    read from the slots of planes k-1 .. k+1 (a read of a plane its slot
+    does not hold fails), then the coalesced operands, added in
+    dma_only_plain's order in float32."""
+    e3, bq = o["e3"], o["bq"]
+    nz, H, W = bq.shape
+    tj, ti = tile
+    ahead = ring - 3
+    tt = term_table(rl.TARGET, gather_quads(rl.TARGET))
+    out = np.full_like(bq, np.nan)
+    for J0 in range(0, H, tj):
+        for I0 in range(0, W, ti):
+            rows, cols = min(tj, H - J0), min(ti, W - I0)
+            slots = [None] * ring
+
+            def stage(k):
+                win = np.full((3, tj + 2, ti + 2), np.nan, np.float32)
+                win[:, :rows + 2, :cols + 2] = [
+                    e[k, J0:J0 + rows + 2, I0:I0 + cols + 2] for e in e3]
+                slots[k % ring] = (k, win)
+
+            for q in range(min(ahead + 1, nz)):
+                stage(q)
+            for k in range(nz):
+                if k + 1 + ahead < nz:
+                    stage(k + 1 + ahead)
+                acc = bq[k, J0:J0 + rows, I0:I0 + cols].copy()
+                for m, (src, dk, oj, oi, _) in enumerate(tt):
+                    if m >= 12 and not (real and k == 0):
+                        break
+                    kk = k + dk
+                    if 0 <= kk < nz:
+                        held = slots[kk % ring]
+                        assert held[0] == kk, (kk, held[0])
+                        acc = acc + held[1][src, oj:oj + rows, oi:oi + cols]
+                    else:
+                        acc = acc + np.float32(0)
+                if which == "all":
+                    cut = (slice(J0, J0 + rows), slice(I0, I0 + cols))
+                    for m in range(12):
+                        acc = acc + o["blocks"][k][cut[0], m * W + I0:
+                                                   m * W + I0 + cols]
+                    if real and k == 0:
+                        acc = acc + o["rb"][0][cut[0], I0:I0 + cols]
+                        acc = acc + o["rb"][0][cut[0], W + I0:W + I0 + cols]
+                    if k > 0:
+                        acc = acc + o["ud"][k - 1][cut]
+                    acc = acc + o["bet"][k][cut]
+                    if gam and k < nz - 1:
+                        acc = acc + o["gam"][k][cut]
+                out[k, J0:J0 + rows, I0:I0 + cols] = acc
+    return out
+
+
+@pytest.mark.parametrize("shape", [(5, 6, 40), (1, 9, 33), (3, 17, 70),
+                                   (2, 8, 32), (9, 3, 5)])
+@pytest.mark.parametrize("which", ["windows", "all"])
+@pytest.mark.parametrize("real", [True, False])
+@pytest.mark.parametrize("lp", [False, True])
+def test_dma_only_ring_recipe_matches_plain(shape, which, real, lp):
+    """The windows' ring recipe (the windows and all forms) ==
+    dma_only_plain bit for bit at ragged (H, W) against the 8 x 32 block
+    tile, nz from 1 to 9 (the ring wraps), with float32 or bfloat16
+    blocks."""
+    o = operands(*shape, seed=sum(shape) + len(which))
+    if lp:
+        for k in ("blocks", "rb"):
+            o[k] = torch.from_numpy(o[k]).to(torch.bfloat16).float().numpy()
+    t = {k: (tuple(torch.from_numpy(x) for x in v) if k == "e3"
+             else torch.from_numpy(v)) for k, v in o.items()}
+    want = rl.dma_only_plain(t["e3"], t["bq"], t["blocks"], t["ud"],
+                             t["bet"], t["gam"], which,
+                             t["rb"] if real else None).numpy()
+    np.testing.assert_array_equal(np_dma_only_ring(o, which, True, real),
+                                  want)
