@@ -84,7 +84,13 @@ Phases (any failed check raises, so the exit code is non-zero):
    history slot, decision, run count), in float32 and float64 at a NaN
    residual, at i == maxiter, at res == tol, inside the loop and in its
    prologue; timed (events and device time) beside its bytes bound and
-   its latency floor (the device time of one int32 += 1).
+   its latency floor (the device time of one int32 += 1).  Last, K4 (one
+   sweep, float32 and float64, on the float32/float64 and the bfloat16
+   band stack), K3 (its three modes, both operator layouts) and K1-K2
+   (every colour, both layouts, K1 also on the bfloat16 operator) on the
+   level-0 operator of a land-masked CUC 128^2 x 32 (bmask: phase 20's
+   coastal strip and island, whose columns couple to no neighbour), each
+   to 0 ulp from its plain version (masked_kernels).
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -158,7 +164,10 @@ Phases (any failed check raises, so the exit code is non-zero):
 18. refine.refined_pressure_solve (mixed-precision defect correction:
    float32 F-cycles, float64 residuals) on CUC 1024^2 x 64 to 1e-12
    within REFINE_ROUNDS rounds, the inner solve in phase 4's config and
-   in perf mode (phase 9's), each launching exactly its path's kernels;
+   in perf mode (phase 9's), both relaxing the coarsest level as those
+   phases do, and in a run of its own phase 4's config with the direct
+   coarsest solve (scripts/refine_solve.py's default, as the JAX
+   script's), each launching exactly its path's kernels;
    rounds, inner F-cycles, history, seconds and the pair's peak memory
    (scripts/refine_solve.py's JSON line).
 19. The loop modes (loop_phase): scripts/solve_wall.py on CUC 1024^2 x 64
@@ -171,19 +180,40 @@ Phases (any failed check raises, so the exit code is non-zero):
    one: the device loop's build seconds against its node count (cloned
    and, for the time only, captured into the WHILE body), its solves
    against the replayed host loop's, hist_cpc2[k] == hist_cpc1[2k].
+20. CUC 1024^2 x 64, float32, bmask=True: land over the western 2 % of
+   the columns (the shelf side) and a 16 x 16 island mid-domain
+   (cuc_land_mask): <= 1e-4 within BMASK_MAXITER F-cycles, printed beside
+   phase 4's; the interior water max|div| (2 cells off the walls, the
+   water eroded twice, as tests/test_bmask.py) cut >= 100x; K4 and K3
+   and no other kernel; the replayed history equal to the eager one.
+21. CUC 1024^2 x 64, float32, coarsest='direct' (the coarsest level one
+   product with its dense inverse): <= 1e-4 within 8 F-cycles, K4 and K3
+   the only hand-written kernels; its F-cycles, replayed median, step
+   graph node count, device ops and idle share printed beside phase 4's
+   (a record, no claim).
+22. Seamount 64^3, float32, tridiag='pcr' (PCR on the masked relax
+   level, the coarsest; K4 and K3 keep Thomas): <= 1e-4 within 3
+   F-cycles, its history printed beside phase 2's.
+23. Small checks: netcdf_output on seamount 32^3 into a temporary
+   directory (every file of tests/test_diagnostics.py::
+   test_netcdf_output_stage_dumps written, p_end equal to the returned
+   pressure); gs_exact (relax_method='GS') on seamount 8^3 in float64 on
+   the card, eagerly (graph=True refused), equal to the same solve on the
+   CPU to 1e-12 relative; testgalerkin on seamount 64^3, level 1, its
+   ratio printed and within (3, 5).
 
-Every single-device solve (phases 2-10, 14-19, the inner solves of 18)
+Every single-device solve (phases 2-10, 14-22, the inner solves of 18)
 replays its captured step (capture.py; the model's first solve captures
 it): phases 2-10 and 14-17 hold the replayed solve to the same model's
 eager solve (graph=False) to every digit of the history, the pressure bit
-for bit and the same launch counts, and print the one-off warm-up,
+for bit and the same launch counts (phases 20-22 too), and print the one-off warm-up,
 capture and instantiation seconds; the launch counts every check reads
 are the replayed solve's: a replay adds its graph's kernel nodes, by
 function, to the counters, and the device loop its body's times the
 runs its condition kernel counted on the device (capture.py).  Phase 12
 (a distributed backend) stays eager.
 
-Every phase with quad levels (2, 4-6, 8-10, 12, 14, 17) checks that every
+Every phase with quad levels (2, 4-6, 8-10, 12, 14, 17, 20-22) checks that every
 quad level (every tile on phase 12's mesh) holds the band stack only, no
 gather blocks, whatever route smooths it; every phase prints its peak
 device memory (set-up and solve).
@@ -196,7 +226,7 @@ float32 phase reaches <= 1e-4 within its cycle limit, meets its default
 phase's max|div| limits and launches every kernel of its path and no
 other.
 
-Phases 2, 4-10, 12 and 14-17 also time one F-cycle (CUDA events, median
+Phases 2, 4-10, 12, 14-17 and 20-22 also time one F-cycle (CUDA events, median
 of 5) eagerly and, but for phase 12, as a replay, and trace one F-cycle
 with torch.profiler (device activity only), eagerly and as a replay:
 device ops, device busy time against the same traced step's wall time
@@ -259,7 +289,7 @@ from mgroms_tpu_torch.scripts import micro_sweep_fused as msf
 from mgroms_tpu_torch.scripts import (loop_graph_build, refine_solve,
                                       solve_wall)
 from mgroms_tpu_torch.scripts._timing import card_line, median_ms
-from mgroms_tpu_torch.solver import solve_init, solve_step
+from mgroms_tpu_torch.solver import solve_init, solve_step, testgalerkin
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = "mgroms_tpu_torch/csrc/"
@@ -343,6 +373,11 @@ GS_CYCLES = 2
 F64_MAXITER = 6
 # phase 18: the refined solve's round limit (refine_solve.run's default)
 REFINE_ROUNDS = 8
+# phase 20 (CUC with land masking) reaches 1e-4 within this many F-cycles
+BMASK_MAXITER = 12
+# phase 21 (CUC, coarsest='direct') and phase 22 (seamount 64^3, PCR)
+DIRECT_MAXITER = 8
+PCR_MAXITER = 3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
 F32_FLOPS = 67e12                # float32 outside the tensor cores
 
@@ -473,6 +508,7 @@ def kernel_phase(dev):
     probe_kernels(dev, results)
     loop_kernels(dev, results)
     sass_async_copies()
+    masked_kernels(dev, results)
     return results
 
 
@@ -1278,13 +1314,16 @@ def probe_kernels(dev, results):
 # ------------------------------------------------------- slice phases
 
 def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
-              **cfg):
+              rmask=None, water=None, **cfg):
     """The user's path: NHModel -> set_matrices [-> distribute over a
     virtual ``mesh`` (npx, npy) of ``dev``] -> solve -> check_
     nondivergence, with ``SolverConfig(dtype=dtype, **cfg)``.  Returns the
     model, SolveInfo, the max|div| ratios after/before over the whole grid
     and over the interior (the 2-cell wall ring excluded), set-up seconds
     and peak device memory; the pressure is kept as ``m.p_solved``.
+    ``rmask`` is the land mask (set_matrices'); with ``water`` (a (ny, nx)
+    boolean array) the max|div| ratio over those columns is kept as
+    ``m.water_ratio``.
     On a single-device model the solve replays its captured step (the
     model's first solve captures it) and is then held to the same model's
     eager solve (:func:`eager_check`); the launch counts left are the
@@ -1292,8 +1331,8 @@ def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     m = NHModel(nx, ny, nz, cfg=SolverConfig(dtype=dtype, **cfg), device=dev)
-    m.set_matrices(case.dx, case.dy, case.zeta, case.h, hc=case.hc,
-                   theta_b=case.theta_b, theta_s=case.theta_s)
+    m.set_matrices(case.dx, case.dy, case.zeta, case.h, rmask=rmask,
+                   hc=case.hc, theta_b=case.theta_b, theta_s=case.theta_s)
     if mesh:
         m.distribute(*mesh, devices=[dev] * (mesh[0] * mesh[1]),
                      comm="shard_map")
@@ -1305,6 +1344,11 @@ def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
     div = float(m.check_nondivergence(uc, vc, wc))
     div0 = float(m.check_nondivergence(u, v, w))
     inner = float(m.rhs(uc, vc, wc)[:, 2:-2, 2:-2].abs().max())
+    if water is not None:
+        cols = torch.as_tensor(water, device=dev)
+        m.water_ratio = float(m.rhs(uc, vc, wc)[:, cols].abs().max()) / div0
+        print(f"  water max|div| ratio {m.water_ratio:.3e} over "
+              f"{int(cols.sum())} columns")
     check(torch.isfinite(p).all() and p.shape == (nz, ny, nx),
           "pressure not finite / wrong shape")
     m.p_solved = p
@@ -1404,9 +1448,11 @@ def fcycle_ms(m, reps=5):
 
 
 def print_fcycle(m):
+    """Prints and returns fcycle_ms(m)."""
     eager, replay = fcycle_ms(m)
     print(f"  F-cycle median {eager:.3f} ms eager"
           + (f", {replay:.3f} ms replayed" if replay is not None else ""))
+    return eager, replay
 
 
 def trace(fn, tries=3):
@@ -1453,7 +1499,8 @@ def profile_fcycle(m, top=8):
     and ||r||): the counts are printed with their difference (the
     profiler drops a few events of a ~40k-op trace now and then; the
     launch counts are held exactly by :func:`eager_check`); a replay
-    trace with no device op fails."""
+    trace with no device op fails.  Returns the eager step's (ops, busy
+    ms, idle share) and the replay's (None without one)."""
     be = m.backend
     u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
                                  device=m.device)
@@ -1465,6 +1512,7 @@ def profile_fcycle(m, top=8):
                                            m.cfg)
 
     n, busy_ms, wall_ms, by_name = trace(eager)
+    out = {"eager": (n, busy_ms, 1 - busy_ms / wall_ms), "replay": None}
     print(f"  profile: {n} device ops, device busy {busy_ms:.3f} ms "
           f"of {wall_ms:.3f} ms traced wall, idle share "
           f"{1 - busy_ms / wall_ms:.4f}")
@@ -1492,6 +1540,8 @@ def profile_fcycle(m, top=8):
               f" by {rn - n - copies}), device busy {rbusy:.3f} ms of "
               f"{rwall:.3f} ms traced wall, idle share "
               f"{1 - rbusy / rwall:.4f}")
+        out["replay"] = (rn, rbusy, 1 - rbusy / rwall)
+    return out
 
 
 def k6_expected(m) -> collections.Counter:
@@ -1786,21 +1836,25 @@ def refine_phase(dev):
     """Phase 18: refine.refined_pressure_solve on CUC 1024^2 x 64 to
     1e-12 within REFINE_ROUNDS rounds, the inner float32 solve in phase
     4's config (K4 and K3) and in perf mode (phase 9's: K4 on bfloat16
-    bands and K3), each launching its kernels and no other; rounds, inner
-    F-cycles, history, time and the pair's peak memory printed
-    (scripts/refine_solve.run)."""
+    bands and K3), both relaxing the coarsest level as those phases do;
+    then, as a run of its own, phase 4's config with the coarsest level
+    solved by its dense inverse (coarsest='direct', refine_solve's
+    default, as the JAX script's).  Each launches its kernels and no
+    other; rounds, inner F-cycles, history, time and the pair's peak
+    memory printed (scripts/refine_solve.run)."""
     print("== phase 18: refined_pressure_solve, CUC 1024^2 x 64, tol 1e-12")
     t0 = time.perf_counter()
-    for bf16, k4 in ((False, "relax_fused_sweep"),
-                     (True, "relax_fused_sweep_bf16")):
+    for bf16, coarsest, k4 in ((False, "relax", "relax_fused_sweep"),
+                               (True, "relax", "relax_fused_sweep_bf16"),
+                               (False, "direct", "relax_fused_sweep")):
         reset_launches()
         row = refine_solve.run("cuc", 1024, 1024, 64, bf16_bands=bf16,
                                device=dev, max_rounds=REFINE_ROUNDS,
-                               verbose=True)
+                               verbose=True, coarsest=coarsest)
         print(json.dumps(row))
         check(row["final_f64_rel_residual"] <= 1e-12,
-              f"refine stopped at {row['final_f64_rel_residual']} after "
-              f"{row['rounds']} rounds")
+              f"refine ({coarsest}) stopped at "
+              f"{row['final_f64_rel_residual']} after {row['rounds']} rounds")
         check_path(launches(), {k4} | K3)
         torch.cuda.empty_cache()
     print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
@@ -1890,6 +1944,292 @@ def loop_phase(case, case_seamount, dev):
     return counts
 
 
+# ------------------------------------------------------ phases 20-23
+
+def cuc_land_mask(ny, nx):
+    """Phase 20's land: the western 2 % of the columns (the synthetic
+    slope's shelf side, x < 0.35) and a 16 x 16 island mid-domain
+    (rmask 0 on land)."""
+    rmask = np.ones((ny, nx))
+    rmask[:, :max(1, round(0.02 * nx))] = 0.0
+    j0, i0 = ny // 2 - 8, nx // 2 - 8
+    rmask[j0:j0 + 16, i0:i0 + 16] = 0.0
+    return rmask
+
+
+def water_interior(rmask):
+    """The water columns 2 cells off the walls and eroded twice off the
+    land (tests/test_bmask.py's criterion)."""
+    from scipy.ndimage import binary_erosion
+    water = rmask > 0.5
+    interior = np.zeros_like(water)
+    interior[3:-3, 3:-3] = True
+    return binary_erosion(water, iterations=2) & interior
+
+
+def masked_kernels(dev, results):
+    """Phase 1, last part: the kernels on a land-masked operator, the
+    level-0 operator of CUC 128^2 x 32 with bmask and cuc_land_mask's
+    land.  K4 (one sweep) on the band stack in float32 and float64 and on
+    its bfloat16 copy with consistent pivots; K3 in its three modes and
+    K1-K2 on every colour (K1 also on the bfloat16 operator where it has
+    an instance), on the band stack and on the gather blocks: each held
+    to its plain version to 0 ulp, untimed."""
+    nx = ny = 128
+    nz = 32
+    case = setup_cuc_synthetic(nx, ny, nz)
+    rmask = cuc_land_mask(ny, nx)
+    for dtype in (torch.float32, torch.float64):
+        m = NHModel(nx, ny, nz, cfg=SolverConfig(
+            dtype=str(dtype).split(".")[1], bmask=True), device=dev)
+        m.set_matrices(case.dx, case.dy, case.zeta, case.h, rmask=rmask,
+                       hc=case.hc, theta_b=case.theta_b,
+                       theta_s=case.theta_s)
+        cA = m.ops[0].cA
+        del m
+        g = torch.Generator(device=dev).manual_seed(23)
+        q = rc.split_quads(torch.randn((nz, ny, nx), generator=g,
+                                       dtype=dtype, device=dev))
+        bq = rc.split_quads(torch.randn((nz, ny, nx), generator=g,
+                                        dtype=dtype, device=dev))
+        e = rc.extend_quads(q)
+        e4 = tuple(e[k] for k in rc._TKEYS)
+        scale = max(float(x.abs().max()) for x in bq.values())
+        for layout in ("bands", "blocks"):
+            base = (rc.build_band_pack if layout == "bands"
+                    else rc.build_compact_pack)(cA, True)
+            for lp in (False, True):
+                if lp and dtype == torch.float64 and layout == "blocks":
+                    continue        # no bfloat16 blocks for float64 state
+                pack = rc.attach_lp(base) if lp else base
+                label = f"masked {layout}" + (" bf16" if lp else "")
+                if layout == "bands":
+                    _, _, band = ksf.sweep_bands(pack, dtype)
+                    hold(results, ksf.ENTRIES[(dtype, band)][1], label,
+                         dtype, lambda: ksf.relax_fused_sweep(q, bq, pack, 1),
+                         lambda: ksf.relax_fused_sweep_plain(q, bq, pack, 1),
+                         None, 0, 0, None, exact=True)
+                band = torch.bfloat16 if lp else dtype
+                if (dtype, band) in kt.COLOUR_ENTRIES:
+                    k1 = "color_update_bf16" if lp else "color_update"
+                    for colour in COLOURS:
+                        hold(results, k1, f"{label} {colour}", dtype,
+                             lambda c=colour: _stk(kt.color_update(
+                                 e, bq, pack, c)),
+                             lambda c=colour: _stk(kt.color_update_plain(
+                                 e, bq, pack, c)), None, 0, 0, None,
+                             exact=True)
+                if lp:
+                    continue
+                for colour in rc.colour_targets("RB"):
+                    hold(results, "color_update_emit", f"{label} {colour}",
+                         dtype,
+                         lambda c=colour: tuple(_stk(d) for d in
+                                                kt.color_update_emit(
+                                                    e, bq, pack, c)),
+                         lambda c=colour: tuple(_stk(d) for d in
+                                                kt.color_update_emit_plain(
+                                                    e, bq, pack, c)),
+                         scale, 0, 0, None, exact=True)
+                for mode, targets in (("coarse", rc._TKEYS),
+                                      ("residual", rc._TKEYS),
+                                      ("zsum", ((0, 0), (1, 1)))):
+                    name = ("residual_quads" if mode == "residual"
+                            else "residual_restrict")
+                    hold(results, name, f"{label} {mode}", dtype,
+                         lambda mo=mode, tg=targets: kt.residual_restrict(
+                             e4, bq, pack, mo, tg),
+                         lambda mo=mode, tg=targets: kt.residual_restrict_plain(
+                             e4, bq, pack, mo, tg), scale, 0, 0, None,
+                         exact=True)
+        del cA, q, bq, e, e4
+        torch.cuda.empty_cache()
+
+
+def record(m, info, fcycle, prof):
+    """A phase's numbers for the comparisons of phases 20-21: F-cycles,
+    medians (eager, replayed), the captured step's node count, the eager
+    and replayed traces' (ops, busy ms, idle share)."""
+    graphs = list(m.backend.graphs.values())
+    return dict(niter=info.niter, eager_ms=fcycle[0], replay_ms=fcycle[1],
+                nodes=graphs[0].nodes if graphs else None,
+                eager=prof["eager"], replay=prof["replay"])
+
+
+def print_beside(label, rec, phase4):
+    """One phase's record beside phase 4's."""
+    for key, name in (("niter", "F-cycles to 1e-4"),
+                      ("eager_ms", "F-cycle median eager (ms)"),
+                      ("replay_ms", "F-cycle median replayed (ms)"),
+                      ("nodes", "captured step graph nodes")):
+        print(f"  {name}: {rec[key]} {label}, {phase4[key]} phase 4")
+    for key in ("eager", "replay"):
+        (n, busy, idle), (n4, busy4, idle4) = rec[key], phase4[key]
+        print(f"  {key} trace: {n} device ops, busy {busy:.3f} ms, idle "
+              f"share {idle:.4f} {label}; {n4} ops, busy {busy4:.3f} ms, "
+              f"idle share {idle4:.4f} phase 4")
+
+
+def bmask_phase(case, dev, phase4):
+    """Phase 20: CUC 1024^2 x 64 float32 with bmask and cuc_land_mask's
+    land (module docstring).  Returns the launch counts."""
+    print("== phase 20: CUC 1024^2 x 64 float32, bmask=True (coastal strip "
+          "over the western 2 % of the columns, a 16 x 16 island)")
+    t0 = time.perf_counter()
+    rmask = cuc_land_mask(1024, 1024)
+    print(f"  land columns {int((rmask < 0.5).sum())} of {rmask.size}")
+    reset_launches()
+    m, info, ratio, inner, _, _ = run_model(
+        1024, 1024, 64, case, "float32", dev, tol=1e-4,
+        maxiter=BMASK_MAXITER, rmask=rmask, water=water_interior(rmask),
+        bmask=True)
+    counts = launches()
+    print(f"  launches {counts}")
+    print(f"  F-cycles to 1e-4: {info.niter} with land masking (limit "
+          f"{BMASK_MAXITER}), {phase4['niter']} in phase 4")
+    check(info.res <= 1e-4 and info.niter <= BMASK_MAXITER,
+          f"bmask: {info.res} after {info.niter} cycles")
+    check(m.water_ratio <= 1e-2,
+          f"interior water max|div| cut only to {m.water_ratio}")
+    check_path(counts, {"relax_fused_sweep"} | K3)
+    check_band_levels(m)
+    rec = record(m, info, print_fcycle(m), profile_fcycle(m))
+    print_beside("phase 20", rec, phase4)
+    del m
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
+def direct_phase(case, dev, phase4):
+    """Phase 21: CUC 1024^2 x 64 float32 with coarsest='direct' (module
+    docstring).  Returns the launch counts."""
+    print("== phase 21: CUC 1024^2 x 64 float32, coarsest='direct'")
+    t0 = time.perf_counter()
+    reset_launches()
+    m, info, ratio, inner, setup_s, _ = run_model(
+        1024, 1024, 64, case, "float32", dev, tol=1e-4,
+        maxiter=DIRECT_MAXITER, coarsest="direct")
+    counts = launches()
+    Ainv = m.ops[-1].Ainv
+    s = m.levels[-1]
+    print(f"  coarsest level {(s.nzg, s.nyg, s.nxg)}: dense inverse "
+          f"{tuple(Ainv.shape)} {Ainv.dtype} ({nbytes(Ainv) / 2**20:.1f} "
+          f"MiB), set-up {setup_s:.3f} s")
+    print(f"  launches {counts}")
+    check(info.res <= 1e-4 and info.niter <= DIRECT_MAXITER,
+          f"direct: {info.res} after {info.niter} cycles")
+    check(ratio <= 2.5e-2 and inner <= 1e-2,
+          f"max|div| cut only to {ratio} (interior {inner})")
+    check_path(counts, {"relax_fused_sweep"} | K3)
+    check_band_levels(m)
+    rec = record(m, info, print_fcycle(m), profile_fcycle(m))
+    print_beside("phase 21", rec, phase4)
+    del m, Ainv
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
+def pcr_phase(case_seamount, dev, seamount_history):
+    """Phase 22: seamount 64^3 float32 with tridiag='pcr' (module
+    docstring).  Returns the launch counts."""
+    print("== phase 22: seamount 64^3 float32, tridiag='pcr'")
+    t0 = time.perf_counter()
+    reset_launches()
+    m, info, ratio, inner, _, _ = run_model(
+        64, 64, 64, case_seamount, "float32", dev, tol=1e-4,
+        maxiter=PCR_MAXITER, tridiag="pcr")
+    counts = launches()
+    print(f"  launches {counts}")
+    print(f"  history {['%.6e' % h for h in info.history]} with PCR; phase "
+          f"2 {['%.6e' % h for h in seamount_history]}")
+    check(info.res <= 1e-4 and info.niter <= PCR_MAXITER,
+          f"PCR: {info.res} after {info.niter} cycles")
+    check(ratio <= 1e-2 and inner <= 1e-2,
+          f"max|div| cut only to {ratio} (interior {inner})")
+    check_path(counts, {"relax_fused_sweep"} | K3)
+    check_band_levels(m)
+    print_fcycle(m)
+    del m
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+    return counts
+
+
+def small_phase(dev):
+    """Phase 23: netcdf_output, gs_exact and testgalerkin at small sizes
+    (module docstring)."""
+    import tempfile
+    from mgroms_tpu_torch.io.diagnostics import read_field
+    print("== phase 23: netcdf_output (seamount 32^3), gs_exact (seamount "
+          "8^3 float64), testgalerkin (seamount 64^3)")
+    t0 = time.perf_counter()
+    n = 32
+    with tempfile.TemporaryDirectory() as out:
+        m = NHModel(n, n, n, cfg=SolverConfig(
+            dtype="float32", netcdf_output=True, output_dir=out), device=dev)
+        c = setup_seamount(n, n, n)
+        m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
+                       theta_b=c.theta_b, theta_s=c.theta_s)
+        uvw = initial_velocities(n, n, n, dtype=m.dtype, device=dev)
+        uc, vc, wc, p, info = m.solve(*uvw, tol=1e-4, maxiter=6)
+        m.check_nondivergence(uc, vc, wc)
+        files = sorted(os.listdir(out))
+        want = ["dx_dx_0000_0001.nc", "dy_dy_0000_0001.nc",
+                "zr_zr_0000_0001.nc", "zw_zw_0000_0001.nc",
+                "b_b_0000_0001.nc", "p_end_p_0000.nc", "r_end_r_0000.nc",
+                "p_p_0000_0001.nc", "check_b_0000_0001.nc"] + [
+            f"cA_ca_0000_{lev:04d}.nc" for lev in range(1, len(m.levels) + 1)]
+        missing = sorted(set(want) - set(files))
+        print(f"  netcdf_output: {len(files)} files written, "
+              f"{info.niter} F-cycles; missing {missing}")
+        check(not missing, f"netcdf dumps missing: {missing}")
+        pd = read_field(os.path.join(out, "p_end_p_0000.nc"), "p")
+        check(np.array_equal(pd, p.cpu().numpy()),
+              "p_end differs from the returned pressure")
+        del m
+    n = 8
+    kw = dict(dtype="float64", relax_method="GS", gs_exact=True)
+    hist = {}
+    for d in (dev, "cpu"):
+        m = NHModel(n, n, n, cfg=SolverConfig(**kw), device=d)
+        c = setup_seamount(n, n, n)
+        m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc,
+                       theta_b=c.theta_b, theta_s=c.theta_s)
+        uvw = initial_velocities(n, n, n, device=d)
+        if d != "cpu":
+            try:
+                m.solve(*uvw, tol=0.0, maxiter=1, graph=True)
+                check(False, "gs_exact accepted graph=True")
+            except ValueError:
+                pass
+        *_, p, info = m.solve(*uvw, tol=0.0, maxiter=2)
+        check(not m.backend.graphs, "gs_exact captured a graph")
+        hist[str(d)] = (info.history, p.cpu(), info.time_s)
+    (hc, pc, tc), (hh, ph, th) = hist[str(dev)], hist["cpu"]
+    rel = max(abs(a / b - 1) for a, b in zip(hc, hh))
+    perr = float((pc - ph).abs().max() / ph.abs().max())
+    print(f"  gs_exact 8^3 float64: history {['%.6e' % h for h in hc]} on "
+          f"the card ({tc:.2f} s), max rel deviation from the CPU's {rel:.3e}"
+          f", pressure {perr:.3e} (CPU {th:.2f} s); graph=True refused")
+    check(rel <= 1e-12 and perr <= 1e-12, "gs_exact differs from the CPU")
+    n = 64
+    m = NHModel(n, n, n, cfg=SolverConfig(dtype="float32"), device=dev)
+    c = setup_seamount(n, n, n)
+    m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc, theta_b=c.theta_b,
+                   theta_s=c.theta_s)
+    norm_c, norm_f, ratio = testgalerkin(m.backend, 1, m.cfg)
+    _, _, ratio_r = testgalerkin(m.backend, 1, m.cfg, field="random")
+    print(f"  testgalerkin seamount 64^3 level 1: <p, A_c p> {norm_c:.6e}, "
+          f"<Pp, A_f Pp> {norm_f:.6e}, ratio {ratio:.4f} (smooth), "
+          f"{ratio_r:.4f} (random)")
+    check(3.0 < ratio < 5.0, f"Galerkin ratio {ratio}")
+    del m
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -1975,8 +2315,7 @@ def main() -> int:
     # emitted residual's ring patches still fails
     check(inner <= 1e-2, f"CUC interior max|div| cut only to {inner}")
     check(ratio <= 2.5e-2, f"CUC whole-grid max|div| cut only to {ratio}")
-    print_fcycle(m)
-    profile_fcycle(m)
+    phase4 = record(m, info, print_fcycle(m), profile_fcycle(m))
     del m
     torch.cuda.empty_cache()
     phase_counts = {4: counts}
@@ -2062,6 +2401,10 @@ def main() -> int:
     phase_counts[17] = f64_phase(case, case_seamount, dev)
     refine_phase(dev)
     phase_counts[19] = loop_phase(case, case_seamount, dev)
+    phase_counts[20] = bmask_phase(case, dev, phase4)
+    phase_counts[21] = direct_phase(case, dev, phase4)
+    phase_counts[22] = pcr_phase(case_seamount, dev, seamount_history)
+    small_phase(dev)
 
     for name, (src, _, phase) in KERNELS.items():
         print(f"  {name}: {phase_counts[phase][name]} launches in phase "

@@ -17,8 +17,11 @@ order.  Band semantics (mg_define_matrix.f90:219-227):
 Layouts: 3-D arrays (nz, ny, nx); "e1" arrays halo-1 extended (ny+2, nx+2);
 "e2" arrays (zr, zw only) halo-2 extended (ny+4, nx+4).
 
-Not ported yet: the ``bmask`` boundary-mask terms and ``dense_inverse``
-(the ``coarsest='direct'`` solve) — both raise ``NotImplementedError``.
+With ``bmask`` the land mask enters the u/v-point masks, the k=1 cross
+terms and the mirrored halo ring of the bands (the reference's 4-D cA
+exchange, :611-613).  :func:`dense_inverse` gives the coarsest level's
+dense inverse for ``coarsest='direct'``.  Aggressive z-coarsening of the
+matrices raises, as in the JAX package and the reference.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ class LevelOperator(NamedTuple):
     cA: torch.Tensor      # (8, nz, ny+2, nx+2) stencil bands
     umask: torch.Tensor   # (ny+2, nx+2)
     vmask: torch.Tensor   # (ny+2, nx+2)
+    # dense inverse of the coarsest level's operator (nc, nc) for the
+    # ``coarsest='direct'`` exact coarse solve; None elsewhere
+    Ainv: torch.Tensor | None = None
 
 
 class FineMetrics(NamedTuple):
@@ -92,6 +98,19 @@ def slope_terms(dx: torch.Tensor, dy: torch.Tensor,
     return dzw, zx, zy, cw
 
 
+def _mirror_ring(a: torch.Tensor) -> torch.Tensor:
+    """The outermost extended ring overwritten with the adjacent values:
+    the physical-boundary part of the 4-D cA exchange the reference runs
+    when ``bmask`` (mg_define_matrix.f90:611-613, a fill_halo_4D mirror).
+    Rows first, then columns, as in the JAX package."""
+    a = a.clone()
+    a[..., 0, :] = a[..., 1, :]
+    a[..., -1, :] = a[..., -2, :]
+    a[..., :, 0] = a[..., :, 1]
+    a[..., :, -1] = a[..., :, -2]
+    return a
+
+
 def assemble_bands(dx: torch.Tensor, dy: torch.Tensor,
                    zre: torch.Tensor, zwe: torch.Tensor,
                    rmaske: torch.Tensor, bmask: bool) -> LevelOperator:
@@ -103,8 +122,6 @@ def assemble_bands(dx: torch.Tensor, dy: torch.Tensor,
       zre, zwe: halo-2 extended vertical grids, (nz[, +1], ny+4, nx+4).
       rmaske: halo-1 extended rho-mask.
     """
-    if bmask:
-        raise NotImplementedError("bmask assembly is not ported yet")
     nz = zre.shape[0]
     J, I = dx.shape
     ny, nx = J - 2, I - 2
@@ -113,6 +130,11 @@ def assemble_bands(dx: torch.Tensor, dy: torch.Tensor,
     _, zx, zy, cw = slope_terms(dx, dy, zre, zwe)
     zw1 = zwe[:, 1:-1, 1:-1]
     cwsum = cw[:-1] + cw[1:]              # cw(k)+cw(k+1) at rho-levels
+    if bmask:
+        # the x-slope of the reference's k=1 bmask cross terms: the code
+        # divides the x-difference by dy and multiplies by dx
+        # (mg_define_matrix.f90:381, :428), its comments say zxdy
+        zxswap = 0.5 * (zre[:, 1:-1, 2:] - zre[:, 1:-1, :-2]) / dy * dx
 
     def rg(arr, dj, di, j0, j1, i0, i1):
         """arr[..., j+dj, i+di] for extended j in [j0, j1], i in [i0, i1]."""
@@ -143,6 +165,14 @@ def assemble_bands(dx: torch.Tensor, dy: torch.Tensor,
     bot4 = (ary_over_dyv[0]
             - (zy_j ** 2 / cws_j + zy_jm ** 2 / cws_jm)
             - 0.25 * (zy_jm - zy_j))
+    if bmask:
+        # -(T1 - T2) as the reference groups it (:371-392), T2 with the
+        # swapped-metric x-slope
+        bot4 = (bot4
+                - 0.5 * s3(zx, dj=-1)[0] * zy_jm / cws_jm
+                * (s3(umask, dj=-1, di=1) - s3(umask, dj=-1))
+                + 0.5 * s3(zxswap)[0] * zy_j / cws_j
+                * (s3(umask, di=1) - s3(umask))) * s3(vmask)
     zyt_j = s3(zy)[-1]
     zyt_jm = s3(zy, dj=-1)[-1]
     top4 = (ary_over_dyv[-1] + 0.25 * (-zyt_jm + zyt_j)) * s3(vmask)
@@ -189,6 +219,13 @@ def assemble_bands(dx: torch.Tensor, dy: torch.Tensor,
     bot7 = (arx_over_dxu[0]
             - (zx_i ** 2 / cws_i + zx_im ** 2 / cws_im)
             - 0.25 * (zx_im - zx_i))
+    if bmask:
+        # the same grouping and swapped-metric slope as cA4's (:420-433)
+        bot7 = (bot7
+                - 0.5 * zx_im * s6(zy, di=-1)[0] / cws_im
+                * (s6(vmask, dj=1, di=-1) - s6(vmask, di=-1))
+                + 0.5 * s6(zxswap)[0] * s6(zy)[0] / cws_i
+                * (s6(vmask, dj=1) - s6(vmask))) * s6(umask)
     top7 = (arx_over_dxu[-1]
             + 0.25 * (-s6(zx, di=-1)[-1] + s6(zx)[-1])) * s6(umask)
     mid7 = arx_over_dxu[1:-1] * s6(umask)
@@ -218,8 +255,21 @@ def assemble_bands(dx: torch.Tensor, dy: torch.Tensor,
     def si(arr, dj=0, di=0):
         return rg(arr, dj, di, j0, j1, i0, i1)
 
+    cA2_val = si(cw)[1:nz]
+    if bmask and nz > 2:
+        # the k >= 2 cross terms of the masked faces (:492-513)
+        du = si(umask, di=1) - si(umask)
+        dv = si(vmask, dj=1) - si(vmask)
+        cross = (-0.25 * (si(zx)[0:nz - 2] - si(zx)[1:nz - 1]) * du
+                 - 0.25 * (si(zy)[0:nz - 2] - si(zy)[1:nz - 1]) * dv)
+        cA2_val = torch.cat([cA2_val[0:nz - 2] + cross, cA2_val[nz - 2:]],
+                            dim=0)
     cA2 = z8()
-    cA2[1:, j0:j1 + 1, i0:i1 + 1] = si(cw)[1:nz]
+    cA2[1:, j0:j1 + 1, i0:i1 + 1] = cA2_val
+
+    if bmask:
+        cA2, cA3, cA4, cA5, cA6, cA7, cA8 = (
+            _mirror_ring(c) for c in (cA2, cA3, cA4, cA5, cA6, cA7, cA8))
 
     # ---- cA1: diagonal = negative row sum, interior only (:615-657)
     bot1 = (-si(cA2)[1]
@@ -257,6 +307,28 @@ def assemble_bands(dx: torch.Tensor, dy: torch.Tensor,
     return LevelOperator(cA=cA, umask=umask, vmask=vmask)
 
 
+def dense_inverse(op: LevelOperator, cfg: SolverConfig) -> torch.Tensor:
+    """Dense inverse of a (small) level operator for the exact coarse
+    solve (JAX ``dense_inverse``): A is built by applying the stencil to
+    every unit vector in one batched call (the batch between the z axis
+    and the horizontal ones, the bands broadcast over it), and inverted
+    with ``torch.linalg.inv`` in the operator's dtype, as the JAX code
+    does (its docstring's float64 is not what it computes)."""
+    from .ops.stencil import residual
+    nz, J, I = op.cA.shape[1:]
+    ny, nx = J - 2, I - 2
+    n = nz * ny * nx
+    eye = torch.eye(n, dtype=op.cA.dtype, device=op.cA.device)
+    e = eye.reshape(n, nz, ny, nx).permute(1, 0, 2, 3)
+    del eye
+    cols = -residual(extend_h1(e), torch.zeros_like(e), op.cA[:, :, None],
+                     cfg.cmatrix == "real")
+    # cols[k, c, j, i] = (A e_c)[k, j, i]: A[row, c] with row = (k, j, i)
+    A = cols.permute(1, 0, 2, 3).reshape(n, n).T
+    del cols, e
+    return torch.linalg.inv(A)
+
+
 def coarsen_metric(f: torch.Tensor, weight: float) -> torch.Tensor:
     """2x2 metric coarsening (mg_define_matrix.f90:116-138): ``weight`` is
     0.5 for spacings (dx, dy) and 0.25 for heights (zeta, h)."""
@@ -278,9 +350,6 @@ def build_operators(levels: list[LevelSpec],
     (dx, dy x 0.5-sum4; zeta, h x 0.25-sum4) and re-runs the s-coordinate
     and stencil assembly.  Inputs are interior-only (ny, nx) tensors.
     """
-    if cfg.coarsest == "direct":
-        raise NotImplementedError("coarsest='direct' (dense_inverse) is "
-                                  "not ported yet")
     ops: list[LevelOperator] = []
     fine = None
     dxl, dyl, zetal, hl = dx, dy, zeta, h
@@ -294,7 +363,8 @@ def build_operators(levels: list[LevelSpec],
             dyl = coarsen_metric(dyl, 0.5)
             zetal = coarsen_metric(zetal, 0.25)
             hl = coarsen_metric(hl, 0.25)
-            # coarse levels are all water (mg_define_matrix.f90:156-162)
+            # coarse levels are all water, with the bmask ring
+            # (mg_define_matrix.f90:156-162)
             rmaskl = torch.ones_like(hl)
         else:
             rmaskl = rmask
@@ -305,6 +375,8 @@ def build_operators(levels: list[LevelSpec],
         zre = extend_h2(zr)
         zwe = extend_h2(zw)
         op = assemble_bands(dxe, dye, zre, zwe, rmaske, cfg.bmask)
+        if cfg.coarsest == "direct" and spec.index == len(levels) - 1:
+            op = op._replace(Ainv=dense_inverse(op, cfg))
         ops.append(op)
         if spec.index == 0:
             dzw, zx, zy, cw = slope_terms(dxe, dye, zre, zwe)

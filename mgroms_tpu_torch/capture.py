@@ -21,8 +21,10 @@ step.
 - **Warm-up.**  Before it captures, the step runs once eagerly, on a side
   stream, on the static buffers while they hold zeros (not yet the solve's
   iterates): the kernel library's build and load, the loading of each
-  kernel's module and K6's cluster occupancy query (cached by the
-  launcher) happen there, not under capture.  The launchers' remaining
+  kernel's module, K6's cluster occupancy query (cached by the
+  launcher) and the cuBLAS handle of ``coarsest='direct'``'s dense
+  product happen there, not under capture (that product replays bit for
+  bit in the captured step on an H100, torch 2.11, CUDA 12.8).  The launchers' remaining
   runtime calls at every launch (``cudaFuncSetAttribute``, K4's
   occupancy query) are allowed under capture in torch's default
   ``"global"`` mode, as are K4's cooperative and K6's cluster launches

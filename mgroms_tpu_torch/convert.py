@@ -37,11 +37,15 @@ def _t(a, device, dtype) -> torch.Tensor:
 
 
 def operators_from_numpy(levels, cA_list: Sequence, metrics: Mapping,
-                         device="cuda", dtype=torch.float64):
+                         device="cuda", dtype=torch.float64,
+                         Ainv: Sequence | None = None):
     """Per-level band stacks ``cA_list[lev]`` (8, nz, ny+2, nx+2) and the
     FineMetrics fields ``metrics`` (name -> array) as the port's
     ``(list[LevelOperator], FineMetrics)``.  Shapes are checked against the
-    level plan; the u/v masks are all-ones (no bmask)."""
+    level plan; the u/v masks are all-ones (no bmask).  ``Ainv[lev]`` is
+    the level's dense inverse or None (the JAX package's
+    ``LevelOperator.Ainv`` of a ``coarsest='direct'`` model, on its
+    coarsest level)."""
     if len(cA_list) != len(levels):
         raise ValueError(f"{len(cA_list)} band stacks for "
                          f"{len(levels)} levels")
@@ -52,8 +56,10 @@ def operators_from_numpy(levels, cA_list: Sequence, metrics: Mapping,
             raise ValueError(f"level {spec.index}: cA shape "
                              f"{tuple(cA.shape)}, expected {want}")
         ones = torch.ones(want[2:], dtype=dtype, device=device)
-        ops.append(LevelOperator(cA=_t(cA, device, dtype), umask=ones,
-                                 vmask=ones))
+        inv = None if Ainv is None else Ainv[spec.index]
+        ops.append(LevelOperator(
+            cA=_t(cA, device, dtype), umask=ones, vmask=ones,
+            Ainv=None if inv is None else _t(inv, device, dtype)))
     fm = FineMetrics(**{f: _t(metrics[f], device, dtype)
                         for f in FineMetrics._fields})
     return ops, fm

@@ -15,10 +15,17 @@ npxg x npyg) over a mesh of devices driven from this one process
 Velocity layout (z leading): u (nz, ny+2, nx+1), v (nz, ny+1, nx+2),
 w (nz+1, ny+2, nx+2).  Every tensor the model creates takes its device and
 ``cfg.dtype``; inputs are converted to them.
+
+With ``cfg.netcdf_output`` the model writes the reference's stage dumps
+into ``cfg.output_dir`` (io/diagnostics.py): the metrics and every
+level's operator at :meth:`NHModel.set_matrices`, the RHS in
+:meth:`NHModel.solve`, the divergence in
+:meth:`NHModel.check_nondivergence`; solver.solve_p writes the iterates.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,11 +34,12 @@ import torch
 from .assembly import FineMetrics, build_operators
 from .bc import extend_h1
 from .config import SolverConfig
+from .io.diagnostics import write_field
 from .levels import build_level_plan, describe
 from .ops.projection import correct_uvw
 from .ops.rhs import compute_rhs
 from .parallel.mesh import Tiles
-from .solver import SingleDeviceBackend, SolveInfo, check_supported, solve_p
+from .solver import SingleDeviceBackend, SolveInfo, solve_p
 
 
 class NHModel:
@@ -43,7 +51,6 @@ class NHModel:
                  verbose: bool = False):
         self.cfg = cfg or SolverConfig()
         self.device = torch.device(device)
-        check_supported(self.cfg)
         self.levels = build_level_plan(nx, ny, nz,
                                        aggressive=self.cfg.aggressive)
         self.nx, self.ny, self.nz = nx, ny, nz
@@ -77,6 +84,19 @@ class NHModel:
             self.tensor(zeta), self.tensor(h), self.tensor(rmask),
             hc, theta_b, theta_s, self.cfg)
         self.use_operators(ops, metrics)
+        if self.cfg.netcdf_output:
+            # the metrics and one cA per level, as the reference writes
+            # them in define_matrices (mg_define_matrix.f90:187-194,
+            # :668-673; iteration = 1-based level)
+            for name in ("dx", "dy", "zr", "zw"):
+                self._dump(getattr(metrics, name), name, f"{name}.nc", 1)
+            for lev, op in enumerate(ops):
+                self._dump(op.cA, "ca", "cA.nc", lev + 1)
+
+    def _dump(self, x, vname: str, fname: str, iteration=None) -> None:
+        """One diagnostics dump into ``cfg.output_dir`` (rank 0)."""
+        write_field(x, vname, os.path.join(self.cfg.output_dir, fname),
+                    rank=0, iteration=iteration)
 
     def use_operators(self, ops, metrics: FineMetrics, packs=None) -> None:
         """Install assembled operators (and optionally prebuilt packs) —
@@ -202,8 +222,11 @@ class NHModel:
         replays its step as a CUDA graph; ``graph=False`` runs the eager
         loop (solver.solve_p)."""
         u, v, w = self.tensor(u), self.tensor(v), self.tensor(w)
-        p, info = self._solve_state(self._rhs_state(u, v, w), tol, maxiter,
-                                    verbose, graph)
+        b = self._rhs_state(u, v, w)
+        if self.cfg.netcdf_output:                   # nhydro.f90:85-87
+            self._dump(self.backend.gather(0, b) if self.distributed else b,
+                       "b", "b.nc", 1)
+        p, info = self._solve_state(b, tol, maxiter, verbose, graph)
         u, v, w = self.project(p, u, v, w)
         if self.distributed:
             p = self.backend.gather(0, p)
@@ -215,4 +238,7 @@ class NHModel:
         if self.distributed:
             return self._physics.check_nondivergence(
                 self.tensor(u), self.tensor(v), self.tensor(w))
-        return torch.max(torch.abs(self.rhs(u, v, w)))
+        div = self.rhs(u, v, w)
+        if self.cfg.netcdf_output:                   # nhydro.f90:130-132
+            self._dump(div, "b", "check.nc", 1)
+        return torch.max(torch.abs(div))

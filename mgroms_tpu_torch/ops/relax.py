@@ -15,8 +15,11 @@ on the full-layout levels (the coarsest, every level of a GS solve or of
 dims, with their global origin ``j0, i0``); every other level runs the
 quad-parity form (ops/relax_compact.py and its kernels).
 
-Off the slice: ``gs_exact`` and the PCR solve raise
-``NotImplementedError``.
+Two further modes of the JAX package: the tridiagonal solve by parallel
+cyclic reduction (:func:`tridiag_pcr`, ``tridiag='pcr'``) and the
+order-exact sequential Gauss-Seidel sweep (:func:`relax_gs_exact`,
+``gs_exact``), a parity mode of nx*ny column steps with no kernel in
+either package.
 """
 
 from __future__ import annotations
@@ -73,6 +76,37 @@ def tridiag_factored(bet: torch.Tensor, gam: torch.Tensor, ud: torch.Tensor,
     return thomas_factored_unrolled(bet, gam, ud, b)
 
 
+def tridiag_pcr(d: torch.Tensor, dd: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """Parallel cyclic reduction solve of the systems :func:`tridiag`
+    solves (JAX ``tridiag_pcr``): exact in exact arithmetic, built from
+    ceil(log2(nz)) whole-column steps, with the JAX package's operation
+    order (shifts padded with 0, the pivots' with 1)."""
+    nz = d.shape[0]
+    if nz == 1:
+        return b / d
+    z1 = torch.zeros_like(dd[:1])
+    lo = torch.cat([z1, dd], dim=0)          # a_k
+    up = torch.cat([dd, z1], dim=0)          # c_k
+    diag, rhs = d, b
+    s = 1
+    while s < nz:
+        def shdn(x, fill=0.0):               # x_{k-s}
+            return torch.cat([torch.full_like(x[:s], fill), x[:-s]], dim=0)
+
+        def shup(x, fill=0.0):               # x_{k+s}
+            return torch.cat([x[s:], torch.full_like(x[:s], fill)], dim=0)
+
+        alpha = -lo / shdn(diag, 1.0)
+        gamma = -up / shup(diag, 1.0)
+        diag = diag + alpha * shdn(up) + gamma * shup(lo)
+        rhs = rhs + alpha * shdn(rhs) + gamma * shup(rhs)
+        lo = alpha * shdn(lo)
+        up = gamma * shup(up)
+        s *= 2
+    return rhs / diag
+
+
 def tridiag(d: torch.Tensor, dd: torch.Tensor, b: torch.Tensor
             ) -> torch.Tensor:
     """Thomas solve of symmetric tridiagonal systems batched over (ny, nx)
@@ -95,13 +129,14 @@ def tridiag(d: torch.Tensor, dd: torch.Tensor, b: torch.Tensor
 
 
 def _column_solve(pe: torch.Tensor, b: torch.Tensor, cA: torch.Tensor,
-                  real_matrix: bool) -> torch.Tensor:
+                  real_matrix: bool, method: str = "thomas") -> torch.Tensor:
     """Exact solve of every z-column given the current neighbour columns
-    (relax_3D_8_heart for all (i, j) at once)."""
+    (relax_3D_8_heart for all (i, j) at once), by Thomas or PCR."""
     rhs = b - offdiag_columns(pe, cA, real_matrix)
     d = band(cA, 1)
     ud = cA[1][1:, 1:-1, 1:-1]      # ud(k) = cA2(k+1) (mg_relax.f90:279,290)
-    return tridiag(d, ud, rhs)
+    solver = tridiag_pcr if method == "pcr" else tridiag
+    return solver(d, ud, rhs)
 
 
 def _parity_mask(ny: int, nx: int, c: int, j0: int, i0: int,
@@ -142,14 +177,62 @@ def relax(p: torch.Tensor, b: torch.Tensor, cA: torch.Tensor,
     halo (physical BCs and/or neighbour tiles) once per colour; ``j0,
     i0`` the tile's global origin (the colouring).  Every colour commits
     ``p + mask * (sol - p)``, GS's all-ones mask too (in floating point
-    that is not ``sol``)."""
-    if tridiag_method != "thomas":
-        raise NotImplementedError(
-            f"relax tridiag={tridiag_method!r} is not ported (Thomas only)")
+    that is not ``sol``).  ``tridiag_method`` 'thomas' or 'pcr' solves the
+    columns (:func:`tridiag`, :func:`tridiag_pcr`)."""
     ny, nx = p.shape[-2:]
     masks = colour_masks(kind, ny, nx, j0, i0, p)
     for _ in range(nsweeps):
         for mask in masks:
-            sol = _column_solve(extend_fn(p), b, cA, real_matrix)
+            sol = _column_solve(extend_fn(p), b, cA, real_matrix,
+                                tridiag_method)
             p = p + mask * (sol - p)
+    return p
+
+
+def relax_gs_exact(p: torch.Tensor, b: torch.Tensor, cA: torch.Tensor,
+                   nsweeps: int, real_matrix: bool,
+                   extend_fn: ExtendFn) -> torch.Tensor:
+    """Order-exact sequential Gauss-Seidel (``relax_3D_8_GS``,
+    mg_relax.f90:116-148; JAX ``relax_gs_exact``): the columns are
+    updated one at a time, i outer and j inner, each reading the updated
+    values of every column visited before it; the halo is refreshed once a
+    sweep (:141), so halo reads see the sweep's start.  The gather sums
+    ``_BASE_TERMS`` then ``_REAL_TERMS`` (plane 0 only) in their order, as
+    relax_3D_8_heart (:263-300), and each column is a Thomas solve.
+
+    A parity mode: nx*ny dependent column steps a sweep, a few dozen small
+    torch operations each, on either device (the JAX package has no
+    kernel for it either).  Use it at small sizes."""
+    from .relax_compact import _BASE_TERMS, _REAL_TERMS, _kshift
+    nz, ny, nx = p.shape
+    k0 = None
+    if real_matrix:
+        k0 = (torch.arange(nz, device=p.device) == 0).to(p.dtype)
+    for _ in range(nsweeps):
+        pe = extend_fn(p).clone()
+        for i in range(nx):                  # i outer, j inner (:133-134)
+            for j in range(ny):
+                nb = pe[:, j:j + 3, i:i + 3]
+                cb = cA[:, :, j:j + 3, i:i + 3]
+
+                def term(n, boff, poff):
+                    bk, bj, bi = boff
+                    pk, pj, pi = poff
+                    return (_kshift(cb[n - 1, :, 1 + bj, 1 + bi], bk)
+                            * _kshift(nb[:, 1 + pj, 1 + pi], pk))
+
+                s = None
+                for n, boff, poff in _BASE_TERMS:
+                    t = term(n, boff, poff)
+                    s = t if s is None else s + t
+                if real_matrix:
+                    x = None
+                    for n, boff, poff in _REAL_TERMS:
+                        t = term(n, boff, poff)
+                        x = t if x is None else x + t
+                    s = s + k0 * x
+                pe[:, j + 1, i + 1] = tridiag(cb[0, :, 1, 1],
+                                              cb[1, 1:, 1, 1],
+                                              b[:, j, i] - s)
+        p = pe[:, 1:-1, 1:-1]
     return p

@@ -28,8 +28,10 @@ slice the stack (:func:`band_views`).
 
 Orderings: 'RB' (two colours, each two target quads solved as one
 x-concatenated system) and 'FC' (four colours, one target quad each, the
-reference order).  GS has no quad form here or in the JAX package.  Off
-the slice: the PCR solve is not ported.
+reference order).  GS has no quad form here or in the JAX package.  The
+plain colour update also solves by parallel cyclic reduction
+(``tridiag_method='pcr'``, ops/relax.tridiag_pcr), on the full-precision
+operator only, as the JAX package's does; the kernels solve by Thomas.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from .relax import thomas_factor, thomas_factored_unrolled
+from .relax import thomas_factor, thomas_factored_unrolled, tridiag_pcr
 from .transfer import _interleave
 
 Quads = Dict[Tuple[int, int], torch.Tensor]
@@ -586,28 +588,36 @@ def colour_targets(kind: str) -> tuple:
 
 
 def plain_color_update(q: Quads, bq: Quads, pack: CompactPack, targets,
-                       emit: bool, real_matrix: bool, extend_fn=None):
+                       emit: bool, real_matrix: bool, extend_fn=None,
+                       tridiag_method: str = "thomas"):
     """One colour update of ``targets`` in plain torch, with the smoother
     operator (:func:`smoother_operator`; low-precision blocks are upcast
     at read).  The targets read the same pre-colour extension and are
     solved as one x-concatenated tridiagonal system (factored Thomas,
-    ud*bet recomputed per plane as in the kernels).  With ``emit``, each
-    target's raw residual from its own gather comes too (full-precision
-    packs only, :func:`relax_emit_last_color`).  ``extend_fn`` maps the
-    quads to their halo-extended forms (default :func:`extend_quads`).
-    Returns ``(q, {target: raw r})``."""
+    ud*bet recomputed per plane as in the kernels; with ``tridiag_method=
+    'pcr'`` parallel cyclic reduction on d and ud, and the full-precision
+    operator even where the pack has a low-precision one: a rounded
+    gather against the true diagonal would break the row sums that the
+    low-precision pivots restore, mgroms_tpu/ops/relax_compact.py:448).
+    With ``emit``, each target's raw residual from its own gather comes
+    too (full-precision packs only, :func:`relax_emit_last_color`).
+    ``extend_fn`` maps the quads to their halo-extended forms (default
+    :func:`extend_quads`).  Returns ``(q, {target: raw r})``."""
     ti = {t: i for i, t in enumerate(_TKEYS)}
     W = q[(0, 0)].shape[2]
     e = (extend_fn or extend_quads)(q)
     dt = q[(0, 0)].dtype
-    _, _, bet, _ = smoother_operator(pack, dt)
-    lp = pack.lp is not None
+    pcr = tridiag_method == "pcr"
+    lp = pack.lp is not None and not pcr
     gs = {t: gather_blocks(e, tuple(v.to(dt) for v in block_views(
         pack, ti[t], lp=lp)), t[0], t[1], real_matrix) for t in targets}
     cat = lambda f: torch.cat([f[ti[t]] for t in targets], dim=-1)
-    sol = thomas_factored_unrolled(
-        cat(bet), None, cat(pack.ud),
-        torch.cat([bq[t] - gs[t] for t in targets], dim=-1))
+    rhs = torch.cat([bq[t] - gs[t] for t in targets], dim=-1)
+    if pcr:
+        sol = tridiag_pcr(cat(pack.d), cat(pack.ud), rhs)
+    else:
+        _, _, bet, _ = smoother_operator(pack, dt)
+        sol = thomas_factored_unrolled(cat(bet), None, cat(pack.ud), rhs)
     q = dict(q)
     info = {}
     for n, t in enumerate(targets):
@@ -629,7 +639,7 @@ def relax_compact(p: torch.Tensor, b: torch.Tensor, cA, nsweeps: int,
     (parallel/exchange.extend_quads_shard) on a tile of a distributed
     level, whose even dims make local quad parity the global one.
     ``pack`` is the persisted gather-block operator, built from ``cA``
-    here if absent."""
+    here if absent; ``tridiag_method`` as :func:`plain_color_update`."""
     nz, ny, nx = p.shape
     assert ny % 2 == 0 and nx % 2 == 0, "compact relax needs even ny, nx"
     if pack is None:
@@ -649,16 +659,13 @@ def relax_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
     quad-parity layout, one :func:`plain_color_update` per colour
     (:func:`colour_targets`), with the smoother operator
     (:func:`smoother_operator`) and the halo of ``extend_fn`` (default
-    :func:`extend_quads`)."""
-    if tridiag_method != "thomas":
-        raise NotImplementedError(
-            f"compact relax tridiag={tridiag_method!r} is not ported "
-            "(Thomas only)")
+    :func:`extend_quads`), solved by ``tridiag_method``."""
     q = dict(q0)
     for _ in range(nsweeps):
         for targets in colour_targets(kind):
             q, _ = plain_color_update(q, bq, pack, targets, False,
-                                      real_matrix, extend_fn=extend_fn)
+                                      real_matrix, extend_fn=extend_fn,
+                                      tridiag_method=tridiag_method)
     return q
 
 
@@ -834,7 +841,8 @@ def _patched_zsum(e2: Quads, bq_t, pack: CompactPack, m: int,
 
 def relax_emit_last_color(q0: Quads, bq: Quads, pack: CompactPack,
                           nsweeps: int, real_matrix: bool, extend_fn=None,
-                          sweep_fn=None, color_update_fn=None):
+                          sweep_fn=None, color_update_fn=None,
+                          tridiag_method: str = "thomas"):
     """``nsweeps`` RB sweeps with the last colour update also emitting its
     targets' raw residuals from its own gather (callers patch them with
     :func:`_patch_emitted_residual`).  Returns ``(q, {target: raw r})``.
@@ -850,14 +858,14 @@ def relax_emit_last_color(q0: Quads, bq: Quads, pack: CompactPack,
         raise ValueError("the fused relax+residual needs the full-precision "
                          "operator; this pack carries pack.lp")
     if sweep_fn is None:
-        sweep_fn = lambda q, n: relax_compact_quads(q, bq, pack, n, "RB",
-                                                    real_matrix,
-                                                    extend_fn=extend_fn)
+        sweep_fn = lambda q, n: relax_compact_quads(
+            q, bq, pack, n, "RB", real_matrix,
+            tridiag_method=tridiag_method, extend_fn=extend_fn)
     q = dict(sweep_fn(q0, nsweeps - 1)) if nsweeps > 1 else dict(q0)
     update = color_update_fn or (
-        lambda q, targets, emit: plain_color_update(q, bq, pack, targets,
-                                                    emit, real_matrix,
-                                                    extend_fn=extend_fn))
+        lambda q, targets, emit: plain_color_update(
+            q, bq, pack, targets, emit, real_matrix, extend_fn=extend_fn,
+            tridiag_method=tridiag_method))
     q, _ = update(q, _RB_TARGETS[0], False)
     q, info = update(q, _RB_TARGETS[1], True)
     return q, info
@@ -866,7 +874,8 @@ def relax_emit_last_color(q0: Quads, bq: Quads, pack: CompactPack,
 def relax_residual_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
                                  nsweeps: int, real_matrix: bool,
                                  extend_fn=None, sweep_fn=None,
-                                 color_update_fn=None):
+                                 color_update_fn=None,
+                                 tridiag_method: str = "thomas"):
     """``nsweeps`` RB sweeps plus the fresh post-sweep residual, the last
     colour's residual coming from its own colour update.  Returns
     ``(q, rq)``; equal to :func:`relax_compact_quads` then
@@ -877,7 +886,8 @@ def relax_residual_compact_quads(q0: Quads, bq: Quads, pack: CompactPack,
     ti = {t: i for i, t in enumerate(_TKEYS)}
     q, info = relax_emit_last_color(q0, bq, pack, nsweeps, real_matrix,
                                     extend_fn=extend_fn, sweep_fn=sweep_fn,
-                                    color_update_fn=color_update_fn)
+                                    color_update_fn=color_update_fn,
+                                    tridiag_method=tridiag_method)
     e2 = (extend_fn or extend_quads)(q)
     rq = {}
     for t in _RB_TARGETS[0]:
@@ -893,7 +903,8 @@ def relax_residual_restrict_compact_quads(q0: Quads, bq: Quads,
                                           real_matrix: bool,
                                           extend_fn=None, sweep_fn=None,
                                           color_update_fn=None,
-                                          rr_fn=None):
+                                          rr_fn=None,
+                                          tridiag_method: str = "thomas"):
     """``nsweeps`` RB sweeps plus the coarse RHS restrict(b - A p) — the
     V-cycle down-leg.  Returns ``(q, coarse_b)`` with the full coarse
     array; the summation tree matches transfer.restrict_3d.
@@ -904,7 +915,8 @@ def relax_residual_restrict_compact_quads(q0: Quads, bq: Quads,
     ti = {t: i for i, t in enumerate(_TKEYS)}
     q, info = relax_emit_last_color(q0, bq, pack, nsweeps, real_matrix,
                                     extend_fn=extend_fn, sweep_fn=sweep_fn,
-                                    color_update_fn=color_update_fn)
+                                    color_update_fn=color_update_fn,
+                                    tridiag_method=tridiag_method)
     e2 = (extend_fn or extend_quads)(q)
     if rr_fn is not None:
         zs = dict(rr_fn(e2, _RB_TARGETS[0]))

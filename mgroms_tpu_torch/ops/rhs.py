@@ -8,7 +8,10 @@ differences.  Velocity layout, z leading:
   u: (nz,   ny+2, nx+1)   v: (nz,   ny+1, nx+2)   w: (nz+1, ny+2, nx+2)
 
 The wall-normal fluxes at physical walls are zeroed
-(``fill_halo(uf, lbc_null='u')``, mg_mpi_exchange.f90:972-1013).
+(``fill_halo(uf, lbc_null='u')``, mg_mpi_exchange.f90:972-1013), except
+with ``bmask``: the land mask's zero ring (bc.extend_rmask) closes the
+walls through umask/vmask instead, and the face masks are not applied, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,9 +37,8 @@ def compute_rhs(m: FineMetrics, u: torch.Tensor, v: torch.Tensor,
                 vface_mask=None) -> torch.Tensor:
     """b = div(fluxes) on the interior, (nz, ny, nx).  The face masks
     default to walls on all four sides; a tile of a distributed solve
-    passes its own (parallel/exchange.shard_face_masks)."""
-    if bmask:
-        raise NotImplementedError("bmask is not ported yet")
+    passes its own (parallel/exchange.shard_face_masks).  With ``bmask``
+    no face mask is applied (mgroms_tpu/ops/rhs.py:112, :161)."""
     nz = u.shape[0]
     J, I = m.dx.shape
     ny, nx = J - 2, I - 2
@@ -51,9 +53,10 @@ def compute_rhs(m: FineMetrics, u: torch.Tensor, v: torch.Tensor,
     whi[-1] = 2.0
     k0 = u.new_zeros((nz, 1, 1))
     k0[0] = 1.0
-    walls = wall_face_masks(ny, nx, u)
-    uface_mask = walls[0] if uface_mask is None else uface_mask
-    vface_mask = walls[1] if vface_mask is None else vface_mask
+    if not bmask:
+        walls = wall_face_masks(ny, nx, u)
+        uface_mask = walls[0] if uface_mask is None else uface_mask
+        vface_mask = walls[1] if vface_mask is None else vface_mask
 
     # ---------------- UF: u-fluxes on (nz, ny, nx+1) ----------------
     def MU(arr, di=0):
@@ -98,7 +101,8 @@ def compute_rhs(m: FineMetrics, u: torch.Tensor, v: torch.Tensor,
                * vbar_im)
     uf = (arx * uu - wterm_u - k0 * (slope2_u + cross_u)[None]) \
         * MU(m.umask)
-    uf = uf * uface_mask
+    if not bmask:
+        uf = uf * uface_mask
 
     # ---------------- VF: v-fluxes on (nz, ny+1, nx) ----------------
     def MV(arr, dj=0, di=0):
@@ -143,7 +147,8 @@ def compute_rhs(m: FineMetrics, u: torch.Tensor, v: torch.Tensor,
                * ubar_jm)
     vf = (ary * vv - wterm_v - k0 * (slope2_v + cross_v)[None]) \
         * MV(m.vmask)
-    vf = vf * vface_mask
+    if not bmask:
+        vf = vf * vface_mask
 
     # ---------------- WF: w-fluxes on (nz+1, ny, nx) ----------------
     def MI(arr, dj=0, di=0):

@@ -7,9 +7,11 @@ nearest injection (:336-363).  The JAX package interleaves along x with a
 one-hot matrix product (a TPU lane-layout workaround); here every
 interleave is a strided write.
 
-Off the slice: the aggressive 8:1 z-transfers and the 2-D (nz == 1)
-kernels raise ``NotImplementedError`` (no standard level plan reaches a
-2-D level).
+The aggressive 8:1 z-restriction (fine2coarse_aggressive) and the 2-D
+(nz == 1) forms are here too, as in the JAX package; the aggressive
+prolongation raises there and here, as the reference stops
+(mg_intergrids.f90:243-244).  No standard level plan reaches a 2-D
+level, and the assembly refuses aggressive coarsening.
 """
 
 from __future__ import annotations
@@ -25,9 +27,26 @@ def restrict_3d(r: torch.Tensor) -> torch.Tensor:
     return ry[:, :, 0::2] + ry[:, :, 1::2]
 
 
+def restrict_2d(r: torch.Tensor) -> torch.Tensor:
+    """2-D levels: coarse = sum of the 4 fine children
+    (fine2coarse_2D, mg_intergrids.f90:104-122)."""
+    assert r.shape[0] == 1
+    ry = r[:, 0::2] + r[:, 1::2]
+    return ry[:, :, 0::2] + ry[:, :, 1::2]
+
+
+def restrict_aggressive(r: torch.Tensor) -> torch.Tensor:
+    """8:1 vertical-only averaging (fine2coarse_aggressive,
+    mg_intergrids.f90:75-101): the mean of 8 vertically stacked cells."""
+    nz, ny, nx = r.shape
+    return 0.125 * r.reshape(nz // 8, 8, ny, nx).sum(dim=1)
+
+
 def restrict(r: torch.Tensor, aggressive: bool = False) -> torch.Tensor:
-    if aggressive or r.shape[0] == 1:
-        raise NotImplementedError("aggressive / 2-D restriction not ported")
+    if aggressive:
+        return restrict_aggressive(r)
+    if r.shape[0] == 1:
+        return restrict_2d(r)
     return restrict_3d(r)
 
 
@@ -108,13 +127,39 @@ def prolong_3d_nearest(xce: torch.Tensor) -> torch.Tensor:
     return _interleave(xy, xy, axis=-1)
 
 
+def prolong_2d_linear(xce: torch.Tensor) -> torch.Tensor:
+    """Bilinear prolongation for nz == 1 levels (coarse2fine_2D_linear,
+    mg_intergrids.f90:295-333)."""
+    H = _bilinear_combos(xce)
+    lo = _interleave(H[0, 0], H[1, 0], axis=-2)
+    hi = _interleave(H[0, 1], H[1, 1], axis=-2)
+    return _interleave(lo, hi, axis=-1)
+
+
+def prolong_2d_nearest(xce: torch.Tensor) -> torch.Tensor:
+    """4-way injection (coarse2fine_2D_nearest, mg_intergrids.f90:
+    250-292)."""
+    xc = xce[..., 1:-1, 1:-1]
+    xy = _interleave(xc, xc, axis=-2)
+    return _interleave(xy, xy, axis=-1)
+
+
 def prolong(xce: torch.Tensor, fine_nz: int, interp_type: str,
             aggressive: bool = False, as_quads: bool = False):
     """Dispatch (coarse2fine, mg_intergrids.f90:196-222).  With
     ``as_quads`` the result is the quad dict
-    ``{(y-parity, x-parity): (fine_nz, nyc, nxc)}``."""
-    if aggressive or fine_nz == 1:
-        raise NotImplementedError("aggressive / 2-D prolongation not ported")
+    ``{(y-parity, x-parity): (fine_nz, nyc, nxc)}``.  A 2-D fine level
+    takes the 2-D forms; the aggressive prolongation raises, as the
+    reference stops there (coarse2fine_aggressive,
+    mg_intergrids.f90:231-247)."""
+    if aggressive:
+        raise NotImplementedError("aggressive prolongation not available "
+                                  "(parity with mg_intergrids.f90:243-244)")
+    if fine_nz == 1:
+        assert not as_quads, "2-D levels are never quad-persistent"
+        if interp_type == "linear":
+            return prolong_2d_linear(xce)
+        return prolong_2d_nearest(xce)
     assert xce.shape[0] * 2 == fine_nz
     if as_quads:
         return (prolong_3d_linear_quads(xce) if interp_type == "linear"

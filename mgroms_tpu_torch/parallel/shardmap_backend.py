@@ -121,8 +121,10 @@ def shard_operators_blocked(ops: List[LevelOperator], plan: MeshPlan
                              extra=(2, 2))
         else:
             cA = op.cA.to(mesh.first)
-        out.append(LevelOperator(cA=cA, umask=op.umask.to(mesh.first),
-                                 vmask=op.vmask.to(mesh.first)))
+        out.append(LevelOperator(
+            cA=cA, umask=op.umask.to(mesh.first),
+            vmask=op.vmask.to(mesh.first),
+            Ainv=None if op.Ainv is None else op.Ainv.to(mesh.first)))
     return out
 
 

@@ -2,16 +2,18 @@
 cycles, float64 residuals, to a float64 relative residual of 1e-12.
 
     python -m mgroms_tpu_torch.scripts.refine_solve --case {seamount,cuc}
-        [--nx 64 --ny 64 --nz 64] [--bf16-bands] [--device cuda]
+        [--nx 64 --ny 64 --nz 64] [--bf16-bands] [--coarsest direct]
+        [--device cuda]
 
 Port of ``scripts/bench_tpu.py``'s ``run_refine`` (:139-172): builds the
 model pair (refine.build_pair), the right-hand side of the case's initial
 velocities on the float64 model, and runs refine.refined_pressure_solve
 with ``tol=1e-12, max_rounds=8``.  ``--bf16-bands`` gives the inner
 float32 solve perf mode (``fused_bands_bf16=True, ns_pre=1, ns_post=1``,
-as micro_solve.PERF).  The coarsest level is relaxed (the port has no
-direct coarsest solve); the JAX script's rndtopo case is not ported and
-``--case rndtopo`` raises.
+as micro_solve.PERF).  ``--coarsest`` is the inner solve's coarsest-level
+treatment, 'direct' (the JAX script's default: one product with the
+dense inverse) or 'relax'.  The JAX script's rndtopo case is not ported
+and ``--case rndtopo`` raises.
 
 Prints one JSON line with the JAX script's keys, ``device`` (the card's
 name and power limit, ``nvidia-smi``) in place of ``platform``, and
@@ -37,7 +39,8 @@ PERF = dict(fused_bands_bf16=True, ns_pre=1, ns_post=1)
 
 
 def run(case: str, nx: int, ny: int, nz: int, bf16_bands: bool = False,
-        device="cuda", max_rounds: int = 8, verbose: bool = False) -> dict:
+        device="cuda", max_rounds: int = 8, verbose: bool = False,
+        coarsest: str = "direct") -> dict:
     """One refined solve of ``case`` at (nx, ny, nz); the JSON row."""
     if case not in SETUPS:
         raise NotImplementedError(f"case {case!r} is not ported "
@@ -46,7 +49,8 @@ def run(case: str, nx: int, ny: int, nz: int, bf16_bands: bool = False,
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
-    cfg32 = SolverConfig(dtype="float32", **(PERF if bf16_bands else {}))
+    cfg32 = SolverConfig(dtype="float32", coarsest=coarsest,
+                         **(PERF if bf16_bands else {}))
     m32, m64 = build_pair(nx, ny, nz, SETUPS[case](nx, ny, nz), cfg32,
                           device=device)
     u, v, w = initial_velocities(nx, ny, nz, device=device)
@@ -57,6 +61,7 @@ def run(case: str, nx: int, ny: int, nz: int, bf16_bands: bool = False,
         "case": case, "grid": [nz, ny, nx],
         "mode": "defect-correction f32 cycles + f64 residuals"
                 + (" (bf16 smoother bands)" if bf16_bands else ""),
+        "coarsest": coarsest,
         "rounds": info.rounds,
         "final_f64_rel_residual": info.res,
         "history": [float(h) for h in info.history],
@@ -77,6 +82,8 @@ def main(argv=None) -> None:
     ap.add_argument("--nz", type=int, default=64)
     ap.add_argument("--bf16-bands", action="store_true",
                     help="perf mode for the inner float32 solve")
+    ap.add_argument("--coarsest", default="direct",
+                    choices=["direct", "relax"])
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (the kernels) or cpu (their "
                          "plain versions)")
@@ -86,7 +93,7 @@ def main(argv=None) -> None:
         raise SystemExit("no CUDA device: pass --device cpu for the plain "
                          "path")
     print(json.dumps(run(a.case, a.nx, a.ny, a.nz, a.bf16_bands, a.device,
-                         verbose=True)))
+                         verbose=True, coarsest=a.coarsest)))
 
 
 if __name__ == "__main__":

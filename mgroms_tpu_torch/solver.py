@@ -55,18 +55,41 @@ gate of bfloat16 blocks have no counterpart (the kernels take any shape).
 The glue between kernels (quad halo extension, the emitted-residual
 patch, restriction, prolongation) is plain torch.
 
+The secondary modes of the JAX package, none of which has a kernel of its
+own:
+
+- ``coarsest='direct'``: the coarsest level is solved by one product with
+  the dense inverse its operator carries (``LevelOperator.Ainv``,
+  assembly.dense_inverse), checked before every other relax route;
+- ``tridiag='pcr'``: the masked relax of the full-layout levels (the
+  coarsest) solves its columns by parallel cyclic reduction.  As in the
+  JAX package, whose accelerator gates do not read ``tridiag``, the
+  kernels keep Thomas: the levels K4, K1-K2 and K6 smooth (on the CPU
+  their plain versions) stay on Thomas, on either device.  The CPU route
+  is the card's, held to the JAX package run with ``pallas_interpret``
+  (its CPU route without it solves every quad level by PCR);
+- ``gs_exact`` with GS: the order-exact sequential sweep
+  (ops/relax.relax_gs_exact) on every level, routed before K6; such a
+  solve runs eagerly (:func:`graph_wanted`);
+- ``aggressive``: the 8:1 z-restriction and its transfer routing; both
+  packages refuse the assembly of such a plan;
+- ``netcdf_output``: the per-iteration and end-of-solve dumps of
+  :func:`solve_p` (io/diagnostics.py);
+- the diagnostics :func:`vcycle2`, :func:`dot` and :func:`testgalerkin`.
+
 Config fields read: the reference's (``ns_*``, ``cmatrix``,
-``relax_method``, ``interp_type``, ...), ``dtype``, ``compact``,
-``use_pallas``, ``pallas_tiled``, ``pallas_fused_sweep``,
-``pallas_interpret``, ``fused_bands_bf16`` and ``fused_residual``.  Not
-read: ``pallas_tiled_relax`` and ``fused_sweep_chunks`` (Mosaic tiles and
-lane chunks have no GPU counterpart).  Options off this slice raise
-``NotImplementedError`` (:func:`check_supported`).
+``relax_method``, ``interp_type``, ``coarsest``, ``tridiag``,
+``gs_exact``, ...), ``dtype``, ``compact``, ``use_pallas``,
+``pallas_tiled``, ``pallas_fused_sweep``, ``pallas_interpret``,
+``fused_bands_bf16`` and ``fused_residual``.  Not read:
+``pallas_tiled_relax`` and ``fused_sweep_chunks`` (Mosaic tiles and lane
+chunks have no GPU counterpart).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -75,6 +98,7 @@ import torch
 from .assembly import LevelOperator
 from .bc import extend_h1
 from .config import SolverConfig
+from .io.diagnostics import write_field
 from .levels import LevelSpec
 from .ops import relax as relax_ops
 from .ops import stencil, transfer
@@ -95,21 +119,9 @@ def fused_sweep_wanted(cfg: SolverConfig, on_card: bool) -> bool:
             and (on_card or cfg.pallas_interpret))
 
 
-def check_supported(cfg: SolverConfig) -> None:
-    """Raise ``NotImplementedError`` for a config option this port does not
-    implement yet (nothing silently does something else)."""
-    off = {
-        "gs_exact": cfg.gs_exact,
-        "tridiag": cfg.tridiag != "thomas",
-        "aggressive": cfg.aggressive,
-        "bmask": cfg.bmask,
-        "coarsest": cfg.coarsest != "relax",
-        "netcdf_output": cfg.netcdf_output,
-    }
-    bad = [k for k, v in off.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"SolverConfig options not ported yet: {', '.join(bad)}")
+def gs_exact_wanted(cfg: SolverConfig) -> bool:
+    """The order-exact sequential GS sweep smooths every level."""
+    return cfg.relax_kind == "GS" and cfg.gs_exact
 
 
 def compact_eligible(spec: LevelSpec, cfg: SolverConfig) -> bool:
@@ -187,7 +199,6 @@ class SingleDeviceBackend:
         # (a backend built to read its gates may hold no operators)
         self.on_card = (on_card if on_card is not None
                         else ops[0] is not None and ops[0].cA.is_cuda)
-        check_supported(cfg)
         self.levels = tuple(levels)
         self.ops = list(ops)
         self.cfg = cfg
@@ -249,17 +260,31 @@ class SingleDeviceBackend:
                     p.asdict(), b.asdict(), self.packs[lev], nsweeps,
                     kind=self.cfg.relax_kind)
             return QuadField.fromdict(q)
-        if self.levels[lev].nd == 5:
+        spec = self.levels[lev]
+        Ainv = self.ops[lev].Ainv
+        if (lev == self.nlevs - 1 and self.cfg.coarsest == "direct"
+                and Ainv is not None):
+            # the exact coarse solve: one (n, n) matvec replaces
+            # ns_coarsest sweeps (mgroms_tpu/solver.py:213-219)
+            n = spec.nzg * spec.nyg * spec.nxg
+            return (Ainv @ b.reshape(n)).reshape(spec.nzg, spec.nyg,
+                                                 spec.nxg)
+        if spec.nd == 5:
             raise NotImplementedError(
                 "2-D (nz==1) levels are unreachable under the standard plan "
                 "and have no assembly path (parity with the reference)")
         kind = self.cfg.relax_kind
+        if gs_exact_wanted(self.cfg):
+            return relax_ops.relax_gs_exact(
+                p, b, self.ops[lev].cA, nsweeps, self.real,
+                extend_fn=lambda x: self.extend(lev, x))
         if self._use_pallas(lev):
             return relax_fused.fused_relax(p, b, self.ops[lev].cA, nsweeps,
                                            kind, self.real)
         return relax_ops.relax(p, b, self.ops[lev].cA, nsweeps, kind,
                                self.real,
-                               extend_fn=lambda x: self.extend(lev, x))
+                               extend_fn=lambda x: self.extend(lev, x),
+                               tridiag_method=self.cfg.tridiag)
 
     def supports_fused_residual(self, lev: int) -> bool:
         """Relax at this level can emit the post-sweep residual from its
@@ -276,6 +301,7 @@ class SingleDeviceBackend:
         """Fused relax + residual + restrict down-leg applicability."""
         return (self.supports_fused_residual(lev)
                 and lev + 1 < self.nlevs
+                and not self.levels[lev + 1].aggressive_from_prev
                 and self.levels[lev].nzg % 2 == 0)
 
     def relax_residual(self, lev: int, p, b, nsweeps: int):
@@ -312,18 +338,26 @@ class SingleDeviceBackend:
 
     # -- transfers ---------------------------------------------------------
     def restrict(self, lev: int, r, as_quads: bool = False):
-        """grid(lev)%r -> grid(lev+1)%b (fine2coarse, mg_intergrids.f90:16)."""
+        """grid(lev)%r -> grid(lev+1)%b (fine2coarse, mg_intergrids.f90:16);
+        8:1 in z alone where level ``lev + 1`` is aggressively coarsened
+        (the quads are then independent in (y, x))."""
+        aggressive = self.levels[lev + 1].aggressive_from_prev
         if isinstance(r, QuadField):
+            if aggressive:
+                out = QuadField(transfer.restrict_aggressive(q)
+                                for q in r.quads)
+                return out if as_quads else out.merge()
             full = restrict_quads_to_full(r.asdict())
         else:
-            full = transfer.restrict(r)
+            full = transfer.restrict(r, aggressive=aggressive)
         return QuadField.split(full) if as_quads else full
 
     def residual_restrict(self, lev: int, p, b, as_quads: bool = False):
         """Coarse b = restrict(b - A p) — the V-cycle down-leg pair
         (mg_solvers.f90:137-140); one K3 launch for the four target quads
         on quad-persistent levels with even nz."""
-        if isinstance(p, QuadField) and self.levels[lev].nzg % 2 == 0:
+        if (isinstance(p, QuadField) and self.levels[lev].nzg % 2 == 0
+                and not self.levels[lev + 1].aggressive_from_prev):
             full = kernels.residual_restrict_tiled_quads(
                 p.asdict(), b.asdict(), self.packs[lev])
             return QuadField.split(full) if as_quads else full
@@ -333,8 +367,10 @@ class SingleDeviceBackend:
     def prolong(self, lev: int, pc, as_quads: bool = False):
         """grid(lev+1)%p -> correction on lev (coarse2fine, :167-228)."""
         pce = self.extend(lev + 1, self.to_full(lev + 1, pc))
-        out = transfer.prolong(pce, self.levels[lev].nzg,
-                               self.cfg.interp_type, as_quads=as_quads)
+        out = transfer.prolong(
+            pce, self.levels[lev].nzg, self.cfg.interp_type,
+            aggressive=self.levels[lev + 1].aggressive_from_prev,
+            as_quads=as_quads)
         return QuadField.fromdict(out) if as_quads else out
 
     def synchronize(self) -> None:
@@ -428,6 +464,68 @@ def fcycle(backend, p0, b0, r0, cfg: SolverConfig,
     return (ps[0], r_top) if emit_residual else ps[0]
 
 
+def vcycle2(backend, ps: list, bs: list, top: int, bottom: int,
+            cfg: SolverConfig) -> list:
+    """Partial-depth V-cycle: descend only to level ``bottom``
+    (``Vcycle2``, mg_solvers.f90:155-177), every level in full layout
+    (JAX ``vcycle2``: zeros and coarse right-hand sides in full layout)."""
+    for lev in range(top, bottom):
+        if _fused_rr_ok(backend, lev, cfg.ns_pre, ps[lev]):
+            ps[lev], bs[lev + 1] = backend.relax_residual_restrict(
+                lev, ps[lev], bs[lev], cfg.ns_pre)
+        else:
+            ps[lev] = backend.relax(lev, ps[lev], bs[lev], cfg.ns_pre)
+            bs[lev + 1] = backend.residual_restrict(lev, ps[lev], bs[lev])
+        ps[lev + 1] = backend.zeros(lev + 1)
+    ps[bottom] = backend.relax(bottom, ps[bottom], bs[bottom],
+                               cfg.ns_coarsest)
+    for lev in range(bottom - 1, top - 1, -1):
+        ps[lev] = ps[lev] + backend.prolong(lev, ps[lev + 1])
+        ps[lev] = backend.relax(lev, ps[lev], bs[lev], cfg.ns_post)
+    return ps
+
+
+def dot(backend, lev: int, x, y) -> torch.Tensor:
+    """<x, y> over the interior (``norm``, mg_solvers.f90:180-200); on one
+    device the plain sum."""
+    del backend, lev
+    return torch.sum(x * y)
+
+
+def testgalerkin(backend, lev: int, cfg: SolverConfig, seed: int = 0,
+                 field: str = "smooth"):
+    """Inter-grid and operator consistency (``testgalerkin``,
+    mg_solvers.f90:203-288; JAX ``testgalerkin``): a coarse field p on
+    level ``lev``, <p, A_c p> against <P p, A_f P p> on level ``lev - 1``.
+    For a smooth field both approximate the same energy integral, so
+    ratio = norm_c / norm_f * 4 is near 4 (:281-286).  ``field='smooth'``
+    is the Gaussian bump of the reference's commented variant (:226-232);
+    ``'random'`` draws uniform values from a ``torch.Generator`` seeded by
+    ``seed`` (the live code, :224; not the JAX package's numbers), whose
+    rough modes trilinear interpolation damps, so the ratio comes out
+    larger.  Returns (norm_coarse, norm_fine, ratio)."""
+    s = backend.levels[lev]
+    cA = backend.ops[lev].cA
+    dt, dev = cA.dtype, cA.device
+    if field == "random":
+        g = torch.Generator(device=dev).manual_seed(seed)
+        p_c = torch.rand((s.nzg, s.nyg, s.nxg), generator=g, dtype=dt,
+                         device=dev)
+    else:
+        ax = lambda n, c: ((torch.arange(n, dtype=dt, device=dev) + 0.5) / n
+                           - c)
+        x, y, z = ax(s.nxg, 0.3), ax(s.nyg, 0.4), ax(s.nzg, 0.2)
+        p_c = torch.exp(-30.0 * (x[None, None, :] ** 2
+                                 + y[None, :, None] ** 2
+                                 + z[:, None, None] ** 2))
+    r_c = -backend.residual(lev, p_c, torch.zeros_like(p_c))   # A_c p
+    norm_c = torch.sum(p_c * r_c)
+    p_f = backend.prolong(lev - 1, p_c)                        # P p
+    r_f = -backend.residual(lev - 1, p_f, torch.zeros_like(p_f))
+    norm_f = torch.sum(p_f * r_f)
+    return float(norm_c), float(norm_f), float(norm_c / norm_f * 4.0)
+
+
 def _init_state(be, b):
     """p = 0, b and the initial residual in level 0's state layout, ||r||^2
     and ||b|| (solve_p's prologue, mg_solvers.f90:35-57)."""
@@ -491,16 +589,34 @@ class SolveInfo(NamedTuple):
     rescaled_perf: float       # reference figure of merit (mg_solvers.f90:92)
 
 
-def graph_wanted(backend, graph: Optional[bool]) -> bool:
+def graph_wanted(backend, graph: Optional[bool],
+                 cfg: Optional[SolverConfig] = None) -> bool:
     """Whether a solve replays its step as a CUDA graph (capture.py): by
     default on a single-device backend on the card; ``graph=False`` runs
     the eager loop; ``graph=True`` raises where no graph can run (the CPU,
-    a distributed backend)."""
+    a distributed backend) and for an order-exact GS solve, which runs
+    eagerly: its nx*ny dependent column steps a sweep, each a few dozen
+    small operations, would make a graph of millions of nodes at the
+    grids a card is for (ops/relax.relax_gs_exact)."""
+    if gs_exact_wanted(cfg or backend.cfg):
+        if graph:
+            raise ValueError("an order-exact GS solve (gs_exact) runs "
+                             "eagerly: graph=True is refused")
+        return False
     can = backend.on_card and backend.capturable
     if graph and not can:
         raise ValueError("a CUDA graph replays a single-device solve on "
                          "the card only")
     return can if graph is None else graph
+
+
+def _dump(backend, cfg: SolverConfig, x, vname: str, fname: str,
+          iteration: Optional[int] = None) -> None:
+    """A level-0 state (either layout) written to ``cfg.output_dir``
+    (io/diagnostics.write_field, rank 0)."""
+    write_field(backend.to_full(0, x), vname,
+                os.path.join(cfg.output_dir, fname), rank=0,
+                iteration=iteration)
 
 
 def _rescaled_perf(backend, dt: float, res: float, res0: float,
@@ -571,12 +687,11 @@ def solve_p(backend, b: torch.Tensor, cfg: Optional[SolverConfig] = None,
     the tiles' programs on host threads, which one capture cannot follow)
     the loop is eager."""
     cfg = cfg or backend.cfg
-    check_supported(cfg)
     tol = cfg.solver_prec if tol is None else tol
     maxiter = cfg.solver_maxiter if maxiter is None else maxiter
     if device_loop is None:
         device_loop = cfg.device_loop
-    graph = graph_wanted(backend, graph)
+    graph = graph_wanted(backend, graph, cfg)
 
     if device_loop and not (verbose or cfg.netcdf_output):
         t0 = time.perf_counter()
@@ -620,9 +735,21 @@ def solve_p(backend, b: torch.Tensor, cfg: Optional[SolverConfig] = None,
         if verbose:
             print(f"ite = {nite:2d}: res = {rnorm:10.3e} / "
                   f"conv = {conv:10.3f}")
+        if cfg.netcdf_output:
+            # per-iteration dumps (mg_solvers.f90:74-77); a replayed step
+            # leaves its iterates in its static buffers
+            _dump(backend, cfg, step.p if step is not None else p, "p",
+                  "p.nc", nite)
+            _dump(backend, cfg, step.r if step is not None else r, "r",
+                  "r.nc", nite)
     p = step.result() if step is not None else backend.to_full(0, p)
     backend.synchronize()
     dt = time.perf_counter() - t0
+    if cfg.netcdf_output:
+        # end-of-solve dumps (nhydro.f90:92-95)
+        _dump(backend, cfg, p, "p", "p_end.nc")
+        _dump(backend, cfg, step.r if step is not None else r, "r",
+              "r_end.nc")
     return p, SolveInfo(niter=nite, res=res0, history=tuple(history),
                         time_s=dt,
                         rescaled_perf=_rescaled_perf(backend, dt, res0,

@@ -91,9 +91,37 @@ def test_setup_path_matches_jax(name):
         close(got, want)
 
 
-def test_unported_options_raise():
+@pytest.mark.parametrize("kw", [
+    dict(bmask=True), dict(coarsest="direct"),
+    dict(relax_method="GS", gs_exact=True), dict(tridiag="pcr")],
+    ids=["bmask", "direct", "gs_exact", "pcr"])
+def test_options_build_on_the_cpu(kw):
+    """Every SolverConfig option the JAX package accepts builds a model in
+    the port too: NHModel and set_matrices on the CPU."""
     from mgroms_tpu_torch import NHModel
-    for kw in (dict(bmask=True), dict(coarsest="direct"),
-               dict(gs_exact=True), dict(tridiag="pcr")):
-        with pytest.raises(NotImplementedError):
-            NHModel(16, 16, 16, cfg=TConfig(**kw), device="cpu")
+    c = tseamount(16, 16, 16)
+    m = NHModel(16, 16, 16, cfg=TConfig(**kw), device="cpu")
+    m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc, theta_b=c.theta_b,
+                   theta_s=c.theta_s)
+    assert m.backend is not None
+    assert (m.ops[-1].Ainv is not None) == (kw.get("coarsest") == "direct")
+
+
+def test_aggressive_assembly_raises_in_both_packages():
+    """Aggressive z-coarsening: both packages build the model (its level
+    plan) and refuse the assembly at set_matrices, as the reference does
+    (mg_define_matrix.f90:108-112)."""
+    from mgroms_tpu import NHModel as JModel
+    from mgroms_tpu_torch import NHModel
+    c = tseamount(16, 16, 16)
+    args = (c.dx, c.dy, c.zeta, c.h)
+    kw = dict(hc=c.hc, theta_b=c.theta_b, theta_s=c.theta_s)
+    m = NHModel(16, 16, 16, cfg=TConfig(aggressive=True), device="cpu")
+    jm = JModel(16, 16, 16, cfg=JConfig(aggressive=True))
+    plan = lambda lv: [(s.nzg, s.nyg, s.nxg, s.aggressive_from_prev)
+                       for s in lv]
+    assert plan(m.levels) == plan(jm.levels)
+    assert m.levels[1].aggressive_from_prev
+    for model in (m, jm):
+        with pytest.raises(NotImplementedError, match="aggressive"):
+            model.set_matrices(*args, **kw)

@@ -120,7 +120,8 @@ def test_import_leaves_jax_out():
             "mgroms_tpu_torch.capture, "
             "mgroms_tpu_torch.ops.kernels.device_loop, "
             "mgroms_tpu_torch.scripts.solve_wall, "
-            "mgroms_tpu_torch.scripts.loop_graph_build\n"
+            "mgroms_tpu_torch.scripts.loop_graph_build, "
+            "mgroms_tpu_torch.io.diagnostics\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mgroms_tpu')]\n"
             "assert not bad, bad\n")

@@ -488,3 +488,47 @@ def test_fc_tiled_orchestration_matches_pallas():
                                              "FC"),
                 jtiled.relax_compact_tiled_quads(jquads(p), jquads(b), jp, 2,
                                                  "FC", True, interpret=True))
+
+
+@pytest.mark.parametrize("real", [True, False])
+@pytest.mark.parametrize("lp", [False, True])
+def test_pcr_quads_match_jax(real, lp):
+    """``tridiag_method='pcr'`` (parallel cyclic reduction on each colour's
+    columns) against JAX's: RB and FC sweeps in quad form and the
+    full-layout form, on a gather pack and on one with the low-precision
+    operator attached, which PCR ignores (the true operator, as JAX's
+    relax_compact.py:448); the emitted-residual and restrict orchestrators
+    on the gather pack (both packages refuse them a low-precision
+    pack)."""
+    cA, p, b = problem(6, 10, 14, seed=7)
+    jp = jrc.build_compact_pack(jnp.asarray(cA), real)
+    tp = trc.build_compact_pack(torch.from_numpy(cA), real)
+    if lp:
+        jp, tp = jrc.attach_lp(jp), trc.attach_lp(tp)
+    pcr = dict(tridiag_method="pcr")
+    for kind in ("RB", "FC"):
+        got = trc.relax_compact_quads(tquads(p), tquads(b), tp, 2, kind,
+                                      real, **pcr)
+        close_quads(got, jrc.relax_compact_quads(jquads(p), jquads(b), jp,
+                                                 2, kind, real, **pcr))
+        close(trc.relax_compact(torch.from_numpy(p), torch.from_numpy(b),
+                                None, 2, kind, real, pack=tp, **pcr),
+              jrc.relax_compact(jnp.asarray(p), jnp.asarray(b), None, 2,
+                                kind, real, pack=jp, **pcr))
+    if lp:
+        close_quads(got, trc.relax_compact_quads(
+            tquads(p), tquads(b), tp._replace(lp=None), 2, "FC", real,
+            **pcr), 0)
+        return
+    tq, tr = trc.relax_residual_compact_quads(tquads(p), tquads(b), tp, 2,
+                                              real, **pcr)
+    jq, jr = jrc.relax_residual_compact_quads(jquads(p), jquads(b), jp, 2,
+                                              real, **pcr)
+    close_quads(tq, jq)
+    close_quads(tr, jr)
+    tq, tcb = trc.relax_residual_restrict_compact_quads(
+        tquads(p), tquads(b), tp, 2, real, **pcr)
+    jq, jcb = jrc.relax_residual_restrict_compact_quads(
+        jquads(p), jquads(b), jp, 2, real, **pcr)
+    close_quads(tq, jq)
+    close(tcb, jcb)
