@@ -171,10 +171,13 @@ Phases (any failed check raises, so the exit code is non-zero):
    rounds, inner F-cycles, history, seconds and the pair's peak memory
    (scripts/refine_solve.py's JSON line).
 19. The loop modes (loop_phase): scripts/solve_wall.py on CUC 1024^2 x 64
-   to 1e-4, the eager host loop, the replayed host loop and the device
-   loop (one CUDA graph, a WHILE node around the captured step and the
-   condition kernel), timed, equal histories, the one-off capture and
-   instantiation seconds and the peak from an empty card (its JSON line);
+   to 1e-4 in the JAX script's configuration (coarsest='direct', the
+   metrics offloaded after the right-hand side), the eager host loop, the
+   replayed host loop and the device loop (one CUDA graph, a WHILE node
+   around the captured step and the condition kernel), timed (the three
+   medians printed), equal histories, the one-off capture and
+   instantiation seconds (the WHILE body's printed) and the peak from an
+   empty card (its JSON line);
    scripts/loop_graph_build.py on seamount 64^3, the default
    configuration with one and two F-cycles a check and use_pallas with
    one: the device loop's build seconds against its node count (cloned
@@ -200,7 +203,24 @@ Phases (any failed check raises, so the exit code is non-zero):
    pressure); gs_exact (relax_method='GS') on seamount 8^3 in float64 on
    the card, eagerly (graph=True refused), equal to the same solve on the
    CPU to 1e-12 relative; testgalerkin on seamount 64^3, level 1, its
-   ratio printed and within (3, 5).
+   ratio printed and within (3, 5); on that model the pressure solve of
+   cases/analytic_rhs.rhs_seamount (the dipole) to <= 1e-4, K4 and K3
+   and no other kernel; velocity.velocities_from_interior followed by
+   fill_velocity_halos equal to the first call's output.
+24. drivers.rndtopo.main at the reference driver's 64^3, float32, --tol
+   1e-4 --maxiter 8 --profile: <= 1e-4, the captured step's kernels K4
+   and K3 only, the interior max|div| cut >= 100x, the printed tictoc
+   table a row for every level, the replayed history equal to the eager
+   one.
+25. CUC 1024^2 x 64, float32, coarsest='direct' (scripts/profile_cuc.py's
+   model): offload_metrics() lowers torch.cuda.memory_allocated by >=
+   OFFLOAD_MIN_BYTES; the next rhs equal bit for bit to the one before;
+   the replayed solve after a second offload the history of phase 21;
+   profile_cuc.run on that model: every level's relax, every level's
+   prolong but the coarsest's, the rows' device-time sum within [0.9,
+   1.25] x the replayed F-cycle's traced device busy and under 1.25 x the
+   eager F-cycle's CUDA-event median, all three printed, and the
+   per-level rows.
 
 Every single-device solve (phases 2-10, 14-22, the inner solves of 18)
 replays its captured step (capture.py; the model's first solve captures
@@ -252,7 +272,6 @@ from __future__ import annotations
 import collections
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -260,9 +279,10 @@ import time
 import numpy as np
 import torch
 
-from mgroms_tpu_torch import NHModel, SolverConfig
+from mgroms_tpu_torch import NHModel, SolverConfig, velocity
 from mgroms_tpu_torch.bc import extend_h1
 from mgroms_tpu_torch.capture import captured_step
+from mgroms_tpu_torch.cases import analytic_rhs
 from mgroms_tpu_torch.cases.cuc import setup_cuc_synthetic
 from mgroms_tpu_torch.cases.seamount import initial_velocities, setup_seamount
 from mgroms_tpu_torch.levels import describe
@@ -286,8 +306,8 @@ from mgroms_tpu_torch.scripts import micro_packed_parts as mpp
 from mgroms_tpu_torch.scripts import micro_relax_fused as mrf
 from mgroms_tpu_torch.scripts import micro_roofline as mr
 from mgroms_tpu_torch.scripts import micro_sweep_fused as msf
-from mgroms_tpu_torch.scripts import (loop_graph_build, refine_solve,
-                                      solve_wall)
+from mgroms_tpu_torch.scripts import (loop_graph_build, profile_cuc,
+                                      refine_solve, solve_wall)
 from mgroms_tpu_torch.scripts._timing import card_line, median_ms
 from mgroms_tpu_torch.solver import solve_init, solve_step, testgalerkin
 
@@ -378,6 +398,11 @@ BMASK_MAXITER = 12
 # phase 21 (CUC, coarsest='direct') and phase 22 (seamount 64^3, PCR)
 DIRECT_MAXITER = 8
 PCR_MAXITER = 3
+# phase 25: what offload_metrics must give back at CUC 1024^2 x 64 in
+# float32: the metrics are 387 planes and 5 fields of 1026^2 values
+# (392 x 4,210,704 B), less umask and vmask, which level 0's operator
+# shares
+OFFLOAD_MIN_BYTES = 1.60e9
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 peak
 F32_FLOPS = 67e12                # float32 outside the tensor cores
 
@@ -1414,42 +1439,13 @@ def check_band_levels(m):
           f"blocks): {stacks / 2**30:.3f} GiB of stacks")
 
 
-def fcycle_ms(m, reps=5):
-    """Median time of one F-cycle + residual norm (solver.solve_step) at
-    level 0 of model ``m`` (CUDA events), from a fresh solve start: eagerly
-    and, on a single-device model, as a replay of its captured step (None
-    on a distributed one)."""
-    be = m.backend
+def print_fcycle(m):
+    """Prints and returns (eager, replayed) of profile_cuc.fcycle_ms on
+    model ``m`` and the initial velocities' right-hand side (replayed:
+    None on a distributed model)."""
     u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
                                  device=m.device)
-    p, bs, r, _, _ = solve_init(be, m._rhs_state(u, v, w))
-    step = captured_step(be, m.cfg) if be.capturable else None
-    if step is not None:
-        step.load(p, bs, r)
-    state = [p, r]
-
-    def eager():
-        state[0], state[1], _ = solve_step(be, state[0], bs, state[1],
-                                           m.cfg)
-
-    def timed(fn):
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-    return timed(eager), timed(step.replay) if step else None
-
-
-def print_fcycle(m):
-    """Prints and returns fcycle_ms(m)."""
-    eager, replay = fcycle_ms(m)
+    replay, eager = profile_cuc.fcycle_ms(m, m._rhs_state(u, v, w))
     print(f"  F-cycle median {eager:.3f} ms eager"
           + (f", {replay:.3f} ms replayed" if replay is not None else ""))
     return eager, replay
@@ -1715,8 +1711,8 @@ def distributed_phase(case, dev, ref, p_ref):
     check(info.res <= 1e-4, f"{info.res} after {info.niter} cycles")
     check(ratio <= 2.5e-2 and inner <= 1e-2,
           f"max|div| cut only to {ratio} (interior {inner})")
-    print(f"  F-cycle median {fcycle_ms(m)[0]:.3f} ms (virtual mesh: four "
-          f"tiles on one card)")
+    print("  the virtual mesh: four tiles on one card")
+    print_fcycle(m)
     profile_fcycle(m)
     check(dev_rel <= REL_TOL, f"history {info.history} vs phase 8 {ref}")
     print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
@@ -1870,10 +1866,12 @@ LOOP_REPS = 3
 
 def loop_phase(case, case_seamount, dev):
     """Phase 19: the convergence loop modes.  scripts/solve_wall.py on CUC
-    1024^2 x 64 float32 to 1e-4: the eager host loop, the host loop
-    replaying the captured step and the device loop (one CUDA graph with a
-    WHILE node), SOLVE_WALL_REPS timed solves each after one that
-    captures, their histories equal to every digit, the one-off capture
+    1024^2 x 64 float32 to 1e-4, in the JAX script's configuration
+    (coarsest='direct', the metrics offloaded): the eager host loop, the
+    host loop replaying the captured step and the device loop (one CUDA
+    graph with a WHILE node), SOLVE_WALL_REPS timed solves each after one
+    that captures (their medians printed), their histories equal to every
+    digit, the one-off capture
     and instantiation seconds and the peak from an empty card (its JSON
     line); the device loop's condition kernel run once a check and once a
     solve (the runs the device counted), K4 and K3 and no other kernel.
@@ -1887,7 +1885,8 @@ def loop_phase(case, case_seamount, dev):
     node counts and the two loops' walls.  Returns the CUC run's launch
     counts."""
     print("== phase 19: the loop modes: scripts/solve_wall.py (CUC 1024^2 x "
-          "64 to 1e-4, eager / replayed / device loop); seamount 64^3 "
+          "64 to 1e-4, coarsest='direct', metrics offloaded, eager / "
+          "replayed / device loop); seamount 64^3 "
           "device loop against the replayed host loop, default config with "
           "cycles_per_check 1 and 2, use_pallas with 1 "
           "(scripts/loop_graph_build.py)")
@@ -1904,14 +1903,17 @@ def loop_phase(case, case_seamount, dev):
     check_path(counts, {"relax_fused_sweep", "loop_condition"} | K3)
     check(row["device_loop"]["final_rel_residual"] <= 1e-4,
           f"device loop stopped at {row['device_loop']}")
-    print("  solve wall (s): " + ", ".join(
-        f"{mode} {row[mode]['wall_s_per_solve']:.4f}"
+    check(row["config"]["coarsest"] == "direct"
+          and row["offloaded_bytes"] > 0, f"solve_wall config {row['config']}")
+    print("  solve wall (s), medians of " f"{SOLVE_WALL_REPS}: " + ", ".join(
+        f"{mode} {row[mode]['wall_s_median']:.4f}"
         for mode in solve_wall.MODES) + f"; F-cycles {checks}; step warm-up "
         f"{row['step_warmup_s']:.3f} s, capture {row['step_capture_s']:.3f} "
         f"s, instantiation {row['step_instantiate_s']:.3f} s, device loop "
-        f"body clone {row['loop_clone_s']:.3f} s, instantiation "
+        f"body clone {row['loop_clone_s']:.3f} s, WHILE body instantiation "
         f"{row['loop_instantiate_s']:.3f} s; peak {row['peak_gib']:.3f} GiB "
-        f"from {row['held_gib']:.3f} GiB held")
+        f"from {row['held_gib']:.3f} GiB held; metrics offloaded "
+        f"{row['offloaded_bytes'] / 1e9:.3f} GB")
     hist = {}
     for use_pallas, cpcs in ((False, (1, 2)), (True, (1,))):
         for lrow in loop_graph_build.run(
@@ -2103,7 +2105,7 @@ def bmask_phase(case, dev, phase4):
 
 def direct_phase(case, dev, phase4):
     """Phase 21: CUC 1024^2 x 64 float32 with coarsest='direct' (module
-    docstring).  Returns the launch counts."""
+    docstring).  Returns the launch counts and the history."""
     print("== phase 21: CUC 1024^2 x 64 float32, coarsest='direct'")
     t0 = time.perf_counter()
     reset_launches()
@@ -2128,7 +2130,7 @@ def direct_phase(case, dev, phase4):
     del m, Ainv
     torch.cuda.empty_cache()
     print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
-    return counts
+    return counts, info.history
 
 
 def pcr_phase(case_seamount, dev, seamount_history):
@@ -2225,6 +2227,149 @@ def small_phase(dev):
           f"<Pp, A_f Pp> {norm_f:.6e}, ratio {ratio:.4f} (smooth), "
           f"{ratio_r:.4f} (random)")
     check(3.0 < ratio < 5.0, f"Galerkin ratio {ratio}")
+    reset_launches()
+    b = analytic_rhs.rhs_seamount(n, n, n, dtype=m.dtype, device=dev)
+    _, info = m.pressure_solve(b, tol=1e-4, maxiter=6)
+    counts = launches()
+    print(f"  rhs_seamount (the dipole) on that model: history "
+          f"{['%.4e' % h for h in info.history]}, launches {counts}")
+    check(info.res <= 1e-4, f"dipole solve stopped at {info.history}")
+    check_path(counts, {"relax_fused_sweep"} | K3)
+    g = torch.Generator(device=dev).manual_seed(23)
+    inner = [torch.randn(shape, generator=g, dtype=m.dtype, device=dev)
+             for shape in ((n, n, n + 1), (n, n + 1, n), (n + 1, n, n))]
+    uvw = velocity.velocities_from_interior(*inner)
+    filled = velocity.fill_velocity_halos(*uvw)
+    check(all(torch.equal(a, b) for a, b in zip(filled, uvw)),
+          "fill_velocity_halos changed velocities_from_interior's output")
+    print("  velocities_from_interior then fill_velocity_halos: equal to "
+          "the first call's output")
+    del m
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+
+
+def rndtopo_phase(dev):
+    """Phase 24: drivers.rndtopo at the reference driver's 64^3 in float32
+    on the card, --tol 1e-4 --maxiter 8 --profile (module docstring).  The
+    driver's output is printed as it gave it."""
+    import contextlib
+    import io
+    import tempfile
+    from mgroms_tpu_torch.drivers import rndtopo
+    from mgroms_tpu_torch.utils import tictoc
+    print("== phase 24: drivers.rndtopo 64^3 float32, --tol 1e-4 --maxiter 8 "
+          "--profile")
+    t0 = time.perf_counter()
+    n, maxiter = 64, 8
+    tictoc.reset_tictoc()
+    reset_launches()
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(out):
+        m, info = rndtopo.main(["--nx", str(n), "--ny", str(n), "--nz",
+                                str(n), "--tol", "1e-4", "--maxiter",
+                                str(maxiter), "--profile", "--history",
+                                os.path.join(tmp, "history.txt")])
+    text = out.getvalue()
+    print("\n".join("  | " + line for line in text.splitlines()))
+    counts = launches()
+    print(f"  launches (solve, check, profile) {counts}")
+    check(info.res <= 1e-4 and info.niter <= maxiter,
+          f"rndtopo: {info.res} after {info.niter} cycles")
+    check(len(m.backend.graphs) == 1, "the solve replayed no captured step")
+    step = next(iter(m.backend.graphs.values()))
+    check_path(collections.Counter(step.launches), {"relax_fused_sweep"} | K3)
+    check_path(counts, {"relax_fused_sweep"} | K3)
+    L = len(m.levels)
+    rows = {int(line.split()[0]) for line in text.splitlines()
+            if line.strip()[:1].isdigit() and "s/" in line}
+    print(f"  tictoc table rows for levels {sorted(rows)} of {L}")
+    check(rows == set(range(L)), f"tictoc rows {sorted(rows)}, {L} levels")
+    uvw = initial_velocities(n, n, n, dtype=m.dtype, device=dev)
+    uc, vc, wc, _, rinfo = m.solve(*uvw, tol=1e-4, maxiter=maxiter)
+    *_, einfo = m.solve(*uvw, tol=1e-4, maxiter=maxiter, graph=False)
+    check(rinfo.history == info.history == einfo.history,
+          f"replayed {rinfo.history} / eager {einfo.history} / driver "
+          f"{info.history}")
+    div0 = float(m.rhs(*uvw).abs().max())
+    inner = float(m.rhs(uc, vc, wc)[:, 2:-2, 2:-2].abs().max()) / div0
+    print(f"  history {['%.4e' % h for h in info.history]}, replayed equal "
+          f"to eager; interior max|div| ratio {inner:.3e}; step kernels "
+          f"{dict(step.launches)}")
+    check(inner <= 1e-2, f"interior max|div| cut only to {inner}")
+    tictoc.reset_tictoc()
+    del m
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+
+
+def offload_phase(case, dev, history21):
+    """Phase 25: offload_metrics and scripts/profile_cuc.py on CUC 1024^2 x
+    64 float32 with coarsest='direct' (module docstring); ``history21`` is
+    phase 21's."""
+    print("== phase 25: CUC 1024^2 x 64 float32, coarsest='direct': "
+          "offload_metrics, then scripts/profile_cuc.py")
+    t0 = time.perf_counter()
+    nx, ny, nz = 1024, 1024, 64
+    m = NHModel(nx, ny, nz, cfg=solve_wall.CONFIG, device=dev)
+    m.set_matrices(case.dx, case.dy, case.zeta, case.h, hc=case.hc,
+                   theta_b=case.theta_b, theta_s=case.theta_s)
+    uvw = initial_velocities(nx, ny, nz, dtype=m.dtype, device=dev)
+    b = m.rhs(*uvw)
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t1 = time.perf_counter()
+    moved = m.offload_metrics()
+    t2 = time.perf_counter()
+    freed = held - torch.cuda.memory_allocated(dev)
+    print(f"  offload_metrics: {moved} B moved to pinned host memory in "
+          f"{t2 - t1:.3f} s, device memory allocated {held} -> "
+          f"{held - freed} B ({freed / 1e9:.4f} GB back, limit "
+          f"{OFFLOAD_MIN_BYTES / 1e9:.2f})")
+    check(freed >= OFFLOAD_MIN_BYTES, f"offload_metrics gave back {freed} B")
+    t1 = time.perf_counter()
+    check(torch.equal(m.rhs(*uvw), b), "rhs after offload_metrics differs")
+    print(f"  the next rhs (metrics back in {time.perf_counter() - t1:.3f} s)"
+          " equal bit for bit to the one before")
+    m.offload_metrics()
+    reset_launches()
+    _, info = m.pressure_solve(b, tol=1e-4, maxiter=DIRECT_MAXITER)
+    counts = launches()
+    print(f"  replayed solve after the offload: history "
+          f"{['%.6e' % h for h in info.history]}, phase 21 "
+          f"{['%.6e' % h for h in history21]}; launches {counts}")
+    check(info.history == history21, "history differs from phase 21's")
+    check(m._metrics_offloaded, "the solve brought the metrics back")
+    check_path(counts, {"relax_fused_sweep"} | K3)
+    del b
+    row = profile_cuc.run(nx, ny, nz, iters=5, device=dev, model=m)
+    L = len(m.levels)
+    keys = {(r["lev"], r["op"]) for r in row["rows"]}
+    missing = sorted(({(lev, "relax") for lev in range(L)}
+                      | {(lev, "prolong") for lev in range(L - 1)}) - keys)
+    check(not missing, f"profile_cuc rows missing {missing}")
+    prof = profile_fcycle(m)
+    busy = prof["replay"][1]
+    total = row["device_ms_sum"]
+    # the upper limit is the replayed F-cycle's, 1.25 x its busy time: a
+    # re-timing that measured the host's enqueue (1.0-1.24 x the eager
+    # F-cycle) passes 1.25 x the eager median but not this
+    lo, hi = 0.9 * busy, 1.25 * busy
+    hi_eager = 1.25 * row["fcycle_ms_eager"]
+    print(f"  profile_cuc device-time sum {total:.3f} ms; replayed F-cycle "
+          f"traced device busy {busy:.3f} ms, eager F-cycle median "
+          f"{row['fcycle_ms_eager']:.3f} ms (replayed median "
+          f"{row['fcycle_ms_replay']:.3f} ms): limits [{lo:.3f}, {hi:.3f}] "
+          f"(0.9 and 1.25 x busy; {total / hi:.3f} of the upper), 1.25 x "
+          f"eager {hi_eager:.3f} ({total / hi_eager:.3f} of it)")
+    check(lo <= total <= min(hi, hi_eager),
+          f"device-time sum {total} outside [{lo}, {min(hi, hi_eager)}]")
+    for r in row["rows"]:
+        print(f"  level {r['lev']} {r['op']:<24s} {r['calls']:3d} calls "
+              f"re-timed {r['ms']:9.4f} ms, eager pass device "
+              f"{r['eager_device_ms']:9.4f} ms, host {r['eager_host_ms']:9.4f}"
+              " ms")
     del m
     torch.cuda.empty_cache()
     print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
@@ -2402,9 +2547,11 @@ def main() -> int:
     refine_phase(dev)
     phase_counts[19] = loop_phase(case, case_seamount, dev)
     phase_counts[20] = bmask_phase(case, dev, phase4)
-    phase_counts[21] = direct_phase(case, dev, phase4)
+    phase_counts[21], history21 = direct_phase(case, dev, phase4)
     phase_counts[22] = pcr_phase(case_seamount, dev, seamount_history)
     small_phase(dev)
+    rndtopo_phase(dev)
+    offload_phase(case, dev, history21)
 
     for name, (src, _, phase) in KERNELS.items():
         print(f"  {name}: {phase_counts[phase][name]} launches in phase "

@@ -12,6 +12,12 @@ and ``NHModel.distribute`` (the reference's 2-D horizontal decomposition,
 npxg x npyg) over a mesh of devices driven from this one process
 (mgroms_tpu_torch/parallel).
 
+:meth:`NHModel.offload_metrics` moves the fine-level metrics (the inputs
+of rhs and the projection, not of the pressure solve) to host memory, as
+the JAX package's timed scripts do before they time a solve; the next
+rhs, project, check_nondivergence or distribute brings them back
+(:meth:`NHModel._metrics_live`).
+
 Velocity layout (z leading): u (nz, ny+2, nx+1), v (nz, ny+1, nx+2),
 w (nz+1, ny+2, nx+2).  Every tensor the model creates takes its device and
 ``cfg.dtype``; inputs are converted to them.
@@ -56,6 +62,7 @@ class NHModel:
         self.nx, self.ny, self.nz = nx, ny, nz
         self.backend: Optional[SingleDeviceBackend] = None
         self.metrics: Optional[FineMetrics] = None
+        self._metrics_offloaded = False
         if verbose:
             print(describe(self.levels))
 
@@ -104,6 +111,7 @@ class NHModel:
         carried over from elsewhere (mgroms_tpu_torch.convert)."""
         self.ops = ops
         self.metrics = metrics
+        self._metrics_offloaded = False
         self._physics = None
         # the old backend's CUDA graphs (capture.py) hold its operators'
         # pointers: they go with it, before the new packs are built
@@ -160,7 +168,8 @@ class NHModel:
                          for lev, s in enumerate(spk)]
         self.backend = backend
         self.device = mesh.first
-        self._physics = DistributedPhysics(plan, self.metrics, self.cfg)
+        self._physics = DistributedPhysics(plan, self._metrics_live(),
+                                           self.cfg)
 
     @property
     def distributed(self) -> bool:
@@ -171,12 +180,43 @@ class NHModel:
             raise RuntimeError("call set_matrices first")
         return self.metrics
 
+    def offload_metrics(self) -> int:
+        """Move the fine-level metric fields (the rhs and projection
+        inputs: 6 nz-deep fields and 5 planes of (ny+2) x (nx+2) values)
+        to host memory, pinned where the model is on the card, freeing
+        device memory for the solve (mgroms_tpu/model.py:168-175).  The
+        pressure solve does not read them; rhs, project,
+        check_nondivergence and distribute bring them back first
+        (:meth:`_metrics_live`).  Returns the bytes moved."""
+        mt = self._require()
+        pin = self.device.type == "cuda"
+
+        def host(t):
+            h = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                            pin_memory=pin)
+            h.copy_(t)
+            return h
+
+        self.metrics = FineMetrics(*(host(t) for t in mt))
+        self._metrics_offloaded = True
+        return sum(t.numel() * t.element_size() for t in self.metrics)
+
+    def _metrics_live(self) -> FineMetrics:
+        """The metrics on the model's device, brought back first where
+        :meth:`offload_metrics` moved them (mgroms_tpu/model.py:177-188)."""
+        mt = self._require()
+        if self._metrics_offloaded:
+            self.metrics = FineMetrics(*(t.to(self.device, non_blocking=True)
+                                         for t in mt))
+            self._metrics_offloaded = False
+        return self.metrics
+
     # -- pieces ------------------------------------------------------------
     def rhs(self, u, v, w) -> torch.Tensor:
         if self.distributed:
             return self.backend.gather(0, self._rhs_state(u, v, w))
-        return compute_rhs(self._require(), self.tensor(u), self.tensor(v),
-                           self.tensor(w), self.cfg.bmask)
+        return compute_rhs(self._metrics_live(), self.tensor(u),
+                           self.tensor(v), self.tensor(w), self.cfg.bmask)
 
     def _state(self, x):
         """``x`` as a tensor of the model, unless it is already a tile grid
@@ -211,7 +251,7 @@ class NHModel:
             return self._physics.project(
                 self._state(p), self.tensor(u), self.tensor(v),
                 self.tensor(w))
-        return correct_uvw(self._require(), extend_h1(self.tensor(p)),
+        return correct_uvw(self._metrics_live(), extend_h1(self.tensor(p)),
                            self.tensor(u), self.tensor(v), self.tensor(w))
 
     # -- the reference's three-step solve (nhydro.f90:80-98) ---------------

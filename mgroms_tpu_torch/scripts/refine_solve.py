@@ -1,9 +1,9 @@
 """Mixed-precision defect correction on one case: float32 multigrid
 cycles, float64 residuals, to a float64 relative residual of 1e-12.
 
-    python -m mgroms_tpu_torch.scripts.refine_solve --case {seamount,cuc}
-        [--nx 64 --ny 64 --nz 64] [--bf16-bands] [--coarsest direct]
-        [--device cuda]
+    python -m mgroms_tpu_torch.scripts.refine_solve
+        --case {seamount,cuc,rndtopo} [--nx 64 --ny 64 --nz 64]
+        [--bf16-bands] [--coarsest direct] [--device cuda]
 
 Port of ``scripts/bench_tpu.py``'s ``run_refine`` (:139-172): builds the
 model pair (refine.build_pair), the right-hand side of the case's initial
@@ -12,8 +12,8 @@ with ``tol=1e-12, max_rounds=8``.  ``--bf16-bands`` gives the inner
 float32 solve perf mode (``fused_bands_bf16=True, ns_pre=1, ns_post=1``,
 as micro_solve.PERF).  ``--coarsest`` is the inner solve's coarsest-level
 treatment, 'direct' (the JAX script's default: one product with the
-dense inverse) or 'relax'.  The JAX script's rndtopo case is not ported
-and ``--case rndtopo`` raises.
+dense inverse) or 'relax'.  The rndtopo case draws its depth from seed 0
+(cases/rndtopo.py; not the JAX package's field).
 
 Prints one JSON line with the JAX script's keys, ``device`` (the card's
 name and power limit, ``nvidia-smi``) in place of ``platform``, and
@@ -29,12 +29,14 @@ import json
 import torch
 
 from ..cases.cuc import setup_cuc_synthetic
+from ..cases.rndtopo import setup_rndtopo
 from ..cases.seamount import initial_velocities, setup_seamount
 from ..config import SolverConfig
 from ..refine import build_pair, refined_pressure_solve
 from ._timing import card_line
 
-SETUPS = {"seamount": setup_seamount, "cuc": setup_cuc_synthetic}
+SETUPS = {"seamount": setup_seamount, "cuc": setup_cuc_synthetic,
+          "rndtopo": setup_rndtopo}
 PERF = dict(fused_bands_bf16=True, ns_pre=1, ns_post=1)
 
 
@@ -42,9 +44,6 @@ def run(case: str, nx: int, ny: int, nz: int, bf16_bands: bool = False,
         device="cuda", max_rounds: int = 8, verbose: bool = False,
         coarsest: str = "direct") -> dict:
     """One refined solve of ``case`` at (nx, ny, nz); the JSON row."""
-    if case not in SETUPS:
-        raise NotImplementedError(f"case {case!r} is not ported "
-                                  f"(have {sorted(SETUPS)})")
     device = torch.device(device)
     on_card = device.type == "cuda"
     if on_card:

@@ -121,7 +121,14 @@ def test_import_leaves_jax_out():
             "mgroms_tpu_torch.ops.kernels.device_loop, "
             "mgroms_tpu_torch.scripts.solve_wall, "
             "mgroms_tpu_torch.scripts.loop_graph_build, "
-            "mgroms_tpu_torch.io.diagnostics\n"
+            "mgroms_tpu_torch.io.diagnostics, "
+            "mgroms_tpu_torch.utils, mgroms_tpu_torch.utils.tictoc, "
+            "mgroms_tpu_torch.velocity, mgroms_tpu_torch.cases.rndtopo, "
+            "mgroms_tpu_torch.cases.analytic_rhs, "
+            "mgroms_tpu_torch.drivers.rndtopo, "
+            "mgroms_tpu_torch.drivers.common, "
+            "mgroms_tpu_torch.scripts.profile_cuc, "
+            "mgroms_tpu_torch.scripts.schedule_sweep\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mgroms_tpu')]\n"
             "assert not bad, bad\n")

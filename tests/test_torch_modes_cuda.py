@@ -14,7 +14,14 @@ machine with
 - ``coarsest='direct'``: the replayed solve equals the eager solve bit for
   bit (history and pressure), the dense product captured with the step;
 - ``gs_exact``: ``graph=True`` is refused, the default solve runs eagerly
-  (no graph is captured) and equals the CPU solve to 1e-12 relative.
+  (no graph is captured) and equals the CPU solve to 1e-12 relative;
+- ``offload_metrics``: the metrics' bytes to pinned host memory, the
+  device memory back but for umask and vmask (level 0's operator holds
+  them), the next rhs bit for bit the one before;
+- ``utils.tictoc.profile_fcycle(device_timer=True)`` at seamount 64^3:
+  every level, device seconds beside the host's;
+- ``scripts.profile_cuc.run`` and ``scripts.schedule_sweep.run`` at a
+  small grid: their rows (four schedules).
 """
 
 import numpy as np
@@ -27,6 +34,8 @@ from mgroms_tpu_torch.ops import relax_compact as rc
 from mgroms_tpu_torch.ops.kernels import launches, reset_launches
 from mgroms_tpu_torch.ops.kernels import relax_tiled as kt
 from mgroms_tpu_torch.ops.kernels import sweep_fused as ksf
+from mgroms_tpu_torch.scripts import profile_cuc, schedule_sweep
+from mgroms_tpu_torch.utils.tictoc import TicToc, profile_fcycle
 
 pytestmark = pytest.mark.cuda
 
@@ -166,3 +175,60 @@ def test_gs_exact_runs_eagerly_and_matches_the_cpu(cuda):
     np.testing.assert_allclose(info.history, infoc.history, rtol=1e-12)
     np.testing.assert_allclose(p.cpu().numpy(), pc.numpy(), rtol=0,
                                atol=1e-12 * float(pc.abs().max()))
+
+
+def _nbytes(ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def test_offload_metrics_on_the_card(cuda):
+    n = (64, 32, 16)
+    m = _model(cuda, n)
+    uvw = initial_velocities(*n, dtype=m.dtype, device=cuda)
+    b = m.rhs(*uvw)
+    torch.cuda.synchronize(cuda)
+    held = torch.cuda.memory_allocated(cuda)
+    moved = m.offload_metrics()
+    assert moved == _nbytes(m.metrics)
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in m.metrics)
+    freed = held - torch.cuda.memory_allocated(cuda)
+    assert freed >= moved - _nbytes((m.metrics.umask, m.metrics.vmask))
+    assert torch.equal(m.rhs(*uvw), b)
+    assert all(t.is_cuda for t in m.metrics) and not m._metrics_offloaded
+
+
+def test_profile_fcycle_device_timer(cuda):
+    """Seamount 64^3: every level's relax, every level's prolong but the
+    coarsest's, the eager pass's device seconds and host seconds beside
+    the re-timed table, the same keys and counts."""
+    n = (64, 64, 64)
+    m = _model(cuda, n)
+    b = m.rhs(*initial_velocities(*n, dtype=m.dtype, device=cuda))
+    tt = profile_fcycle(m.backend, b, m.cfg, device_timer=True, iters=3,
+                        tictoc=TicToc())
+    L = m.backend.nlevs
+    assert {k[0] for k in tt.table} == set(range(L))
+    assert all((lev, "relax") in tt.table for lev in range(L))
+    assert all((lev, "prolong") in tt.table for lev in range(L - 1))
+    counts = lambda t: {k: c for k, (_, c) in t.items()}
+    assert counts(tt.device) == counts(tt.table) == counts(tt.host)
+    assert all(s > 0.0 for s, _ in tt.table.values())
+    assert all(s > 0.0 for s, _ in tt.device.values())
+    assert len(tt.report(tt.device).splitlines()) == 1 + L
+
+
+def test_profile_cuc_small(cuda):
+    row = profile_cuc.run(64, 64, 32, iters=2, device=cuda)
+    assert row["config"]["coarsest"] == "direct"
+    assert row["device_ms_sum"] > 0.0 and row["fcycle_ms_replay"] > 0.0
+    assert {r["lev"] for r in row["rows"]} == set(range(row["levels"]))
+
+
+def test_schedule_sweep_rows(cuda):
+    rows = schedule_sweep.run(64, 64, 32, reps=2, device=cuda)
+    assert [(r["ns_pre"], r["ns_post"]) for r in rows] == list(
+        schedule_sweep.SCHEDULES)
+    for r in rows:
+        assert r["fcycle_ms"] > 0.0
+        assert len(r["history"]) == schedule_sweep.CYCLES + 1
+        assert r["history"][1] < r["history"][0]
