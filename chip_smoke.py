@@ -221,6 +221,23 @@ Phases (any failed check raises, so the exit code is non-zero):
    1.25] x the replayed F-cycle's traced device busy and under 1.25 x the
    eager F-cycle's CUDA-event median, all three printed, and the
    per-level rows.
+26. The GSPMD comm layer on a virtual 2x2 mesh of the card (no
+   interconnect is measured; the routing above gspmd_phase):
+   (a) phase 7's configuration (CUC, use_pallas, compact=False) under
+   distribute(2, 2, comm='auto'), which resolves to the GSPMD backend:
+   <= 1e-4 within 8 F-cycles, the history within 1e-6 of phase 7's, the
+   pressure's deviation from phase 7's printed, phase 4's max|div|
+   limits, K6 on every relax of every (sharded, gathered) level in the
+   forms and numbers phase 7's gate gives, K5 never; (b) seamount 64^3,
+   default config, comm='gspmd': levels 0-2 sharded in plain torch,
+   levels 3-4 replicated, K4 and K3 launched exactly as predicted
+   (replicated_quads), the pressure bit for bit and the history within
+   1e-6 of the single-device solve with levels 0-2 in full layout
+   (layout_reference), the history within 1e-3 of phase 2's; (c)
+   scripts/scaling.run_one at seamount 128^2 x 64 (coarsest='direct') on
+   1x1 and on 2x2 under both layers: eager F-cycle ms (CUDA events), the
+   1x1 replay, the overhead factor, the lock-step runner's rounds per
+   F-cycle and a traced step's idle share.
 
 Every single-device solve (phases 2-10, 14-22, the inner solves of 18)
 replays its captured step (capture.py; the model's first solve captures
@@ -231,7 +248,7 @@ capture and instantiation seconds; the launch counts every check reads
 are the replayed solve's: a replay adds its graph's kernel nodes, by
 function, to the counters, and the device loop its body's times the
 runs its condition kernel counted on the device (capture.py).  Phase 12
-(a distributed backend) stays eager.
+and phase 26 (distributed backends) stay eager.
 
 Every phase with quad levels (2, 4-6, 8-10, 12, 14, 17, 20-22) checks that every
 quad level (every tile on phase 12's mesh) holds the band stack only, no
@@ -1339,9 +1356,10 @@ def probe_kernels(dev, results):
 # ------------------------------------------------------- slice phases
 
 def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
-              rmask=None, water=None, **cfg):
+              rmask=None, water=None, comm="shard_map", **cfg):
     """The user's path: NHModel -> set_matrices [-> distribute over a
-    virtual ``mesh`` (npx, npy) of ``dev``] -> solve -> check_
+    virtual ``mesh`` (npx, npy) of ``dev`` with the layer ``comm``] ->
+    solve -> check_
     nondivergence, with ``SolverConfig(dtype=dtype, **cfg)``.  Returns the
     model, SolveInfo, the max|div| ratios after/before over the whole grid
     and over the interior (the 2-cell wall ring excluded), set-up seconds
@@ -1360,7 +1378,7 @@ def run_model(nx, ny, nz, case, dtype, dev, tol, maxiter, mesh=None,
                    hc=case.hc, theta_b=case.theta_b, theta_s=case.theta_s)
     if mesh:
         m.distribute(*mesh, devices=[dev] * (mesh[0] * mesh[1]),
-                     comm="shard_map")
+                     comm=comm)
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
     u, v, w = initial_velocities(nx, ny, nz, dtype=m.dtype, device=dev)
@@ -1439,26 +1457,42 @@ def check_band_levels(m):
           f"blocks): {stacks / 2**30:.3f} GiB of stacks")
 
 
-def print_fcycle(m):
+def print_fcycle(m, reps=5):
     """Prints and returns (eager, replayed) of profile_cuc.fcycle_ms on
     model ``m`` and the initial velocities' right-hand side (replayed:
-    None on a distributed model)."""
+    None on a distributed model), the median of ``reps``."""
     u, v, w = initial_velocities(m.nx, m.ny, m.nz, dtype=m.dtype,
                                  device=m.device)
-    replay, eager = profile_cuc.fcycle_ms(m, m._rhs_state(u, v, w))
-    print(f"  F-cycle median {eager:.3f} ms eager"
+    replay, eager = profile_cuc.fcycle_ms(m, m._rhs_state(u, v, w),
+                                          reps=reps)
+    print(f"  F-cycle median of {reps} {eager:.3f} ms eager"
           + (f", {replay:.3f} ms replayed" if replay is not None else ""))
     return eager, replay
 
 
-def trace(fn, tries=3):
+def device_events(prof) -> list:
+    """(name, start us, end us) of each device op of a finished trace,
+    read from the profiler's raw results: ``prof.events()`` builds the
+    event tree in Python, seconds for a 100k-op trace."""
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    events = raw.events() if raw is not None else []
+    if not events or not hasattr(events[0], "end_ns"):
+        return [(e.name, e.time_range.start, e.time_range.end)
+                for e in prof.events() if e.device_type == cuda]
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in events if e.device_type() == cuda]
+
+
+def trace(fn, tries=3, warm=True):
     """One call of ``fn`` under torch.profiler (device activity only),
-    after a warm-up call: (device ops, busy ms, traced wall ms, ops and
-    device us by name).  A trace that recorded no device op is taken
-    again, up to ``tries`` times (the profiler now and then drops a
-    trace's events)."""
+    after a warm-up call (``warm``): (device ops, busy ms, traced wall
+    ms, ops and device us by name).  A trace that recorded no device op
+    is taken again, up to ``tries`` times (the profiler now and then
+    drops a trace's events)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1466,26 +1500,25 @@ def trace(fn, tries=3):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = device_events(prof)
         if dev:
             break
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    spans = sorted((a, b) for _, a, b in dev)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy_us += b - max(a, end)
             end = b
     by_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in dev:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.end - e.time_range.start
+    for name, a, b in dev:
+        by_name[name][0] += 1
+        by_name[name][1] += b - a
     return len(dev), busy_us / 1e3, wall_ms, by_name
 
 
-def profile_fcycle(m, top=8):
-    """One F-cycle (solver.solve_step, after a warm-up step) under
-    torch.profiler, tracing device activity only, eagerly and (on a
+def profile_fcycle(m, top=8, warm=True):
+    """One F-cycle (solver.solve_step, after a warm-up step unless the
+    caller just ran them: ``warm``) under torch.profiler, tracing device activity only, eagerly and (on a
     single-device model) as a replay of the captured step.  Prints the
     device ops traced, the union of their intervals (device busy) against
     the wall time of the same traced step, the idle share 1 - busy/wall,
@@ -1507,7 +1540,7 @@ def profile_fcycle(m, top=8):
         state[0], state[1], _ = solve_step(be, state[0], bs, state[1],
                                            m.cfg)
 
-    n, busy_ms, wall_ms, by_name = trace(eager)
+    n, busy_ms, wall_ms, by_name = trace(eager, warm=warm)
     out = {"eager": (n, busy_ms, 1 - busy_ms / wall_ms), "replay": None}
     print(f"  profile: {n} device ops, device busy {busy_ms:.3f} ms "
           f"of {wall_ms:.3f} ms traced wall, idle share "
@@ -2375,6 +2408,178 @@ def offload_phase(case, dev, history21):
     print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
 
 
+# The routing of phase 26: on a virtual 2x2 mesh a level is sharded while
+# its tiles stay >= nsmall (8) wide.  (a) CUC 1024^2 x 64 with
+# compact=False: every level sharded (tiles 512 .. 16), no quad level, so
+# comm='auto' resolves to GSPMD; each relax is K6 on the level gathered
+# onto the card, in the form and number phase 7 launches; K5 is vetoed on
+# sharded levels (the per-tile plain residual instead).  (b) seamount 64^3
+# default config, comm='gspmd': levels 0-2 sharded (tiles 32, 16, 8),
+# full layout, plain torch per tile; levels 3-4 replicated, where level 3
+# keeps its quads and its band stack: K4 (ns_pre + ns_post launches in each
+# V-cycle that reaches it) and K3 (once in each), :func:`replicated_quads`.
+# Its reference is the single-device solve with the same layout (levels 0-2
+# in full layout: :func:`layout_reference`), whose pressure it gives bit
+# for bit; against phase 2 (every level but the coarsest in quads, K4 on
+# levels 0-3) its float32 history deviates by the quads' other rounding
+# (3.9e-4 at the float32 floor, ~3.6e-5, on the H100), held to 1e-3 as
+# phase 7's against phase 4.
+GSPMD_SCALING = dict(grid=128, nz=64)
+
+
+def layout_reference(case, dev, grid, full_levels, tol, maxiter):
+    """The single-device float32 solve of ``case`` with levels
+    ``full_levels`` in full layout (their packs dropped: the masked relax
+    and the full-layout residual, as a GSPMD backend runs its sharded
+    levels), eagerly: (SolveInfo, pressure)."""
+    nx, ny, nz = grid
+    m = NHModel(nx, ny, nz, cfg=SolverConfig(dtype="float32"), device=dev)
+    m.set_matrices(case.dx, case.dy, case.zeta, case.h, hc=case.hc,
+                   theta_b=case.theta_b, theta_s=case.theta_s)
+    for lev in full_levels:
+        m.backend.packs[lev] = None
+    u, v, w = initial_velocities(nx, ny, nz, dtype=m.dtype, device=dev)
+    p, info = m.pressure_solve(m.rhs(u, v, w), tol=tol, maxiter=maxiter,
+                               graph=False)
+    return info, p
+
+
+def replicated_quads(m) -> collections.Counter:
+    """K4's and K3's launches a F-cycle on the replicated quad levels of a
+    GSPMD backend: level lev < L-1 is in lev + 1 of a F-cycle's V-cycles,
+    each ns_pre + ns_post K4 launches and one K3 (its down-leg)."""
+    be, cfg = m.backend, m.cfg
+    out = collections.Counter()
+    for lev in range(be.nlevs - 1):
+        if be.state_quads(lev) and not be.plan.shards[lev].sharded:
+            out["relax_fused_sweep"] += (lev + 1) * (cfg.ns_pre + cfg.ns_post)
+            out["residual_restrict"] += lev + 1
+    return out
+
+
+def gspmd_phase(case, case_seamount, dev, ref7, p7, ref2):
+    """Phase 26: the GSPMD comm layer on a virtual 2x2 mesh of the card —
+    (a) CUC as phase 7 under comm='auto', (b) seamount 64^3 under
+    comm='gspmd' (the routing above), (c) scripts/scaling.run_one at
+    GSPMD_SCALING on 1x1 and 2x2 under both layers.  Each part prints its
+    F-cycle ms (CUDA events), traced idle share and wall time."""
+    from mgroms_tpu_torch.parallel import DistributedBackend
+    from mgroms_tpu_torch.scripts import scaling
+    print("== phase 26a: CUC 1024^2 x 64 float32, use_pallas=True, "
+          "compact=False, distribute(2, 2, comm='auto') -> GSPMD, a virtual "
+          "mesh of one card")
+    t0 = time.perf_counter()
+    reset_launches()
+    m, info, ratio, inner, _, _ = run_model(
+        1024, 1024, 64, case, "float32", dev, tol=1e-4, maxiter=8,
+        mesh=(2, 2), comm="auto", use_pallas=True, compact=False)
+    counts = launches()
+    be = m.backend
+    print(f"  backend {type(be).__name__}, launches {counts}")
+    check(type(be) is DistributedBackend, "auto did not resolve to GSPMD")
+    check(all(s.sharded for s in be.plan.shards)
+          and all(be._gathered(lev) for lev in range(be.nlevs)),
+          "a level is not sharded, or relaxes per tile")
+    k6 = k6_expected(m)
+    print(f"  K6 launches a F-cycle by form (the gate): {dict(k6)}")
+    check_path(counts, set(k6))
+    for name, n in k6.items():
+        check(counts[name] == n * info.niter,
+              f"K6 {name} {counts[name]} times, expected {n} a F-cycle")
+    n = min(len(info.history), len(ref7))
+    dev_rel = max(abs(a / b - 1) for a, b in zip(info.history[:n], ref7[:n]))
+    p_dev = float((m.p_solved.cpu() - p7).abs().max() / p7.abs().max())
+    print(f"  history vs phase 7: max rel deviation {dev_rel:.3e} over {n} "
+          f"entries (limit {REL_TOL}); pressure max|p26a - p7| / max|p7| = "
+          f"{p_dev:.3e}")
+    check(info.res <= 1e-4, f"{info.res} after {info.niter} cycles")
+    check(dev_rel <= REL_TOL, f"history {info.history} vs phase 7 {ref7}")
+    check(ratio <= 2.5e-2 and inner <= 1e-2,
+          f"max|div| cut only to {ratio} (interior {inner})")
+    print_fcycle(m)
+    profile_fcycle(m, warm=False)
+    del m, be
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+
+    print("== phase 26b: seamount 64^3 float32, distribute(2, 2, "
+          "comm='gspmd')")
+    t0 = time.perf_counter()
+    reset_launches()
+    m, info, ratio, inner, _, _ = run_model(
+        64, 64, 64, case_seamount, "float32", dev, tol=1e-4, maxiter=6,
+        mesh=(2, 2), comm="gspmd")
+    counts = launches()
+    be = m.backend
+    want = replicated_quads(m)
+    print(f"  launches {counts}; predicted a F-cycle {dict(want)}")
+    check([s.sharded for s in be.plan.shards] == [True] * 3 + [False] * 2,
+          "seamount 64^3 on 2x2 shards other levels than levels 0-2")
+    check({k: v for k, v in counts.items() if v}
+          == {k: v * info.niter for k, v in want.items()},
+          f"launches {counts}, predicted {dict(want)} a F-cycle")
+    sharded = [lev for lev in range(be.nlevs) if be.plan.shards[lev].sharded]
+    iref, pref = layout_reference(case_seamount, dev, (64, 64, 64), sharded,
+                                  1e-4, 6)
+    rel = lambda h, r: max(abs(a / b - 1) for a, b in zip(h, r))
+    n = min(len(info.history), len(iref.history))
+    dev_ref = rel(info.history[:n], iref.history[:n])
+    p_dev = float((m.p_solved - pref).abs().max() / pref.abs().max())
+    n2 = min(len(info.history), len(ref2))
+    dev2 = rel(info.history[:n2], ref2[:n2])
+    print(f"  history vs the single-device solve with levels {sharded} in "
+          f"full layout: max rel deviation {dev_ref:.3e} over {n} entries "
+          f"(limit {REL_TOL}), pressure max|p26b - p_ref| / max|p_ref| = "
+          f"{p_dev:.3e} (limit 0); vs phase 2: {dev2:.3e} over {n2} entries "
+          "(limit 1e-3)")
+    check(info.res <= 1e-4, f"{info.res} after {info.niter} cycles")
+    check(dev_ref <= REL_TOL and p_dev == 0.0,
+          f"history {info.history} vs the reference {iref.history}")
+    check(dev2 <= 1e-3, f"history {info.history} vs phase 2 {ref2}")
+    check(ratio <= 1e-2 and inner <= 1e-2,
+          f"max|div| cut only to {ratio} (interior {inner})")
+    print_fcycle(m, reps=2)
+    profile_fcycle(m, warm=False)
+    del m, be
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+
+    g, nz = GSPMD_SCALING["grid"], GSPMD_SCALING["nz"]
+    print(f"== phase 26c: scripts/scaling.run_one, seamount {g}^2 x {nz} "
+          "float32, coarsest='direct', 1x1 and a virtual 2x2 mesh under "
+          "both layers")
+    t0 = time.perf_counter()
+
+    def probe(step):
+        # the step is warm: run_one timed it
+        n_ops, busy, wall, _ = trace(step, warm=False)
+        return n_ops, busy, 1 - busy / wall
+
+    base = scaling.run_one(g, g, nz, 1, 1, "float32", device=dev,
+                           probe=probe)
+    rows = {"1x1": base}
+    for comm in ("gspmd", "shard_map"):
+        rows[comm] = scaling.run_one(g, g, nz, 2, 2, "float32", comm=comm,
+                                     device=dev, probe=probe)
+    for key, row in rows.items():
+        print(f"  {key:>9} {row.backend}: {row.t * 1e3:.3f} ms a F-cycle "
+              f"eager (CUDA events, mean of {scaling.REPS})"
+              + (f", {row.replay * 1e3:.3f} ms replayed" if row.replay
+                 else "")
+              + f", ovh {row.t / base.t:.3f}; per F-cycle {row.counts}; "
+              f"traced: {row.probe[0]} device ops, busy {row.probe[1]:.3f} "
+              f"ms, idle share {row.probe[2]:.4f}")
+    check(rows["gspmd"].backend == "DistributedBackend"
+          and rows["shard_map"].backend == "ShardMapBackend",
+          "scaling.run_one built other backends")
+    check(all(r.t > 0 for r in rows.values()) and base.replay
+          and rows["gspmd"].counts["ppermute"] > 0
+          and rows["shard_map"].counts["ppermute"] > 0,
+          "scaling rows incomplete")
+    torch.cuda.empty_cache()
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -2476,7 +2681,7 @@ def main() -> int:
         "phase 6: CUC 1024^2 x 64 float32, use_pallas=True", *cuc,
         maxiter=8, ref=cuc_history, rtol=1e-6, div_limits=(2.5e-2, 1e-2),
         cfg=dict(use_pallas=True), busy=quad_k4)
-    phase_counts[7], _, _ = path_phase(
+    phase_counts[7], info7, p7 = path_phase(
         "phase 7: CUC 1024^2 x 64 float32, use_pallas=True, compact=False",
         *cuc, maxiter=8, ref=cuc_history, rtol=1e-3,
         div_limits=(2.5e-2, 1e-2), cfg=dict(use_pallas=True, compact=False),
@@ -2552,6 +2757,9 @@ def main() -> int:
     small_phase(dev)
     rndtopo_phase(dev)
     offload_phase(case, dev, history21)
+    gspmd_phase(case, case_seamount, dev, info7.history, p7,
+                seamount_history)
+    del p7
 
     for name, (src, _, phase) in KERNELS.items():
         print(f"  {name}: {phase_counts[phase][name]} launches in phase "

@@ -7,8 +7,8 @@ packages compare line by line.
 ``--npx/--npy`` distribute the solve (NHModel.distribute): on ``--device
 cpu`` over the CPU repeated npx*npy times (as the JAX package's forced
 host device count gives on the CPU), on ``cuda`` over the visible cards
-(fewer than npx*npy raises).  ``--comm gspmd`` raises, as
-NHModel.distribute does.  ``--profile`` profiles one F-cycle per level
+(fewer than npx*npy raises), with ``--comm`` the layer
+(NHModel.distribute).  ``--profile`` profiles one F-cycle per level
 and section after the solve (utils/tictoc.profile_fcycle; on the card
 re-timed from CUDA graphs, but for a distributed backend, whose table
 stays host seconds)."""
@@ -37,8 +37,8 @@ def base_parser(nx=64, ny=64, nz=64) -> argparse.ArgumentParser:
     p.add_argument("--comm", default="auto",
                    choices=["auto", "gspmd", "shard_map"],
                    help="distributed communication layer (auto: shard_map "
-                        "when the sharded compact smoother is eligible; "
-                        "gspmd is not ported and raises)")
+                        "when the sharded compact smoother is eligible, "
+                        "else gspmd)")
     p.add_argument("--namelist", default="nh_namelist",
                    help="Fortran-namelist config file (defaults if absent)")
     p.add_argument("--dtype", default=None,

@@ -45,7 +45,7 @@ from .levels import build_level_plan, describe
 from .ops.projection import correct_uvw
 from .ops.rhs import compute_rhs
 from .parallel.mesh import Tiles
-from .solver import SingleDeviceBackend, SolveInfo, solve_p
+from .solver import SingleDeviceBackend, SolveInfo, _solve_p, solve_p
 
 
 class NHModel:
@@ -127,17 +127,24 @@ class NHModel:
         ``devices`` (default: every visible CUDA device) may repeat a
         device: ``["cuda:0"] * 4`` is a virtual 2x2 mesh on one card.
 
-        ``comm`` selects the communication layer: 'shard_map' (explicit
-        halo exchange, per-tile operators; parallel/shardmap_backend.py),
-        or 'auto', which resolves as the JAX package does
-        (parallel.shardmap_backend.default_comm).  'gspmd' is not ported
-        and raises.  Distributes the whole solve: rhs, project and
-        check_nondivergence run per tile too (parallel/physics.py).  The
-        single-device operators and packs of the sharded levels are freed
-        once cut into tiles."""
-        from .parallel import (DistributedPhysics, MeshPlan,
-                               ShardMapBackend, make_mesh,
-                               shard_operators_blocked)
+        ``comm`` selects the communication layer:
+
+        - 'gspmd': the operators replicated once on each distinct device,
+          the partitioned ops per tile, the others on the gathered level
+          (parallel/backend.py);
+        - 'shard_map': explicit halo exchange, per-tile operators
+          (parallel/shardmap_backend.py);
+        - 'auto' (default): resolves as the JAX package does
+          (parallel.shardmap_backend.default_comm): 'shard_map' wherever a
+          sharded level can smooth in quad-parity form, else 'gspmd'.
+
+        Distributes the whole solve: rhs, project and check_nondivergence
+        run per tile too (parallel/physics.py).  The single-device packs
+        of the sharded levels are freed, and under 'shard_map' their
+        operators once cut into tiles."""
+        from .parallel import (DistributedBackend, DistributedPhysics,
+                               MeshPlan, ShardMapBackend, make_mesh,
+                               shard_operators, shard_operators_blocked)
         from .parallel.mesh import move
         from .parallel.shardmap_backend import (default_comm,
                                                 shard_packs_blocked)
@@ -146,26 +153,29 @@ class NHModel:
         plan = MeshPlan.create(mesh, self.levels, nsmall=self.cfg.nsmall)
         if comm == "auto":
             comm = default_comm(self.levels, plan, self.cfg)
-        if comm == "gspmd":
-            raise NotImplementedError(
-                "the GSPMD comm layer is not ported (ROADMAP, queue 1 item "
-                "8: the GSPMD backend, DTensor or retired); use "
-                "comm='shard_map'")
-        if comm != "shard_map":
+        if comm not in ("gspmd", "shard_map"):
             raise ValueError(f"unknown comm layer {comm!r}")
         # replicated (agglomerated) levels keep their packs, on the mesh's
-        # first device; sharded levels build per-tile packs
+        # first device; sharded levels hold none under GSPMD (full layout
+        # there) and build per-tile packs under shard_map
         packs = [None if (pk is None or plan.shards[lev].sharded)
                  else move(pk, mesh.first)
                  for lev, pk in enumerate(self.backend.packs)]
-        ops = shard_operators_blocked(self.ops, plan)
-        self.ops = ops
         self.backend = None
-        backend = ShardMapBackend(self.levels, ops, self.cfg, plan,
-                                  packs=packs)
-        spk = shard_packs_blocked(self.levels, ops, self.cfg, plan, backend)
-        backend.packs = [s if s is not None else packs[lev]
-                         for lev, s in enumerate(spk)]
+        if comm == "gspmd":
+            backend = DistributedBackend(self.levels,
+                                         shard_operators(self.ops, plan),
+                                         self.cfg, plan, packs=packs)
+        else:
+            backend = ShardMapBackend(self.levels,
+                                      shard_operators_blocked(self.ops,
+                                                              plan),
+                                      self.cfg, plan, packs=packs)
+            spk = shard_packs_blocked(self.levels, backend.ops, self.cfg,
+                                      plan, backend)
+            backend.packs = [s if s is not None else packs[lev]
+                             for lev, s in enumerate(spk)]
+        self.ops = backend.ops
         self.backend = backend
         self.device = mesh.first
         self._physics = DistributedPhysics(plan, self._metrics_live(),
@@ -231,20 +241,21 @@ class NHModel:
             self.tensor(u), self.tensor(v), self.tensor(w)))
 
     def _solve_state(self, b, tol, maxiter, verbose, graph):
+        """solve_p's pressure in level 0's placement (its tiles when
+        distributed, which project takes as they are)."""
         self._require()
-        if self.distributed:
-            b = self.backend.place(0, self._state(b))
-        else:
-            b = self.tensor(b)
-        return solve_p(self.backend, b, self.cfg, tol=tol, maxiter=maxiter,
-                       verbose=verbose, graph=graph)
+        return _solve_p(self.backend, self.backend.place(0, self._state(b)),
+                        self.cfg, tol=tol, maxiter=maxiter, verbose=verbose,
+                        graph=graph)
 
     def pressure_solve(self, b, tol=None, maxiter=None, verbose=False,
                        graph: Optional[bool] = None
                        ) -> Tuple[torch.Tensor, SolveInfo]:
-        """solve_p on the model's backend (``graph``: solver.solve_p)."""
-        p, info = self._solve_state(b, tol, maxiter, verbose, graph)
-        return (self.backend.gather(0, p) if self.distributed else p), info
+        """solve_p on the model's backend (``graph``: solver.solve_p): the
+        global pressure."""
+        self._require()
+        return solve_p(self.backend, self._state(b), self.cfg, tol=tol,
+                       maxiter=maxiter, verbose=verbose, graph=graph)
 
     def project(self, p, u, v, w):
         if self.distributed:
@@ -264,13 +275,10 @@ class NHModel:
         u, v, w = self.tensor(u), self.tensor(v), self.tensor(w)
         b = self._rhs_state(u, v, w)
         if self.cfg.netcdf_output:                   # nhydro.f90:85-87
-            self._dump(self.backend.gather(0, b) if self.distributed else b,
-                       "b", "b.nc", 1)
+            self._dump(self.backend.gather(0, b), "b", "b.nc", 1)
         p, info = self._solve_state(b, tol, maxiter, verbose, graph)
         u, v, w = self.project(p, u, v, w)
-        if self.distributed:
-            p = self.backend.gather(0, p)
-        return u, v, w, p, info
+        return u, v, w, self.backend.gather(0, p), info
 
     def check_nondivergence(self, u, v, w) -> torch.Tensor:
         """max |div| of the corrected velocities

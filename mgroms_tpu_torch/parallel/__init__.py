@@ -1,9 +1,11 @@
 """The multi-device layer: a single-controller port of
-``mgroms_tpu/parallel`` (mesh plan, halo exchange, shard_map backend,
-distributed physics).  One process drives every tile of the mesh."""
+``mgroms_tpu/parallel`` (mesh plan, halo exchange, the GSPMD and
+shard_map backends, distributed physics).  One process drives every tile of the
+mesh."""
 
-from .mesh import MeshPlan, Tiles, make_mesh, shard_map     # noqa: F401
-from .backend import DistributedBackend                      # noqa: F401
+from .mesh import (MeshPlan, Replicated, Tiles, make_mesh,  # noqa: F401
+                   shard_map)
+from .backend import DistributedBackend, shard_operators     # noqa: F401
 from .exchange import block_extended, halo_extend            # noqa: F401
 from .shardmap_backend import (                              # noqa: F401
     ShardMapBackend, shard_operators_blocked)

@@ -19,24 +19,47 @@ controller does:
   tile deposits its operand, and each reads the round's operands when its
   turn comes back.  So the JAX package's per-shard code, halo exchanges
   inside it (parallel/exchange.py), runs here as written, and the kernels
-  of all tiles go to the device in one fixed order.
+  of all tiles go to the device in one fixed order;
+- the GSPMD pieces: :meth:`MeshPlan.sharding` is a level's placement (its
+  tile grid of devices, or the first device), :meth:`MeshPlan.constrain`
+  moves a state into it (the tiles cut or joined where the layout
+  changes), and :class:`Replicated` holds a value whole once on each
+  distinct device of the mesh (the JAX package's ``P()`` operators).
 
-The GSPMD pieces (``MeshPlan.sharding``/``constrain``) have no counterpart.
+:data:`COLLECTIVES` counts what the runner does by kind: ``shard_map``
+calls, ``ppermute`` and ``psum`` rounds (``all_tiles`` among them), and
+the ``join`` and ``split`` of whole grids.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import operator
 import threading
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
 from ..levels import LevelSpec, build_shard_plan
+from ..ops.relax_compact import QuadField
 
 # a program waiting this long for its turn means the tiles left lock step
 _TURN_TIMEOUT_S = 600.0
+
+# the runner's work by kind (module docstring); a round counts once, not
+# once a tile
+COLLECTIVES = collections.Counter()
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.clear()
+
+
+def collectives() -> dict:
+    """The counts since the last :func:`reset_collectives`."""
+    return {k: COLLECTIVES[k] for k in
+            ("shard_map", "ppermute", "psum", "join", "split")}
 
 
 class Mesh:
@@ -67,6 +90,11 @@ class Mesh:
     @property
     def on_card(self) -> bool:
         return self.first.type == "cuda"
+
+    @property
+    def distinct(self) -> tuple:
+        """The mesh's devices, each once, in rank order."""
+        return tuple(dict.fromkeys(d for row in self.devices for d in row))
 
     def tile_devices(self, axes):
         """Device grid of a level blocked along ``axes`` = (py or None,
@@ -114,6 +142,71 @@ class MeshPlan:
         sh = self.shards[lev]
         return ("py" if sh.shard_py else None,
                 "px" if sh.shard_px else None)
+
+    def sharding(self, lev: int, ndim: int = 3) -> "Sharding":
+        """Level ``lev``'s placement of an ``ndim``-dimensional state: its
+        tiles along the active axes, or (replicated) the first device."""
+        if not self.shards[lev].sharded:
+            return Sharding((), ((self.mesh.first,),))
+        return Sharding((None,) * (ndim - 2) + self.spec(lev),
+                        self.mesh.tile_devices(self.spec(lev)))
+
+    def constrain(self, lev: int, x):
+        """``x`` — a global tensor, a QuadField of global quads, or a
+        Tiles grid of either in another level's layout — in level
+        ``lev``'s placement (:meth:`sharding`): a Tiles grid on a sharded
+        level, one tensor (or QuadField) on the first device on a
+        replicated one.  Tiles already in that grid pass unchanged; others
+        are joined first (quads quad by quad)."""
+        grid = self.sharding(lev).devices
+        shape = (len(grid), len(grid[0]))
+        sharded = self.shards[lev].sharded
+        if isinstance(x, Tiles):
+            if sharded and x.shape == shape:
+                return x
+            if x.is_quads:
+                x = QuadField(join_tiles(x.map(lambda q, k=k: q.quads[k]),
+                                         self.mesh.first)
+                              for k in range(4))
+            else:
+                x = join_tiles(x, self.mesh.first)
+        if not sharded:
+            return move(x, self.mesh.first)
+        if isinstance(x, QuadField):
+            per_quad = [split_tiles(q, shape, grid) for q in x.quads]
+            return Tiles([[QuadField(t.grid[j][i] for t in per_quad)
+                           for i in range(shape[1])]
+                          for j in range(shape[0])])
+        return split_tiles(x, shape, grid)
+
+
+class Sharding(NamedTuple):
+    """A placement (:meth:`MeshPlan.sharding`): ``spec`` the mesh axis of
+    each dimension (() when replicated, as ``P()``), ``devices`` the tile
+    grid of devices."""
+    spec: tuple
+    devices: tuple
+
+
+class Replicated:
+    """A value (a tensor, or a tuple of them such as a LevelOperator) held
+    whole once on each distinct device of a mesh — the port's form of a
+    JAX array replicated over the mesh (``P()``).  ``first`` is the copy on
+    the mesh's first device (the value itself where it already lies
+    there); :meth:`on` the copy a tile on ``device`` reads.  A virtual
+    mesh of one card holds one copy."""
+
+    __slots__ = ("copies",)
+
+    def __init__(self, value, mesh: "Mesh"):
+        self.copies = {d: move(value, d) for d in mesh.distinct}
+
+    @property
+    def first(self):
+        return next(iter(self.copies.values()))
+
+    def on(self, device):
+        return self.copies[torch.device(device)]
 
 
 # ------------------------------------------------------------ tile grids
@@ -169,6 +262,7 @@ def split_tiles(a: torch.Tensor, shape, devices, extra=(0, 0)) -> Tiles:
     (0, 0) the tiles partition ``a``."""
     npy, npx = shape
     ej, ei = extra
+    COLLECTIVES["split"] += 1
     ny_l = (a.shape[-2] - ej) // npy
     nx_l = (a.shape[-1] - ei) // npx
     return Tiles([[a[..., j * ny_l:(j + 1) * ny_l + ej,
@@ -180,6 +274,7 @@ def split_tiles(a: torch.Tensor, shape, devices, extra=(0, 0)) -> Tiles:
 def join_tiles(t: Tiles, device) -> torch.Tensor:
     """Inverse of :func:`split_tiles` with ``extra`` (0, 0): the tiles of
     full-layout tensors joined on ``device``."""
+    COLLECTIVES["join"] += 1
     return torch.cat([torch.cat([x.to(device) for x in row], dim=-1)
                       for row in t.grid], dim=-2)
 
@@ -299,9 +394,16 @@ def current_device() -> torch.device:
     return _here().device
 
 
+def _count(t: _Tile, kind: str) -> None:
+    if t.k == 0:
+        COLLECTIVES[kind] += 1
+
+
 def all_tiles(operand):
     """Collective: every tile's ``operand``, as a grid, unmoved."""
-    return _here().exchange(operand)
+    t = _here()
+    _count(t, "psum")
+    return t.exchange(operand)
 
 
 def ppermute(x: torch.Tensor, name: str, perm):
@@ -310,6 +412,7 @@ def ppermute(x: torch.Tensor, name: str, perm):
     is no destination gets None (``lax.ppermute`` would give zeros; every
     caller here substitutes the mirror there)."""
     t = _here()
+    _count(t, "ppermute")
     grid = t.exchange(x)
     me = t.coord(name)
     src = [s for s, d in perm if d == me]
@@ -323,6 +426,7 @@ def psum(x: torch.Tensor, name: str) -> torch.Tensor:
     """Collective: the sum of ``x`` over the tiles along axis ``name``,
     in coordinate order, on this tile's device."""
     t = _here()
+    _count(t, "psum")
     grid = t.exchange(x)
     line = ([grid[j][t.i] for j in range(t.shape[0])] if name == t.axes[0]
             else grid[t.j])
@@ -345,6 +449,7 @@ def shard_map(fn, mesh: Mesh, axes=("py", "px")):
     shape = (len(devices), len(devices[0]))
 
     def run(*args):
+        COLLECTIVES["shard_map"] += 1
         for a in args:
             if isinstance(a, Tiles) and a.shape != shape:
                 raise ValueError(f"tiles {a.shape} on a {shape} grid")

@@ -24,8 +24,12 @@ ops/kernels/relax_tiled.py per tile with the seam exchange as its
 wrappers take their plain versions on the CPU); K4 never runs here, since
 it builds the mirror halo inside the kernel.  Full-layout levels run the
 masked relax with the tile's origin and the residual of K5 where the tile
-is at least 256 wide (``pallas_tiled``), else ops/stencil.residual.  The
-JAX gates' TPU-only parts (``pallas_tiled_relax``, the Mosaic tile budgets
+is at least 256 wide (``pallas_tiled``), else ops/stencil.residual — the
+per-tile bodies of the GSPMD layer (parallel/backend.py), which the two
+layers share: they differ in the operator each tile reads (here its own
+blocked tile, there its window of the replicated cA) and in the routes
+that layer gathers (K6, ``gs_exact``, the 'direct' coarsest product),
+which run per tile here as in the JAX package.  The JAX gates' TPU-only parts (``pallas_tiled_relax``, the Mosaic tile budgets
 ``supports``, interpret mode) have no counterpart, so the JAX package's
 ``_use_tiled_shard`` holds on every compact level and its non-tiled
 branches are not carried over.
@@ -40,17 +44,14 @@ import torch
 from ..assembly import LevelOperator
 from ..config import SolverConfig
 from ..levels import LevelSpec, ShardSpec
-from ..ops import relax as relax_ops
-from ..ops import stencil, transfer
 from ..ops.kernels import relax_tiled as kernels
-from ..ops.kernels import stencil_tiled
 from .. import solver
 from ..ops.relax_compact import (QuadField, attach_lp, build_band_pack,
                                  build_compact_pack, residual_quads)
 from ..solver import compact_eligible, is_quads
 from .backend import DistributedBackend
-from .exchange import axis_offsets, extend_quads_shard, halo_extend
-from .mesh import MeshPlan, Tiles, shard_map, split_tiles
+from .exchange import extend_quads_shard
+from .mesh import MeshPlan, split_tiles
 
 
 def compact_shard_eligible(spec: LevelSpec, sh: ShardSpec,
@@ -70,8 +71,7 @@ def default_comm(levels: List[LevelSpec], plan: MeshPlan,
                  cfg: SolverConfig) -> str:
     """Auto comm-layer selection (``NHModel.distribute(comm='auto')``):
     the explicit shard_map backend whenever any sharded level can smooth
-    in quad-parity compact form there, else 'gspmd' (which the port does
-    not implement).  The reference's flagship is such a run (testcuc:
+    in quad-parity compact form there, else 'gspmd' (parallel/backend.py).  The reference's flagship is such a run (testcuc:
     1024^2 on 2x2, mg_testcuc.f90:34-39)."""
     for lev, spec in enumerate(levels):
         sh = plan.shards[lev]
@@ -136,15 +136,6 @@ class ShardMapBackend(DistributedBackend):
         return compact_shard_eligible(self.levels[lev],
                                       self.plan.shards[lev], self.cfg)
 
-    def _axes(self, lev):
-        """Active mesh axis names for this level (None = dropped by staged
-        agglomeration: physical mirror instead of seam exchange there)."""
-        return self.plan.spec(lev)
-
-    def _map(self, lev, fn, *args):
-        """``fn`` on every tile of level ``lev`` (mesh.shard_map)."""
-        return shard_map(fn, self.plan.mesh, self._axes(lev))(*args)
-
     def _ext(self, lev):
         pya, pxa = self._axes(lev)
         return lambda q: extend_quads_shard(q, py_axis=pya, px_axis=pxa)
@@ -156,16 +147,6 @@ class ShardMapBackend(DistributedBackend):
         if not self._sharded(lev):
             return super().state_quads(lev)
         return self._use_compact_shard(lev) and self.packs[lev] is not None
-
-    def to_state(self, lev: int, x):
-        if not self._sharded(lev) or is_quads(x) or not self.state_quads(lev):
-            return super().to_state(lev, x)
-        return x.map(QuadField.split)
-
-    def to_full(self, lev: int, x):
-        if isinstance(x, Tiles) and x.is_quads:
-            return x.map(QuadField.merge)
-        return super().to_full(lev, x)
 
     def _relax_quads_shard(self, lev, p, b, nsweeps):
         """Quad-native smoothing on a sharded level: K1 per colour on
@@ -195,14 +176,6 @@ class ShardMapBackend(DistributedBackend):
         # shard_map backend omits this exclusion)
         return (self.cfg.fused_residual and self.cfg.relax_kind == "RB"
                 and self.state_quads(lev) and not self.cfg.fused_bands_bf16)
-
-    def _same_axes(self, lev) -> bool:
-        """The local coarse tile is exactly the local fine tile's children
-        (same active axes, standard 8:1 restriction)."""
-        shf, shc = self.plan.shards[lev], self.plan.shards[lev + 1]
-        return (shc.sharded and shf.shard_py == shc.shard_py
-                and shf.shard_px == shc.shard_px
-                and not self.levels[lev + 1].aggressive_from_prev)
 
     def supports_fused_rr(self, lev: int) -> bool:
         if not self._sharded(lev):
@@ -242,13 +215,10 @@ class ShardMapBackend(DistributedBackend):
         return self._map(lev, local, p, b, self.packs[lev])
 
     def relax(self, lev, p, b, nsweeps):
-        sh = self.plan.shards[lev]
-        if not sh.sharded:
+        if not self._sharded(lev):
             return super().relax(lev, p, b, nsweeps)
         if is_quads(p):
             return self._relax_quads_shard(lev, p, b, nsweeps)
-        cfg, real = self.cfg, self.real
-        pya, pxa = self._axes(lev)
         if self._use_compact_shard(lev):
             # full-layout state on a compact level (the coarsest): K1 per
             # tile on its persisted pack
@@ -258,15 +228,10 @@ class ShardMapBackend(DistributedBackend):
                                  p_l, b_l, pack_l, nsweeps,
                                  kind=self.cfg.relax_kind, extend_fn=ext),
                              p, b, self.packs[lev])
-
-        def local(p_l, b_l, cA_l):
-            j0, i0 = axis_offsets(sh.ny, sh.nx, pya, pxa)
-            return relax_ops.relax(
-                p_l, b_l, cA_l, nsweeps, cfg.relax_kind, real,
-                extend_fn=lambda x: halo_extend(x, pya, pxa),
-                j0=j0, i0=i0, tridiag_method=cfg.tridiag)
-
-        return self._map(lev, local, p, b, self.ops[lev].cA)
+        # the masked relax per tile, every route of it (K6 and gs_exact
+        # have no per-tile form: the JAX package's shard_map layer runs
+        # the masked relax on its sharded levels)
+        return self._relax_tiles(lev, p, b, nsweeps)
 
     # -- residual -------------------------------------------------------------
     def _use_tiled_residual_shard(self, lev) -> bool:
@@ -280,17 +245,8 @@ class ShardMapBackend(DistributedBackend):
             return self._residual_quads_shard(lev, p, b)
         if not self._sharded(lev):
             return super().residual(lev, p, b)
-        real = self.real
-        use_tiled = self._use_tiled_residual_shard(lev)
-        pya, pxa = self._axes(lev)
-
-        def local(p_l, b_l, cA_l):
-            pe = halo_extend(p_l, pya, pxa)
-            if use_tiled:
-                return stencil_tiled.residual_tiled(pe, b_l, cA_l, real)
-            return stencil.residual(pe, b_l, cA_l, real)
-
-        return self._map(lev, local, p, b, self.ops[lev].cA)
+        return self._residual_tiles(lev, p, b,
+                                    self._use_tiled_residual_shard(lev))
 
     def _residual_quads_shard(self, lev, p, b):
         """r = b - A p in quad layout on a sharded level (per tile, with the
@@ -326,26 +282,6 @@ class ShardMapBackend(DistributedBackend):
         return self._map(lev, local, p, b, self.packs[lev])
 
     # -- transfers ------------------------------------------------------------
-    # restrict: the 8-child sum is tile-local; each stage transition is
-    # one join and split (DistributedBackend.restrict).
-
-    def prolong(self, lev, pc, as_quads: bool = False):
-        if not (self._sharded(lev) and self._same_axes(lev)):
-            # replicated coarse level, or a stage transition (different
-            # active axes): the gather/split path
-            return super().prolong(lev, pc, as_quads=as_quads)
-        nz_f = self.levels[lev].nzg
-        interp = self.cfg.interp_type
-        pya, pxa = self._axes(lev)
-
-        def local(pc_l):
-            # quad-persistent coarse state merges LOCALLY; the fine output
-            # stays in quads when the fine level is quad-persistent
-            if isinstance(pc_l, QuadField):
-                pc_l = pc_l.merge()
-            out = transfer.prolong(halo_extend(pc_l, pya, pxa), nz_f,
-                                   interp, as_quads=as_quads)
-            return QuadField.fromdict(out) if as_quads else out
-
-        return self._map(lev, local, pc)
-
+    # restrict and prolong: DistributedBackend's (per tile where the two
+    # levels keep the same active axes, one join and split at each stage
+    # transition).

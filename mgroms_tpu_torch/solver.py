@@ -234,6 +234,15 @@ class SingleDeviceBackend:
     def to_full(self, lev: int, x):
         return x.merge() if isinstance(x, QuadField) else x
 
+    def place(self, lev: int, x):
+        """``x`` in level ``lev``'s placement: on one device, as it is
+        (the distributed backend cuts it into the level's tiles)."""
+        return x
+
+    def gather(self, lev: int, x):
+        """Level ``lev``'s state as one full-layout tensor."""
+        return self.to_full(lev, x)
+
     # -- smoothing / residual ----------------------------------------------
     def _use_pallas(self, lev: int) -> bool:
         """K6 on a full-layout level (JAX ``_use_pallas`` without its
@@ -612,9 +621,10 @@ def graph_wanted(backend, graph: Optional[bool],
 
 def _dump(backend, cfg: SolverConfig, x, vname: str, fname: str,
           iteration: Optional[int] = None) -> None:
-    """A level-0 state (either layout) written to ``cfg.output_dir``
-    (io/diagnostics.write_field, rank 0)."""
-    write_field(backend.to_full(0, x), vname,
+    """A level-0 state (either layout; its tiles on a distributed backend)
+    written whole to ``cfg.output_dir`` (io/diagnostics.write_field, rank
+    0)."""
+    write_field(backend.gather(0, x), vname,
                 os.path.join(cfg.output_dir, fname), rank=0,
                 iteration=iteration)
 
@@ -666,6 +676,11 @@ def solve_p(backend, b: torch.Tensor, cfg: Optional[SolverConfig] = None,
             graph: Optional[bool] = None) -> Tuple[torch.Tensor, SolveInfo]:
     """Outer convergence loop (``solve_p``, mg_solvers.f90:17-101).
 
+    ``b`` is the global right-hand side in full layout and the pressure
+    comes back so, on a distributed backend too (``b`` placed by
+    ``MeshPlan.constrain``, ``p`` gathered onto the mesh's first device),
+    as the JAX package's solve_p takes and gives global arrays.
+
     Starts from p = 0 (:35) and runs F-cycles until the relative residual
     ||b - Ap|| / ||b|| drops under ``tol`` or ``maxiter`` cycles (:61-79).
     The host reads the norm once a check of ``cfg.cycles_per_check``
@@ -686,6 +701,19 @@ def solve_p(backend, b: torch.Tensor, cfg: Optional[SolverConfig] = None,
     CPU and on a distributed backend (parallel/: ``mesh.shard_map`` runs
     the tiles' programs on host threads, which one capture cannot follow)
     the loop is eager."""
+    p, info = _solve_p(backend, backend.place(0, b), cfg, tol=tol,
+                       maxiter=maxiter, verbose=verbose,
+                       device_loop=device_loop, graph=graph)
+    return backend.gather(0, p), info
+
+
+def _solve_p(backend, b, cfg: Optional[SolverConfig] = None,
+             tol: Optional[float] = None, maxiter: Optional[int] = None,
+             verbose: bool = False, device_loop: Optional[bool] = None,
+             graph: Optional[bool] = None):
+    """:func:`solve_p` on ``b`` in level 0's placement (its tiles on a
+    distributed backend), the pressure returned in full layout in the same
+    placement (NHModel.solve's projection takes the tiles)."""
     cfg = cfg or backend.cfg
     tol = cfg.solver_prec if tol is None else tol
     maxiter = cfg.solver_maxiter if maxiter is None else maxiter

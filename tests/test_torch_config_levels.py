@@ -128,7 +128,9 @@ def test_import_leaves_jax_out():
             "mgroms_tpu_torch.drivers.rndtopo, "
             "mgroms_tpu_torch.drivers.common, "
             "mgroms_tpu_torch.scripts.profile_cuc, "
-            "mgroms_tpu_torch.scripts.schedule_sweep\n"
+            "mgroms_tpu_torch.scripts.schedule_sweep, "
+            "mgroms_tpu_torch.parallel.backend, "
+            "mgroms_tpu_torch.scripts.scaling\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mgroms_tpu')]\n"
             "assert not bad, bad\n")

@@ -21,7 +21,11 @@ machine with
 - ``utils.tictoc.profile_fcycle(device_timer=True)`` at seamount 64^3:
   every level, device seconds beside the host's;
 - ``scripts.profile_cuc.run`` and ``scripts.schedule_sweep.run`` at a
-  small grid: their rows (four schedules).
+  small grid: their rows (four schedules);
+- the GSPMD layer on a virtual 2x2 mesh of the card: K6 on the gathered
+  sharded levels under ``use_pallas`` gives the single-device K6 solve's
+  pressure bit for bit with the same launches, and at seamount 64^3 K4
+  and K3 launch on the replicated levels exactly as the routing says.
 """
 
 import numpy as np
@@ -232,3 +236,56 @@ def test_schedule_sweep_rows(cuda):
         assert r["fcycle_ms"] > 0.0
         assert len(r["history"]) == schedule_sweep.CYCLES + 1
         assert r["history"][1] < r["history"][0]
+
+
+def _gspmd(cuda, n, **cfg):
+    m = _model(cuda, n, **cfg)
+    m.distribute(2, 2, devices=[cuda] * 4, comm="gspmd")
+    return m
+
+
+def test_gspmd_gathered_k6_equals_single(cuda):
+    """Seamount 64 x 64 x 32, ``use_pallas``, ``compact=False``: levels
+    0-2 sharded, each relax K6 on the level gathered onto the card; the
+    pressure equals the single-device eager K6 solve's bit for bit, the
+    launches are the same (K6 only), the history within the float32
+    norms' round-off (the tiles' partial sums)."""
+    from mgroms_tpu_torch.parallel import DistributedBackend
+    n = (64, 64, 32)
+    cfg = dict(use_pallas=True, compact=False)
+    out = []
+    for m in (_model(cuda, n, **cfg), _gspmd(cuda, n, **cfg)):
+        b = m.rhs(*initial_velocities(*n, dtype=m.dtype, device=cuda))
+        reset_launches()
+        p, info = m.pressure_solve(b, tol=0.0, maxiter=3, graph=False)
+        out.append((p, info, launches()))
+    (p1, i1, l1), (p2, i2, l2) = out
+    assert type(m.backend) is DistributedBackend
+    be = m.backend
+    assert [s.sharded for s in be.plan.shards][:3] == [True] * 3
+    assert all(be._gathered(lev) for lev in range(3))
+    assert torch.equal(p2, p1)
+    assert l2 == l1 and {k for k, v in l1.items() if v} <= {
+        "fused_relax", "fused_relax_cluster", "fused_relax_step"}
+    np.testing.assert_allclose(i2.history, i1.history, rtol=1e-6)
+
+
+def test_gspmd_seamount_replicated_levels_launch_k4_k3(cuda):
+    """Seamount 64^3, default config: levels 0-2 sharded (plain torch per
+    tile), 3-4 replicated; level 3 smooths with K4 (ns_pre + ns_post
+    launches in each of the 4 V-cycles that reach it) and restricts with
+    K3 (once in each), nothing else launches."""
+    n = (64, 64, 64)
+    m = _gspmd(cuda, n)
+    be = m.backend
+    assert [s.sharded for s in be.plan.shards] == [True] * 3 + [False] * 2
+    assert [be.state_quads(lev) for lev in range(5)] == [False] * 3 + [
+        True, False]
+    b = m.rhs(*initial_velocities(*n, dtype=m.dtype, device=cuda))
+    reset_launches()
+    _, info = m.pressure_solve(b, tol=0.0, maxiter=2)
+    got = {k: v for k, v in launches().items() if v}
+    ns = m.cfg.ns_pre + m.cfg.ns_post
+    assert got == {"relax_fused_sweep": 4 * ns * info.niter,
+                   "residual_restrict": 4 * info.niter}
+    assert info.history[-1] < 1e-2 * info.history[0]

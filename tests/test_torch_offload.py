@@ -10,8 +10,9 @@ CPU:
   test_torch_parallel.py's);
 - scripts/solve_wall.py's and scripts/profile_cuc.py's set-up is the JAX
   scripts' (coarsest='direct', the metrics offloaded);
-- drivers.rndtopo on a 2 x 2 mesh of the CPU: the history of the
-  undistributed run within 1e-12; its --profile table.
+- drivers.rndtopo on a 2 x 2 mesh of the CPU, under both comm layers:
+  the history of the undistributed run within 1e-12; its --profile
+  table.
 """
 
 import gc
@@ -109,7 +110,8 @@ def test_timed_scripts_take_the_jax_configuration(script):
 
 def test_rndtopo_driver_on_a_mesh(monkeypatch, tmp_path):
     """drivers.rndtopo on the CPU repeated 2 x 2 against the same case
-    undistributed: the same cycles, the history within 1e-12."""
+    undistributed, under comm 'auto' (shard_map here) and 'gspmd': the
+    same cycles, the history within 1e-12."""
     from mgroms_tpu_torch.drivers import rndtopo
     from mgroms_tpu_torch.parallel.shardmap_backend import ShardMapBackend
     monkeypatch.chdir(tmp_path)
@@ -122,8 +124,13 @@ def test_rndtopo_driver_on_a_mesh(monkeypatch, tmp_path):
     assert i4.niter == i1.niter and i1.res <= 1e-10
     np.testing.assert_allclose(i4.history, i1.history, rtol=1e-12,
                                atol=1e-12 * i1.history[0])
-    with pytest.raises(NotImplementedError, match="GSPMD"):
-        rndtopo.main(argv + ["--npx", "2", "--npy", "2", "--comm", "gspmd"])
+    from mgroms_tpu_torch.parallel import DistributedBackend
+    mg, ig = rndtopo.main(argv + ["--npx", "2", "--npy", "2", "--comm",
+                                  "gspmd"])
+    assert type(mg.backend) is DistributedBackend
+    assert ig.niter == i1.niter
+    np.testing.assert_allclose(ig.history, i1.history, rtol=1e-12,
+                               atol=1e-12 * i1.history[0])
 
 
 def test_profile_on_a_mesh(monkeypatch, tmp_path, capsys):

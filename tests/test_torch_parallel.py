@@ -333,30 +333,32 @@ def test_distributed_fc_solve_matches_jax(monkeypatch, fc_jax_4x2, layout):
 
 
 def test_distributed_gs_solve_matches_single():
-    """GS has no quad form: comm='auto' resolves to the unported GSPMD
-    layer, and comm='shard_map' runs the masked column-Jacobi relax per
-    tile with the tile's origin; 3 F-cycles on (4, 2) equal the port's
-    single-device GS solve."""
+    """GS has no quad form: comm='auto' resolves to the GSPMD layer, and
+    comm='shard_map' runs the masked column-Jacobi relax per tile with the
+    tile's origin, as the GSPMD layer's tiles do; 3 F-cycles on (4, 2)
+    of either equal the port's single-device GS solve."""
+    from mgroms_tpu_torch.parallel import DistributedBackend
     nx, ny, nz = 32, 16, 8
     c = setup_seamount(nx, ny, nz)
     out = []
-    for mesh in (None, (4, 2)):
+    for comm in (None, "auto", "shard_map"):
         m = NHModel(nx, ny, nz, cfg=SolverConfig(relax_method="GS"),
                     device="cpu")
         m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc, theta_b=c.theta_b,
                        theta_s=c.theta_s)
-        if mesh:
-            with pytest.raises(NotImplementedError, match="GSPMD"):
-                m.distribute(*mesh, devices=CPU8)
-            m.distribute(*mesh, devices=CPU8, comm="shard_map")
+        if comm:
+            m.distribute(4, 2, devices=CPU8, comm=comm)
+            assert type(m.backend) is (DistributedBackend if comm == "auto"
+                                       else ShardMapBackend)
             assert not any(m.backend.state_quads(lev)
                            for lev in range(m.backend.nlevs))
         u, v, w = initial_velocities(nx, ny, nz, device="cpu")
         out.append(m.pressure_solve(m.rhs(u, v, w), tol=1e-12, maxiter=3))
-    (p1, i1), (p2, i2) = out
-    np.testing.assert_allclose(p2.numpy(), p1.numpy(), rtol=0,
-                               atol=1e-12 * float(p1.abs().max()))
-    np.testing.assert_allclose(i2.history, i1.history, rtol=1e-12)
+    p1, i1 = out[0]
+    for p2, i2 in out[1:]:
+        np.testing.assert_allclose(p2.numpy(), p1.numpy(), rtol=0,
+                                   atol=1e-12 * float(p1.abs().max()))
+        np.testing.assert_allclose(i2.history, i1.history, rtol=1e-12)
 
 
 def test_staged_agglomeration_solve_matches_single():
@@ -449,13 +451,17 @@ def test_compact_gate_on_tiles_is_the_single_device_rule(grid, kind):
 
 
 def test_gspmd_and_unknown_comm_raise():
-    m = NHModel(16, 16, 16, cfg=SolverConfig(compact=False), device="cpu")
+    """'gspmd', and 'auto' (which resolves to it with compact=False),
+    build the GSPMD backend; an unknown layer raises."""
+    from mgroms_tpu_torch.parallel import DistributedBackend
     c = setup_seamount(16, 16, 16)
-    m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc, theta_b=c.theta_b,
-                   theta_s=c.theta_s)
-    for comm in ("gspmd", "auto"):     # 'auto' resolves to gspmd here
-        with pytest.raises(NotImplementedError, match="GSPMD"):
-            m.distribute(2, 2, devices=CPU8, comm=comm)
+    for comm in ("gspmd", "auto"):
+        m = NHModel(16, 16, 16, cfg=SolverConfig(compact=False),
+                    device="cpu")
+        m.set_matrices(c.dx, c.dy, c.zeta, c.h, hc=c.hc, theta_b=c.theta_b,
+                       theta_s=c.theta_s)
+        m.distribute(2, 2, devices=CPU8, comm=comm)
+        assert type(m.backend) is DistributedBackend
     with pytest.raises(ValueError, match="unknown comm"):
         m.distribute(2, 2, devices=CPU8, comm="mpi")
 
