@@ -54,6 +54,11 @@ runs.  The host reads the counter, the runs and the history once per
 solve; the body's launches are counted from its nodes times the runs.
 Instantiating a WHILE body grows with the square of its node count on an
 H100 (CUDA 12.8; PERF.md), a plain graph's linearly.
+
+With spans on (``utils.tictoc.record_spans``) each build by
+:func:`captured_step` or :func:`captured_loop` is a ``capture`` span on
+the host clock alone, so that no event is recorded while a capture is
+open; solver.py spans the loads, replays and launches.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ from .ops.kernels._build import check_launch, ptr
 from .ops.kernels import (_build, device_loop, relax_fused, relax_tiled,
                           stencil_tiled, sweep_fused)
 from .ops.relax_compact import QuadField
+from .utils.tictoc import span
 
 # the kernel modules a convergence step launches (the condition's is not)
 STEP_MODULES = (relax_tiled, stencil_tiled, relax_fused, sweep_fused)
@@ -274,23 +280,28 @@ class DeviceLoop:
     def capacity(self) -> int:
         return self.buf.capacity
 
-    def run(self, p, b, r, rsq, bnorm, maxiter: int, tol: float):
-        """The loop from the prologue's iterates (p, b, r in level 0's
-        state layout, ||r||^2 and ||b||); returns (cycles run, history
-        to them, NaN where no check landed): one device-to-host read.
-        The pressure stays in ``step.p``.  The counters gain the
-        prologue's condition once and the body's kernel nodes once a body
-        run: the condition's runs, counted on the device, less the
-        prologue's."""
+    def load(self, p, b, r, rsq, bnorm, maxiter: int, tol: float) -> None:
+        """The prologue's iterates (p, b, r in level 0's state layout,
+        ||r||^2 and ||b||) and the loop's limits into its buffers."""
         self.step.load(p, b, r, rsq)
         self.bnorm.copy_(bnorm)
-        del p, b, r
         self.buf.reset(maxiter, tol, self.cpc)
+
+    def launch(self) -> None:
+        """The loop on the card, from what :meth:`load` put there; the
+        pressure stays in ``step.p``."""
         lib = _build.load()
         with torch.cuda.device(self.step.device):
             rc = lib.mg_graph_launch(self._handles[1],
                                      torch.cuda.current_stream().cuda_stream)
         check_launch(rc, "device loop graph")
+
+    def read(self):
+        """(cycles run, history to them, NaN where no check landed) of the
+        last :meth:`launch`: one device-to-host read.  The counters gain
+        the prologue's condition once and the body's kernel nodes once a
+        body run: the condition's runs, counted on the device, less the
+        prologue's."""
         niter, hist, runs = self.buf.read()
         # the root's one kernel node is the prologue's condition
         kernels.add_launches({"loop_condition": 1})
@@ -302,7 +313,8 @@ def captured_step(be, cfg) -> CapturedStep:
     """``be``'s captured step under ``cfg``, captured at the first call."""
     key = ("step", cfg, layout(be))
     if key not in be.graphs:
-        be.graphs[key] = CapturedStep(be, cfg)
+        with span("capture"):
+            be.graphs[key] = CapturedStep(be, cfg)
     return be.graphs[key]
 
 
@@ -315,7 +327,9 @@ def captured_loop(be, cfg, maxiter: int) -> DeviceLoop:
     loop = be.graphs.get(key)
     if loop is None or loop.capacity < need:
         be.graphs.pop(key, None)
-        loop = be.graphs[key] = DeviceLoop(
-            captured_step(be, cfg), cfg,
-            max(need, cfg.solver_maxiter + cfg.cycles_per_check))
+        step = captured_step(be, cfg)
+        with span("capture"):
+            loop = be.graphs[key] = DeviceLoop(
+                step, cfg,
+                max(need, cfg.solver_maxiter + cfg.cycles_per_check))
     return loop

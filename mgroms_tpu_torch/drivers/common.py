@@ -11,7 +11,9 @@ host device count gives on the CPU), on ``cuda`` over the visible cards
 (NHModel.distribute).  ``--profile`` profiles one F-cycle per level
 and section after the solve (utils/tictoc.profile_fcycle; on the card
 re-timed from CUDA graphs, but for a distributed backend, whose table
-stays host seconds)."""
+stays host seconds) and prints the spans of one more solve, made after
+the timed ones (utils/tictoc.report_spans: host ms, and on one card
+device ms, of the step's phases)."""
 
 from __future__ import annotations
 
@@ -53,7 +55,9 @@ def base_parser(nx=64, ny=64, nz=64) -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="after the solve, profile one F-cycle per level/"
                         "section and print the reference-style table "
-                        "(print_tictoc, mg_tictoc.f90:114-153)")
+                        "(print_tictoc, mg_tictoc.f90:114-153), then the "
+                        "spans of one more solve (utils/tictoc."
+                        "report_spans)")
     return p
 
 
@@ -106,6 +110,14 @@ def run_case(args, case, nit: int = 1):
         b0 = float(torch.max(torch.abs(m.rhs(u, v, w))))
         print(f"max |div| after correction: {div:.3e} (initial {b0:.3e})")
     if args.profile:
+        # the step's phases in one more solve, so that the timed solves
+        # above carry no span's cost
+        tictoc.record_spans(True)
+        try:
+            m.solve(u, v, w, tol=args.tol, maxiter=args.maxiter)
+            m.backend.synchronize()
+        finally:
+            tictoc.record_spans(False)
         # per-(level, section) breakdown of one F-cycle — the reference's
         # per-level table (tic/toc inside Fcycle/Vcycle, mg_relax.f90:128+,
         # mg_solvers.f90:45+); on the card each distinct call re-timed
@@ -121,4 +133,8 @@ def run_case(args, case, nit: int = 1):
                 "host seconds, each call waited for") + "; matrices, solve: "
                 "host seconds")
     tictoc.print_tictoc()
+    if args.profile:
+        print("one more solve's spans (utils/tictoc.spans), a span's "
+              "mean ms:")
+        print(tictoc.report_spans())
     return m, info

@@ -46,6 +46,7 @@ from .ops.projection import correct_uvw
 from .ops.rhs import compute_rhs
 from .parallel.mesh import Tiles
 from .solver import SingleDeviceBackend, SolveInfo, _solve_p, solve_p
+from .utils.tictoc import span
 
 
 class NHModel:
@@ -225,8 +226,10 @@ class NHModel:
     def rhs(self, u, v, w) -> torch.Tensor:
         if self.distributed:
             return self.backend.gather(0, self._rhs_state(u, v, w))
-        return compute_rhs(self._metrics_live(), self.tensor(u),
-                           self.tensor(v), self.tensor(w), self.cfg.bmask)
+        with span("rhs", self.backend):
+            return compute_rhs(self._metrics_live(), self.tensor(u),
+                               self.tensor(v), self.tensor(w),
+                               self.cfg.bmask)
 
     def _state(self, x):
         """``x`` as a tensor of the model, unless it is already a tile grid
@@ -237,8 +240,10 @@ class NHModel:
         """b in level 0's layout (its tiles when distributed)."""
         if not self.distributed:
             return self.rhs(u, v, w)
-        return self.backend.place(0, self._physics.rhs(
-            self.tensor(u), self.tensor(v), self.tensor(w)))
+        with span("rhs", self.backend):
+            b = self._physics.rhs(self.tensor(u), self.tensor(v),
+                                  self.tensor(w))
+        return self.backend.place(0, b)
 
     def _solve_state(self, b, tol, maxiter, verbose, graph):
         """solve_p's pressure in level 0's placement (its tiles when
@@ -258,12 +263,14 @@ class NHModel:
                        maxiter=maxiter, verbose=verbose, graph=graph)
 
     def project(self, p, u, v, w):
-        if self.distributed:
-            return self._physics.project(
-                self._state(p), self.tensor(u), self.tensor(v),
-                self.tensor(w))
-        return correct_uvw(self._metrics_live(), extend_h1(self.tensor(p)),
-                           self.tensor(u), self.tensor(v), self.tensor(w))
+        with span("project", self.backend):
+            if self.distributed:
+                return self._physics.project(
+                    self._state(p), self.tensor(u), self.tensor(v),
+                    self.tensor(w))
+            return correct_uvw(self._metrics_live(),
+                               extend_h1(self.tensor(p)), self.tensor(u),
+                               self.tensor(v), self.tensor(w))
 
     # -- the reference's three-step solve (nhydro.f90:80-98) ---------------
     def solve(self, u, v, w, tol=None, maxiter=None, verbose=False,
@@ -271,14 +278,17 @@ class NHModel:
         """compute_rhs -> solve_p -> correct_uvw.  Returns corrected
         (u, v, w), the pressure p, and a SolveInfo.  On the card the solve
         replays its step as a CUDA graph; ``graph=False`` runs the eager
-        loop (solver.solve_p)."""
-        u, v, w = self.tensor(u), self.tensor(v), self.tensor(w)
-        b = self._rhs_state(u, v, w)
-        if self.cfg.netcdf_output:                   # nhydro.f90:85-87
-            self._dump(self.backend.gather(0, b), "b", "b.nc", 1)
-        p, info = self._solve_state(b, tol, maxiter, verbose, graph)
-        u, v, w = self.project(p, u, v, w)
-        return u, v, w, self.backend.gather(0, p), info
+        loop (solver.solve_p).  With spans on (utils/tictoc.record_spans)
+        the call is a ``step`` span over ``rhs``, ``solve`` and
+        ``project``."""
+        with span("step"):
+            u, v, w = self.tensor(u), self.tensor(v), self.tensor(w)
+            b = self._rhs_state(u, v, w)
+            if self.cfg.netcdf_output:               # nhydro.f90:85-87
+                self._dump(self.backend.gather(0, b), "b", "b.nc", 1)
+            p, info = self._solve_state(b, tol, maxiter, verbose, graph)
+            u, v, w = self.project(p, u, v, w)
+            return u, v, w, self.backend.gather(0, p), info
 
     def check_nondivergence(self, u, v, w) -> torch.Tensor:
         """max |div| of the corrected velocities

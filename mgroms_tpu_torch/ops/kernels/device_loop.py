@@ -17,7 +17,7 @@ condition (``capture.DeviceLoop``); the wrapper here launches it outside a
 graph.  The wrapper runs the plain version for tensors on the CPU only;
 for CUDA tensors it checks them, launches the kernel or raises.
 ``LAUNCHES`` counts the kernel's launches, those of the device loop's
-graph included (``capture.DeviceLoop.run`` adds the runs the device
+graph included (``capture.DeviceLoop.read`` adds the runs the device
 counted).
 
 :func:`graph_kernels` lists a CUDA graph's kernel nodes by function name

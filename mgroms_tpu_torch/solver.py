@@ -108,6 +108,7 @@ from .ops.kernels import relax_tiled as kernels
 from .ops.relax_compact import (QuadField, attach_lp, build_band_pack,
                                 build_compact_pack, residual_quads,
                                 restrict_quads_to_full)
+from .utils.tictoc import span
 
 
 def fused_sweep_wanted(cfg: SolverConfig, on_card: bool) -> bool:
@@ -653,21 +654,38 @@ def _device_loop(backend, b, cfg: SolverConfig, tol: float, maxiter: int,
     if graph:
         from .capture import captured_loop
         loop = captured_loop(backend, cfg, maxiter)
-        niter, hist = loop.run(*_init_state(backend, b), maxiter, tol)
-        return loop.step.result(), niter, hist
-    p, bs, r, rsq, bnorm = _init_state(backend, b)
+        with span("prologue", backend):
+            loop.load(*_init_state(backend, b), maxiter, tol)
+        with span("fcycle", backend):
+            loop.launch()
+        with span("read"):
+            niter, hist = loop.read()
+        with span("result", backend):
+            p = loop.step.result()
+        return p, niter, hist
     cpc = cfg.cycles_per_check
-    buf = loop_condition.LoopBuffers(rsq, maxiter + cpc)
-    buf.reset(maxiter, tol, cpc)
-    loop_condition.loop_condition(rsq, bnorm, buf.it, buf.hist, buf.lim,
-                                  cpc, True, buf.cont, buf.runs)
-    while bool(buf.cont):
-        p, r, rsq, _ = step_norm(backend, p, bs, r, cfg)
+    with span("prologue", backend):
+        p, bs, r, rsq, bnorm = _init_state(backend, b)
+        buf = loop_condition.LoopBuffers(rsq, maxiter + cpc)
+        buf.reset(maxiter, tol, cpc)
         loop_condition.loop_condition(rsq, bnorm, buf.it, buf.hist,
-                                      buf.lim, cpc, False, buf.cont,
+                                      buf.lim, cpc, True, buf.cont,
                                       buf.runs)
-    niter, hist, _ = buf.read()
-    return backend.to_full(0, p), niter, hist
+    while True:
+        with span("read"):
+            go = bool(buf.cont)
+        if not go:
+            break
+        with span("fcycle", backend):
+            p, r, rsq, _ = step_norm(backend, p, bs, r, cfg)
+            loop_condition.loop_condition(rsq, bnorm, buf.it, buf.hist,
+                                          buf.lim, cpc, False, buf.cont,
+                                          buf.runs)
+    with span("read"):
+        niter, hist, _ = buf.read()
+    with span("result", backend):
+        p = backend.to_full(0, p)
+    return p, niter, hist
 
 
 def solve_p(backend, b: torch.Tensor, cfg: Optional[SolverConfig] = None,
@@ -713,7 +731,13 @@ def _solve_p(backend, b, cfg: Optional[SolverConfig] = None,
              graph: Optional[bool] = None):
     """:func:`solve_p` on ``b`` in level 0's placement (its tiles on a
     distributed backend), the pressure returned in full layout in the same
-    placement (NHModel.solve's projection takes the tiles)."""
+    placement (NHModel.solve's projection takes the tiles).
+
+    With spans on (utils/tictoc.record_spans) the solve is a ``solve``
+    span over its ``prologue`` (the initial residual and the loads into
+    the graph's buffers), one ``fcycle`` a convergence step, a ``read``
+    for each blocking read of the device by the host and the
+    ``result``."""
     cfg = cfg or backend.cfg
     tol = cfg.solver_prec if tol is None else tol
     maxiter = cfg.solver_maxiter if maxiter is None else maxiter
@@ -721,64 +745,75 @@ def _solve_p(backend, b, cfg: Optional[SolverConfig] = None,
         device_loop = cfg.device_loop
     graph = graph_wanted(backend, graph, cfg)
 
-    if device_loop and not (verbose or cfg.netcdf_output):
-        t0 = time.perf_counter()
-        p, niter, hist = _device_loop(backend, b, cfg, tol, maxiter, graph)
-        backend.synchronize()
-        dt = time.perf_counter() - t0
-        hist = [h for h in hist if not math.isnan(h)]
-        # b == 0 makes every entry 0/0 = NaN (the host loop returns the
-        # same degenerate history=(nan,)); keep the shape of that contract
-        if not hist:
-            hist = [float("nan")]
-        return p, SolveInfo(niter=niter, res=hist[-1], history=tuple(hist),
-                            time_s=dt,
-                            rescaled_perf=_rescaled_perf(
-                                backend, dt, hist[-1], hist[0], niter))
+    with span("solve"):
+        if device_loop and not (verbose or cfg.netcdf_output):
+            t0 = time.perf_counter()
+            p, niter, hist = _device_loop(backend, b, cfg, tol, maxiter,
+                                          graph)
+            with span("read"):
+                backend.synchronize()
+            dt = time.perf_counter() - t0
+            hist = [h for h in hist if not math.isnan(h)]
+            # b == 0 makes every entry 0/0 = NaN (the host loop returns
+            # the same degenerate history=(nan,)); keep the shape of that
+            # contract
+            if not hist:
+                hist = [float("nan")]
+            return p, SolveInfo(niter=niter, res=hist[-1],
+                                history=tuple(hist), time_s=dt,
+                                rescaled_perf=_rescaled_perf(
+                                    backend, dt, hist[-1], hist[0], niter))
 
-    t0 = time.perf_counter()
-    step = None
-    if graph:
-        from .capture import captured_step
-        step = captured_step(backend, cfg)
-    p, bs, r, res0, bnorm = solve_init(backend, b)
-    res0 = float(res0)
-    bnorm = float(bnorm)
-    r0val = res0
-    history = [res0]
-    nite = 0
-    if step is not None:
-        step.load(p, bs, r)
-        del p, bs, r
-    while nite < maxiter and res0 > tol:
-        if step is not None:
-            rnorm = step.replay()
-        else:
-            p, r, rnorm = solve_step(backend, p, bs, r, cfg)
-        rnorm = float(rnorm) / bnorm
-        conv = res0 / rnorm if rnorm > 0 else float("inf")
-        res0 = rnorm
-        nite += cfg.cycles_per_check
-        history.append(rnorm)
-        if verbose:
-            print(f"ite = {nite:2d}: res = {rnorm:10.3e} / "
-                  f"conv = {conv:10.3f}")
+        t0 = time.perf_counter()
+        step = None
+        if graph:
+            from .capture import captured_step
+            step = captured_step(backend, cfg)
+        with span("prologue", backend):
+            p, bs, r, res0, bnorm = solve_init(backend, b)
+            if step is not None:
+                step.load(p, bs, r)
+                del p, bs, r
+        with span("read"):
+            res0 = float(res0)
+        with span("read"):
+            bnorm = float(bnorm)
+        r0val = res0
+        history = [res0]
+        nite = 0
+        while nite < maxiter and res0 > tol:
+            with span("fcycle", backend):
+                if step is not None:
+                    rnorm = step.replay()
+                else:
+                    p, r, rnorm = solve_step(backend, p, bs, r, cfg)
+            with span("read"):
+                rnorm = float(rnorm) / bnorm
+            conv = res0 / rnorm if rnorm > 0 else float("inf")
+            res0 = rnorm
+            nite += cfg.cycles_per_check
+            history.append(rnorm)
+            if verbose:
+                print(f"ite = {nite:2d}: res = {rnorm:10.3e} / "
+                      f"conv = {conv:10.3f}")
+            if cfg.netcdf_output:
+                # per-iteration dumps (mg_solvers.f90:74-77); a replayed
+                # step leaves its iterates in its static buffers
+                _dump(backend, cfg, step.p if step is not None else p, "p",
+                      "p.nc", nite)
+                _dump(backend, cfg, step.r if step is not None else r, "r",
+                      "r.nc", nite)
+        with span("result", backend):
+            p = step.result() if step is not None else backend.to_full(0, p)
+        with span("read"):
+            backend.synchronize()
+        dt = time.perf_counter() - t0
         if cfg.netcdf_output:
-            # per-iteration dumps (mg_solvers.f90:74-77); a replayed step
-            # leaves its iterates in its static buffers
-            _dump(backend, cfg, step.p if step is not None else p, "p",
-                  "p.nc", nite)
+            # end-of-solve dumps (nhydro.f90:92-95)
+            _dump(backend, cfg, p, "p", "p_end.nc")
             _dump(backend, cfg, step.r if step is not None else r, "r",
-                  "r.nc", nite)
-    p = step.result() if step is not None else backend.to_full(0, p)
-    backend.synchronize()
-    dt = time.perf_counter() - t0
-    if cfg.netcdf_output:
-        # end-of-solve dumps (nhydro.f90:92-95)
-        _dump(backend, cfg, p, "p", "p_end.nc")
-        _dump(backend, cfg, step.r if step is not None else r, "r",
-              "r_end.nc")
-    return p, SolveInfo(niter=nite, res=res0, history=tuple(history),
-                        time_s=dt,
-                        rescaled_perf=_rescaled_perf(backend, dt, res0,
-                                                     r0val, nite))
+                  "r_end.nc")
+        return p, SolveInfo(niter=nite, res=res0, history=tuple(history),
+                            time_s=dt,
+                            rescaled_perf=_rescaled_perf(backend, dt, res0,
+                                                         r0val, nite))
