@@ -90,7 +90,12 @@ Phases (any failed check raises, so the exit code is non-zero):
    (every colour, both layouts, K1 also on the bfloat16 operator) on the
    level-0 operator of a land-masked CUC 128^2 x 32 (bmask: phase 20's
    coastal strip and island, whose columns couple to no neighbour), each
-   to 0 ulp from its plain version (masked_kernels).
+   to 0 ulp from its plain version (masked_kernels).  The physics kernel
+   (csrc/rhs_fused.cu, the divergence RHS in one pass) against
+   ops/rhs.compute_rhs to 0 ulp: at the CUC 1024^2 x 64 float32 main
+   path (the model's metrics; timed, median of 20, beside its bound), in
+   float64 and with bmask on the land-masked CUC 128^2 x 32
+   (rhs_kernels).
 2. Seamount 64^3, float32: NHModel.set_matrices -> solve -> check_
    nondivergence; the first F-cycle's residual within 2% of the float64
    golden, <= 1e-4 within 3 F-cycles, max|div| cut >= 100x over the whole
@@ -102,7 +107,9 @@ Phases (any failed check raises, so the exit code is non-zero):
    F-cycles, interior max|div| cut >= 100x, whole-grid ratio <= 2.5e-2
    (its wall-ring remnant grows with resolution, see below), K4 and K3
    launched and no other kernel (counted in this run only), K3 once per
-   down-leg restriction (15 a F-cycle) and once per level-0 residual.
+   down-leg restriction (15 a F-cycle) and once per level-0 residual,
+   the physics kernel once a rhs call (the solve's, the two checks' and
+   the interior ratio's).
 5. Seamount 64^3 with use_pallas=True: K6 on the coarsest level, one
    launch per call (one block).
 6. CUC 1024^2 x 64 with use_pallas=True: the same.
@@ -273,7 +280,8 @@ the replay's op count beside the eager step's plus the copies back into
 the static buffers.
 
 The line before last is a JSON object with, for each kernel, its launches
-in the phase that is its path (4 for K4 and K3 in both its modes, 6 for
+in the phase that is its path (4 for K4, K3 in both its modes and the
+physics kernel, 6 for
 K6's one-block form, 7 for K5 and K6's cluster and per-colour-step
 forms, 8 for K1 and K2, 9 for K4 on bfloat16 bands, 17 for K4 on
 bfloat16 bands with a float64 state, 10 for K1 on the bfloat16 stack, 11 for K8-K11 and K10's step floor, 13 for K7, 15 for
@@ -311,10 +319,12 @@ from mgroms_tpu_torch.ops.kernels import dma_probe as dp
 from mgroms_tpu_torch.ops.kernels import rdma_halo as k7
 from mgroms_tpu_torch.ops.kernels import relax_fused as kf
 from mgroms_tpu_torch.ops.kernels import relax_tiled as kt
+from mgroms_tpu_torch.ops.kernels import rhs_fused as krhs
 from mgroms_tpu_torch.ops.kernels import roofline as rl
 from mgroms_tpu_torch.ops.kernels import stencil_tiled as ks
 from mgroms_tpu_torch.ops.kernels import sweep_fused as ksf
 from mgroms_tpu_torch.ops.kernels import sweep_packed as sp
+from mgroms_tpu_torch.ops.rhs import compute_rhs, wall_face_masks
 from mgroms_tpu_torch.parallel import mesh as pmesh
 from mgroms_tpu_torch.parallel.exchange import unblock_overlapped
 from mgroms_tpu_torch.scripts import micro_colour_update as mcu
@@ -390,7 +400,12 @@ KERNELS = {
     # no Pallas kernel: the JAX package leaves the device loop's condition
     # and history update to XLA inside lax.while_loop
     "loop_condition": ("device_loop.cu", "mgroms_tpu/solver.py:731", 19),
+    # no Pallas kernel: XLA fuses the JAX package's compute_rhs
+    "rhs_fused": ("rhs_fused.cu", "mgroms_tpu/ops/rhs.py:49", 4),
 }
+# the physics kernels run wherever NHModel.rhs does, outside the solve and
+# whatever its route: the phases' path checks leave them out
+PHYSICS = {"rhs_fused"}
 REL_TOL = 1e-6
 # phases 14-15 (FC): the cycle limit, set beside phase 14 in main()
 FC_MAXITER = 3
@@ -426,7 +441,8 @@ F32_FLOPS = 67e12                # float32 outside the tensor cores
 
 def check_path(counts, busy):
     """Every kernel of ``busy`` launched, every other kernel not."""
-    check(all((counts[k] > 0) == (k in busy) for k in KERNELS),
+    check(all((counts[k] > 0) == (k in busy)
+              for k in KERNELS if k not in PHYSICS),
           f"launches {counts}, expected exactly {sorted(busy)}")
 
 
@@ -551,6 +567,7 @@ def kernel_phase(dev):
     loop_kernels(dev, results)
     sass_async_copies()
     masked_kernels(dev, results)
+    rhs_kernels(dev, results)
     return results
 
 
@@ -1425,8 +1442,9 @@ def eager_check(m, uvw, info, tol, maxiter, before):
     check(einfo.history == info.history,
           f"replayed history {info.history} != eager {einfo.history}")
     check(torch.equal(p, m.p_solved), "replayed pressure != eager")
-    check(eager == replayed, f"replayed launches {replayed} != eager "
-          f"{eager}")
+    solver = lambda c: {k: n for k, n in c.items() if k not in PHYSICS}
+    check(solver(eager) == solver(replayed), f"replayed launches "
+          f"{replayed} != eager {eager}")
     print(f"  graph=False solve {einfo.time_s:.3f} s against {info.time_s:.3f}"
           f" s replayed (first solve: warm-up {step.warmup_s:.3f} s, capture "
           f"{step.capture_s:.3f} s, instantiation {step.instantiate_s:.3f} s;"
@@ -2081,6 +2099,60 @@ def masked_kernels(dev, results):
         torch.cuda.empty_cache()
 
 
+def rhs_kernels(dev, results):
+    """Phase 1, physics: the one-pass divergence RHS (rhs_fused) against
+    compute_rhs on the card, to 0 ulp: CUC 1024^2 x 64 float32 (the
+    model's metrics, zw a view of the halo-2 field; the drivers' field and
+    a seeded random one), timed beside its bound (every input read once,
+    b written once); the land-masked CUC 128^2 x 32 with bmask, and
+    without, in float32 and float64."""
+    def velocities(nz, ny, nx, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.randn(s, generator=g, dtype=dtype, device=dev)
+                     for s in ((nz, ny + 2, nx + 1), (nz, ny + 1, nx + 2),
+                               (nz + 1, ny + 2, nx + 2)))
+
+    n, nz = 1024, 64
+    case = setup_cuc_synthetic(n, n, nz)
+    m = NHModel(n, n, nz, cfg=SolverConfig(dtype="float32"), device=dev)
+    m.set_matrices(case.dx, case.dy, case.zeta, case.h, hc=case.hc,
+                   theta_b=case.theta_b, theta_s=case.theta_s)
+    mt = m.metrics
+    del m
+    walls = wall_face_masks(n, n, mt.dx)
+    for label, uvw in (
+            ("drivers' field", initial_velocities(n, n, nz,
+                                                  dtype=torch.float32,
+                                                  device=dev)),
+            ("random field", velocities(nz, n, n, torch.float32, 29))):
+        read = nbytes(*uvw, mt.dx, mt.dy, mt.dzw, mt.zx, mt.zy, mt.cw,
+                      mt.umask, mt.vmask, mt.rmask, *walls) + (
+            mt.zw.numel() * mt.zw.element_size())
+        hold(results, "rhs_fused", f"CUC {label}", torch.float32,
+             lambda: krhs.rhs_fused(mt, *uvw, False),
+             lambda: compute_rhs(mt, *uvw, False), None,
+             read + n * n * nz * 4, 0,
+             "json" if label == "random field" else None, exact=True)
+    del mt, uvw, walls
+    torch.cuda.empty_cache()
+    n, nz = 128, 32
+    case = setup_cuc_synthetic(n, n, nz)
+    for dtype in (torch.float32, torch.float64):
+        for bmask in (False, True):
+            m = NHModel(n, n, nz, cfg=SolverConfig(
+                dtype=str(dtype).split(".")[1], bmask=bmask), device=dev)
+            m.set_matrices(case.dx, case.dy, case.zeta, case.h,
+                           rmask=cuc_land_mask(n, n) if bmask else None,
+                           hc=case.hc, theta_b=case.theta_b,
+                           theta_s=case.theta_s)
+            uvw = velocities(nz, n, n, dtype, 31)
+            hold(results, "rhs_fused", "masked" if bmask else "walls",
+                 dtype, lambda: krhs.rhs_fused(m.metrics, *uvw, bmask),
+                 lambda: compute_rhs(m.metrics, *uvw, bmask), None, 0, 0,
+                 None, exact=True)
+            del m
+
+
 def record(m, info, fcycle, prof):
     """A phase's numbers for the comparisons of phases 20-21: F-cycles,
     medians (eager, replayed), the captured step's node count, the eager
@@ -2515,7 +2587,7 @@ def gspmd_phase(case, case_seamount, dev, ref7, p7, ref2):
     print(f"  launches {counts}; predicted a F-cycle {dict(want)}")
     check([s.sharded for s in be.plan.shards] == [True] * 3 + [False] * 2,
           "seamount 64^3 on 2x2 shards other levels than levels 0-2")
-    check({k: v for k, v in counts.items() if v}
+    check({k: v for k, v in counts.items() if v and k not in PHYSICS}
           == {k: v * info.niter for k, v in want.items()},
           f"launches {counts}, predicted {dict(want)} a F-cycle")
     sharded = [lev for lev in range(be.nlevs) if be.plan.shards[lev].sharded]
@@ -2657,6 +2729,8 @@ def main() -> int:
     check(counts["residual_restrict"] == L * (L - 1) // 2 * info.niter
           and counts["residual_quads"] == 1 + info.niter,
           f"K3 launches {counts}")
+    # the solve's rhs, check_nondivergence twice, the interior ratio's rhs
+    check(counts["rhs_fused"] == 4, f"rhs_fused launches {counts}")
     # the whole-grid max sits on the wall ring, whose remnant is a property
     # of the reference's BC-in-halo discretization and grows with
     # resolution (JAX package = port: 3.7e-3 at 128^2 x 32, 7.2e-3 at

@@ -43,7 +43,7 @@ from .config import SolverConfig
 from .io.diagnostics import write_field
 from .levels import build_level_plan, describe
 from .ops.projection import correct_uvw
-from .ops.rhs import compute_rhs
+from .ops.kernels.rhs_fused import rhs_fused
 from .parallel.mesh import Tiles
 from .solver import SingleDeviceBackend, SolveInfo, _solve_p, solve_p
 from .utils.tictoc import span
@@ -72,10 +72,10 @@ class NHModel:
         return getattr(torch, self.cfg.dtype)
 
     def tensor(self, a) -> torch.Tensor:
-        """``a`` (numpy array, tensor or scalar) as a tensor of the model's
-        dtype on its device."""
+        """``a`` (numpy array, tensor or scalar) as a contiguous tensor of
+        the model's dtype on its device."""
         if isinstance(a, torch.Tensor):
-            return a.to(device=self.device, dtype=self.dtype)
+            return a.to(device=self.device, dtype=self.dtype).contiguous()
         return torch.tensor(np.asarray(a), dtype=self.dtype,
                             device=self.device)
 
@@ -227,9 +227,8 @@ class NHModel:
         if self.distributed:
             return self.backend.gather(0, self._rhs_state(u, v, w))
         with span("rhs", self.backend):
-            return compute_rhs(self._metrics_live(), self.tensor(u),
-                               self.tensor(v), self.tensor(w),
-                               self.cfg.bmask)
+            return rhs_fused(self._metrics_live(), self.tensor(u),
+                             self.tensor(v), self.tensor(w), self.cfg.bmask)
 
     def _state(self, x):
         """``x`` as a tensor of the model, unless it is already a tile grid

@@ -12,7 +12,7 @@ import re
 from typing import Optional
 
 from . import (device_loop, dma_probe, rdma_halo, relax_fused,  # noqa: F401
-               relax_tiled, roofline, stencil_tiled, sweep_fused,
+               relax_tiled, rhs_fused, roofline, stencil_tiled, sweep_fused,
                sweep_packed)
 from .relax_fused import fused_relax                      # noqa: F401
 from .stencil_tiled import residual_tiled                 # noqa: F401
@@ -20,7 +20,8 @@ from .relax_tiled import relax_compact_tiled_quads        # noqa: F401
 from .sweep_fused import relax_fused_sweep                 # noqa: F401
 
 MODULES = (relax_tiled, stencil_tiled, relax_fused, sweep_fused,
-           sweep_packed, roofline, rdma_halo, dma_probe, device_loop)
+           sweep_packed, roofline, rdma_halo, dma_probe, device_loop,
+           rhs_fused)
 
 
 def launches() -> dict:

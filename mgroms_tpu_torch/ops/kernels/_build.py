@@ -135,6 +135,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # x out | n ntiles | stream
     lib.mg_fma_run.argtypes = [p, p, i, i, p]
     lib.mg_fma_run.restype = i
+    for dt in ("f32", "f64"):
+        fn = getattr(lib, f"mg_rhs_fused_{dt}")
+        # RhsArgs* | nz ny nx | stream
+        fn.argtypes = [p] + [i] * 3 + [p]
+        fn.restype = i
     u, z = ctypes.c_ulonglong, ctypes.c_size_t
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"mg_loop_condition_{dt}")

@@ -29,7 +29,7 @@ import torch
 from ..assembly import FineMetrics
 from ..config import SolverConfig
 from ..ops.projection import correct_uvw
-from ..ops.rhs import compute_rhs
+from ..ops.kernels.rhs_fused import rhs_fused
 from .exchange import (block_overlapped, halo_extend, shard_face_masks,
                        unblock_overlapped)
 from .mesh import MeshPlan, Tiles, join_tiles, shard_map, split_tiles
@@ -90,8 +90,8 @@ class DistributedPhysics:
             ny_l = u_l.shape[1] - 2
             nx_l = u_l.shape[2] - 1
             um, vm = shard_face_masks(ny_l, nx_l, u_l.dtype)
-            return compute_rhs(mt, u_l, v_l, w_l, bmask,
-                               uface_mask=um, vface_mask=vm)
+            return rhs_fused(mt, u_l, v_l, w_l, bmask, uface_mask=um,
+                             vface_mask=vm)
 
         return self._map(local, self.metrics, *self._velocity_tiles(u, v, w))
 
