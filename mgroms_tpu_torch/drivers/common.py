@@ -11,9 +11,10 @@ host device count gives on the CPU), on ``cuda`` over the visible cards
 (NHModel.distribute).  ``--profile`` profiles one F-cycle per level
 and section after the solve (utils/tictoc.profile_fcycle; on the card
 re-timed from CUDA graphs, but for a distributed backend, whose table
-stays host seconds) and prints the spans of one more solve, made after
-the timed ones (utils/tictoc.report_spans: host ms, and on one card
-device ms, of the step's phases)."""
+stays host seconds), prints K4's launch plans (utils/tictoc.report_plans)
+and then the spans of one more solve, made after the timed ones
+(utils/tictoc.report_spans: host ms, and on one card device ms, of the
+step's phases)."""
 
 from __future__ import annotations
 
@@ -132,6 +133,8 @@ def run_case(args, case, nit: int = 1):
                 "card seconds, re-timed from CUDA graphs" if retime else
                 "host seconds, each call waited for") + "; matrices, solve: "
                 "host seconds")
+        print("K4's launch plans (utils/tictoc.report_plans):")
+        print(tictoc.report_plans())
     tictoc.print_tictoc()
     if args.profile:
         print("one more solve's spans (utils/tictoc.spans), a span's "

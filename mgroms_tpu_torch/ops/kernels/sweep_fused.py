@@ -27,7 +27,9 @@ or raises.  The C entry is picked by the pair (state dtype, band dtype)
 ``_build.instance``); a pair without an instance raises before anything
 launches.  ``LAUNCHES`` counts kernel
 launches per instance: full-precision bands, bfloat16 bands with float32
-state, bfloat16 bands with float64 state.
+state, bfloat16 bands with float64 state.  ``PLANS`` records, at the
+first launch of each (quads shape, state dtype, band dtype), the launch
+plan the kernel takes there (:func:`launch_plan`); the reset clears both.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ from ..relax_compact import (_BASE_TERMS, _REAL_TERMS, _TKEYS, NBANDS,
 
 LAUNCHES = {"relax_fused_sweep": 0, "relax_fused_sweep_bf16": 0,
             "relax_fused_sweep_bf16_f64": 0}
+# ((nz, H, W), state dtype, band dtype) -> launch_plan's dict
+PLANS = {}
 # the kernel functions behind each count (ops/kernels/__init__.py):
 # sweep_kernel<T, B>
 GRAPH_NAMES = (
@@ -70,6 +74,7 @@ ENTRIES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    PLANS.clear()
 
 
 def relax_fused_sweep_plain(q0, bq, pack: CompactPack, nsweeps: int):
@@ -169,6 +174,9 @@ def _launch(q, bq, pack: CompactPack):
                       arr(pack.ud), arr(bet), arr([out[t] for t in _TKEYS]))
     fn = getattr(_build.load(), name)
     with torch.cuda.device(q0.device):
+        plan_key = ((nz, H, W), q0.dtype, band)
+        if plan_key not in PLANS:
+            PLANS[plan_key] = launch_plan(*plan_key)
         rc = fn(ctypes.byref(args), nz, H, W, int(pack.real_matrix),
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "relax_fused_sweep")
