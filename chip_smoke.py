@@ -820,6 +820,7 @@ SWEEP_CASES = [
     ((64, 512, 512), torch.float32, True, "json", True),
     ((64, 512, 512), torch.float64, True, "json", True),
     ((64, 512, 512), torch.float64, False, "print", True),
+    ((128, 512, 512), torch.float32, False, "print", True),
     ((4, 32, 32), torch.float32, False, "print", True),
     ((4, 32, 32), torch.float64, True, None, True),
     ((4, 32, 32), torch.float64, True, None, False),
@@ -875,6 +876,40 @@ def sweep_kernels(dev, results):
                   f"band stack: K4 {k4:.4f} ms, two K1 launches + two halo "
                   f"extensions {k1:.4f} ms")
         del pack, blocks, rblocks, bet, stack, q, bq
+        torch.cuda.empty_cache()
+    sweep_ring_depths(dev)
+
+
+# (quads, the ring depths timed in turns): the seamount's level 0 at the
+# plan's depth (7) against the shallowest ring, and CUC's level 0 at the
+# plan's (2 blocks an SM x 2 planes) against the deepest ring that fits
+# one block (13)
+RING_CASES = [((128, 512, 512), (0, 2)), ((64, 512, 512), (0, 13))]
+
+
+def sweep_ring_depths(dev):
+    """K4 (float32, on the band stack) at forced ring depths against the
+    plan's own (0), timed in turns (a, b, b, a; median of 20 each) and
+    held to one another bit for bit; prints each launch plan."""
+    for shape, depths in RING_CASES:
+        pack, q, bq = kernel_inputs(*shape, torch.float32, dev,
+                                    seed=sum(shape), bands=True)
+        outs, ms = {}, {d: [] for d in depths}
+        for d in depths:
+            outs[d] = ksf.relax_fused_sweep(q, bq, pack, 1, ahead=d)
+            plan = ksf.launch_plan(shape, torch.float32, torch.float32, d)
+            print(f"  relax_fused_sweep {shape} ahead {d or 'plan'}: "
+                  f"launch plan {plan}")
+        for d in depths + depths[::-1]:
+            ms[d].append(median_ms(
+                lambda: ksf.relax_fused_sweep(q, bq, pack, 1, ahead=d)))
+        a, b = depths
+        check(all(torch.equal(outs[a][t], outs[b][t]) for t in rc._TKEYS),
+              f"K4 {shape}: ring depths {a} and {b} differ")
+        print(f"  K4 one sweep at {shape}: "
+              + ", ".join(f"ahead {d or 'plan'} {ms[d][0]:.4f} / "
+                          f"{ms[d][1]:.4f} ms" for d in depths))
+        del pack, q, bq, outs
         torch.cuda.empty_cache()
 
 

@@ -67,11 +67,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = i
     for dt in ("f32", "f64", "bf16", "f64_bf16"):
         fn = getattr(lib, f"mg_sweep_fused_{dt}")
-        # SweepArgs* | nz H W real | stream
-        fn.argtypes = [p] + [i] * 4 + [p]
+        # SweepArgs* | nz H W real ahead | stream
+        fn.argtypes = [p] + [i] * 5 + [p]
         fn.restype = i
-    # instance nz H W | out[4]: K4's launch plan
-    lib.mg_sweep_fused_plan.argtypes = [i] * 4 + [p]
+    # instance nz H W ahead | out[5]: K4's launch plan
+    lib.mg_sweep_fused_plan.argtypes = [i] * 5 + [p]
     lib.mg_sweep_fused_plan.restype = i
     for dt in ("f32", "f64"):
         fn = getattr(lib, f"mg_rr_{dt}")

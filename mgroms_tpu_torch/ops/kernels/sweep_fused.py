@@ -30,6 +30,10 @@ launches per instance: full-precision bands, bfloat16 bands with float32
 state, bfloat16 bands with float64 state.  ``PLANS`` records, at the
 first launch of each (quads shape, state dtype, band dtype), the launch
 plan the kernel takes there (:func:`launch_plan`); the reset clears both.
+The plan includes the depth of the kernel's staging ring
+(``planes_ahead``), which the launcher sets from the shape: the deep ring
+where it keeps the resident blocks of the shallow one, else the shallow
+one.
 """
 
 from __future__ import annotations
@@ -123,18 +127,20 @@ def sweep_bands(pack: CompactPack, dtype):
     return ebands, bet, band
 
 
-def launch_plan(shape, state, band) -> dict:
+def launch_plan(shape, state, band, ahead: int = 0) -> dict:
     """The launch K4 takes at quads ``shape`` (nz, H, W) for the pair
     (``state``, ``band``): threads a block, resident blocks per SM, the
-    cooperative grid and the dynamic shared memory of a block (read from
-    the launcher, ``mg_sweep_fused_plan``; needs a card)."""
+    cooperative grid, the dynamic shared memory of a block and the planes
+    its staging ring keeps in flight ahead of the solved one (read from the
+    launcher, ``mg_sweep_fused_plan``; needs a card).  ``ahead``: the ring
+    depth :func:`relax_fused_sweep` is asked for, 0 for the plan's own."""
     instance(ENTRIES, state, band, "K4")
     inst = list(ENTRIES).index((state, band))
-    out = (ctypes.c_int * 4)()
-    check_launch(_build.load().mg_sweep_fused_plan(inst, *shape, out),
+    out = (ctypes.c_int * 5)()
+    check_launch(_build.load().mg_sweep_fused_plan(inst, *shape, ahead, out),
                  "mg_sweep_fused_plan")
-    return dict(zip(("threads", "blocks_per_sm", "grid", "smem_bytes"),
-                    out))
+    return dict(zip(("threads", "blocks_per_sm", "grid", "smem_bytes",
+                     "planes_ahead"), out))
 
 
 def compiled_term_table(target) -> list:
@@ -147,7 +153,7 @@ def compiled_term_table(target) -> list:
     return [tuple(out[8 * m:8 * m + 8]) for m in range(16)]
 
 
-def _launch(q, bq, pack: CompactPack):
+def _launch(q, bq, pack: CompactPack, ahead: int):
     """One K4 launch: the four new quads of one sweep of ``q``."""
     q0 = q[(0, 0)]
     nz, H, W = q0.shape
@@ -175,22 +181,26 @@ def _launch(q, bq, pack: CompactPack):
     fn = getattr(_build.load(), name)
     with torch.cuda.device(q0.device):
         plan_key = ((nz, H, W), q0.dtype, band)
-        if plan_key not in PLANS:
+        if not ahead and plan_key not in PLANS:
             PLANS[plan_key] = launch_plan(*plan_key)
-        rc = fn(ctypes.byref(args), nz, H, W, int(pack.real_matrix),
+        rc = fn(ctypes.byref(args), nz, H, W, int(pack.real_matrix), ahead,
                 torch.cuda.current_stream().cuda_stream)
     check_launch(rc, "relax_fused_sweep")
     return out, key
 
 
-def relax_fused_sweep(q0, bq, pack: CompactPack, nsweeps: int):
+def relax_fused_sweep(q0, bq, pack: CompactPack, nsweeps: int,
+                      ahead: int = 0):
     """``nsweeps`` colour-fused RB sweeps (K4), quad-parity state in and
     out (``_TKEYS``-keyed dicts); one kernel launch per sweep on the card,
-    :func:`relax_fused_sweep_plain` for CPU tensors."""
+    :func:`relax_fused_sweep_plain` for CPU tensors.  ``ahead`` forces the
+    depth of the kernel's staging ring (tests and timings; the launcher
+    refuses a depth it has no kernel of or whose ring does not fit), 0
+    takes the launch plan's; the result is the same at every depth."""
     if on_cpu(q0[(0, 0)]):
         return relax_fused_sweep_plain(q0, bq, pack, nsweeps)
     q = dict(q0)
     for _ in range(nsweeps):
-        q, key = _launch(q, bq, pack)
+        q, key = _launch(q, bq, pack, ahead)
         LAUNCHES[key] += 1
     return q

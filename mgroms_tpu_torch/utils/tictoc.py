@@ -262,15 +262,18 @@ def report_plans() -> str:
     """The launch plan K4 took at each quads shape and type pair it
     launched since the last reset (``ops/kernels/sweep_fused.PLANS``):
     threads a block, resident blocks an SM (the warps an SM streams with),
-    the cooperative grid and a block's dynamic shared memory."""
+    the cooperative grid, a block's dynamic shared memory and the planes
+    its staging ring keeps in flight ahead of the solved one."""
     out = [f"{'K4 quads':>16s}{'state/bands':>18s}{'threads':>9s}"
-           f"{'blocks/SM':>11s}{'warps/SM':>10s}{'grid':>7s}{'smem B':>9s}"]
+           f"{'blocks/SM':>11s}{'warps/SM':>10s}{'grid':>7s}{'smem B':>9s}"
+           f"{'ahead':>7s}"]
     for (shape, state, band), p in kernels.sweep_fused.PLANS.items():
         types = "/".join(str(t).removeprefix("torch.") for t in (state, band))
         out.append(f"{str(shape):>16s}{types:>18s}{p['threads']:9d}"
                    f"{p['blocks_per_sm']:11d}"
                    f"{p['threads'] // 32 * p['blocks_per_sm']:10d}"
-                   f"{p['grid']:7d}{p['smem_bytes']:9d}")
+                   f"{p['grid']:7d}{p['smem_bytes']:9d}"
+                   f"{p['planes_ahead']:7d}")
     return "\n".join(out)
 
 

@@ -11,7 +11,11 @@ and residual modes on a random operator held as the band stack, as the
 card's quad levels hold it; ``rhs_kernel`` (csrc/rhs_fused.cu) on the
 seamount's own metrics at (128, 1024, 1024); the launch plan K4 records
 at its first launch of a shape (``sweep_fused.PLANS``) is the plan the
-launcher reports for it.
+launcher reports for it.  K4's staging ring: the plan keeps the threads
+and resident blocks of the shallow ring and takes the deep one where that
+keeps them too (7 at 128 planes, 2 where two blocks share an SM), and K4 is
+0 ulp at every depth it has a kernel of, on columns whose plan lands
+there.
 """
 
 import pytest
@@ -105,10 +109,113 @@ def test_sweep_records_its_launch_plan(level0):
     plan = ksf.launch_plan(QUADS, torch.float32, torch.float32)
     assert ksf.PLANS[key] == plan
     assert plan["threads"] % 32 == 0 and plan["blocks_per_sm"] >= 1
+    assert plan["planes_ahead"] == 7
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert 1 <= plan["grid"] <= sms * plan["blocks_per_sm"]
     reset_launches()
     assert ksf.PLANS == {}
+
+
+F32, F64, BF16 = torch.float32, torch.float64, torch.bfloat16
+# the shallow ring, the deep one the plan takes where it keeps the blocks,
+# and a depth only a caller can ask for (the deepest ring a 64-plane
+# float32 column fits one block)
+MIN_AHEAD, MAX_AHEAD, DEEP_AHEAD = 2, 7, 13
+
+
+# (quads, state, bands, the plan's ring depth): the seamount's level 0
+# (its Thomas arrays leave room for 5 more stages in its one block an SM),
+# the 64- and 32-plane levels of both cells (more blocks share an SM: the
+# deep ring would cost one), float32 on bfloat16 bands at 128 planes (one
+# block, room) and at 64 (two blocks), float64 on bfloat16 bands at 64
+# planes (one block, room for 4 stages, not 5) and float64 on float64 (one
+# block, no room)
+@pytest.mark.parametrize("shape,state,band,depth", [
+    ((128, 512, 512), F32, F32, 7), ((64, 512, 512), F32, F32, 2),
+    ((64, 256, 256), F32, F32, 2), ((32, 256, 256), F32, F32, 2),
+    ((32, 128, 128), F32, F32, 2), ((128, 512, 512), F32, BF16, 7),
+    ((64, 512, 512), F32, BF16, 2), ((64, 512, 512), F64, BF16, 2),
+    ((64, 512, 512), F64, F64, 2)])
+def test_ring_depth_keeps_the_resident_blocks(cuda, shape, state, band,
+                                              depth):
+    """The plan's ring depth: the threads and blocks an SM of the shallow
+    ring, and the deep ring where it keeps them."""
+    plan = ksf.launch_plan(shape, state, band)
+    least = ksf.launch_plan(shape, state, band, MIN_AHEAD)
+    assert plan["planes_ahead"] == depth
+    assert (plan["threads"], plan["blocks_per_sm"], plan["grid"]) == (
+        least["threads"], least["blocks_per_sm"], least["grid"])
+    assert plan["smem_bytes"] >= least["smem_bytes"]
+    for none in (MIN_AHEAD + 1, MAX_AHEAD - 1, MAX_AHEAD + 1):
+        with pytest.raises(RuntimeError):    # a depth with no kernel
+            ksf.launch_plan(shape, state, band, none)
+    if depth == MIN_AHEAD:
+        try:
+            deep = ksf.launch_plan(shape, state, band, MAX_AHEAD)
+        except RuntimeError:
+            return    # the deep ring does not fit a block
+        assert deep["blocks_per_sm"] < plan["blocks_per_sm"]
+
+
+def _deepest_column(depth, state, band, H, W, forced):
+    """The deepest column (nz up to 200) whose plan takes ring depth
+    ``depth`` (``forced``: that the ring of that depth fits, asked for),
+    None where none does."""
+    for nz in range(200, 1, -1):
+        try:
+            plan = ksf.launch_plan((nz, H, W), state, band,
+                                   depth if forced else 0)
+        except RuntimeError:
+            continue      # no block holds the column or the forced ring
+        if plan["planes_ahead"] == depth:
+            return nz
+    return None
+
+
+# (ring depth, state, bands): both depths of the plan in each type pair
+# that takes both, and the depth only a caller asks for, which has a
+# kernel in float32 only
+RING_DEPTHS = [(a, st, bd) for a in (MIN_AHEAD, MAX_AHEAD)
+               for st, bd in ((F32, F32), (F32, BF16), (F64, BF16))] + [
+    (DEEP_AHEAD, F32, F32)]
+
+
+@pytest.mark.parametrize("depth,state,band", RING_DEPTHS)
+@pytest.mark.parametrize("real", [True, False])
+def test_sweep_at_each_ring_depth(cuda, depth, state, band, real):
+    """K4 == its plain version to 0 ulp on the deepest column whose plan
+    lands on ``depth`` (ragged quads), two sweeps; the depth only a caller
+    asks for on the deepest column it fits, asked for."""
+    H, W = 9, 70
+    forced = depth == DEEP_AHEAD
+    nz = _deepest_column(depth, state, band, H, W, forced)
+    assert nz is not None, f"no column takes ring depth {depth}"
+    ahead = depth if forced else 0
+    g = torch.Generator(device=cuda).manual_seed(nz + depth)
+    cA = torch.rand((8, nz, 2 * H + 2, 2 * W + 2), generator=g,
+                    device=cuda, dtype=F64) * 0.2 - 0.1
+    cA[0] -= 4.0
+    cA = cA.to(state)
+    pack = rc.build_band_pack(cA, real)
+    if band == BF16:
+        pack = rc.attach_lp(pack)
+    q, bq = (rc.split_quads(torch.randn((nz, 2 * H, 2 * W), generator=g,
+                                        device=cuda, dtype=state))
+             for _ in range(2))
+    reset_launches()
+    got = ksf.relax_fused_sweep(q, bq, pack, 2, ahead=ahead)
+    want = ksf.relax_fused_sweep_plain(q, bq, pack, 2)
+    torch.cuda.synchronize()
+    for t in rc._TKEYS:
+        assert torch.equal(got[t], want[t]), (
+            nz, t, float((got[t] - want[t]).abs().max()))
+    if ahead:
+        assert ksf.PLANS == {}     # a forced depth records no plan
+        assert ksf.launch_plan((nz, H, W), state, band,
+                               ahead)["planes_ahead"] == ahead
+    else:
+        assert ksf.PLANS[((nz, H, W), state, band)]["planes_ahead"] == depth
+    reset_launches()
 
 
 def test_rhs_at_the_scaling_grid(cuda):

@@ -32,7 +32,7 @@ SHAPE = (32, 16, 16)
 METRICS = ("seamount_smooth_roofline", "seamount_fcycles_per_solve",
            "seamount_solve_ms", "sweep_resident_warps", "seamount_physics_ms",
            "seamount_graph_nodes", "seamount_residual_restrict_roofline",
-           "seamount_idle_share")
+           "seamount_idle_share", "sweep_planes_in_flight")
 
 
 def small_cell(pool=2, **conf):
@@ -116,7 +116,8 @@ def test_the_cells_readers_on_a_cpu_run():
             value = r["metrics"][name]["value"]
             assert isinstance(value, (int, float)) and value >= 0, name
     # off the card: no profiler trace, no captured graph and no K4 launch,
-    # so no roofline, idle share, node count or resident warps
+    # so no roofline, idle share, node count, resident warps or planes in
+    # flight
     assert set(r["metrics"]) == {"seamount_fcycles_per_solve",
                                  "seamount_solve_ms", "seamount_physics_ms"}
     assert sweep_fused.PLANS == {}
@@ -124,12 +125,37 @@ def test_the_cells_readers_on_a_cpu_run():
 
 def test_plans_reported_and_cleared_by_the_reset():
     sweep_fused.PLANS[((2, 1, 1), torch.float32, torch.float32)] = {
-        "threads": 32, "blocks_per_sm": 3, "grid": 1, "smem_bytes": 704}
+        "threads": 32, "blocks_per_sm": 3, "grid": 1, "smem_bytes": 704,
+        "planes_ahead": 5}
     header, row = tictoc.report_plans().splitlines()
-    assert "warps/SM" in header
-    assert row.split()[-6:] == ["float32/float32", "32", "3", "3", "1",
-                                "704"]
+    assert "warps/SM" in header and header.split()[-1] == "ahead"
+    assert row.split()[-7:] == ["float32/float32", "32", "3", "3", "1",
+                                "704", "5"]
     kernels.reset_launches()
     assert tictoc.report_plans().splitlines() == [header]
     assert sweep_fused.PLANS == {}
     assert harness.metric_reader("sweep_resident_warps")(None) is None
+
+
+def test_planes_in_flight_read_at_the_largest_plan():
+    """sweep_planes_in_flight reads blocks an SM x ring depth at the
+    largest quads shape recorded; nothing without a plan, or from a plan
+    without a ring depth (a program whose ring depth is fixed)."""
+    read = harness.metric_reader("sweep_planes_in_flight")
+    kernels.reset_launches()
+    assert read(None) is None
+    f32 = (torch.float32, torch.float32)
+    sweep_fused.PLANS[((64, 256, 256),) + f32] = {
+        "threads": 128, "blocks_per_sm": 2, "grid": 264,
+        "smem_bytes": 108_928, "planes_ahead": 2}
+    sweep_fused.PLANS[((128, 512, 512),) + f32] = {
+        "threads": 128, "blocks_per_sm": 1, "grid": 132,
+        "smem_bytes": 225_344, "planes_ahead": 7}
+    assert read(None) == 7
+    assert harness.metric_reader("sweep_resident_warps")(None) == 4
+    del sweep_fused.PLANS[((128, 512, 512),) + f32]
+    assert read(None) == 4
+    del sweep_fused.PLANS[((64, 256, 256),) + f32]["planes_ahead"]
+    assert read(None) is None
+    kernels.reset_launches()
+    assert read(None) is None

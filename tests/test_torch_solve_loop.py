@@ -216,6 +216,12 @@ def test_kernel_key_names_every_counted_kernel():
         "sweep_kernel<double, double>": "relax_fused_sweep",
         "sweep_kernel<float, __nv_bfloat16>": "relax_fused_sweep_bf16",
         "sweep_kernel<double, __nv_bfloat16>": "relax_fused_sweep_bf16_f64",
+        # K4's kernel of each ring depth lives in a namespace of its own
+        "ahead2::sweep_kernel<float, float>": "relax_fused_sweep",
+        "ahead7::sweep_kernel<float, __nv_bfloat16>": "relax_fused_sweep_bf16",
+        "ahead7::sweep_kernel<double, __nv_bfloat16>":
+            "relax_fused_sweep_bf16_f64",
+        "ahead13::sweep_kernel<float, float>": "relax_fused_sweep",
         "relax_resident<float, 0, 2, false>": "fused_relax",
         "relax_resident<float, 1, 4, true>": "fused_relax_cluster_fc",
         "relax_resident<double, 2, 0, false>": "fused_relax_gs",
